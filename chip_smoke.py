@@ -35,7 +35,38 @@ Phases; any failure raises and the script exits non-zero:
    and 32, tier off/auto/auto/off; a torch.profiler pass per tier and
    batch (device busy share, bn_act's device time, top kernels); and
    last one image on the CPU against the card's answer (1e-5 abs).
-5. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
+5. The decode kernels against their plain torch versions, f32 and bf16,
+   at the generate path's shapes: ``take_rows`` on a (16400, 768) table
+   by (16, 1024) ids, out-of-range ones included (bitwise);
+   ``flash_attn`` at prefill's (16, 12, 128, 64) causal and at T = 100;
+   ``flash_attn_paged`` for a decode step (16 slots, W = 1, positions 0,
+   page boundaries and a spread up to 1023) and for prompt chunks (one
+   slot, W = 128, at positions 0 and 256). f32 within atol 2e-5, rtol
+   1e-4 (FMA contraction and another summation order); bf16 within one
+   bf16 ulp plus 1e-3. Then each kernel's f32 time beside its plain
+   version's, the library call's where one exists (``index_select`` of
+   pre-clipped ids; ``scaled_dot_product_attention``) and the bound, the
+   larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s.
+6. The generate path: a decoder at GPT-2 small's widths (vocab 50257,
+   dim 768, 12 heads, 12 layers, context 1024; ``init_params(spec,
+   seed=0)``) exported with chunked prefill and served by ``Server`` in
+   generate mode: 24 requests at once into 16 slots (22 prompts of 8-128
+   tokens, 2 of 300-400 through ``chunk_prefill``, 32-96 new tokens,
+   every third sampled at temperature 0.8). Counts are zeroed just
+   before the server is built (its warmup included) and read after it
+   closes: ``flash_attn`` must launch 12 times per prefill run,
+   ``flash_attn_paged`` 12 times per decode step and per chunk,
+   ``take_rows`` never at this geometry, with no tier fallback. Every
+   request must come back whole. Its tokens are held against the same
+   artifact at kernel_tier=off and, for 4 greedy requests, against
+   ``reference_generate``: equal up to the first position where the
+   tier-off logits' top-1/top-2 margin (of Gumbel noise + logits / t
+   when sampling) is below 1e-4; there the two tiers' logits (a
+   teacher-forced replay through ``chunk_prefill``) must agree within
+   1e-4, and no more than 1 sequence in 8 may stop early. Then TTFT and
+   TPOT p50/p99, generated tokens/s, the wall time of a decode step and
+   its device busy share (torch.profiler).
+7. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
@@ -59,6 +90,7 @@ from mxnet_tpu_torch.symbol.symbol import _infer_shapes
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 BUCKETS = (1, 8, 32)
 REPLACES = {"bn_act": "mxnet_tpu/kernels/bn_act.py:57",
             "bn_act_res": "mxnet_tpu/kernels/bn_act.py:65"}
@@ -458,6 +490,420 @@ def main_path(dev, card, report):
     return launches
 
 
+# ------------------------------------------------------- decode: kernels
+GPT_SPEC = dict(vocab=50257, dim=768, num_heads=12, num_layers=12,
+                max_prompt_len=128, page_size=16, max_pages_per_slot=64,
+                max_slots=16, num_pages=1025)
+GPT_REPLACES = {"take_rows": "mxnet_tpu/kernels/take.py:45",
+                "flash_attn": "mxnet_tpu/kernels/attention.py:110",
+                "flash_attn_paged": "mxnet_tpu/kernels/attention.py:315"}
+GPT_SOURCES = {k: "mxnet_tpu_torch/csrc/%s.cu" % k for k in GPT_REPLACES}
+# decode-step positions: 0, page boundaries and a spread up to 1023
+DECODE_POSITIONS = [0, 1, 15, 16, 17, 63, 64, 100, 255, 256, 511, 512, 700,
+                    900, 1022, 1023]
+
+
+def attn_check(got, want, what):
+    """Kernel vs plain: f32 within atol 2e-5, rtol 1e-4 (FMA contraction
+    and another summation order); bf16 within one bf16 ulp plus 1e-3.
+    Returns the max abs error; raises past the tolerance."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        bad = diff > 2e-5 + 1e-4 * want.float().abs()
+    else:
+        ulp = torch.maximum(got.float().abs(), want.float().abs()) * 2 ** -7
+        bad = diff > ulp + 1e-3
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise RuntimeError("%s disagrees with its plain version: max abs err "
+                           "%g" % (what, float(diff.max())))
+    return float(diff.max())
+
+
+def paged_inputs(dev, dtype, S, W, positions, seed):
+    """A (rows, C) K/V store at the slice's geometry, each slot's 64
+    pages a random draw of distinct pages 1..1024, queries (S, W, C)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C, page = GPT_SPEC["dim"], GPT_SPEC["page_size"]
+    mp, npages = GPT_SPEC["max_pages_per_slot"], GPT_SPEC["num_pages"]
+    kp = torch.randn(npages * page, C, generator=g, device=dev).to(dtype)
+    vp = torch.randn(npages * page, C, generator=g, device=dev).to(dtype)
+    perm = torch.randperm(npages - 1, generator=g, device=dev) + 1
+    bt = perm[:S * mp].reshape(S, mp).to(torch.int32)
+    q = torch.randn(S, W, C, generator=g, device=dev).to(dtype)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, pos
+
+
+def paged_bound(S, W, positions, dtype):
+    """(bytes_ms, ops_ms) of one paged call: every visible K and V row
+    read once, q read and o written once, the block table and positions;
+    4 flops per visible (query row, position, dim) pair."""
+    C, page = GPT_SPEC["dim"], GPT_SPEC["page_size"]
+    ctx = page * GPT_SPEC["max_pages_per_slot"]
+    size = torch.tensor([], dtype=dtype).element_size()
+    rows = sum(min(p + W, ctx) for p in positions)
+    pairs = sum(min(p + w + 1, ctx) for p in positions for w in range(W))
+    nbytes = (2 * rows * C + 2 * S * W * C) * size + S * (
+        GPT_SPEC["max_pages_per_slot"] + 1) * 4
+    peak = F32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, 4 * pairs * C / peak * 1e3
+
+
+def gpt_kernel_phase(dev):
+    """B2, B3 and B4 against their plain versions at the slice's shapes,
+    f32 and bf16, then their times (f32) beside plain, library, bound."""
+    from mxnet_tpu_torch.kernels import attention as attn
+    from mxnet_tpu_torch.kernels import take
+    F = torch.nn.functional
+    err, rows = {}, {}
+    # -- B2 take_rows: (16400, 768) table, (16, 1024) ids, some out of range
+    C = GPT_SPEC["dim"]
+    R = GPT_SPEC["num_pages"] * GPT_SPEC["page_size"]
+    g = torch.Generator(device=dev).manual_seed(11)
+    ids = torch.randint(-300, R + 300, (16, 1024), generator=g, device=dev,
+                        dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn(R, C, generator=g, device=dev).to(dtype)
+        got = take.take_rows(table, ids)
+        want = take._plain_take(table, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError("take_rows is not bitwise the clipped gather "
+                               "(%s)" % dtype)
+        err["take_rows/" + str(dtype)[6:]] = 0.0
+    table = torch.randn(R, C, generator=g, device=dev)
+    flat = ids.reshape(-1).contiguous()
+    clipped = ids.long().clamp(0, R - 1).reshape(-1)
+    nbytes = 2 * flat.numel() * C * 4 + flat.numel() * 4
+    rows["take_rows"] = {
+        "shape": "table (%d, %d) f32, ids (16, 1024)" % (R, C),
+        "ms": time_ms(lambda: take._launch(table, flat,
+                                           take.DEFAULT_CONFIG), dev),
+        "plain_ms": time_ms(lambda: take._plain_take(table, ids), dev),
+        "library_ms": time_ms(lambda: torch.index_select(table, 0, clipped),
+                              dev),
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0}
+    # -- B3 flash_attn: prefill (16, 12, 128, 64) causal, and T = 100
+    for shape in ((16, 12, 128, 64), (2, 12, 100, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                       for _ in range(3))
+            got = attn._launch_flash(q, k, v, True)
+            e = attn_check(got, attn._plain_flash(q, k, v, True),
+                           "flash_attn %s %s" % (shape, dtype))
+            key = "flash_attn/" + str(dtype)[6:]
+            err[key] = max(err.get(key, 0.0), e)
+    shape = (16, 12, 128, 64)
+    q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    B, H, T, D = shape
+    pairs = B * H * T * (T + 1) // 2
+    rows["flash_attn"] = {
+        "shape": "(16, 12, 128, 64) f32 causal",
+        "ms": time_ms(lambda: attn._launch_flash(q, k, v, True), dev),
+        "plain_ms": time_ms(lambda: attn._plain_flash(q, k, v, True), dev),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), dev),
+        "bytes_ms": 4 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * pairs * D / F32_FLOPS * 1e3}
+    # -- B4 flash_attn_paged: decode (S=16, W=1) and chunks (S=1, W=128)
+    cases = [(16, 1, DECODE_POSITIONS), (1, 128, [0]), (1, 128, [256])]
+    for S, W, positions in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, pos = paged_inputs(dev, dtype, S, W, positions,
+                                              S + W)
+            got = attn._launch_paged(q, kp, vp, bt, pos, 12, 16)
+            e = attn_check(got, attn._plain_paged(q, kp, vp, bt, pos, 12,
+                                                  16),
+                           "flash_attn_paged S=%d W=%d %s" % (S, W, dtype))
+            key = "flash_attn_paged/" + str(dtype)[6:]
+            err[key] = max(err.get(key, 0.0), e)
+    for name, (S, W, positions) in (("flash_attn_paged", cases[0]),
+                                    ("flash_attn_paged/chunk@256",
+                                     cases[2])):
+        q, kp, vp, bt, pos = paged_inputs(dev, torch.float32, S, W,
+                                          positions, 3)
+        bytes_ms, ops_ms = paged_bound(S, W, positions, torch.float32)
+        rows[name] = {
+            "shape": "S=%d W=%d f32 at positions %s" % (S, W, positions),
+            "ms": time_ms(lambda: attn._launch_paged(q, kp, vp, bt, pos, 12,
+                                                     16), dev),
+            "plain_ms": time_ms(lambda: attn._plain_paged(
+                q, kp, vp, bt, pos, 12, 16), dev),
+            "library_ms": None, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
+        log("  %-28s %-44s ms=%.5f plain_ms=%.5f library_ms=%s "
+            "bound_ms=%.5f (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
+                                    "%.5f" % r["library_ms"]
+                                    if r["library_ms"] is not None
+                                    else "none", r["bound_ms"],
+                                    r["bound_by"]))
+    log("decode kernels vs plain (f32 and bf16): max abs err %s"
+        % json.dumps(err))
+    return err, rows
+
+
+# ---------------------------------------------------- decode: main path
+def gpt_traffic():
+    """24 requests from RandomState(0): 22 prompts of 8-128 tokens and 2
+    of 300-400 (chunked prefill), 32-96 new tokens each, every third
+    sampled at temperature 0.8 with its own seed, the rest greedy."""
+    rng = np.random.RandomState(0)
+    V = GPT_SPEC["vocab"]
+    work = []
+    for i in range(24):
+        n = int(rng.randint(300, 401)) if i in (5, 17) else int(
+            rng.randint(8, 129))
+        prompt = rng.randint(0, V, n).tolist()
+        sampled = i % 3 == 2
+        work.append((prompt, int(rng.randint(32, 97)),
+                     0.8 if sampled else 0.0, 1000 + i if sampled else 0))
+    return work
+
+
+def serve_all(srv, work):
+    """Submit every request at once; every one must finish with its
+    full token budget ("length": the spec has no stop token)."""
+    reqs = [srv.submit_generate(p, max_new_tokens=n, temperature=t, seed=s,
+                                timeout_ms=0) for p, n, t, s in work]
+    outs = [r.result(timeout=900) for r in reqs]
+    for o, (p, n, _t, _s) in zip(outs, work):
+        if len(o["tokens"]) != n or o["finish_reason"] != "length":
+            raise RuntimeError("request of %d prompt tokens got %d of %d "
+                               "tokens, finish %r" % (len(p), len(o["tokens"]),
+                                                      n, o["finish_reason"]))
+    return outs
+
+
+def replay_logits(params, spec, seqs, dev):
+    """Teacher-forced logits of each full sequence through the paged
+    path (chunk_prefill, logits of every row) under the tier in force;
+    row j predicts position j + 1."""
+    from mxnet_tpu_torch.serve import decode_model as dm
+    fn = dm.make_chunk_prefill(params, spec, logits=True)
+    P, page = spec.max_prompt_len, spec.page_size
+    shape = (spec.num_layers, (spec.max_pages_per_slot + 1) * page,
+             spec.dim)
+    k = torch.zeros(shape, device=dev)
+    v = torch.zeros(shape, device=dev)
+    bt = torch.arange(1, spec.max_pages_per_slot + 1, dtype=torch.int32,
+                      device=dev)
+    out = []
+    for seq in seqs:
+        parts = []
+        for start in range(0, len(seq), P):
+            chunk = np.zeros(P, np.int32)
+            c = seq[start:start + P]
+            chunk[:len(c)] = c
+            lg, _k, _v = fn(chunk, start, len(c), bt, 0.0, 0, k, v)
+            parts.append(lg[:len(c)])
+        out.append(torch.cat(parts))
+    return out
+
+
+def margin_compare(name, work, got, want, plain_logits, auto_logits):
+    """Tokens equal up to the first position where the plain run's
+    top-1/top-2 margin (of gumbel + logits / t when sampling, with the
+    request's key) is below 1e-4; there the two paths' logits must
+    agree within 1e-4. -> number of sequences stopped early."""
+    from mxnet_tpu_torch.serve import _threefry
+    stopped = 0
+    for i, ((prompt, n, t, seed), a, b) in enumerate(zip(work, got, want)):
+        lp = len(prompt)
+        rows = plain_logits[i][lp - 1:lp - 1 + n].float()
+        if t > 0:
+            pos = torch.arange(lp, lp + n, device=rows.device)
+            key = _threefry.fold_in(_threefry.fold_in(
+                _threefry.prng_key(0, rows.device),
+                torch.full_like(pos, seed)), pos)
+            z = _threefry.gumbel(key, rows.shape[1]) + rows / max(t, 1e-6)
+        else:
+            z = rows
+        top2 = torch.topk(z, 2, dim=1).values
+        low = (top2[:, 0] - top2[:, 1] < 1e-4).nonzero()
+        stop = int(low[0]) if len(low) else n
+        if a[:stop] != b[:stop]:
+            j = next(j for j in range(stop) if a[j] != b[j])
+            raise RuntimeError("%s: request %d differs at token %d (margin "
+                               "%g)" % (name, i, j, float(top2[j, 0]
+                                                        - top2[j, 1])))
+        if stop < n:
+            stopped += 1
+            d = float((auto_logits[i][lp - 1 + stop]
+                       - plain_logits[i][lp - 1 + stop]).abs().max())
+            log("  %s: request %d stops at token %d of %d (margin %g), "
+                "logits there differ by %g" % (name, i, stop, n,
+                                               float(top2[stop, 0]
+                                                     - top2[stop, 1]), d))
+            if d > 1e-4:
+                raise RuntimeError("%s: logits differ by %g at request %d "
+                                   "token %d" % (name, d, i, stop))
+    log("%s: %d sequences compared, %d stopped early at a near tie"
+        % (name, len(work), stopped))
+    if stopped * 8 > len(work):
+        raise RuntimeError("%s: %d of %d sequences stopped early"
+                           % (name, stopped, len(work)))
+    return stopped
+
+
+def decode_step_profile(model, spec, dev, steps=5):
+    """Decode steps as the session runs them (16 live slots, host inputs,
+    one device-to-host copy each): wall ms per step over 20 steps, then
+    torch.profiler over ``steps`` more for the device busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    S, mp = spec.max_slots, spec.max_pages_per_slot
+    shape = (spec.num_layers, spec.cache_rows, spec.dim)
+    k = torch.zeros(shape, device=dev)
+    v = torch.zeros(shape, device=dev)
+    bt = (np.arange(S * mp, dtype=np.int32) % (spec.num_pages - 1)
+          + 1).reshape(S, mp)
+    pos = np.array(DECODE_POSITIONS, np.int32)
+    args = (np.ones((S, 1), np.int32), pos, bt, np.zeros(S, np.float32),
+            np.zeros(S, np.int32))
+
+    def step():
+        nxt, _k, _v = model.decode(*args, k, v)
+        return nxt.cpu()
+    for _ in range(3):
+        step()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(x[1] for x in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    paged = sum(x[1] for x in kernels if "flash_attn_paged" in x[0])
+    top = sorted(kernels, key=lambda x: -x[1])[:6]
+    return {"step_ms": step_ms, "profiled_wall_ms": wall_us / steps / 1e3,
+            "device_ms": busy / steps / 1e3, "device_busy_share":
+            busy / wall_us, "paged_ms": paged / steps / 1e3,
+            "top_kernels": [{"name": x[0][:100], "ms_per_step":
+                             x[1] / steps / 1e3, "calls": x[2] // steps}
+                            for x in top]}
+
+
+def gpt_main_path(dev, card, report):
+    from mxnet_tpu_torch.kernels import attention as attn
+    from mxnet_tpu_torch.kernels import take
+    from mxnet_tpu_torch.serve import decode_model as dm
+    spec = dm.DecoderSpec(**GPT_SPEC)
+    t0 = time.perf_counter()
+    params = dm.init_params(spec, seed=0)
+    path = os.path.join(REPO, "build", "chip_smoke", "gpt2s.mxtorch")
+    meta = mt.serving.export_generate(params, spec, path, chunked=True)
+    del params
+    log("decoder at GPT-2-small widths (%s): %.1f M f32 parameters, "
+        "KV cache %.2f GB, export %.1fs, kernel_tier %s"
+        % (json.dumps(GPT_SPEC), os.path.getsize(path) / 4e6,
+           spec.cache_bytes() / 1e9, time.perf_counter() - t0,
+           json.dumps(meta["kernel_tier"])))
+    work = gpt_traffic()
+    cfg = dict(timeout_ms=0, queue_depth=64)
+
+    # -- the main path, with every count zeroed just before it
+    tier.reset_stats()
+    attn.reset_launches()
+    take.reset_launches()
+    t0 = time.perf_counter()
+    srv = mt.serve.Server(path, config=mt.serve.GenerateConfig(**cfg),
+                          device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = serve_all(srv, work)
+    wall_s = time.perf_counter() - t0
+    srv.close()
+    torch.cuda.synchronize()
+    launches = dict(attn.launches_by_kernel, take_rows=take.launches)
+    stats = tier.stats()
+    snap = srv.metrics()
+    est = snap["engines"]
+    prefill_runs = est["builds"] + sum(e["calls"]
+                                       for e in est["engines"].values())
+    P = spec.max_prompt_len
+    chunks = sum(-(-len(p) // P) for p, _n, _t, _s in work if len(p) > P)
+    steps = snap["decode_steps"]
+    L = spec.num_layers
+    want = {"flash_attn": L * prefill_runs,
+            "flash_attn_paged": L * (steps + chunks + 2), "take_rows": 0}
+    log("generate path: %d requests, %d tokens in %.2fs after %.1fs of "
+        "setup; %d prefill runs (%d groups + warmups), %d chunks, %d decode "
+        "steps (+1 warmup step, +1 warmup chunk); launches %s; tier %s"
+        % (len(outs), sum(len(o["tokens"]) for o in outs), wall_s, setup_s,
+           prefill_runs, snap["prefill"]["batches"], chunks, steps,
+           launches, json.dumps(stats["dispatch"])))
+    log("take_rows launches on the main path: %d (the paged kernel serves "
+        "every attention site at this geometry)" % launches["take_rows"])
+    if stats["fallback"]:
+        raise RuntimeError("kernel tier fell back: %s" % stats["fallback"])
+    if launches != want or any(stats["dispatch"].get(k, 0) != n
+                               for k, n in want.items()):
+        raise RuntimeError("launches %s and dispatches %s, expected %s"
+                           % (launches, stats["dispatch"], want))
+    req = snap["requests"]
+    if req["completed"] != len(work) or req["evicted"] or req["rejected"]:
+        raise RuntimeError("requests: %s" % req)
+    tokens = [o["tokens"] for o in outs]
+    model = srv.model
+    del srv
+
+    # -- the same artifact at tier off on the card, and the references
+    with mt.config.override(kernel_tier="off"):
+        srv_off = mt.serve.Server(path, config=mt.serve.GenerateConfig(
+            **cfg), device=dev)
+    off = [o["tokens"] for o in serve_all(srv_off, work)]
+    model_off = srv_off.model
+    srv_off.close()
+    del srv_off
+    seqs = [p + t for (p, _n, _t, _s), t in zip(work, off)]
+    with mt.config.override(kernel_tier="off"):
+        plain_logits = replay_logits(model_off.params, spec, seqs, dev)
+    auto_logits = replay_logits(model.params, spec, seqs, dev)
+    stopped = margin_compare("tier auto vs off", work, tokens, off,
+                             plain_logits, auto_logits)
+    greedy = [i for i, w in enumerate(work) if w[2] == 0][:4]
+    ref = [dm.reference_generate(model.params, spec, work[i][0], work[i][1])
+           for i in greedy]
+    stopped_ref = margin_compare(
+        "tier auto vs reference_generate", [work[i] for i in greedy],
+        [tokens[i] for i in greedy], ref,
+        [plain_logits[i] for i in greedy], [auto_logits[i] for i in greedy])
+
+    # -- latency, throughput and the decode step on the card
+    prof = decode_step_profile(model, spec, dev)
+    gen = sum(len(t) for t in tokens)
+    perf = {"ttft_ms": snap["ttft_ms"], "tpot_ms": snap["tpot_ms"],
+            "tokens_per_s": gen / wall_s, "decode_step": prof}
+    log("TTFT p50 %.2f ms p99 %.2f ms, TPOT p50 %.2f ms p99 %.2f ms, "
+        "%.1f generated tokens/s  [%s]"
+        % (snap["ttft_ms"]["p50"], snap["ttft_ms"]["p99"],
+           snap["tpot_ms"]["p50"], snap["tpot_ms"]["p99"], gen / wall_s,
+           card))
+    log("decode step (16 live slots): %.2f ms wall; profiled %.2f ms wall, "
+        "%.3f ms device (busy %.1f%%), flash_attn_paged %.3f ms; top: %s  "
+        "[%s]" % (prof["step_ms"], prof["profiled_wall_ms"],
+                  prof["device_ms"], 100 * prof["device_busy_share"],
+                  prof["paged_ms"], "; ".join(
+                      "%s %.3f ms x%d" % (k["name"][:40], k["ms_per_step"],
+                                          k["calls"])
+                      for k in prof["top_kernels"][:4]), card))
+    report.update(generate={"launches": launches, "tier_stats": stats,
+                            "metrics": snap, "stopped_early": stopped,
+                            "stopped_early_ref": stopped_ref,
+                            "perf": perf})
+    return launches
+
+
 # ------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -494,6 +940,9 @@ def main():
     report.update(kernel_classes=per_class, kernel_totals=totals,
                   wrapper_host_us=host_us)
     launches = main_path(dev, card, report)
+    gpt_err, gpt_rows = gpt_kernel_phase(dev)
+    report["decode_kernels"] = gpt_rows
+    gpt_launches = gpt_main_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -505,6 +954,16 @@ def main():
                         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": None})
+    for kname in ("take_rows", "flash_attn", "flash_attn_paged"):
+        r = gpt_rows[kname]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": GPT_SOURCES[kname],
+                        "replaces": GPT_REPLACES[kname],
+                        "launches": gpt_launches[kname],
+                        "max_abs_err": gpt_err[kname + "/float32"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     report["kernels"] = kernels
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),

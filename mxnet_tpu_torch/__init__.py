@@ -1,8 +1,10 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu, for NVIDIA Hopper.
 
-This slice serves ResNet predict artifacts: the op registry, Symbol and
-its JSON, the graph evaluator, the kernel tier with the hand-written
-``bn_act`` CUDA kernel, predict artifacts and the micro-batching server.
+The port serves ResNet predict artifacts (the op registry, Symbol and
+its JSON, the graph evaluator, the micro-batching server) and GPT
+generate artifacts (the decoder programs, continuous batching over a
+paged KV cache), through the kernel tier with hand-written CUDA kernels:
+``bn_act``, ``take_rows``, ``flash_attn`` and ``flash_attn_paged``.
 
 Importing does no device work and builds nothing. Entry points run on
 ``cuda:0`` unless the caller asks for the CPU (``device="cpu"`` or

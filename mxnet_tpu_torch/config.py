@@ -129,6 +129,18 @@ register_flag("serve_cache_engines", "MXNET_SERVE_CACHE_ENGINES", int, 8,
 register_flag("serve_warmup", "MXNET_SERVE_WARMUP", _parse_bool, True,
               "Run one zero batch through every freshly built bucket "
               "engine before it serves traffic.")
+register_flag("serve_drain_tokens", "MXNET_SERVE_DRAIN_TOKENS", int, 32,
+              "Bounded-drain token budget for continuous-batching decode: "
+              "on graceful shutdown each active generation may produce at "
+              "most this many MORE tokens before it is evicted with a "
+              "resumable cursor. Without the bound a single long "
+              "max_new_tokens request holds the drain hostage. "
+              "0/negative = evict immediately at drain.")
+register_flag("serve_decode_window", "MXNET_SERVE_DECODE_WINDOW", int, 16,
+              "Decode metrics window: fold the decode step and token "
+              "counts into the session's metrics every this many decode "
+              "steps, from host-held scheduler state only (no extra "
+              "device-to-host copies).")
 register_flag("serve_drain_timeout_s", "MXNET_SERVE_DRAIN_S", float, 30.0,
               "Graceful-shutdown budget: how long Server.close(drain=True) "
               "waits for queued requests to finish.")

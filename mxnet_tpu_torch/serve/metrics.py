@@ -1,10 +1,11 @@
-"""Serving observability (counterpart of ``ServeMetrics`` in
-``mxnet_tpu/serve/metrics.py``, without the telemetry registry and
-profiler hooks, which come in a later slice).
+"""Serving observability (counterpart of ``ServeMetrics`` and
+``DecodeMetrics`` in ``mxnet_tpu/serve/metrics.py``, without the
+telemetry registry and profiler hooks, which come in a later slice).
 
-Per-bucket latency percentiles, queue depth, batch occupancy,
-padding waste and rejection counts; ``snapshot()`` has the JAX
-package's keys.
+Predict: per-bucket latency percentiles, queue depth, batch occupancy,
+padding waste and rejection counts. Decode: request counters, prefill
+batches, decode steps, tokens, TTFT and TPOT percentiles. Each
+``snapshot()`` has the JAX package's keys.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import threading
 import time
 from collections import deque
 
-__all__ = ["ServeMetrics", "percentile"]
+__all__ = ["ServeMetrics", "DecodeMetrics", "percentile"]
 
 _SAMPLE_CAP = 8192   # bounded reservoir per series (latest wins)
 
@@ -181,3 +182,112 @@ class ServeMetrics:
         if engine_stats is not None:
             out["engines"] = engine_stats
         return out
+
+
+class DecodeMetrics:
+    """Continuous-batching decode observability.
+
+    Every number here is HOST state the scheduler already holds (step
+    counts, wall clock, completion timestamps), so recording costs no
+    device-to-host copy. ``publish_window`` folds a window of decode
+    steps in every MXNET_SERVE_DECODE_WINDOW steps. The speculative
+    counters stay 0 until speculative decoding is ported; the snapshot
+    keeps their keys.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.submitted = 0
+        self.completed = 0
+        self.evicted = 0
+        self.expired = 0
+        self.rejected = 0
+        self.prefill_batches = 0
+        self.prefill_rows = 0
+        self.decode_steps = 0
+        self.tokens = 0
+        self.spec_steps = 0
+        self.drafted = 0
+        self.accepted = 0
+        self.ttft_ms = deque(maxlen=_SAMPLE_CAP)
+        self.tpot_ms = deque(maxlen=_SAMPLE_CAP)
+        self._t_start = time.monotonic()
+
+    # -- host-side event hooks (no device tensors anywhere below) ----------
+    def note_submit(self, n=1):
+        with self._lock:
+            self.submitted += n
+
+    def note_reject(self, n=1):
+        with self._lock:
+            self.rejected += n
+
+    def note_prefill(self, rows):
+        with self._lock:
+            self.prefill_batches += 1
+            self.prefill_rows += rows
+
+    def note_ttft(self, ms):
+        with self._lock:
+            self.ttft_ms.append(ms)
+
+    def note_complete(self, tpot_ms=None):
+        with self._lock:
+            self.completed += 1
+            if tpot_ms is not None:
+                self.tpot_ms.append(tpot_ms)
+
+    def note_evict(self, expired=False):
+        with self._lock:
+            self.evicted += 1
+            if expired:
+                self.expired += 1
+
+    def publish_window(self, *, steps, tokens):
+        """Fold one decode window in, from host-held values (the JAX
+        package also sets its telemetry gauges here; those are not
+        ported yet)."""
+        with self._lock:
+            self.decode_steps += steps
+            self.tokens += tokens
+
+    def snapshot(self):
+        with self._lock:
+            ttft = list(self.ttft_ms)
+            tpot = list(self.tpot_ms)
+            up = time.monotonic() - self._t_start
+            return {
+                "uptime_s": round(up, 3),
+                "requests": {
+                    "submitted": self.submitted,
+                    "completed": self.completed,
+                    "evicted": self.evicted,
+                    "expired": self.expired,
+                    "rejected": self.rejected,
+                },
+                "prefill": {"batches": self.prefill_batches,
+                            "rows": self.prefill_rows},
+                "decode_steps": self.decode_steps,
+                "tokens": self.tokens,
+                "tokens_per_s": round(self.tokens / up, 2) if up > 0
+                else None,
+                "ttft_ms": {
+                    "count": len(ttft),
+                    "p50": percentile(ttft, 50),
+                    "p95": percentile(ttft, 95),
+                    "p99": percentile(ttft, 99),
+                },
+                "tpot_ms": {
+                    "count": len(tpot),
+                    "p50": percentile(tpot, 50),
+                    "p95": percentile(tpot, 95),
+                    "p99": percentile(tpot, 99),
+                },
+                "speculative": {
+                    "steps": self.spec_steps,
+                    "drafted": self.drafted,
+                    "accepted": self.accepted,
+                    "accepted_tokens_per_step": None,
+                    "draft_acceptance_rate": None,
+                },
+            }

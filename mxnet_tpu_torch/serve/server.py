@@ -1,10 +1,18 @@
-"""Online inference server over one predict artifact.
+"""Online inference server over one artifact.
 
-Counterpart of predict mode in ``mxnet_tpu/serve/server.py``: a dynamic
-micro-batcher coalesces concurrent requests into padded device batches
-under a max-batch/max-latency policy, admission control bounds the
-queue and rejects early, and a graceful drain finishes every admitted
-request on shutdown.
+Counterpart of predict and generate mode in ``mxnet_tpu/serve/
+server.py``. Predict: a dynamic micro-batcher coalesces concurrent
+requests into padded device batches under a max-batch/max-latency
+policy, admission control bounds the queue and rejects early, and a
+graceful drain finishes every admitted request on shutdown. Generate (a
+generate artifact, with a :class:`~.decode.GenerateConfig`): the
+continuous-batching :class:`~.decode.GenerateSession` replaces the
+micro-batcher, and the server proxies requests, lifecycle and metrics
+to it::
+
+    server = Server("lm.mxtorch", config=GenerateConfig(timeout_ms=0))
+    out = server.generate([3, 1, 4], max_new_tokens=16)  # {"tokens": ..}
+    server.close(drain=True)
 
 The request path makes ONE device-to-host copy per output of a response
 batch: padding, execution and the slice back to real rows stay on the
@@ -29,9 +37,10 @@ import torch
 
 from ..base import MXNetError
 from ..config import flags
-from ..serving import CompiledModel
+from ..serving import CompiledModel, GenerateModel, load_artifact
 from .admission import AdmissionQueue, DeadlineExceeded, Request, \
     ServerClosed
+from .decode import GenerateConfig, GenerateSession
 from .engine_cache import check_buckets, pick_bucket
 from .metrics import ServeMetrics
 
@@ -60,18 +69,45 @@ class ServeConfig:
 
 
 class Server:
-    """Dynamic micro-batching server over a :class:`CompiledModel`.
+    """Dynamic micro-batching server over a :class:`CompiledModel`, or
+    the continuous-batching decode engine over a :class:`GenerateModel`.
 
-    ``model`` is a loaded CompiledModel or an artifact path, loaded onto
+    ``model`` is a loaded model or an artifact path, loaded onto
     ``device`` (default cuda:0). ``auto_start=False`` leaves the batcher
-    thread unstarted: requests queue until :meth:`run_once` or
-    :meth:`start`.
+    (or scheduler) thread unstarted: requests queue until
+    :meth:`run_once` (``session.run_round`` in generate mode) or
+    :meth:`start`. ``draft=`` is the JAX package's speculative switch;
+    only None and "off" are served until speculative decoding is ported.
     """
 
     def __init__(self, model, config=None, auto_start=True, device=None,
-                 **overrides):
-        if not isinstance(model, CompiledModel):
-            model = CompiledModel.load(model, device=device)
+                 draft=None, **overrides):
+        if not isinstance(model, (CompiledModel, GenerateModel)):
+            model = load_artifact(model, device=device)
+        if draft not in (None, "off"):
+            raise MXNetError("Server: draft=%r: speculative decoding is not "
+                             "ported yet (None or 'off')" % (draft,))
+        if isinstance(model, GenerateModel):
+            if config is None:
+                config = GenerateConfig(**overrides)
+            elif overrides:
+                raise MXNetError("Server: pass either config or kwargs, "
+                                 "not both")
+            if not isinstance(config, GenerateConfig):
+                raise MXNetError(
+                    "Server: a generate artifact takes a GenerateConfig "
+                    "(continuous-batching knobs), not ServeConfig")
+            self.mode = "generate"
+            self.model = model
+            self.config = config
+            self.session = GenerateSession(model, config=config,
+                                           auto_start=auto_start)
+            self.metrics_ = self.session.metrics_
+            return
+        if isinstance(config, GenerateConfig):
+            raise MXNetError("Server: a GenerateConfig needs a generate "
+                             "artifact; this one is a predict artifact")
+        self.session = None
         if config is None:
             config = ServeConfig(**overrides)
         elif overrides:
@@ -98,6 +134,9 @@ class Server:
 
     # -- lifecycle ----------------------------------------------------------
     def start(self):
+        if self.mode == "generate":
+            self.session.start()
+            return self
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(target=self._loop,
                                             name="mxtorch-serve-batcher",
@@ -107,16 +146,23 @@ class Server:
 
     @property
     def draining(self):
+        if self.mode == "generate":
+            return self.session.draining
         return self._queue.closed and not self._closed.is_set()
 
     @property
     def closed(self):
+        if self.mode == "generate":
+            return self.session.closed
         return self._closed.is_set()
 
     def close(self, drain=True, timeout=None):
         """Shut down. ``drain=True``: stop admitting, finish every queued
         request, then return. ``drain=False``: fail queued requests with
-        ServerClosed (counted as dropped)."""
+        ServerClosed (counted as dropped). Generate mode:
+        :meth:`GenerateSession.close`."""
+        if self.mode == "generate":
+            return self.session.close(drain=drain, timeout=timeout)
         evicted = self._queue.close(drain=drain)
         for r in evicted:
             r._fail(ServerClosed("serve: server closed before this "
@@ -152,6 +198,27 @@ class Server:
             self.close(drain=True)
 
     # -- request path -------------------------------------------------------
+    def _require_mode(self, mode, what):
+        if self.mode != mode:
+            other = ("submit_generate()/generate()" if self.mode == "generate"
+                     else "submit()/predict()")
+            raise MXNetError("Server.%s: this server holds a %s artifact; "
+                             "use %s" % (what, self.mode, other))
+
+    def submit_generate(self, prompt, max_new_tokens=None,
+                        temperature=0.0, seed=0, timeout_ms=None):
+        """Generate-mode admit (never blocks); see
+        :meth:`GenerateSession.submit`."""
+        self._require_mode("generate", "submit_generate")
+        return self.session.submit(prompt, max_new_tokens=max_new_tokens,
+                                   temperature=temperature, seed=seed,
+                                   timeout_ms=timeout_ms)
+
+    def generate(self, prompt, **kw):
+        """Blocking generate-mode convenience: submit + result."""
+        self._require_mode("generate", "generate")
+        return self.session.generate(prompt, **kw)
+
     def _prepare(self, data, kwdata):
         if data and kwdata:
             raise MXNetError("Server.submit: pass inputs positionally or "
@@ -180,6 +247,7 @@ class Server:
         """Admit one request; never blocks. Returns a :class:`Request`
         whose ``.result()`` blocks for the response. Raises ServerBusy
         (queue full), ServerClosed, or MXNetError (validation)."""
+        self._require_mode("predict", "submit")
         arrs, rows = self._prepare(data, kwdata)
         if timeout_ms is None:
             timeout_ms = self.config.timeout_ms
@@ -286,7 +354,13 @@ class Server:
     # -- observability ------------------------------------------------------
     def metrics(self):
         """JSON-able snapshot: request counters, queue depth, per-bucket
-        latency percentiles / occupancy / padding waste, engine stats."""
+        latency percentiles / occupancy / padding waste, engine stats.
+        Generate mode: decode counters, TTFT/TPOT percentiles, slot and
+        page occupancy."""
+        if self.mode == "generate":
+            snap = self.session.metrics()
+            snap["mode"] = "generate"
+            return snap
         snap = self.metrics_.snapshot(engine_stats=self._cache.stats())
         snap["mode"] = "predict"
         snap["buckets_configured"] = list(self.buckets)

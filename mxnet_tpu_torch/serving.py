@@ -1,22 +1,29 @@
-"""Predict artifacts: freeze (symbol, parameters) into one file and serve it.
+"""Artifacts: freeze a model into one file and serve it.
 
-Counterpart of the predict half of ``mxnet_tpu/serving.py``. The JAX
-package stages the inference graph out as StableHLO; the port's artifact
-carries the graph as symbol JSON and the weights as an npz, and
-:class:`CompiledModel` evaluates the graph eagerly on its device.
+Counterpart of ``mxnet_tpu/serving.py`` for predict artifacts
+(format_version 2) and generate artifacts (format_version 3, and 5 with
+chunked prefill; without the speculative draft). The JAX package stages
+its programs out as StableHLO; the port's artifact carries what the
+port needs to rebuild them: the graph as symbol JSON (predict) or the
+decoder geometry (generate), and the weights as an npz.
 
 File layout (``.mxtorch``): 8-byte magic ``MXTORCH1``, u32 metadata
 length, metadata JSON (the JAX package's keys: ``inputs``,
 ``num_outputs``, ``platforms``, ``dynamic_batch``, ``kernel_tier``,
-``format_version``; plus ``symbol_bytes``), the symbol JSON, then the
-parameters as an npz (``arg:<name>`` / ``aux:<name>``).
+``format_version``, and ``generate`` for a generate artifact), then for
+predict the symbol JSON (``symbol_bytes`` long) and the parameters as
+an npz (``arg:<name>`` / ``aux:<name>``), for generate the decoder
+weights as an npz (``generate.params.bytes`` long).
 
 Surface:
   * export_compiled(sym, arg_params, aux_params, data_shapes, path)
   * CompiledModel.load(path, buckets=None, device=None) -> .predict(**data)
-  * load_artifact(path)
+  * export_generate(params, spec, path, chunked=False)
+  * GenerateModel.load(path, device=None), load_bundled_params(path)
+  * load_artifact(path, device=None) - either kind, by format_version
   * params_from_reference(arg_params, aux_params, symbol, device,
     data_shapes=...) - the JAX package's numpy parameters as tensors
+    (for a decoder: ``serve.decode_model.params_from_reference``)
 """
 from __future__ import annotations
 
@@ -35,10 +42,12 @@ from .kernels import tier as _tier
 from .symbol import load_json
 
 __all__ = ["export_compiled", "CompiledModel", "load_artifact",
-           "params_from_reference"]
+           "params_from_reference", "export_generate", "GenerateModel",
+           "load_bundled_params"]
 
 _MAGIC = b"MXTORCH1"
 _FORMAT_VERSION = 2       # the JAX package's f32 predict version
+_GENERATE_VERSIONS = (3, 5)   # plain; with chunked prefill
 
 
 def _is_dynamic_dim(d):
@@ -180,15 +189,20 @@ def export_compiled(symbol, arg_params, aux_params, data_shapes, path,
     return meta
 
 
+def _read_meta(f, path):
+    if f.read(8) != _MAGIC:
+        raise MXNetError("%r is not an mxnet_tpu_torch artifact" % path)
+    (n,) = struct.unpack("<I", f.read(4))
+    return json.loads(f.read(n).decode())
+
+
 def _read_artifact(path):
     with open(path, "rb") as f:
-        if f.read(8) != _MAGIC:
-            raise MXNetError("%r is not an mxnet_tpu_torch artifact" % path)
-        (n,) = struct.unpack("<I", f.read(4))
-        meta = json.loads(f.read(n).decode())
+        meta = _read_meta(f, path)
         if int(meta.get("format_version", 0)) != _FORMAT_VERSION:
-            raise MXNetError("artifact %r has format_version %s; this "
-                             "build reads %d" % (
+            raise MXNetError("artifact %r has format_version %s; a predict "
+                             "model reads %d (open any kind with "
+                             "load_artifact)" % (
                                  path, meta.get("format_version"),
                                  _FORMAT_VERSION))
         symbol = load_json(f.read(meta["symbol_bytes"]).decode())
@@ -340,6 +354,195 @@ def _fmt_shape(shape):
                            for d in shape) + ")"
 
 
+# -- generate artifacts (format_version 3 and 5) ----------------------------
+
+def _generate_census(spec):
+    """Kernels the tier in force dispatches per run of each program at
+    this geometry: {"prefill": {"flash_attn": L}, "decode":
+    {"flash_attn_paged": L}, ...}; a site the paged guard declines
+    gathers its context through ``take_rows`` twice (K and V)."""
+    from .kernels import attention as _attn
+    from .kernels import take as _take
+    if _tier.tier() != "auto":
+        return {}
+    L, C, H = spec.num_layers, spec.dim, spec.num_heads
+    S, P, MP = spec.max_slots, spec.max_prompt_len, spec.max_pages_per_slot
+    f32 = torch.float32
+    out = {}
+    q = (S, H, P, spec.head_dim)
+    out["prefill"] = ({_attn.OP_NAME: L}
+                      if _attn.eligible(q, q, q, f32) is None else {})
+    for name, (s, w) in (("decode", (S, 1)), ("chunk_prefill", (1, P))):
+        if _attn.paged_eligible((s, w, C), (spec.cache_rows, C), (s, MP),
+                                (s,), f32, H, spec.page_size) is None:
+            out[name] = {_attn.PAGED_OP_NAME: L}
+        elif _take.eligible((spec.cache_rows, C), f32,
+                            (s, spec.max_context), torch.int64) is None:
+            out[name] = {_take.OP_NAME: 2 * L}
+        else:
+            out[name] = {}
+    return out
+
+
+def export_generate(params, spec, path, chunked=False):
+    """Freeze a decoder (weights + :class:`~mxnet_tpu_torch.serve.
+    decode_model.DecoderSpec` geometry) into a generate artifact.
+
+    ``params`` are the JAX package's numpy dict (``init_params``) or the
+    port's tensors; every name and shape is checked against the spec.
+    The decoder is f32. With ``chunked=True`` the artifact is
+    format_version 5 and prompts longer than ``max_prompt_len`` stream
+    through ``chunk_prefill``; otherwise format_version 3. The weights
+    travel whole (the JAX package's ``bundle_params=True``); the
+    speculative draft is not ported yet. ``meta["kernel_tier"]`` records
+    the tier in force and the kernels it dispatches per program run at
+    this geometry.
+    """
+    from .serve import decode_model as _dm
+    spec = _dm.DecoderSpec(*spec).validate()
+    checked = _dm.params_from_reference(params, spec, "cpu")
+    buf = io.BytesIO()
+    _np.savez(buf, **{k: v.numpy() for k, v in checked.items()})
+    blob = buf.getvalue()
+    P = spec.max_prompt_len
+    meta = {
+        "format_version": 5 if chunked else 3,
+        "platforms": ["cuda", "cpu"],
+        "dynamic_batch": True,
+        # the prefill signature, v2-shaped so BucketedEngineCache serves
+        # it unchanged
+        "inputs": [
+            {"name": "tokens", "shape": [None, P], "dtype": "int32"},
+            {"name": "lengths", "shape": [None], "dtype": "int32"},
+            {"name": "temperatures", "shape": [None], "dtype": "float32"},
+            {"name": "seeds", "shape": [None], "dtype": "int32"},
+        ],
+        "num_outputs": 3,
+        "generate": {"spec": spec._asdict(), "dtype": "float32",
+                     "params": {"bytes": len(blob)}},
+        "kernel_tier": {"tier": _tier.tier(),
+                        "kernels": _generate_census(spec)},
+    }
+    mjson = json.dumps(meta).encode()
+    with open(path, "wb") as f:
+        f.write(_MAGIC)
+        f.write(struct.pack("<I", len(mjson)))
+        f.write(mjson)
+        f.write(blob)
+    return meta
+
+
+def _read_generate(path):
+    with open(path, "rb") as f:
+        meta = _read_meta(f, path)
+        if int(meta.get("format_version", 0)) not in _GENERATE_VERSIONS:
+            raise MXNetError("artifact %r has format_version %s, not a "
+                             "generate artifact (3 or 5)"
+                             % (path, meta.get("format_version")))
+        blob = f.read(int(meta["generate"]["params"]["bytes"]))
+    with _np.load(io.BytesIO(blob)) as z:
+        params = {k: z[k] for k in z.files}
+    return meta, params
+
+
+def load_bundled_params(path):
+    """The decoder weights a generate artifact carries, as
+    ``(params, draft_params_or_None)`` numpy dicts (the port bundles no
+    draft)."""
+    return _read_generate(path)[1], None
+
+
+class PrefillModel:
+    """The prefill function as a bucketed engine: the artifact's
+    v2-shaped signature (tokens, lengths, temperatures, seeds) with a
+    dynamic batch, served through :class:`~mxnet_tpu_torch.serve.
+    engine_cache.BucketedEngineCache` like a predict model. Inputs stay
+    host arrays until the prefill function copies them to the device,
+    so it can see on the host which rows sample."""
+
+    def __init__(self, fn, meta, device):
+        self._fn = fn
+        self.meta = {"inputs": meta["inputs"],
+                     "kernel_tier": meta.get("kernel_tier")}
+        self.input_names = [i["name"] for i in meta["inputs"]]
+        self.dynamic_batch = True
+        self.device = device
+        self._cache = None
+        self.buckets = None
+
+    def run(self, *arrs):
+        return tuple(self._fn(*arrs))
+
+    def set_buckets(self, buckets, cache_engines=None, warmup=None):
+        from .serve.engine_cache import BucketedEngineCache, parse_buckets
+        self._cache = BucketedEngineCache(self, capacity=cache_engines,
+                                          warmup=warmup)
+        self.buckets = parse_buckets(buckets)
+        return self
+
+    @property
+    def engine_cache(self):
+        return self._cache
+
+    def __call__(self, *arrs):
+        arrs = [torch.as_tensor(_np.asarray(a), dtype=normalize_dtype(
+            s["dtype"])) for a, s in zip(arrs, self.meta["inputs"])]
+        if self._cache is None:
+            return self.run(*arrs)
+        return self._cache.run_padded(self.buckets, arrs,
+                                      int(arrs[0].shape[0]))
+
+
+class GenerateModel:
+    """A loaded generate artifact on one device: the decoder's weights
+    on the device and the programs over them, each a plain function
+    from ``serve.decode_model``: ``prefill`` (a :class:`PrefillModel`),
+    ``decode``, ``commit`` and, for format_version 5, ``chunk_prefill``.
+    The kernel tier in force at load is the one every program runs
+    under. Execution is :class:`mxnet_tpu_torch.serve.decode.
+    GenerateSession`'s."""
+
+    def __init__(self, params, meta, device):
+        from .serve import decode_model as _dm
+        self.meta = meta
+        self.device = device
+        spec = self.spec
+        self.params = _dm.params_from_reference(params, spec, device)
+        self.prefill = PrefillModel(_dm.make_prefill(self.params, spec),
+                                    meta, device)
+        self.decode = _dm.make_decode(self.params, spec)
+        self.commit = _dm.make_commit(spec)
+        self.chunk_prefill = (
+            _dm.make_chunk_prefill(self.params, spec)
+            if int(meta["format_version"]) == 5 else None)
+
+    @property
+    def spec(self):
+        from .serve.decode_model import DecoderSpec
+        return DecoderSpec(**self.meta["generate"]["spec"])
+
+    @property
+    def has_chunk_prefill(self):
+        """Prompts longer than max_prompt_len stream through fixed-shape
+        chunks (format_version 5)."""
+        return self.chunk_prefill is not None
+
+    @classmethod
+    def load(cls, path, device=None):
+        """Load onto ``device`` (default cuda:0; raises without a card
+        unless the CPU is asked for)."""
+        dev = resolve_device(device)
+        meta, params = _read_generate(path)
+        return cls(params, meta, dev)
+
+
 def load_artifact(path, **kw):
-    """Open an artifact (the port has predict artifacts only)."""
+    """Open any ``.mxtorch`` artifact through the format-version
+    dispatch: :class:`CompiledModel` for predict artifacts
+    (format_version 2), :class:`GenerateModel` for generate artifacts
+    (3 and 5)."""
+    with open(path, "rb") as f:
+        version = int(_read_meta(f, path).get("format_version", 0))
+    if version in _GENERATE_VERSIONS:
+        return GenerateModel.load(path, **kw)
     return CompiledModel.load(path, **kw)
