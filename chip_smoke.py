@@ -66,7 +66,45 @@ Phases; any failure raises and the script exits non-zero:
    1e-4, and no more than 1 sequence in 8 may stop early. Then TTFT and
    TPOT p50/p99, generated tokens/s, the wall time of a decode step and
    its device busy share (torch.profiler).
-7. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
+7. The training kernels against their plain versions on the card, f32
+   and bf16: ``scale_bias_act`` at the MLP's (8192, 3072) and a ragged
+   (1000, 3000), ReLU, GeLU and identity, with and without the scale,
+   forward and the gradients of x, scale and bias; ``flash_fwd`` at
+   (8, 12, 1024, 64) causal and not, causal cross-length (tq 100, tk 60:
+   the fully masked rows must be exactly 0) and a ragged T = 100,
+   forward and the q, k, v gradients, against ``blockwise_attention``;
+   ``flash_attn`` at (8, 12, 1024, 64) causal and ``take_rows`` on the
+   (50257, 768) token table by (8, 1024) ids, forward and the new
+   backward. Forwards within the tolerances of phase 5 (the gather
+   bitwise); gradients f32 within atol 2e-5, rtol 1e-4, bf16 within a
+   relative L2 error of one bf16 ulp (a bf16 gradient sums up to 1024
+   terms rounded in other places); the row gather's scatter-add bitwise
+   (its cotangents are quarters, exact in any order). Then the f32
+   times of B5, B7, and of B3 and B2 at these shapes, beside plain,
+   library and bound.
+8. The training path: the GPT of ``examples/train_transformer_lm.py``
+   at GPT-2 small's widths (vocab 50257, dim 768, 12 heads, 12 layers,
+   T 1024; Xavier from seed 0) trained by ``Module.fit`` with Adam (lr
+   3e-4, wd 0.01) and kvstore ``tpu_sync`` for 8 steps of batch 8 on the
+   lag-17 copy task, at tier auto and from the same weights at tier off.
+   Counts are zeroed just before each fit and read just after: at auto
+   every step launches ``flash_attn`` 12, ``scale_bias_act`` 12,
+   ``take_rows`` 1 and ``flash_fwd`` 0 times; at off ``flash_fwd`` 12
+   and the others 0; no tier fallback. The tiers' losses agree within
+   1e-4 relative and step 1's gradients within 1e-3 of each tensor's
+   largest magnitude; every loss is finite; on one batch repeated six
+   times the loss at step 6 is below step 1's. Then the step's numbers:
+   wall time p50 and tokens/s, forward, backward and update times (CUDA
+   events), a torch.profiler pass (device busy share, top kernels, B3's
+   recomputed backward) and model FLOPs over the f32 peak. Last the
+   model cut to 2 layers at T 128, batch 2, on the card against the
+   CPU: each of two steps' gradients within 1e-3 of each tensor's
+   largest magnitude (the sign flips of the ReLU inputs between the two
+   counted), and after 2 SGD-momentum steps by ``Module.fit``
+   (lr 1e-4) losses within 1e-5 relative and parameters within 1e-4;
+   the same steps at lr 0.01 are printed beside two CPU runs that
+   differ only in thread count.
+9. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
@@ -904,6 +942,626 @@ def gpt_main_path(dev, card, report):
     return launches
 
 
+# -------------------------------------------------- training: kernels
+GPT_TRAIN = dict(vocab=50257, dim=768, heads=12, layers=12, seq_len=1024,
+                 batch=8, lag=17)
+TRAIN_REPLACES = {"scale_bias_act": "mxnet_tpu/kernels/mlp.py:53",
+                  "flash_fwd": "mxnet_tpu/ops/pallas_flash.py:35"}
+TRAIN_SOURCES = {k: "mxnet_tpu_torch/csrc/%s.cu" % k for k in TRAIN_REPLACES}
+TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# phase 7's shapes: the MLP up-projection and a ragged one; the attention
+# shape, causal and not, causal cross-length (tq > tk: rows that see no
+# key) and a ragged T; the token-embedding table and its ids
+B5_SHAPES = ((8192, 3072), (1000, 3000))
+ATTN_SHAPE = (8, 12, 1024, 64)
+B7_CASES = ((ATTN_SHAPE, 1024, True), (ATTN_SHAPE, 1024, False),
+            ((1, 2, 100, 64), 60, True), ((2, 12, 100, 64), 100, True))
+EMBED = ((50257, 768), (8, 1024))
+
+
+def grads_of(fn, inputs, cot):
+    """(out, grads) of sum(fn(*inputs) * cot) for the float inputs."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_(
+        t.is_floating_point()) for t in inputs]
+    out = fn(*leaves)
+    (out.float() * cot).sum().backward()
+    return out.detach(), [None if t is None or not t.is_floating_point()
+                          else t.grad for t in leaves]
+
+
+def grad_check(got, want, what):
+    """Gradients: f32 within atol 2e-5, rtol 1e-4. bf16: a gradient
+    element is a sum of up to T products whose factors each path rounds
+    to bf16 in other places, so single elements may differ by several
+    ulps of the largest term; the check is the relative L2 error, within
+    one bf16 ulp (2^-7). Returns the max abs error; raises past it."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        bad = bool((diff > 2e-5 + 1e-4 * want.float().abs()).any())
+    else:
+        bad = float(diff.norm()) > 2 ** -7 * float(want.float().norm())
+    if bad or not bool(torch.isfinite(got).all()):
+        raise RuntimeError("%s gradient disagrees with autograd through the "
+                           "plain version: max abs err %g"
+                           % (what, float(diff.max())))
+    return float(diff.max())
+
+
+def train_kernel_phase(dev):
+    """B5 and B7 against their plain versions at the training path's
+    shapes, forward and gradients, f32 and bf16; the new backwards of
+    B3 and B2 against autograd through their plain versions; then the
+    f32 times of B5 and B7 beside plain, library and bound."""
+    from mxnet_tpu_torch.kernels import attention as attn
+    from mxnet_tpu_torch.kernels import mlp, take
+    from mxnet_tpu_torch.ops import pallas_flash as pf
+    from mxnet_tpu_torch.parallel import blockwise_attention
+    F = torch.nn.functional
+    err, rows = {}, {}
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def note(key, e):
+        err[key] = max(err.get(key, 0.0), e)
+
+    # -- B5 scale_bias_act: the MLP up-projection (8192, 3072) and ragged
+    for shape in B5_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            nf = shape[1]
+            x = rnd(*shape).to(dtype)
+            sc = torch.rand(nf, generator=g, device=dev) * 2 - 0.5
+            b = rnd(nf)
+            cot = rnd(*shape)
+            dt = str(dtype)[6:]
+            for act in ("relu", "gelu", "identity"):
+                for scale in (None, sc):
+                    what = "scale_bias_act %s %s %s scale=%s" % (
+                        shape, dt, act, scale is not None)
+                    got = mlp._launch(x, scale, b, act, mlp.DEFAULT_CONFIG)
+                    note("scale_bias_act/" + dt, attn_check(
+                        got, mlp._plain_scale_bias_act(x, scale, b, act),
+                        what))
+                    # the backward differentiates the reference in x's
+                    # dtype: in f32 that is the plain version itself
+                    ref = mlp._plain_scale_bias_act \
+                        if dtype == torch.float32 else mlp._reference
+                    _o, gk = grads_of(lambda a, s, c: mlp.fused_scale_bias_act(
+                        a, s, c, act=act), (x, scale, b), cot)
+                    _o, gp = grads_of(lambda a, s, c: ref(a, s, c, act),
+                                      (x, scale, b), cot)
+                    for a_, w_ in zip(gk, gp):
+                        if w_ is not None:
+                            note("scale_bias_act_grad/" + dt,
+                                 grad_check(a_, w_, what))
+    # -- B7 flash_fwd: the training shape, causal and not; causal
+    # cross-length with fully masked rows; a ragged T
+    for qshape, tk, causal in B7_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            kshape = qshape[:2] + (tk, qshape[3])
+            q, k, v = (rnd(*s).to(dtype) for s in (qshape, kshape, kshape))
+            cot = rnd(*qshape)
+            what = "flash_fwd q %s tk %d causal=%s %s" % (qshape, tk, causal,
+                                                         dt)
+            got = pf._launch(q, k, v, causal)
+            # the kernel's KV tile: where the running max moves sets
+            # the scale at which p rounds to bf16
+            note("flash_fwd/" + dt, attn_check(
+                got, blockwise_attention(q, k, v, pf.KV_TILE, causal),
+                what))
+            if causal and qshape[2] > tk:
+                dead = got[:, :, :qshape[2] - tk]
+                if not bool((dead == 0).all()):
+                    raise RuntimeError("%s: fully masked rows are not 0 "
+                                       "(max %g)" % (what, float(
+                                           dead.abs().max())))
+            _o, gk = grads_of(lambda a, b_, c: pf.flash_attention(
+                a, b_, c, 128, 128, causal), (q, k, v), cot)
+            _o, gp = grads_of(lambda a, b_, c: blockwise_attention(
+                a, b_, c, 128, causal), (q, k, v), cot)
+            for a_, w_ in zip(gk, gp):
+                note("flash_fwd_grad/" + dt, grad_check(a_, w_, what))
+            del q, k, v, gk, gp
+    # -- B3 and B2 at the training path's shapes: forwards and the new
+    # backwards
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        q, k, v = (rnd(*ATTN_SHAPE).to(dtype) for _ in range(3))
+        cot = rnd(*ATTN_SHAPE)
+        ok_, gk = grads_of(lambda a, b_, c: attn.flash_attention(
+            a, b_, c, causal=True), (q, k, v), cot)
+        op_, gp = grads_of(lambda a, b_, c: attn._plain_flash(
+            a, b_, c, True), (q, k, v), cot)
+        note("flash_attn@train/" + dt, attn_check(
+            ok_, op_, "flash_attn %s causal %s" % (ATTN_SHAPE, dt)))
+        for a_, w_ in zip(gk, gp):
+            note("flash_attn_grad/" + dt, grad_check(
+                a_, w_, "flash_attn backward %s" % dt))
+        del q, k, v, gk, gp
+        (V, C), ishape = EMBED
+        table = rnd(V, C).to(dtype)
+        ids = torch.randint(-300, V + 300, ishape, generator=g,
+                            device=dev, dtype=torch.int32)
+        # quarters in [-1, 1]: every partial sum of a row's cotangents is
+        # exact even in bf16, so the two scatter-adds must be equal
+        # whatever order their atomics add in
+        cot = torch.randint(-4, 5, ishape + (C,), generator=g,
+                            device=dev).float() / 4
+        ok_, (dk, _) = grads_of(lambda w, i: take.take_rows(w, i),
+                                (table, ids), cot)
+        op_, (dp, _) = grads_of(lambda w, i: take._plain_take(w, i),
+                                (table, ids), cot)
+        if not torch.equal(ok_, op_):
+            raise RuntimeError("take_rows (%s) at table %s is not bitwise "
+                               "the clipped gather" % (dt, (V, C)))
+        note("take_rows@train/" + dt, 0.0)
+        if not torch.equal(dk, dp):
+            raise RuntimeError("take_rows backward (%s) is not the plain "
+                               "scatter-add: max abs err %g" % (dt, float(
+                                   (dk.float() - dp.float()).abs().max())))
+        note("take_rows_grad/" + dt, 0.0)
+        del table, dk, dp
+    log("training kernels vs plain (f32 and bf16, forward and gradients): "
+        "max abs err %s" % json.dumps(err))
+    # -- times (f32) at the training path's shapes
+    x = rnd(*B5_SHAPES[0])
+    b = rnd(B5_SHAPES[0][1])
+    rows["scale_bias_act"] = {
+        "shape": "%s f32, bias, ReLU" % (B5_SHAPES[0],),
+        "ms": time_ms(lambda: mlp._launch(x, None, b, "relu",
+                                          mlp.DEFAULT_CONFIG), dev),
+        "plain_ms": time_ms(lambda: mlp._plain_scale_bias_act(
+            x, None, b, "relu"), dev),
+        "library_ms": None,
+        "bytes_ms": (2 * x.numel() + b.numel()) * 4 / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 2 * x.numel() / F32_FLOPS * 1e3}
+    del x
+    q, k, v = (rnd(*ATTN_SHAPE) for _ in range(3))
+    B_, H_, T_, D_ = q.shape
+    pairs = B_ * H_ * T_ * (T_ + 1) // 2
+    rows["flash_fwd"] = {
+        "shape": "%s f32 causal" % (ATTN_SHAPE,),
+        "ms": time_ms(lambda: pf._launch(q, k, v, True), dev),
+        "plain_ms": time_ms(lambda: blockwise_attention(q, k, v, 128, True),
+                            dev),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), dev),
+        "bytes_ms": 4 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "ops_ms": 4 * pairs * D_ / F32_FLOPS * 1e3}
+    table = rnd(*EMBED[0])
+    ids = torch.randint(-300, EMBED[0][0] + 300, EMBED[1], generator=g,
+                        device=dev, dtype=torch.int32)
+    flat = ids.reshape(-1).contiguous()
+    clipped = ids.long().clamp(0, EMBED[0][0] - 1).reshape(-1)
+    C_ = EMBED[0][1]
+    rows["take_rows@train"] = {
+        "shape": "table %s f32, ids %s" % (EMBED[0], EMBED[1]),
+        "ms": time_ms(lambda: take._launch(table, flat,
+                                           take.DEFAULT_CONFIG), dev),
+        "plain_ms": time_ms(lambda: take._plain_take(table, ids), dev),
+        "library_ms": time_ms(lambda: torch.index_select(table, 0, clipped),
+                              dev),
+        "bytes_ms": (2 * flat.numel() * C_ + flat.numel()) * 4
+        / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0}
+    del table
+    rows["flash_attn@train"] = {
+        "shape": "%s f32 causal" % (ATTN_SHAPE,),
+        "ms": time_ms(lambda: attn._launch_flash(q, k, v, True), dev),
+        "plain_ms": time_ms(lambda: attn._plain_flash(q, k, v, True), dev),
+        "library_ms": rows["flash_fwd"]["library_ms"],
+        "bytes_ms": rows["flash_fwd"]["bytes_ms"],
+        "ops_ms": rows["flash_fwd"]["ops_ms"]}
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
+        log("  %-18s %-30s ms=%.5f plain_ms=%.5f library_ms=%s "
+            "bound_ms=%.5f (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
+                                    "%.5f" % r["library_ms"]
+                                    if r["library_ms"] is not None
+                                    else "none", r["bound_ms"],
+                                    r["bound_by"]))
+    return err, rows
+
+
+# ----------------------------------------------- training: the main path
+def train_batches(n, batch, seq_len, vocab, lag, seed=0):
+    rng = np.random.RandomState(seed)
+    xs, ys = zip(*[mt.models.make_copy_batch(rng, batch, seq_len, vocab,
+                                             lag) for _ in range(n)])
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def reset_train_counts():
+    from mxnet_tpu_torch.kernels import attention as attn
+    from mxnet_tpu_torch.kernels import mlp, take
+    from mxnet_tpu_torch.ops import pallas_flash as pf
+    tier.reset_stats()
+    for m in (attn, mlp, take, pf):
+        m.reset_launches()
+
+
+def train_counts():
+    from mxnet_tpu_torch.kernels import attention as attn
+    from mxnet_tpu_torch.kernels import mlp, take
+    from mxnet_tpu_torch.ops import pallas_flash as pf
+    return {"flash_attn": attn.launches_by_kernel["flash_attn"],
+            "scale_bias_act": mlp.launches, "take_rows": take.launches,
+            "flash_fwd": pf.launches,
+            "flash_attn_paged": attn.launches_by_kernel["flash_attn_paged"]}
+
+
+ADAM = ("adam", {"learning_rate": 3e-4, "wd": 0.01})
+
+
+def fit_steps(net, X, Y, dev, batch, arg_params=None, initializer=None,
+              opt=ADAM):
+    """``Module.fit`` for one epoch over (X, Y) with ``opt`` (Adam, lr
+    3e-4, wd 0.01) and kvstore tpu_sync -> (module, losses, host times
+    after each step). The loss is the mean cross-entropy of the step's
+    outputs at its labels, read on the device after each step."""
+    mod = mt.mod.Module(net, context=dev)
+    losses, stamps = [], []
+
+    def record(p):
+        out = mod.get_outputs()[0]
+        lab = p.locals["data_batch"].label[0].to(out.device).long()
+        pick = out.gather(-1, lab.unsqueeze(-1)).clamp_min(1e-30)
+        losses.append(float(-pick.log().mean()))   # syncs the card
+        stamps.append(time.perf_counter())
+    stamps.append(time.perf_counter())
+    mod.fit(mt.io.NDArrayIter(X, Y, batch_size=batch), num_epoch=1,
+            kvstore="tpu_sync", optimizer=opt[0], optimizer_params=opt[1],
+            initializer=initializer, arg_params=arg_params,
+            eval_metric=None, batch_end_callback=record)
+    return mod, losses, stamps
+
+
+def step_grads(net, params, X, Y, dev, tier_val, B_=GPT_TRAIN["batch"]):
+    """Gradients of the first batch (``B_`` rows) at ``params`` through a
+    bound executor at ``tier_val``."""
+    T_ = X.shape[1]
+    with mt.config.override(kernel_tier=tier_val):
+        ex = net.simple_bind(dev, data=(B_, T_), softmax_label=(B_, T_))
+    ex.copy_params_from(params)
+    ex.forward(is_train=True, data=X[:B_], softmax_label=Y[:B_])
+    ex.backward()
+    return {k: v for k, v in ex.grad_dict.items()}
+
+
+def rel_grad_err(got, want):
+    """Per parameter: max |got - want| over the largest |want|."""
+    return {k: float((got[k].to(want[k].device) - want[k]).abs().max()
+                     / want[k].abs().max().clamp_min(1e-30))
+            for k in want if k not in ("data", "softmax_label")}
+
+
+def mlp_preacts(net, params, X, dev, B_):
+    """Each block's MLP up-projection before its ReLU (the outputs of
+    the ``mlp1`` FullyConnected nodes) at ``params`` on ``X[:B_]``,
+    returned on the CPU."""
+    from mxnet_tpu_torch.symbol.symbol import Symbol
+    nodes = [n for n in net._topo()
+             if not n.is_variable and n.name.endswith("mlp1")]
+    ex = Symbol([(n, 0) for n in nodes]).simple_bind(
+        dev, grad_req="null", data=tuple(X[:B_].shape))
+    ex.copy_params_from(params, allow_extra_params=True)
+    outs = ex.forward(is_train=False, data=X[:B_])
+    return {n.name: o.cpu() for n, o in zip(nodes, outs)}
+
+
+def cut_depth_check(dev, report):
+    """The GPT cut to 2 layers at T 128, batch 2, on the card against
+    the CPU (plain versions). First each step's gradients, at Xavier's
+    weights on batch 1 and at the CPU's weights after step 1 on batch 2:
+    within 1e-3 of each tensor's largest magnitude, the limit the tiers
+    are held to. The card's GEMMs sum in another order than the CPU's,
+    so a ReLU input within f32 noise of 0 may open on one side only; it
+    moves that unit's row of the up-projection's gradient. The sign
+    flips are counted and the worst difference is placed. Then 2
+    SGD-momentum steps by ``Module.fit`` on each: losses within 1e-5
+    relative and every parameter within 1e-4. The lr is 1e-4 (largest
+    update about 0.014). At lr 0.01 the first step moves elements by up
+    to about 3, and summation-order noise is then amplified to 1e-3 in
+    the parameters after step 2: the line printed after the check sets
+    the card and the CPU there beside two CPU runs which differ only in
+    their thread count."""
+    P = GPT_TRAIN
+    small = mt.models.gpt_lm(P["vocab"], P["dim"], P["heads"], 2, 128)
+    Xs, Ys = train_batches(2, 2, 128, P["vocab"], P["lag"], seed=1)
+    init = mt.mod.Module(small, context="cpu")
+    init.bind([("data", (2, 128))], [("softmax_label", (2, 128))])
+    init.init_params(mt.init.Xavier(seed=0))
+    p0 = init.get_params()[0]
+    del init
+
+    def sgd(lr):
+        return ("sgd", {"learning_rate": lr, "momentum": 0.9, "wd": 0.01})
+
+    def fit_params(d, X, Y, lr):
+        m, losses, _s = fit_steps(small, X, Y, d, 2, arg_params=p0,
+                                  opt=sgd(lr))
+        return {k: v.cpu() for k, v in m.get_params()[0].items()}, losses
+
+    # -- each step's gradients, card vs CPU, at the same weights, and
+    # the sign flips of the ReLU inputs between them
+    p1, _l = fit_params("cpu", Xs[:2], Ys[:2], 1e-4)
+    grad_err, flips, where = {}, {}, {}
+    for step, (params, X, Y) in enumerate(((p0, Xs[:2], Ys[:2]),
+                                           (p1, Xs[2:], Ys[2:])), 1):
+        want = step_grads(small, params, X, Y, "cpu", "auto", B_=2)
+        got = step_grads(small, params, X, Y, dev, "auto", B_=2)
+        for k, e in rel_grad_err(got, want).items():
+            grad_err["step%d/%s" % (step, k)] = e
+        pre = [mlp_preacts(small, params, X, d, 2) for d in ("cpu", dev)]
+        for name, a in pre[0].items():
+            flip = ((a > 0) != (pre[1][name] > 0)).reshape(-1, a.shape[-1])
+            flips["step%d/%s" % (step, name)] = int(flip.sum())
+            # the up-projection's gradient row that differs most, and
+            # whether that unit's ReLU input flipped at any token
+            w = name + "_weight"
+            row = int((got[w].cpu() - want[w]).abs().amax(1).argmax())
+            where["step%d/%s" % (step, w)] = {
+                "row": row, "row_flipped": bool(flip[:, row].any())}
+    worst_g = max(grad_err, key=grad_err.get)
+    # -- 2 steps by Module.fit on each
+    cut, cut_loss = {}, {}
+    for d in (dev, "cpu"):
+        cut[str(d)], cut_loss[str(d)] = fit_params(d, Xs, Ys, 1e-4)
+    cut_err = {k: float((cut[str(dev)][k] - v).abs().max())
+               for k, v in cut["cpu"].items()}
+    max_update = max(float((v - p0[k]).abs().max())
+                     for k, v in cut["cpu"].items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(cut_loss[str(dev)], cut_loss["cpu"]))
+    worst = max(cut_err, key=cut_err.get)
+    log("cut depth (2 layers, T 128, batch 2), card vs CPU: each step's "
+        "gradients within %.3g of the tensor's largest magnitude (worst "
+        "%s); ReLU inputs of opposite sign %s; the up-projections' most "
+        "different gradient rows %s; 2 SGD-momentum steps at lr 1e-4: "
+        "losses within %.3g relative, parameters within %.3g (worst %s; "
+        "largest update %.3g)"
+        % (grad_err[worst_g], worst_g, json.dumps(flips), json.dumps(where),
+           loss_err, cut_err[worst], worst, max_update))
+    report["train"].update(cut_depth_grad_err=grad_err,
+                           cut_depth_relu_flips=flips,
+                           cut_depth_worst_rows=where,
+                           cut_depth_param_err=cut_err,
+                           cut_depth_max_update=max_update,
+                           cut_depth_loss_err=loss_err)
+    if grad_err[worst_g] > 1e-3 or cut_err[worst] > 1e-4 or loss_err > 1e-5:
+        raise RuntimeError("card and CPU disagree: gradients %g (%s), "
+                           "losses %g relative, parameters %g (%s)"
+                           % (grad_err[worst_g], worst_g, loss_err,
+                              cut_err[worst], worst))
+    # -- lr 0.01: the card against the CPU, and the CPU against itself
+    # at one thread
+    big = {"card": fit_params(dev, Xs, Ys, 1e-2)[0],
+           "cpu": fit_params("cpu", Xs, Ys, 1e-2)[0]}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        big["cpu1"] = fit_params("cpu", Xs, Ys, 1e-2)[0]
+    finally:
+        torch.set_num_threads(threads)
+
+    def apart(a, b):
+        return max(float((big[a][k] - big[b][k]).abs().max()) for k in p0)
+    spread = {"card_vs_cpu": apart("card", "cpu"),
+              "cpu_vs_cpu1": apart("cpu", "cpu1"),
+              "largest_update": max(float((big["cpu"][k] - p0[k]).abs().max())
+                                    for k in p0)}
+    log("the same 2 steps at lr 0.01 (largest update %.3g): card vs CPU "
+        "%.3g apart, CPU at %d threads vs CPU at 1 thread %.3g apart"
+        % (spread["largest_update"], spread["card_vs_cpu"], threads,
+           spread["cpu_vs_cpu1"]))
+    report["train"]["cut_depth_lr_0.01"] = spread
+
+
+def step_profile(mod, X, Y):
+    """One fused step: forward, backward and update timed with CUDA
+    events (median of 3 steps), then torch.profiler over one more step:
+    device busy share, the top kernels, and the device time inside the
+    named backward recomputes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fused, ex = mod._fused, mod._exec
+    B_ = GPT_TRAIN["batch"]
+    ex.set_inputs(data=X[:B_], softmax_label=Y[:B_])
+    parts = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        outs, _auxu, leaves = fused.forward()
+        ev[1].record()
+        grads = fused.backward(outs, leaves)
+        ev[2].record()
+        fused.apply(grads, mod._fused_opt_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      ev[2].elapsed_time(ev[3]), wall))
+        del outs, leaves, grads
+    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fused.step(mod._fused_opt_state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    # the named backward ranges also appear as device events spanning
+    # their kernels; they are read apart and kept out of the busy sum
+    names = ("flash_attn.backward", "scale_bias_act.backward")
+    ranges = {e.key: e.device_time_total for e in avgs if e.key in names}
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in avgs
+               if e.device_type == DeviceType.CUDA and e.key not in names]
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"forward_ms": med[0], "backward_ms": med[1], "update_ms": med[2],
+            "wall_ms": med[3], "profiled_wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
+            "flash_attn_backward_ms": ranges.get("flash_attn.backward",
+                                                 0.0) / 1e3,
+            "scale_bias_act_backward_ms": ranges.get(
+                "scale_bias_act.backward", 0.0) / 1e3,
+            "top_kernels": [{"name": k[0][:100], "ms": k[1] / 1e3,
+                             "calls": k[2]} for k in top]}
+
+
+def reference_backward_ms(dev):
+    """CUDA-event time of B3's backward alone (the vjp of the reference
+    attention, recomputed) at the training shape, median of 5."""
+    from mxnet_tpu_torch.kernels import attention as attn
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, cot = (torch.randn(ATTN_SHAPE, generator=g, device=dev)
+                    for _ in range(4))
+
+    def bwd():
+        a, b, c = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = attn.reference_attention(a, b, c, causal=True)
+        torch.autograd.grad(o, (a, b, c), cot)
+    return time_ms(bwd, dev, iters=5, warmup=1)
+
+
+def train_main_path(dev, card, report):
+    """Phase 8: the GPT at GPT-2 small's widths trained through
+    Module.fit at tier auto and tier off, held against each other, a
+    repeated batch and a cut-depth CPU run; then the step's numbers."""
+    P = GPT_TRAIN
+    net = mt.models.gpt_lm(P["vocab"], P["dim"], P["heads"], P["layers"],
+                           P["seq_len"])
+    steps = 8
+    X, Y = train_batches(steps, P["batch"], P["seq_len"], P["vocab"],
+                         P["lag"])
+    tokens = P["batch"] * P["seq_len"]
+    # -- tier auto: the main path, counts zeroed just before
+    t0 = time.perf_counter()
+    init = mt.mod.Module(net, context=dev)
+    init.bind([("data", (P["batch"], P["seq_len"]))],
+              [("softmax_label", (P["batch"], P["seq_len"]))])
+    init.init_params(mt.init.Xavier(seed=0))
+    params0 = init.get_params()[0]
+    nparam = sum(v.numel() for v in params0.values())
+    del init
+    log("GPT at GPT-2-small widths (%s): %.1f M f32 parameters, Xavier "
+        "(seed 0) in %.1fs" % (json.dumps(P), nparam / 1e6,
+                               time.perf_counter() - t0))
+    reset_train_counts()
+    mod, loss_auto, stamps = fit_steps(net, X, Y, dev, P["batch"],
+                                       arg_params=params0)
+    torch.cuda.synchronize()
+    auto_counts = train_counts()
+    auto_stats = tier.stats()
+    L = P["layers"]
+    want = {"flash_attn": L * steps, "scale_bias_act": L * steps,
+            "take_rows": steps, "flash_fwd": 0, "flash_attn_paged": 0}
+    log("train path, tier auto: %d steps, losses %s, launches %s, tier %s"
+        % (steps, ["%.5f" % x for x in loss_auto], auto_counts,
+           json.dumps(auto_stats["dispatch"])))
+    if auto_counts != want or auto_stats["fallback"]:
+        raise RuntimeError("tier auto: launches %s (expected %s), fallback "
+                           "%s" % (auto_counts, want,
+                                   auto_stats["fallback"]))
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    prof = step_profile(mod, X, Y)
+    del mod
+    torch.cuda.empty_cache()
+    # -- tier off from the same weights
+    reset_train_counts()
+    with mt.config.override(kernel_tier="off"):
+        mod_off, loss_off, _ = fit_steps(net, X, Y, dev, P["batch"],
+                                         arg_params=params0)
+    torch.cuda.synchronize()
+    off_counts = train_counts()
+    off_stats = tier.stats()
+    want_off = {"flash_attn": 0, "scale_bias_act": 0, "take_rows": 0,
+                "flash_fwd": L * steps, "flash_attn_paged": 0}
+    log("train path, tier off: losses %s, launches %s"
+        % (["%.5f" % x for x in loss_off], off_counts))
+    if off_counts != want_off or off_stats["dispatch"]:
+        raise RuntimeError("tier off: launches %s (expected %s), dispatch "
+                           "%s" % (off_counts, want_off,
+                                   off_stats["dispatch"]))
+    del mod_off
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_auto, loss_off))
+    if not all(np.isfinite(loss_auto + loss_off)) or loss_rel > 1e-4:
+        raise RuntimeError("losses disagree across tiers (worst relative "
+                           "%g) or are not finite" % loss_rel)
+    # -- step 1's gradients at both tiers
+    g_auto = step_grads(net, params0, X, Y, dev, "auto")
+    g_off = step_grads(net, params0, X, Y, dev, "off")
+    grad_rel = rel_grad_err(g_auto, g_off)
+    worst = max(grad_rel, key=grad_rel.get)
+    log("tiers agree: losses within %.3g relative; step-1 gradients within "
+        "%.3g of each tensor's largest magnitude (worst %s)"
+        % (loss_rel, grad_rel[worst], worst))
+    if grad_rel[worst] > 1e-3:
+        raise RuntimeError("step-1 gradients disagree across tiers: %s %g"
+                           % (worst, grad_rel[worst]))
+    del g_auto, g_off
+    torch.cuda.empty_cache()
+    # -- one batch repeated 6 times: the loss falls
+    Xr = np.tile(X[:P["batch"]], (6, 1))
+    Yr = np.tile(Y[:P["batch"]], (6, 1))
+    mod_r, loss_rep, _ = fit_steps(net, Xr, Yr, dev, P["batch"],
+                                   arg_params=params0)
+    del mod_r
+    torch.cuda.empty_cache()
+    log("one batch six times: losses %s" % ["%.5f" % x for x in loss_rep])
+    if not loss_rep[-1] < loss_rep[0]:
+        raise RuntimeError("the loss did not fall on a repeated batch")
+    # -- the numbers
+    n_dense = nparam - P["vocab"] * P["dim"] - P["seq_len"] * P["dim"]
+    T_ = P["seq_len"]
+    attn_flops = 3 * 4 * P["batch"] * P["heads"] * (T_ * (T_ + 1) // 2) \
+        * (P["dim"] // P["heads"]) * L
+    flops = 6 * n_dense * tokens + attn_flops
+    p50 = float(np.median(step_ms))
+    ref_bwd = reference_backward_ms(dev)
+    perf = {"step_ms": step_ms, "step_ms_p50": p50,
+            "tokens_per_s": tokens / (p50 / 1e3),
+            "model_flops_per_step": flops,
+            "model_flops_share_of_f32_peak": flops / (p50 / 1e3) / F32_FLOPS,
+            "reference_backward_ms_x12": 12 * ref_bwd, "profile": prof}
+    log("train step at GPT-2-small widths, batch 8 x 1024, f32: p50 %.2f ms "
+        "over steps 2-%d, %.0f tokens/s, %.2f TFLOP model FLOPs per step = "
+        "%.1f%% of the 67 TFLOP/s f32 peak  [%s]"
+        % (p50, steps, tokens / (p50 / 1e3), flops / 1e12,
+           100 * perf["model_flops_share_of_f32_peak"], card))
+    log("one step: forward %.2f ms, backward %.2f ms, update %.2f ms (CUDA "
+        "events), wall %.2f ms; profiled: %.2f ms wall, %.2f ms device (busy "
+        "%.1f%%), flash_attn.backward %.2f ms (%.1f%% of the device time), "
+        "scale_bias_act.backward %.2f ms; B3's reference backward alone x12: "
+        "%.2f ms  [%s]"
+        % (prof["forward_ms"], prof["backward_ms"], prof["update_ms"],
+           prof["wall_ms"], prof["profiled_wall_ms"], prof["device_ms"],
+           100 * prof["device_busy_share"], prof["flash_attn_backward_ms"],
+           100 * prof["flash_attn_backward_ms"] / prof["device_ms"],
+           prof["scale_bias_act_backward_ms"], 12 * ref_bwd, card))
+    log("top kernels of one step: " + "; ".join(
+        "%s %.2f ms x%d" % (k["name"][:60], k["ms"], k["calls"])
+        for k in prof["top_kernels"][:8]))
+    report.update(train={"launches_auto": auto_counts,
+                         "launches_off": off_counts,
+                         "tier_stats_auto": auto_stats,
+                         "losses_auto": loss_auto, "losses_off": loss_off,
+                         "loss_rel": loss_rel, "grad_rel": grad_rel,
+                         "losses_repeated": loss_rep, "perf": perf})
+    cut_depth_check(dev, report)
+    return {"scale_bias_act": auto_counts["scale_bias_act"],
+            "flash_attn": auto_counts["flash_attn"],
+            "take_rows": auto_counts["take_rows"],
+            "flash_fwd": off_counts["flash_fwd"]}
+
+
 # ------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -943,6 +1601,9 @@ def main():
     gpt_err, gpt_rows = gpt_kernel_phase(dev)
     report["decode_kernels"] = gpt_rows
     gpt_launches = gpt_main_path(dev, card, report)
+    train_err, train_rows = train_kernel_phase(dev)
+    report["train_kernels"] = train_rows
+    train_launches = train_main_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -955,12 +1616,36 @@ def main():
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": None})
     for kname in ("take_rows", "flash_attn", "flash_attn_paged"):
-        r = gpt_rows[kname]
+        # the decode path's kernels, two of them also on the training
+        # path: launches summed over the paths, the worst error, and the
+        # times at the shape of the path that launched the kernel most;
+        # each path's own numbers under "by_path"
+        paths = {"generate": (gpt_launches[kname],
+                              gpt_err[kname + "/float32"], gpt_rows[kname])}
+        if kname in train_launches:
+            paths["train"] = (train_launches[kname],
+                              train_err[kname + "@train/float32"],
+                              train_rows[kname + "@train"])
+        by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
+                           **{k: r[k] for k in TIME_KEYS})
+                   for p, (n, e, r) in paths.items()}
+        main_ = max(by_path.values(), key=lambda b: b["launches"])
         kernels.append({"name": kname, "route": "cuda",
                         "source": GPT_SOURCES[kname],
                         "replaces": GPT_REPLACES[kname],
-                        "launches": gpt_launches[kname],
-                        "max_abs_err": gpt_err[kname + "/float32"],
+                        "launches": sum(b["launches"]
+                                        for b in by_path.values()),
+                        "max_abs_err": max(b["max_abs_err"]
+                                           for b in by_path.values()),
+                        **{k: main_[k] for k in TIME_KEYS},
+                        "by_path": by_path})
+    for kname in ("scale_bias_act", "flash_fwd"):
+        r = train_rows[kname]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": TRAIN_SOURCES[kname],
+                        "replaces": TRAIN_REPLACES[kname],
+                        "launches": train_launches[kname],
+                        "max_abs_err": train_err[kname + "/float32"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})

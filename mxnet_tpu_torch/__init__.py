@@ -3,8 +3,11 @@
 The port serves ResNet predict artifacts (the op registry, Symbol and
 its JSON, the graph evaluator, the micro-batching server) and GPT
 generate artifacts (the decoder programs, continuous batching over a
-paged KV cache), through the kernel tier with hand-written CUDA kernels:
-``bn_act``, ``take_rows``, ``flash_attn`` and ``flash_attn_paged``.
+paged KV cache), and trains symbolic models through ``Module.fit`` (the
+executor's forward and backward, the fused train step, SGD and Adam).
+Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
+``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``
+and the legacy flash forward ``flash_fwd``.
 
 Importing does no device work and builds nothing. Entry points run on
 ``cuda:0`` unless the caller asks for the CPU (``device="cpu"`` or
@@ -18,6 +21,14 @@ from . import ops  # noqa: F401
 from . import symbol  # noqa: F401
 from . import symbol as sym  # noqa: F401
 from . import models  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import optimizer  # noqa: F401
+from . import io  # noqa: F401
+from . import metric  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401
+from . import parallel  # noqa: F401
 from . import kernels  # noqa: F401
 from . import serving  # noqa: F401
 from . import serve  # noqa: F401

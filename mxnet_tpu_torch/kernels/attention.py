@@ -1,4 +1,4 @@
-"""Flash attention, dense and paged, forward.
+"""Flash attention, dense (with its backward) and paged.
 
 Counterpart of ``mxnet_tpu/kernels/attention.py``. One online-softmax
 recurrence (f32 running max, sum and accumulator; masked scores -1e30
@@ -19,8 +19,10 @@ Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; CPU tensors take the plain torch version beside
 it (:func:`_plain_flash`, :func:`_plain_paged`), the same function.
 Every launch adds one to its kernel's entry in ``launches_by_kernel``;
-nothing else does. Forward only: the backward of ``flash_attn`` (the
-vjp of :func:`reference_attention`) comes with the training slice.
+nothing else does. ``flash_attention`` is differentiable: its backward
+is the vjp of :func:`reference_attention`, recomputed in plain torch as
+the JAX package's ``custom_vjp`` recomputes it (no backward kernel);
+the paged op serves decoding and has no backward.
 
 Guards keep the JAX package's reason strings where the rule is about
 the function: rank, dtype, k/v shape mismatch, causal cross-length,
@@ -216,21 +218,46 @@ def shape_key_shapes(q_shape, k_shape):
     return ((b * h, tq, d), (b * h, k_shape[2], d))
 
 
+class _FlashAttn(torch.autograd.Function):
+    """Forward: the kernel for CUDA tensors, its plain version for CPU
+    tensors. Backward: the vjp of :func:`reference_attention`,
+    recomputed from q, k, v (the JAX package's ``_fused_bwd``); it
+    launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        if q.device.type in ("cpu", "meta"):
+            return _plain_flash(q, k, v, causal)
+        if q.device.type != "cuda":
+            raise MXNetError("flash_attn: no kernel for %s tensors"
+                             % q.device.type)
+        return _launch_flash(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = [t.detach().requires_grad_(True)
+                   for t in ctx.saved_tensors]
+        # a named range, so that a profile can attribute the recompute
+        with torch.profiler.record_function("flash_attn.backward"), \
+                torch.enable_grad():
+            o = reference_attention(q, k, v, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), g)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal=True):
     """Flash attention over (B, H, T, D): the kernel for CUDA tensors,
-    its plain version for CPU tensors. Raises on guard failure
-    (call-sites consult :func:`eligible`/:func:`attend_or_none`)."""
+    its plain version for CPU tensors, differentiable through
+    :class:`_FlashAttn`. Raises on guard failure (call-sites consult
+    :func:`eligible`/:func:`attend_or_none`)."""
     reason = eligible(tuple(q.shape), tuple(k.shape), tuple(v.shape),
                       q.dtype, causal=causal)
     if reason is not None:
         raise ValueError("flash_attn guard: %s" % reason)
-    if q.device.type == "cpu":
-        return _plain_flash(q, k, v, causal)
-    if q.device.type != "cuda":
-        raise MXNetError("flash_attn: no kernel for %s tensors"
-                         % q.device.type)
-    return _launch_flash(q.contiguous(), k.contiguous(), v.contiguous(),
-                         causal)
+    return _FlashAttn.apply(q, k, v, bool(causal))
 
 
 def attend_or_none(q, k, v, *, causal=True):

@@ -12,8 +12,11 @@ the kernel does not take; a CPU tensor takes :func:`_plain_epilogue`,
 the same function in plain torch. Every launch adds one to ``launches``
 and to its form's entry in ``launches_by_kernel``; nothing else does.
 
-This slice is forward only: training mode computes batch statistics,
-but there is no backward yet, so a call that needs a gradient raises.
+The gradient (:class:`_BnAct`'s backward) differentiates
+:func:`_reference`, the unfused BatchNorm -> (+residual) -> act op
+composition, recomputed from the saved inputs, as the JAX package's
+``_fused_bwd`` does; it launches no kernel. The statistic outputs carry
+no gradient.
 """
 from __future__ import annotations
 
@@ -179,6 +182,55 @@ def _epilogue(x, sc, sh, r, act, config):
     raise MXNetError("bn_act: no kernel for %s tensors" % x.device.type)
 
 
+def _reference(data, gamma, beta, moving_mean, moving_var, residual, act,
+               **kw):
+    """The unfused op composition the backward differentiates."""
+    from ..ops import nn as _nn
+    out = _nn.batch_norm(data, gamma, beta, moving_mean, moving_var,
+                         eps=kw["eps"], momentum=kw["momentum"],
+                         fix_gamma=kw["fix_gamma"],
+                         use_global_stats=kw["use_global_stats"], axis=1,
+                         _training=kw["training"])[0]
+    if residual is not None:
+        out = out + residual
+    return torch.relu(out) if act == "relu" else out
+
+
+class _BnAct(torch.autograd.Function):
+    """Forward: the coefficients in plain torch, then the kernel (its
+    plain version on the CPU). Backward: the vjp of :func:`_reference`
+    for data, gamma, beta and the residual."""
+
+    @staticmethod
+    def forward(ctx, data, gamma, beta, moving_mean, moving_var, residual,
+                kw, act, config):
+        ctx.kw, ctx.act = kw, act
+        ctx.save_for_backward(data, gamma, beta, moving_mean, moving_var,
+                              residual)
+        sc, sh, mean, var, new_mean, new_var = _coefs(
+            data, gamma, beta, moving_mean, moving_var, **kw)
+        out = _epilogue(data, sc, sh, residual, act, config)
+        ctx.mark_non_differentiable(mean, var, new_mean, new_var)
+        return out, mean, var, new_mean, new_var
+
+    @staticmethod
+    def backward(ctx, g, *_stat_grads):
+        data, gamma, beta, mm, mv, residual = ctx.saved_tensors
+        leaves = [None if t is None else t.detach().requires_grad_(True)
+                  for t in (data, gamma, beta, residual)]
+        want = [t for t in leaves if t is not None]
+        with torch.profiler.record_function("bn_act.backward"), \
+                torch.enable_grad():
+            y = _reference(leaves[0], leaves[1], leaves[2], mm, mv,
+                           leaves[3], ctx.act, **ctx.kw)
+            # fix_gamma leaves gamma out of the graph: its gradient is 0
+            grads = iter(torch.autograd.grad(y, want, g, allow_unused=True))
+        dd, dg, db, dr = [None if t is None else next(grads) for t in leaves]
+        if dg is None:
+            dg = torch.zeros_like(gamma)
+        return dd, dg, db, None, None, dr, None, None, None
+
+
 # ------------------------------------------------------------------ public
 def fused_bn_act(data, gamma, beta, moving_mean, moving_var, residual=None,
                  *, eps=1e-3, momentum=0.9, fix_gamma=True,
@@ -195,16 +247,11 @@ def fused_bn_act(data, gamma, beta, moving_mean, moving_var, residual=None,
                       else tuple(residual.shape))
     if reason is not None:
         raise ValueError("fused_bn_act guard: %s" % reason)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (data, gamma, beta, residual)):
-        raise MXNetError("fused_bn_act has no backward in the port yet; "
-                         "run it under torch.inference_mode() or no_grad()")
     cfg = dict(DEFAULT_CONFIG)
     cfg.update(config or {})
-    sc, sh, mean, var, new_mean, new_var = _coefs(
-        data, gamma, beta, moving_mean, moving_var, eps=float(eps),
-        momentum=float(momentum), fix_gamma=bool(fix_gamma),
-        use_global_stats=bool(use_global_stats), training=bool(training))
-    out = _epilogue(data, sc, sh, residual, act, cfg)
-    return out, mean, var, new_mean, new_var
+    kw = dict(eps=float(eps), momentum=float(momentum),
+              fix_gamma=bool(fix_gamma),
+              use_global_stats=bool(use_global_stats),
+              training=bool(training))
+    return _BnAct.apply(data, gamma, beta, moving_mean, moving_var,
+                        residual, kw, act, cfg)

@@ -10,8 +10,10 @@ call-site of the paged-KV decode step.
 The wrapper launches the kernel for a CUDA table, and raises on what
 the kernel does not take; a CPU table takes :func:`_plain_take`, the
 same function in plain torch. Every launch adds one to ``launches``;
-nothing else does. Forward only: the embedding backward comes with the
-training slices.
+nothing else does. ``take_rows`` is differentiable: its backward
+(:class:`_TakeRows`) scatter-adds the cotangent rows at the clipped ids
+into a zero table (``index_add_``), the vjp of the clipped ``jnp.take``;
+the ids get no gradient.
 
 Guard: the JAX package's reasons, except its "not lane-aligned
 (multiple of 128)" rule for the embedding dim, which is the TPU's
@@ -141,16 +143,36 @@ def take_rows(weight, idx, *, config=None):
                       idx.dtype)
     if reason is not None:
         raise ValueError("take_rows guard: %s" % reason)
-    if weight.device.type == "cpu":
-        return _plain_take(weight, idx)
-    if weight.device.type != "cuda":
+    if weight.device.type not in ("cpu", "meta", "cuda"):
         raise MXNetError("take_rows: no kernel for %s tensors"
                          % weight.device.type)
     cfg = dict(DEFAULT_CONFIG)
     cfg.update(config or {})
     ids = idx.to(device=weight.device, dtype=torch.int32).reshape(-1)
-    out = _launch(weight, ids.contiguous(), cfg)
+    out = _TakeRows.apply(weight, ids.contiguous(), cfg)
     return out.reshape(tuple(idx.shape) + (weight.shape[1],))
+
+
+class _TakeRows(torch.autograd.Function):
+    """Forward: the clipped gather of int32 ids, the kernel for a CUDA
+    table and :func:`_plain_take` for a CPU one. Backward: the cotangent
+    rows added into a zero table at the clipped ids."""
+
+    @staticmethod
+    def forward(ctx, weight, ids, config):
+        ctx.save_for_backward(ids)
+        ctx.vocab = weight.shape[0]
+        if weight.device.type == "cuda":
+            return _launch(weight, ids, config)
+        return _plain_take(weight, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        dw = torch.zeros((ctx.vocab, g.shape[1]), dtype=g.dtype,
+                         device=g.device)
+        dw.index_add_(0, ids.long().clamp(0, ctx.vocab - 1), g)
+        return dw, None, None
 
 
 def gather_pages(table, idx):

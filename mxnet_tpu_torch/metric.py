@@ -1,0 +1,163 @@
+"""Evaluation metrics (counterpart of a subset of ``mxnet_tpu/metric.py``):
+``EvalMetric``, ``Accuracy``, ``CrossEntropy``, ``Perplexity`` and
+``create``. Labels and predictions are copied to the host as numpy
+arrays once per ``update_dict``; ``fit(eval_metric=None)`` calls no
+metric at all, so it reads nothing back from the device."""
+from __future__ import annotations
+
+import math
+
+import numpy as _np
+import torch
+
+__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "Perplexity",
+           "create", "register"]
+
+_METRIC_REGISTRY = {}
+
+
+def register(klass):
+    _METRIC_REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(metric, *args, **kwargs):
+    if isinstance(metric, EvalMetric):
+        return metric
+    name = str(metric).lower()
+    aliases = {"acc": "accuracy", "ce": "crossentropy"}
+    name = aliases.get(name, name)
+    try:
+        return _METRIC_REGISTRY[name](*args, **kwargs)
+    except KeyError:
+        raise ValueError("unknown metric %r; the port has %s"
+                         % (metric, sorted(_METRIC_REGISTRY))) from None
+
+
+def _as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if hasattr(x, "asnumpy"):
+        return x.asnumpy()
+    return _np.asarray(x)
+
+
+def _check(labels, preds):
+    if len(labels) != len(preds):
+        raise ValueError("labels/preds count mismatch: %d vs %d"
+                         % (len(labels), len(preds)))
+
+
+class EvalMetric:
+    def __init__(self, name, output_names=None, label_names=None, **kwargs):
+        self.name = str(name)
+        self.output_names = output_names
+        self.label_names = label_names
+        self._kwargs = kwargs
+        self.reset()
+
+    def update(self, labels, preds):
+        raise NotImplementedError
+
+    def update_dict(self, label, pred):
+        if self.output_names is not None:
+            pred = [pred[n] for n in self.output_names if n in pred]
+        else:
+            pred = list(pred.values())
+        if self.label_names is not None:
+            label = [label[n] for n in self.label_names if n in label]
+        else:
+            label = list(label.values())
+        self.update([_as_np(x) for x in label], [_as_np(x) for x in pred])
+
+    def reset(self):
+        self.num_inst = 0
+        self.sum_metric = 0.0
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, self.sum_metric / self.num_inst)
+
+    def get_name_value(self):
+        name, value = self.get()
+        if not isinstance(name, list):
+            name = [name]
+        if not isinstance(value, list):
+            value = [value]
+        return list(zip(name, value))
+
+    def __str__(self):
+        return "EvalMetric: %s" % dict(self.get_name_value())
+
+
+@register
+class Accuracy(EvalMetric):
+    def __init__(self, axis=1, name="accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.axis = axis
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _as_np(label)
+            pred = _as_np(pred)
+            if pred.ndim > label.ndim:
+                pred = pred.argmax(axis=self.axis)
+            pred = pred.astype(_np.int32).ravel()
+            label = label.astype(_np.int32).ravel()
+            self.sum_metric += (pred == label).sum()
+            self.num_inst += len(label)
+
+
+@register
+class Perplexity(EvalMetric):
+    def __init__(self, ignore_label=None, axis=-1, name="perplexity",
+                 output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.ignore_label = ignore_label
+        self.axis = axis
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        loss = 0.0
+        num = 0
+        for label, pred in zip(labels, preds):
+            label = _as_np(label).ravel().astype(_np.int64)
+            pred = _as_np(pred)
+            pred = pred.reshape(-1, pred.shape[-1])
+            probs = pred[_np.arange(label.shape[0]), label]
+            if self.ignore_label is not None:
+                ignore = label == self.ignore_label
+                probs = _np.where(ignore, 1.0, probs)
+                num -= ignore.sum()
+            loss -= _np.log(_np.maximum(probs, 1e-10)).sum()
+            num += label.shape[0]
+        self.sum_metric += loss
+        self.num_inst += num
+
+    def get(self):
+        if self.num_inst == 0:
+            return (self.name, float("nan"))
+        return (self.name, math.exp(self.sum_metric / self.num_inst))
+
+
+@register
+class CrossEntropy(EvalMetric):
+    def __init__(self, eps=1e-12, name="cross-entropy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.eps = eps
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _as_np(label).ravel()
+            pred = _as_np(pred)
+            if label.shape[0] != pred.shape[0]:
+                raise ValueError("CrossEntropy: %d labels for %d rows"
+                                 % (label.shape[0], pred.shape[0]))
+            prob = pred[_np.arange(label.shape[0]), label.astype(_np.int64)]
+            self.sum_metric += (-_np.log(prob + self.eps)).sum()
+            self.num_inst += label.shape[0]

@@ -1,6 +1,10 @@
-"""Shape operators of the serving slice (counterpart of a subset of
-``mxnet_tpu/ops/matrix.py``)."""
+"""Shape operators (counterpart of a subset of ``mxnet_tpu/ops/matrix.py``):
+Flatten, MXNet's Reshape with its special codes, transpose, expand_dims,
+squeeze, slice_axis, split and batch_dot. Each is a plain function on
+tensors that torch autograd differentiates."""
 from __future__ import annotations
+
+import torch
 
 from .registry import alias, register
 
@@ -11,3 +15,104 @@ def flatten(data):
 
 
 alias("Flatten", "flatten")
+
+
+def _reshape_target(src, shape, reverse):
+    """MXNet's target shape: 0 copies a dim, -1 infers one, -2 copies
+    the rest, -3 merges two, -4 splits one into the two that follow."""
+    src = list(src)
+    shape = list(shape)
+    if reverse:
+        src, shape = src[::-1], shape[::-1]
+    out = []
+    i = j = 0
+    while j < len(shape):
+        s = shape[j]
+        if s == 0:
+            out.append(src[i])
+            i += 1
+        elif s == -1:
+            out.append(-1)
+            i += 1
+        elif s == -2:
+            out.extend(src[i:])
+            i = len(src)
+        elif s == -3:
+            out.append(src[i] * src[i + 1])
+            i += 2
+        elif s == -4:
+            a, b = shape[j + 1], shape[j + 2]
+            if a == -1:
+                a = src[i] // b
+            if b == -1:
+                b = src[i] // a
+            out.extend([a, b])
+            i += 1
+            j += 2
+        else:
+            out.append(s)
+            if i < len(src):
+                i += 1
+        j += 1
+    return out[::-1] if reverse else out
+
+
+@register("Reshape")
+def reshape(data, *, shape=None, reverse=False):
+    """MXNet reshape with special codes 0 (copy dim), -1 (infer),
+    -2 (copy rest), -3 (merge two), -4 (split, consumes two following)."""
+    if shape is None:
+        raise ValueError("reshape requires shape")
+    return data.reshape(_reshape_target(data.shape, shape, reverse))
+
+
+alias("Reshape", "reshape")
+
+
+@register("transpose")
+def transpose(data, *, axes=None):
+    if axes is None or len(axes) == 0:
+        return data.permute(*reversed(range(data.dim())))
+    return data.permute(*axes)
+
+
+@register("expand_dims")
+def expand_dims(data, *, axis):
+    return data.unsqueeze(axis)
+
+
+@register("squeeze")
+def squeeze(data, *, axis=None):
+    if axis is None:
+        return data.squeeze()
+    return data.squeeze(tuple(axis) if isinstance(axis, (list, tuple))
+                        else axis)
+
+
+@register("slice_axis")
+def slice_axis(data, *, axis, begin=0, end=None):
+    idx = [slice(None)] * data.dim()
+    idx[axis] = slice(begin, end)
+    return data[tuple(idx)]
+
+
+@register("split", num_outputs=lambda p: int(p.get("num_outputs", 1)))
+def split(data, *, num_outputs, axis=1, squeeze_axis=False):
+    n = data.shape[axis]
+    if n % num_outputs:
+        raise ValueError("split: axis of %d not divisible into %d parts"
+                         % (n, num_outputs))
+    parts = torch.split(data, n // num_outputs, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+alias("split", "SliceChannel")
+
+
+@register("batch_dot")
+def batch_dot(lhs, rhs, *, transpose_a=False, transpose_b=False):
+    a = lhs.transpose(-1, -2) if transpose_a else lhs
+    b = rhs.transpose(-1, -2) if transpose_b else rhs
+    return torch.matmul(a, b)

@@ -1,9 +1,10 @@
-"""Neural-network operators of the ResNet serving slice, forward only.
+"""Neural-network operators of the serving and training slices.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution
 (2-D, NCHW data and OIHW weights, through ``F.conv2d``), Pooling,
-BatchNorm, Activation and SoftmaxOutput, each with the JAX op's keyword
-names and contract rather than torch's defaults:
+BatchNorm, LayerNorm, Activation, LeakyReLU, softmax, Embedding and
+SoftmaxOutput, each with the JAX op's keyword names and contract rather
+than torch's defaults:
 
 * BatchNorm returns the 5-tuple ``(out, batch_mean, batch_var,
   new_moving_mean, new_moving_var)``; the default eps is 1e-3, gamma is
@@ -13,6 +14,15 @@ names and contract rather than torch's defaults:
   without ``ceil_mode``: ``pooling_convention="full"`` adds the
   high-side padding the JAX op adds, and ``count_include_pad`` divides
   by the whole window, that extra padding included.
+* LayerNorm uses the biased variance and eps 1e-5; LeakyReLU's
+  ``gelu`` is the exact (erf) GeLU.
+* Embedding clips out-of-range ids to ``[0, input_dim - 1]``; at a kernel
+  tier other than ``off`` it gathers through ``kernels.take.take_rows``.
+* SoftmaxOutput is a loss head: its backward is ``softmax - onehot``
+  scaled by ``grad_scale`` and the normalization, and it ignores the
+  incoming cotangent (``_SoftmaxOutputGrad``).
+
+Every op is a function of tensors that torch autograd differentiates.
 """
 from __future__ import annotations
 
@@ -182,12 +192,134 @@ def activation(data, *, act_type="relu"):
                          % (act_type,)) from None
 
 
+@register("LeakyReLU")
+def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """``leaky`` and the exact (erf) ``gelu``; the JAX op's other
+    act_types are not ported."""
+    if act_type == "leaky":
+        return torch.where(data >= 0, data, slope * data)
+    if act_type == "gelu":
+        return F.gelu(data)
+    raise MXNetError("LeakyReLU: act_type %r is not ported" % (act_type,))
+
+
+@register("softmax")
+def softmax(data, *, axis=-1, temperature=None, length=None):
+    x = data / temperature if temperature else data
+    return torch.softmax(x, dim=axis)
+
+
+class _SoftmaxOutputGrad(torch.autograd.Function):
+    """The loss head's gradient, ``(softmax(data) - onehot(label)) *
+    scale``, whatever cotangent arrives (the JAX op's
+    ``_softmax_output_bwd``). A label outside ``[0, classes)`` (the
+    ignore label -1 among them) has an all-zero one-hot row."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, multi_output,
+                use_ignore, normalization, smooth_alpha):
+        out = torch.softmax(data, dim=1 if multi_output else -1)
+        ctx.save_for_backward(out, label)
+        ctx.hyper = (grad_scale, ignore_label, multi_output, use_ignore,
+                     normalization, smooth_alpha)
+        return out
+
+    @staticmethod
+    def backward(ctx, _g):
+        out, label = ctx.saved_tensors
+        (grad_scale, ignore_label, multi_output, use_ignore, normalization,
+         smooth_alpha) = ctx.hyper
+        axis = 1 if multi_output else out.dim() - 1
+        ncls = out.shape[axis]
+        lab = label.to(torch.int32)
+        if smooth_alpha:
+            classes = torch.arange(ncls, device=out.device)
+            oh = (lab.long().unsqueeze(-1) == classes).to(out.dtype)
+            oh = oh * (1.0 - smooth_alpha) + smooth_alpha / ncls
+            if multi_output:
+                oh = oh.movedim(-1, 1)
+            grad = out - oh
+        else:
+            # out - onehot without building the one-hot tensor
+            grad = out.movedim(axis, -1).clone(
+                memory_format=torch.contiguous_format)
+            rows = grad.reshape(-1, ncls)
+            ids = lab.reshape(-1).long()
+            hit = ((ids >= 0) & (ids < ncls)).nonzero().squeeze(1)
+            rows[hit, ids[hit]] -= 1.0
+            grad = grad.movedim(-1, axis)
+        valid = lab != int(ignore_label)
+        if use_ignore:
+            grad = grad * valid.unsqueeze(axis).to(grad.dtype)
+        scale = grad_scale
+        if normalization == "batch":
+            scale = scale / out.shape[0]
+        elif normalization == "valid" and use_ignore:
+            scale = scale / valid.to(grad.dtype).sum().clamp_min(1.0)
+        return grad * scale, None, None, None, None, None, None, None
+
+
 @register("SoftmaxOutput")
 def softmax_output(data, label=None, *, grad_scale=1.0, ignore_label=-1.0,
                    multi_output=False, use_ignore=False, preserve_shape=False,
                    normalization="null", out_grad=False, smooth_alpha=0.0):
-    """Forward of the loss head: the softmax, with or without a label."""
-    return torch.softmax(data, dim=1 if multi_output else -1)
+    """The softmax; with a label, a loss head whose gradient is
+    :class:`_SoftmaxOutputGrad`'s."""
+    if label is None:
+        return torch.softmax(data, dim=1 if multi_output else -1)
+    return _SoftmaxOutputGrad.apply(
+        data, label, float(grad_scale), float(ignore_label),
+        bool(multi_output), bool(use_ignore), str(normalization),
+        float(smooth_alpha))
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm and Embedding
+# ---------------------------------------------------------------------------
+
+@register("LayerNorm")
+def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
+               output_mean_var=False):
+    axis = axis % data.dim()
+    if axis == data.dim() - 1:
+        return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
+    mean = data.mean(axis, keepdim=True)
+    var = data.var(axis, correction=0, keepdim=True)
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape)
+            + beta.reshape(shape))
+
+
+def _maybe_take_rows(data, weight):
+    """The tier's row gather (``kernels.take``) when the policy and the
+    guard allow, else None."""
+    from ..base import dtype_name
+    from ..kernels import take as _take
+    from ..kernels import tier as _tier
+    if not _tier.enabled():
+        return None
+    reason = _take.eligible(tuple(weight.shape), weight.dtype,
+                            tuple(data.shape), data.dtype)
+    go, cfg = _tier.should_dispatch(
+        _take.OP_NAME, _take.shape_key_shapes(tuple(weight.shape),
+                                              tuple(data.shape)),
+        dtype_name(weight.dtype), _take.DEFAULT_CONFIG, guard_reason=reason)
+    if not go:
+        return None
+    return _take.take_rows(weight, data, config=cfg)
+
+
+@register("Embedding")
+def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
+              sparse_grad=False):
+    out = _maybe_take_rows(data, weight)
+    if out is not None:
+        return out
+    # clip mode, as the JAX op and the kernel take out-of-range ids
+    from ..kernels import take as _take
+    return _take._plain_take(weight, data)
 
 
 # ---------------------------------------------------------------------------
@@ -253,4 +385,24 @@ set_op_meta("BatchNorm", shape_hook=_bn_shapes, aux_inputs=(3, 4),
             aux_outputs=(3, 4),
             num_visible_outputs=lambda p: 3 if p.get("output_mean_var")
             else 1)
+def _ln_shapes(ins, p):
+    data = ins[0]
+    out = list(ins)
+    if data is not None:
+        c = (data[int(p.get("axis", -1)) % len(data)],)
+        for i in range(1, min(3, len(ins))):
+            if out[i] is None:
+                out[i] = c
+    return out
+
+
+def _embedding_shapes(ins, p):
+    out = list(ins)
+    if len(ins) > 1 and ins[1] is None:
+        out[1] = (int(p["input_dim"]), int(p["output_dim"]))
+    return out
+
+
 set_op_meta("SoftmaxOutput", shape_hook=_softmax_out_shapes)
+set_op_meta("LayerNorm", shape_hook=_ln_shapes)
+set_op_meta("Embedding", shape_hook=_embedding_shapes)

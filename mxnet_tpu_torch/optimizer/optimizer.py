@@ -1,0 +1,275 @@
+"""Optimizers (counterpart of a subset of ``mxnet_tpu/optimizer/optimizer.py``).
+
+``Optimizer`` keeps the JAX package's bookkeeping: per-parameter update
+counts, the learning rate (or schedule) times ``lr_mult``, the weight
+decay times ``wd_mult`` (0 for every parameter whose name ends neither
+in ``_weight`` nor in ``_gamma``, so biases and betas do not decay;
+``__lr_mult__``/``__wd_mult__`` symbol attributes override). ``SGD``
+(with momentum) and ``Adam`` have two forms:
+
+* the eager ``update(index, weight, grad, state)`` the ``Updater``
+  applies per parameter (Adam's bias correction folded into ``lr_t`` in
+  Python floats);
+* ``fused_ops()`` -> ``(state_init, update)`` for the fused train step,
+  ``update(w, g, state, lr, wd, rescale, t) -> (w, state)`` with lr, wd
+  and rescale as f32 scalars and the bias correction in f32.
+
+Both update the weight and the state tensors in place (the counterpart
+of the JAX package donating them to XLA) through the same functions,
+whose gradient preparation keeps the order of
+``mxnet_tpu/ops/optimizer_ops.py``: rescale, then clip, then ``+ wd*w``.
+The other optimizers of the JAX package are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as _np
+import torch
+
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "Updater",
+           "get_updater"]
+
+_OPT_REGISTRY = {}
+
+
+def register(klass):
+    _OPT_REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+def create(name, **kwargs):
+    try:
+        return _OPT_REGISTRY[name.lower()](**kwargs)
+    except KeyError:
+        raise ValueError("Cannot find optimizer %s; candidates: %s"
+                         % (name, sorted(_OPT_REGISTRY))) from None
+
+
+# --------------------------------------------------------------- the math
+def _prep(grad, rescale, clip, wd, weight):
+    g = grad * rescale
+    if clip is not None and clip > 0:
+        g = g.clamp(-clip, clip)
+    return g + wd * weight
+
+
+@torch.no_grad()
+def sgd_update_(weight, grad, *, lr, wd=0.0, rescale_grad=1.0,
+                clip_gradient=-1.0):
+    """w -= lr * g, in place."""
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
+    weight.sub_(lr * g)
+    return weight
+
+
+@torch.no_grad()
+def sgd_mom_update_(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    """mom = momentum * mom - lr * g; w += mom, in place."""
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
+    mom.mul_(momentum).sub_(lr * g)
+    weight.add_(mom)
+    return weight, mom
+
+
+@torch.no_grad()
+def adam_update_(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """The moments and w -= lr * mean / (sqrt(var) + eps), in place
+    (``lr`` already carries the bias correction)."""
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
+    mean.mul_(beta1).add_((1 - beta1) * g)
+    var.mul_(beta2).add_((1 - beta2) * g.square())
+    weight.sub_(lr * mean / (var.sqrt() + epsilon))
+    return weight, mean, var
+
+
+class Optimizer:
+    """Base optimizer: schedule, multipliers and update counts."""
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0):
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.wd = wd
+        self.clip_gradient = clip_gradient
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
+        self.idx2name = dict(param_idx2name or {})
+        self.sym_info = ((sym.attr_dict(), sym.list_arguments())
+                         if sym is not None else None)
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    def create_state(self, index, weight):
+        return None
+
+    def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise UserWarning("LRScheduler overwrites learning rate")
+        self.lr = lr
+
+    def _sym_mults(self, key):
+        out = {}
+        if self.sym_info:
+            attr, arg_names = self.sym_info
+            for name in arg_names:
+                if name in attr and key in attr[name]:
+                    out[name] = float(attr[name][key])
+        return out
+
+    def set_lr_mult(self, args_lr_mult):
+        self.lr_mult = self._sym_mults("__lr_mult__")
+        self.lr_mult.update(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Names not ending in ``_weight``/``_gamma`` get wd 0; symbol
+        ``__wd_mult__`` attrs and ``args_wd_mult`` override."""
+        self.wd_mult = {n: 0.0 for n in self.idx2name.values()
+                        if not (n.endswith("_weight")
+                                or n.endswith("_gamma"))}
+        self.wd_mult.update(self._sym_mults("__wd_mult__"))
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _name(self, index):
+        return self.idx2name.get(index, index if isinstance(index, str)
+                                 else None)
+
+    def _get_lr(self, index, num_update=None):
+        """lr for a param; ``num_update`` overrides the schedule position
+        (the fused step peeks at the count before committing it)."""
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self.num_update if num_update is None
+                                   else num_update)
+        else:
+            lr = self.lr
+        return lr * self.lr_mult.get(self._name(index), 1.0)
+
+    def _get_wd(self, index):
+        return self.wd * self.wd_mult.get(self._name(index), 1.0)
+
+    def _clip_const(self):
+        return -1.0 if self.clip_gradient is None else self.clip_gradient
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError
+
+    def fused_ops(self):
+        """``(state_init, update)`` for the fused train step, or None.
+        ``state_init(w)`` -> tuple of state tensors (the eager
+        ``create_state`` result flattened: None -> (), x -> (x,));
+        ``update(w, g, state, lr, wd, rescale, t)`` updates w and the
+        state in place and returns ``(w, state)``."""
+        return None
+
+
+@register
+class SGD(Optimizer):
+    """SGD with optional momentum."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip_const())
+        if state is None:
+            sgd_update_(weight, grad, **kw)
+        else:
+            sgd_mom_update_(weight, grad, state, momentum=self.momentum,
+                            **kw)
+
+    def fused_ops(self):
+        mom, clip = self.momentum, self._clip_const()
+        if mom == 0.0:
+            def upd0(w, g, s, lr, wd, rescale, t):
+                sgd_update_(w, g, lr=lr, wd=wd, rescale_grad=rescale,
+                            clip_gradient=clip)
+                return w, ()
+            return (lambda w: ()), upd0
+
+        def upd(w, g, s, lr, wd, rescale, t):
+            sgd_mom_update_(w, g, s[0], lr=lr, momentum=mom, wd=wd,
+                            rescale_grad=rescale, clip_gradient=clip)
+            return w, s
+        return (lambda w: (torch.zeros_like(w),)), upd
+
+
+@register
+class Adam(Optimizer):
+    """Adam; the bias correction is folded into ``lr_t``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, lazy_update=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lazy_update = lazy_update
+
+    def create_state(self, index, weight):
+        return (torch.zeros_like(weight), torch.zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr_t = lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        adam_update_(weight, grad, state[0], state[1], lr=lr_t,
+                     beta1=self.beta1, beta2=self.beta2,
+                     epsilon=self.epsilon, wd=wd,
+                     rescale_grad=self.rescale_grad,
+                     clip_gradient=self._clip_const())
+
+    def fused_ops(self):
+        b1, b2, eps, clip = self.beta1, self.beta2, self.epsilon, \
+            self._clip_const()
+        one = _np.float32(1.0)
+
+        def upd(w, g, s, lr, wd, rescale, t):
+            tf = _np.float32(t)
+            lr_t = _np.float32(lr) * _np.sqrt(one - _np.float32(b2) ** tf) \
+                / (one - _np.float32(b1) ** tf)
+            adam_update_(w, g, s[0], s[1], lr=float(lr_t), beta1=b1,
+                         beta2=b2, epsilon=eps, wd=wd, rescale_grad=rescale,
+                         clip_gradient=clip)
+            return w, s
+        return (lambda w: (torch.zeros_like(w), torch.zeros_like(w))), upd
+
+
+class Updater:
+    """Applies (index, grad, weight) to the optimizer, creating each
+    index's state at its first update."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        self.optimizer.update(index, weight, grad, self.states[index])
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

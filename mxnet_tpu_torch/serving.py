@@ -36,7 +36,7 @@ import torch
 
 from .base import MXNetError, dtype_name, normalize_dtype
 from .context import resolve_device
-from .executor import _graph_eval_fn
+from .executor import _as_tensor, _graph_eval_fn
 from .kernels import graph_fuse as _gfuse
 from .kernels import tier as _tier
 from .symbol import load_json
@@ -58,15 +58,6 @@ def _probe_shapes(data_shapes):
     """Concrete shapes for inference: a symbolic batch becomes 2."""
     return {k: tuple(2 if _is_dynamic_dim(d) else int(d) for d in v)
             for k, v in data_shapes.items()}
-
-
-def _as_tensor(v):
-    """numpy array, torch tensor or anything with .asnumpy() -> tensor."""
-    if isinstance(v, torch.Tensor):
-        return v.detach()
-    if hasattr(v, "asnumpy"):
-        v = v.asnumpy()
-    return torch.from_numpy(_np.ascontiguousarray(v))
 
 
 def _label_names(symbol, arg_params, data_shapes):
@@ -133,7 +124,8 @@ def _kernel_census(symbol):
     plans, _ = _gfuse.plan(symbol._topo(), list(symbol._entries))
     census = {}
     for p in plans.values():
-        name = p.kind + ("_res" if p.res_entry is not None else "")
+        name = p.kind + ("_res" if p.kind == "bn_act"
+                         and p.res_entry is not None else "")
         census[name] = census.get(name, 0) + 1
     return census
 

@@ -1,7 +1,10 @@
 """Symbolic API: ``Variable``, the graph containers, JSON load, and one
-constructor per registered op (``symbol.Convolution(...)``)."""
+constructor per registered op (``symbol.Convolution(...)``), and the
+``contrib`` namespace (``symbol.contrib.FlashAttention(...)``)."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .symbol import Group, Symbol, Variable, load_json, var  # noqa: F401
 from . import register as _register
 
 _register.populate(__name__)
+
+from . import contrib  # noqa: E402,F401

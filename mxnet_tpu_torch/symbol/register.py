@@ -52,3 +52,12 @@ def populate(module_name):
     mod = sys.modules[module_name]
     for name in _registry.list_ops():
         setattr(mod, name, _make_op_func(_registry.get(name)))
+
+
+def populate_contrib(module_name):
+    """``_contrib_X`` ops as ``X`` in the contrib namespace."""
+    mod = sys.modules[module_name]
+    for name in _registry.list_ops():
+        if name.startswith("_contrib_"):
+            setattr(mod, name[len("_contrib_"):],
+                    _make_op_func(_registry.get(name)))

@@ -19,6 +19,7 @@ import warnings
 import torch
 
 from ..base import MXNetError
+from ..config import override
 from ..name import current as _name_current
 from ..ops import registry as _registry
 
@@ -116,11 +117,38 @@ class Symbol:
                 out.append("%s_output" % node.name)
         return out
 
+    def attr_dict(self):
+        """{node name: user attrs} for every node that has any."""
+        return {n.name: dict(n.attrs) for n in self._topo() if n.attrs}
+
+    # ------------------------------------------------------------ operators
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError("the port's Symbol adds only Symbols, got %r"
-                            % type(other))
-        return invoke_sym("broadcast_add", [self, other], {})
+        return _sym_binary("broadcast_add", "_plus_scalar", self, other)
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __mul__(self, other):
+        return _sym_binary("broadcast_mul", "_mul_scalar", self, other)
+
+    def __rmul__(self, other):
+        return self.__mul__(other)
+
+    # ----------------------------------------------------------------- bind
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over the given
+        tensors (dicts by name, or lists in ``list_arguments`` order)."""
+        from ..executor import Executor
+        return Executor(self, ctx, args, args_grad, grad_req, aux_states)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **shapes):
+        """Infer every shape from the given ones, allocate zeros (and
+        gradient buffers where ``grad_req`` is not 'null'), bind."""
+        from ..executor import simple_bind
+        return simple_bind(self, ctx, grad_req=grad_req,
+                           type_dict=type_dict, **shapes)
 
     def __repr__(self):
         return "<Symbol %s>" % self.name
@@ -198,6 +226,12 @@ def invoke_sym(op_name, inputs, params, name=None):
     return Symbol([(node, i) for i in range(n_out)])
 
 
+def _sym_binary(op_name, scalar_op, lhs, rhs):
+    if isinstance(rhs, Symbol):
+        return invoke_sym(op_name, [lhs, rhs], {})
+    return invoke_sym(scalar_op, [lhs], {"scalar": float(rhs)})
+
+
 def Variable(name, attr=None, shape=None):
     """A graph input; ``shape`` (stored as ``__shape__``) seeds shape
     inference."""
@@ -253,8 +287,11 @@ def _infer_shapes(sym, known_var_shapes):
         if any(s is None for s in in_shapes):
             continue
         try:
-            out = n.op.fn(*[torch.empty(s, device="meta")
-                            for s in in_shapes], **n.params)
+            # tier off: an op that dispatches to a kernel records no
+            # dispatch for a shape probe
+            with override(kernel_tier="off"):
+                out = n.op.fn(*[torch.empty(s, device="meta")
+                                for s in in_shapes], **n.params)
         except Exception:
             continue
         outs = out if isinstance(out, tuple) else (out,)

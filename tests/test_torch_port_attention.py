@@ -214,3 +214,25 @@ def test_tier_dispatch_and_fallback_are_recorded():
 
 def test_tier_stats_keys_match_the_jax_package():
     assert set(ttier.stats()) == set(jtier.stats())
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 64, 16), (1, 2, 40, 8)])
+def test_flash_attention_grads_match_jax_grad(shape):
+    """The backward (the vjp of ``reference_attention``, recomputed)
+    against ``jax.grad`` through the JAX kernel's ``custom_vjp``, on
+    the same cotangent: f32 within atol/rtol 1e-5."""
+    import jax
+    q, k, v = _qkv(shape, seed=7)
+    cot = np.random.RandomState(8).randn(*shape).astype(np.float32)
+    with jconfig.override(kernel_tier="auto"):
+        want = jax.grad(lambda a, b, c: jnp.sum(jattn.flash_attention(
+            a, b, c, causal=True, config={"block_q": 16, "block_k": 16})
+            * jnp.asarray(cot)), argnums=(0, 1, 2))(
+                *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    (tattn.flash_attention(tq, tk, tv, causal=True)
+     * torch.from_numpy(cot)).sum().backward()
+    for got, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(got.grad.numpy(), _np(w), rtol=1e-5,
+                                   atol=1e-5)

@@ -126,17 +126,75 @@ def test_guard_failure_raises_like_jax():
 
 
 def test_wrapper_refuses_meta_tensors_and_gradients():
+    """Meta tensors have no kernel; a gradient request runs the forward
+    and its recomputed backward (statistic outputs carry none)."""
     x = torch.empty(2, 4, 3, 3, device="meta")
     v = torch.ones(4, device="meta")
     with pytest.raises(mt.MXNetError, match="no kernel for meta"):
         tbn.fused_bn_act(x, v, v, v, v, training=False)
     xg = torch.randn(2, 4, 3, 3, requires_grad=True)
     w = torch.ones(4)
-    with pytest.raises(mt.MXNetError, match="no backward"):
-        tbn.fused_bn_act(xg, w, w, w, w, training=False)
+    out = tbn.fused_bn_act(xg, w, w, w, w, training=False)
+    assert out[0].requires_grad and not out[1].requires_grad
+    out[0].sum().backward()
+    assert xg.grad.shape == xg.shape
     with torch.inference_mode():
         y = tbn.fused_bn_act(xg, w, w, w, w, training=False)[0]
     assert y.shape == xg.shape
+
+
+_GRAD_CASES = [((2, 16, 7, 7), False, True, False),
+               ((2, 16, 7, 7), True, True, False),
+               ((3, 5, 4, 6), True, False, False),
+               ((1, 3, 13, 11), False, True, True),
+               ((3, 5, 4, 6), True, True, True)]
+
+
+@pytest.mark.parametrize("shape,residual,training,fix_gamma", _GRAD_CASES)
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_fused_bn_act_gradients_match_jax(shape, residual, training,
+                                          fix_gamma, dt):
+    """Gradients of data, gamma, beta and the residual against jax.grad
+    through the JAX package's custom_vjp (its Pallas forward in interpret
+    mode), for a random head gradient; with fix_gamma, gamma's is 0. f32
+    within rtol 1e-4 / atol 1e-5; bf16 within a relative L2 error of one
+    bf16 ulp (gamma's and beta's elements sum N*H*W products that both
+    sides round in bf16, in other orders)."""
+    import jax
+    d = _inputs(shape, residual, seed=sum(shape) + 1)
+    head = np.random.RandomState(9).randn(*shape).astype(np.float32)
+    kw = dict(eps=2e-5, momentum=0.9, fix_gamma=fix_gamma, act="relu",
+              training=training)
+    names = ["x", "gamma", "beta"] + (["r"] if residual else [])
+
+    def jfn(*vals):
+        a = dict(zip(names, vals))
+        out = jbn.fused_bn_act(a["x"], a["gamma"], a["beta"],
+                               jnp.asarray(d["mm"]), jnp.asarray(d["mv"]),
+                               a.get("r"), **kw)[0]
+        return jnp.sum(out.astype(jnp.float32) * head)
+
+    jvals = [jnp.asarray(d[n], _JDT[dt] if n in ("x", "r") else jnp.float32)
+             for n in names]
+    with jconfig.override(kernel_tier="auto"):
+        want = jax.grad(jfn, argnums=tuple(range(len(names))))(*jvals)
+    tvals = [torch.from_numpy(d[n]).to(_TDT[dt] if n in ("x", "r")
+                                       else torch.float32)
+             .requires_grad_(True) for n in names]
+    a = dict(zip(names, tvals))
+    out = tbn.fused_bn_act(a["x"], a["gamma"], a["beta"],
+                           torch.from_numpy(d["mm"]),
+                           torch.from_numpy(d["mv"]), a.get("r"), **kw)[0]
+    (out.float() * torch.from_numpy(head)).sum().backward()
+    for n, t, w in zip(names, tvals, want):
+        got, w = t.grad.float().numpy(), np.asarray(jnp.asarray(w,
+                                                               jnp.float32))
+        if dt == "float32":
+            np.testing.assert_allclose(got, w, rtol=1e-4, atol=1e-5,
+                                       err_msg=n)
+        else:
+            err = np.linalg.norm(got - w)
+            assert err <= 2 ** -7 * np.linalg.norm(w), (n, err)
 
 
 def test_plain_epilogue_is_one_rounding_of_f32_math():

@@ -1,8 +1,9 @@
 """Port tests that need the card: each CUDA kernel (``bn_act``,
-``take_rows``, ``flash_attn``, ``flash_attn_paged``) against its plain
-torch version, the wrappers' checks and launch counts, and small models
-(a ResNet-20 predictor, a GPT decoder in generate mode) served on the
-card against the same artifact on the CPU.
+``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
+``flash_fwd``) against its plain torch version, forward and (for the
+training kernels and ``bn_act``) backward, the wrappers' checks and launch counts, and
+small models (a ResNet-20 predictor, a GPT decoder in generate mode, a
+2-layer GPT trained by ``Module.fit``) on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -26,7 +27,10 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels import attention as tattn
 from mxnet_tpu_torch.kernels import bn_act as tbn
+from mxnet_tpu_torch.kernels import mlp as tmlp
 from mxnet_tpu_torch.kernels import take as ttake
+from mxnet_tpu_torch.ops import pallas_flash as tpf
+from mxnet_tpu_torch.parallel import blockwise_attention
 from mxnet_tpu_torch.serve import decode_model as tdm
 
 pytestmark = pytest.mark.gpu
@@ -263,3 +267,173 @@ def test_generate_on_the_card_matches_the_cpu(cuda, tmp_path):
         finally:
             srv.close()
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# ------------------------------------------------- training kernels (B5, B7)
+def _grads(fn, *inputs, seed=0):
+    """(out, grads) of sum(fn(*inputs) * cot) for the float inputs."""
+    leaves = [None if t is None else t.detach().clone().requires_grad_(
+        t.is_floating_point()) for t in inputs]
+    out = fn(*leaves)
+    g = torch.Generator().manual_seed(seed)
+    cot = torch.randn(out.shape, generator=g).to(out.device)
+    (out.float() * cot).sum().backward()
+    return out, [None if t is None else t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("training", [False, True])
+def test_bn_act_backward_on_the_card(cuda, residual, training):
+    """The fused BatchNorm epilogue under autograd launches its kernel
+    once; the gradients of data, gamma, beta and the residual equal
+    autograd through the unfused reference on the card."""
+    x, _sc, _sh, r = _case((4, 16, 7, 7), torch.float32, residual, cuda)
+    g = torch.Generator().manual_seed(3)
+    gamma, beta = (torch.rand(16, generator=g) + 0.5).to(cuda), \
+        torch.randn(16, generator=g).to(cuda)
+    mm, mv = torch.zeros(16, device=cuda), torch.ones(16, device=cuda)
+    kw = dict(eps=2e-5, momentum=0.9, fix_gamma=False,
+              use_global_stats=False, training=training)
+    before = tbn.launches
+    out, got = _grads(lambda a, b, c, d: tbn.fused_bn_act(
+        a, b, c, mm, mv, d, act="relu", **kw)[0], x, gamma, beta, r)
+    torch.cuda.synchronize()
+    assert tbn.launches == before + 1
+    ref, want = _grads(lambda a, b, c, d: tbn._reference(
+        a, b, c, mm, mv, d, "relu", **kw), x, gamma, beta, r)
+    _assert_kernel_matches_plain(out.detach(), ref.detach())
+    for a, b in zip(got, want):
+        if b is not None:
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("shape", [(8192, 3072), (1000, 3000), (3, 5, 7),
+                                   (2, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "gelu", "identity"])
+@pytest.mark.parametrize("with_scale", [False, True])
+def test_scale_bias_act_matches_plain(cuda, shape, dtype, act, with_scale):
+    g = torch.Generator().manual_seed(shape[-1])
+    F = shape[-1]
+    x = torch.randn(shape, generator=g).to(cuda, dtype)
+    sc = (torch.rand(F, generator=g) * 2 - 0.5).to(cuda) if with_scale \
+        else None
+    b = torch.randn(F, generator=g).to(cuda)
+    before = tmlp.launches
+    got = tmlp.fused_scale_bias_act(x, sc, b, act=act)
+    torch.cuda.synchronize()
+    assert tmlp.launches == before + 1
+    _assert_kernel_matches_plain(got, tmlp._plain_scale_bias_act(
+        x, sc, b, act))
+    # the backward is the reference's vjp on either device
+    out, grads = _grads(lambda a, s, c: tmlp.fused_scale_bias_act(
+        a, s, c, act=act), x, sc, b)
+    _out, want = _grads(lambda a, s, c: tmlp._reference(a, s, c, act),
+                        x, sc, b)
+    for got_g, want_g in zip(grads, want):
+        if want_g is not None:
+            torch.testing.assert_close(got_g, want_g, rtol=1e-6, atol=1e-6)
+
+
+def test_scale_bias_act_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(4, 8, device=cuda)
+    b = torch.randn(8, device=cuda)
+    for bad in (x.t(), x.half()):
+        with pytest.raises(mt.MXNetError):
+            tmlp._launch(bad, None, b[:bad.shape[-1]], "relu",
+                         tmlp.DEFAULT_CONFIG)
+    with pytest.raises(mt.MXNetError, match="bias must be"):
+        tmlp._launch(x, None, b.cpu(), "relu", tmlp.DEFAULT_CONFIG)
+    with pytest.raises(mt.MXNetError, match="unsupported activation"):
+        tmlp._launch(x, None, b, "swish", tmlp.DEFAULT_CONFIG)
+
+
+@pytest.mark.parametrize("case", [
+    ((2, 3, 128, 64), (2, 3, 128, 64), True),
+    ((2, 3, 128, 64), (2, 3, 128, 64), False),
+    ((1, 2, 100, 64), (1, 2, 100, 64), True),
+    ((1, 2, 100, 64), (1, 2, 60, 64), True),
+    ((1, 2, 60, 32), (1, 2, 100, 32), True),
+    ((2, 2, 37, 8), (2, 2, 90, 8), False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_matches_plain(cuda, case, dtype):
+    qs, ks, causal = case
+    g = torch.Generator().manual_seed(qs[2] + ks[2])
+    q = torch.randn(qs, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(ks, generator=g).to(cuda, dtype) for _ in range(2))
+    before = tpf.launches
+    got = tpf.flash_attention(q, k, v, 128, 128, causal)
+    torch.cuda.synchronize()
+    assert tpf.launches == before + 1
+    _assert_attn_close(got, blockwise_attention(q, k, v, tpf.KV_TILE,
+                                                causal))
+    if causal and qs[2] > ks[2]:
+        assert bool((got[:, :, :qs[2] - ks[2]] == 0).all())
+    if dtype == torch.float32:
+        _out, grads = _grads(lambda a, b, c: tpf.flash_attention(
+            a, b, c, 128, 128, causal), q, k, v)
+        _out, want = _grads(lambda a, b, c: blockwise_attention(
+            a, b, c, 128, causal), q, k, v)
+        for got_g, want_g in zip(grads, want):
+            torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=2e-5)
+
+
+def test_flash_fwd_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(1, 2, 8, 16, device=cuda)
+    with pytest.raises(mt.MXNetError):
+        tpf._launch(q.half(), q.half(), q.half(), True)
+    with pytest.raises(mt.MXNetError):
+        tpf._launch(q.transpose(2, 3), q, q, True)
+    big = torch.randn(1, 1, 8, 192, device=cuda)
+    with pytest.raises(mt.MXNetError, match="head_dim"):
+        tpf._launch(big, big, big, False)
+
+
+def test_flash_attn_and_take_rows_backwards_on_the_card(cuda):
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 3, 128, 64, generator=g).to(cuda)
+               for _ in range(3))
+    _o, grads = _grads(lambda a, b, c: tattn.flash_attention(
+        a, b, c, causal=True), q, k, v)
+    _o, want = _grads(lambda a, b, c: tattn.reference_attention(
+        a, b, c, True), q, k, v)
+    for got_g, want_g in zip(grads, want):
+        torch.testing.assert_close(got_g, want_g, rtol=1e-4, atol=2e-5)
+    table = torch.randn(500, 768, generator=g).to(cuda)
+    ids = torch.randint(-20, 520, (8, 64), generator=g).to(cuda)
+    _o, (dw, _) = _grads(lambda w, i: ttake.take_rows(w, i), table, ids)
+    _o, (want_dw, _) = _grads(lambda w, i: ttake._plain_take(w, i), table,
+                              ids)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-5, atol=1e-5)
+
+
+def test_gpt_fit_on_the_card_matches_the_cpu(cuda):
+    """Two layers of the GPT at T 128, batch 2, two Adam steps at tier
+    auto: the card (kernels) and the CPU (plain versions) end within
+    1e-4 of each other, and every step launched each kernel."""
+    vocab, dim, heads, layers, T, B = 512, 256, 4, 2, 128, 2
+    net = mt.models.gpt_lm(vocab, dim, heads, layers, T)
+    rng = np.random.RandomState(0)
+    xs, ys = zip(*[mt.models.make_copy_batch(rng, B, T, vocab, 17)
+                   for _ in range(2)])
+    X, Y = np.concatenate(xs), np.concatenate(ys)
+    params = {}
+    for dev in ("cpu", cuda):
+        mod = mt.mod.Module(net, context=dev)
+        before = (tmlp.launches, tattn.launches_by_kernel["flash_attn"],
+                  ttake.launches)
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                kvstore="tpu_sync", optimizer="adam",
+                optimizer_params={"learning_rate": 3e-4, "wd": 0.01,
+                                  "epsilon": 1e-4},
+                initializer=mt.init.Xavier(seed=0), eval_metric=None)
+        after = (tmlp.launches, tattn.launches_by_kernel["flash_attn"],
+                 ttake.launches)
+        if dev != "cpu":
+            assert [a - b for a, b in zip(after, before)] == \
+                [2 * layers, 2 * layers, 2]
+        params[str(dev)] = {k: v.cpu() for k, v in mod.get_params()[0]
+                            .items()}
+    for k, v in params["cpu"].items():
+        torch.testing.assert_close(params[str(cuda)][k], v, rtol=0,
+                                   atol=1e-4)

@@ -69,3 +69,29 @@ def test_guard_reasons():
     with pytest.raises(ValueError, match="take_rows guard"):
         ttake.take_rows(torch.zeros(4, 5, 6), torch.zeros(3,
                                                           dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_take_rows_grad_matches_jax_grad(dtype):
+    """The backward (scatter-add at the clipped ids) against ``jax.grad``
+    through the JAX kernel's ``custom_vjp``: out-of-range ids land on
+    rows 0 and vocab-1 and repeated ids add up. The cotangent holds
+    quarters in [-1, 1], so every partial sum is exact in bf16 too and
+    the two must be equal whatever order they add in."""
+    import jax
+    rng = np.random.RandomState(3)
+    table = rng.randn(40, 128).astype(np.float32)
+    ids = rng.randint(-10, 50, (4, 24)).astype(np.int32)
+    cot = (rng.randint(-4, 5, (4, 24, 128)) / 4.0).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with jconfig.override(kernel_tier="auto"):
+        want = jax.grad(lambda w: jnp.sum(
+            jtake.take_rows(w, jnp.asarray(ids)).astype(jnp.float32)
+            * jnp.asarray(cot)))(jnp.asarray(table, jdt))
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    w = torch.from_numpy(table).to(tdt).requires_grad_(True)
+    out = ttake.take_rows(w, torch.from_numpy(ids))
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    got = w.grad.float().numpy()
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(got[0]).sum() > 0 and np.abs(got[-1]).sum() > 0
