@@ -104,7 +104,41 @@ Phases; any failure raises and the script exits non-zero:
    (lr 1e-4) losses within 1e-5 relative and parameters within 1e-4;
    the same steps at lr 0.01 are printed beside two CPU runs that
    differ only in thread count.
-9. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
+9. The int8 kernel ``int8_dequant`` (B6) against its plain version on
+   the card at every distinct (accumulator shape, activation) of the 54
+   quantized ResNet-50 sites, batch 1 and 32, in the per-column form the
+   path uses ((N*OH*OW, O) from the GEMM; (N, 1000) for the FC) and, at
+   the conv sites, the per-row form at the same shapes ((N*O, OH*OW),
+   O coefficients), and at a ragged (1001, 999) in both: within one f32
+   ulp of the larger of |acc * sc| and |y| (the kernel's FMA and the
+   plain version's f64 sum each round once), the bitwise share printed.
+   Then the f32 times at batch 32 (median of 20 CUDA-event pairs, L2
+   flushed) per site class, summed over the 54 sites, beside the plain
+   version and the bound (8 bytes an element over 3.35 TB/s). Then the
+   int8 product: ``torch._int_mm`` through the port's padding helper on
+   the card against the CPU at every site's shape (batch 1), bitwise.
+10. The int8 serving path: the same ResNet-50 weights calibrated on the
+   card over 4 batches of 8 synthetic images (RandomState(2)), exported
+   by ``quant.export_quantized`` as a format-4 artifact (54 sites, none
+   skipped; int8 weight payload at most 0.3x the f32 one), and served by
+   ``Server(f32, quantized=int8)`` with buckets (1, 8, 32): 16 requests
+   (6 images, a batch of 8 and one of 32 per dtype) at once, then an
+   image and a batch of 8 per dtype alone. Counts are zeroed just before
+   the server is built and read after: each int8 forward launches
+   ``int8_dequant`` 54 times (33 ReLU, 21 identity, per-column form) and
+   each f32 forward ``bn_act`` 49 times; no tier fallback; both dtypes
+   serve every bucket. Every answer is a softmax row; int8 answers match
+   the int8 artifact at kernel_tier=off on the card and, for one image,
+   on the CPU within 1e-5 (integer parts exact, each epilogue rounds
+   once: only an f32 value on an int8 rounding tie can move a quantized
+   input by one step); int8 against f32: top-1 agreement and max |dp|
+   printed, and every row whose f32 top-1/top-2 margin exceeds twice its
+   |dp| must keep its class. Then per dtype p50/p99 latency and images/s
+   per bucket, the eager forward at batch 1 and 32 (int8, f32, f32,
+   int8), and a torch.profiler pass of the int8 forward at batch 1 and
+   32: device busy share, and the device time of B6, of ``_int_mm``, of
+   quantize + im2col and of the rest.
+11. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
@@ -1562,6 +1596,455 @@ def train_main_path(dev, card, report):
             "flash_fwd": off_counts["flash_fwd"]}
 
 
+# ------------------------------------------------------ int8: the kernel
+INT8_REPLACES = "mxnet_tpu/kernels/int8_dequant.py:40"
+INT8_SOURCE = "mxnet_tpu_torch/csrc/int8_dequant.cu"
+QUANT_OPS = ("_contrib_quantized_conv_int8", "_contrib_quantized_fc_int8")
+INT8_RAGGED = (1001, 999)
+IMAGE = (3, 224, 224)
+
+
+def int8_sites(sym, args, aux):
+    """The 54 quantized sites of ResNet-50 as the rewrite emits them
+    (the shapes and activations do not depend on the calibration
+    numbers, so unit ranges stand in): [{"name", "act", "in": per-image
+    input shape, "out": per-image output shape, "params"}]."""
+    sites, skipped = mt.quant.find_sites(sym, args)
+    wamax = {s.name: np.abs(args[s.weight_name]).max(
+        axis=tuple(range(1, args[s.weight_name].ndim))) for s in sites}
+    calib = mt.quant.CalibrationResult(
+        sites, skipped, {s.name: 1.0 for s in sites}, wamax, 1, 1)
+    qsym = mt.quant.quantize_serving_graph(sym, args, aux, calib)[0]
+    shapes = _infer_shapes(qsym, {"data": (1,) + IMAGE})
+    out = []
+    for n in qsym._topo():
+        if n.is_variable or n.op.name not in QUANT_OPS:
+            continue
+        src, oi = n.inputs[0]
+        key = ("var", src.name) if src.is_variable else (id(src), oi)
+        out.append({"name": n.name, "act": n.params["act"],
+                    "in": tuple(shapes[key][1:]),
+                    "out": tuple(shapes[(id(n), 0)][1:]),
+                    "params": dict(n.params)})
+    acts = [s["act"] for s in out]
+    if (len(out), acts.count("relu")) != (54, 33):
+        raise RuntimeError("ResNet-50 int8 census: %d sites, %d ReLU; not "
+                           "54 and 33" % (len(out), acts.count("relu")))
+    return out
+
+
+def acc_view(site, batch):
+    """(rows, cols, hw) of a site's accumulator at ``batch``: the GEMM's
+    column form (batch*OH*OW, O) for conv, (batch, O) for FC; hw is the
+    per-row form's row length (OH*OW; 1 for FC)."""
+    o = site["out"]
+    hw = o[1] * o[2] if len(o) == 3 else 1
+    return batch * hw, o[0], hw
+
+
+def dequant_case(rows, cols, n_coef, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acc = torch.randint(-2 ** 22, 2 ** 22, (rows, cols), generator=g,
+                        device=dev, dtype=torch.int32)
+    sc = torch.rand(n_coef, generator=g, device=dev) * 2e-3 - 5e-4
+    sh = torch.randn(n_coef, generator=g, device=dev)
+    return acc, sc, sh
+
+
+def check_dequant(acc, sc, sh, per_row, act):
+    """Kernel vs plain on the card: within one f32 ulp of the larger of
+    |f32(acc) * sc| and |y| (both round the affine once; the plain
+    version's f64 sum can round twice) -> (max abs err, bitwise-equal
+    elements, elements); raises past it."""
+    from mxnet_tpu_torch.kernels import int8_dequant as dq
+    y = dq._launch(acc, sc, sh, per_row, act, dq.DEFAULT_CONFIG)
+    ref = dq._plain_dequant(acc, sc, sh, per_row, act)
+    torch.cuda.synchronize()
+    C = sc.numel()
+    coef = (sc.reshape(1, C, 1).expand(acc.shape[0] // C, C, 1)
+            .reshape(-1, 1) if per_row else sc.reshape(1, -1))
+    big = torch.maximum((acc.float() * coef).abs(), ref.abs())
+    ulp = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    diff = (y.double() - ref.double()).abs()
+    if not bool((diff <= ulp.double()).all()):
+        raise RuntimeError("int8_dequant kernel disagrees with its plain "
+                           "version at %s per_row=%s %s: max %g ulps"
+                           % (tuple(acc.shape), per_row, act,
+                              float((diff / ulp.double()).max())))
+    return float(diff.max()), int((y == ref).sum()), y.numel()
+
+
+def int8_bound_parts(rows, cols, n_coef):
+    """Least time for one epilogue, as (bytes_ms, ops_ms): the int32
+    accumulator read once, the f32 output written once, the two
+    coefficient vectors read once, over the HBM rate; an FMA and a max
+    (3 f32 flops) per element over the f32 peak."""
+    n = rows * cols
+    return ((8 * n + 8 * n_coef) / HBM_BYTES_PER_S * 1e3,
+            3 * n / F32_FLOPS * 1e3)
+
+
+def int8_kernel_phase(sites, dev):
+    """B6 against its plain version at every distinct (accumulator shape,
+    act) of the 54 sites, batch 1 and 32, in the column form the path
+    uses and (conv sites) the per-row form at the same shapes, and at a
+    ragged shape; the f32 times at batch 32; the card's int32
+    accumulators against the CPU's at every conv shape and the FC."""
+    from mxnet_tpu_torch.kernels import int8_dequant as dq
+    from mxnet_tpu_torch.ops import quant_serve as qs
+    classes = sorted({(s["out"], s["act"]) for s in sites})
+    err = {"column": 0.0, "row": 0.0}
+    equal = total = 0
+    seed = 100
+    for batch in (1, 32):
+        for out, act in classes:
+            site = next(s for s in sites if (s["out"], s["act"]) == (out,
+                                                                     act))
+            rows, cols, hw = acc_view(site, batch)
+            forms = [("column", rows, cols, cols)]
+            if hw > 1:   # NCHW viewed (batch*O, OH*OW), O coefficients
+                forms.append(("row", batch * cols, hw, cols))
+            for form, r, c, n_coef in forms:
+                seed += 1
+                acc, sc, sh = dequant_case(r, c, n_coef, dev, seed)
+                e, eq, n = check_dequant(acc, sc, sh, form == "row", act)
+                err[form] = max(err[form], e)
+                equal += eq
+                total += n
+    for form, (r, c) in (("column", INT8_RAGGED), ("row", INT8_RAGGED)):
+        acc, sc, sh = dequant_case(r, c, 7 if form == "row" else c, dev, 99)
+        e, eq, n = check_dequant(acc, sc, sh, form == "row", "relu")
+        err[form] = max(err[form], e)
+        equal += eq
+        total += n
+    log("int8_dequant vs plain: %d (shape, act) classes x batch {1,32} x "
+        "{column, row} + ragged %s agree within one f32 ulp; bitwise "
+        "equal %d of %d (%.6f); max abs err %s"
+        % (len(classes), INT8_RAGGED, equal, total, equal / total,
+           json.dumps(err)))
+    # times at batch 32, column form, per class as the path has them
+    per_class = []
+    for out, act in classes:
+        n_sites = sum(1 for s in sites if (s["out"], s["act"]) == (out, act))
+        site = next(s for s in sites if (s["out"], s["act"]) == (out, act))
+        rows, cols, _ = acc_view(site, 32)
+        acc, sc, sh = dequant_case(rows, cols, cols, dev, 7)
+        k = time_ms(lambda: dq._launch(acc, sc, sh, False, act,
+                                       dq.DEFAULT_CONFIG), dev)
+        p = time_ms(lambda: dq._plain_dequant(acc, sc, sh, False, act), dev)
+        bytes_ms, ops_ms = int8_bound_parts(rows, cols, cols)
+        b, by = bound_of(bytes_ms, ops_ms)
+        per_class.append({"shape": [rows, cols], "act": act,
+                          "sites": n_sites, "kernel_ms": k, "plain_ms": p,
+                          "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                          "bound_ms": b, "bound_by": by,
+                          "roofline_share": b / k})
+        log("  int8_dequant %-14s %-8s sites=%-2d kernel_ms=%.5f "
+            "plain_ms=%.5f bound_ms=%.5f (%s) share=%.3f"
+            % ((rows, cols), act, n_sites, k, p, b, by, b / k))
+        del acc
+    tot = {key: sum(r[key] * r["sites"] for r in per_class)
+           for key in ("kernel_ms", "plain_ms", "bytes_ms", "ops_ms")}
+    tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
+                                                tot["ops_ms"])
+    log("  batch-32 forward, 54 int8_dequant launches: kernel_ms=%.4f "
+        "plain_ms=%.4f bound_ms=%.4f (%s)"
+        % (tot["kernel_ms"], tot["plain_ms"], tot["bound_ms"],
+           tot["bound_by"]))
+    # the int8 product: the card's accumulators are the CPU's, bitwise
+    g = torch.Generator().manual_seed(5)
+    configs = sorted({(s["in"], s["out"][0],
+                       tuple(s["params"].get("kernel") or ()),
+                       tuple(s["params"].get("stride") or ()),
+                       tuple(s["params"].get("pad") or ())) for s in sites})
+    for cin, O, kernel, stride, pad in configs:
+        xq = torch.randint(-127, 128, (1,) + cin, generator=g,
+                           dtype=torch.int8)
+        K = int(np.prod(cin[:1] + kernel)) if kernel else cin[0]
+        w = torch.randint(-127, 128, (O, K), generator=g, dtype=torch.int8)
+        accs = []
+        for d in ("cpu", dev):
+            x = xq.to(d)
+            p = (qs._patches(x, kernel, stride or (1, 1), pad or (0, 0),
+                             (1, 1)) if kernel else x)
+            accs.append(qs._int8_matmul(p, w.to(d)).cpu())
+        if not torch.equal(accs[0], accs[1]):
+            raise RuntimeError("int32 accumulators of the int8 product "
+                               "differ between the card and the CPU at %s"
+                               % ((cin, O, kernel, stride, pad),))
+    log("int8 product (torch._int_mm): the card's int32 accumulators equal "
+        "the CPU's at all %d site shapes (batch 1)" % len(configs))
+    return err, per_class, tot
+
+
+# --------------------------------------------------- int8: the main path
+def int8_burst(srv, inputs):
+    """Submit every (dtype, input) from its own thread at once; every
+    request must be answered with valid softmax rows."""
+    reqs = [None] * len(inputs)
+    errors = []
+
+    def submit(i):
+        dtype, x = inputs[i]
+        try:
+            reqs[i] = srv.submit(data=x, dtype=dtype, timeout_ms=300000)
+        except Exception as e:  # reported below, never swallowed
+            errors.append(e)
+    threads = [threading.Thread(target=submit, args=(i,))
+               for i in range(len(inputs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errors:
+        raise errors[0]
+    outs = [r.result(timeout=600)[0] for r in reqs]
+    for out, (_, x) in zip(outs, inputs):
+        check_answer(out, x.shape[0])
+    return outs
+
+
+def int8_profile(model, dev, batch, reps=3):
+    """torch.profiler over ``reps`` forwards of the int8 model: the
+    device busy share, and the device time of B6 (its kernels), of the
+    int8 GEMM (``aten::_int_mm``), of quantize + im2col (named ranges
+    put around ``_quantize_static``, ``_patches`` and ``_int8_matmul``
+    for this pass only, less the GEMM) and of the rest. A range's and an
+    op's device time is the sum of the kernels launched inside it (its
+    host-side event); the ranges' device-side spans also count the idle
+    gaps between their kernels and are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mxnet_tpu_torch.ops import quant_serve as qs
+    names = {"_quantize_static": "int8.quantize", "_patches": "int8.patches",
+             "_int8_matmul": "int8.matmul"}
+    saved = {f: getattr(qs, f) for f in names}
+
+    def ranged(fn, label):
+        def wrapped(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return wrapped
+    x = torch.randn((batch,) + IMAGE, device=dev)
+    model.run(x)
+    torch.cuda.synchronize()
+    try:
+        for f, label in names.items():
+            setattr(qs, f, ranged(saved[f], label))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model.run(x)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        for f, fn in saved.items():
+            setattr(qs, f, fn)
+    avgs = prof.key_averages()
+    labels = set(names.values())
+    host = {e.key: e.device_time_total for e in avgs
+            if e.device_type == DeviceType.CPU
+            and e.key in labels | {"aten::_int_mm"}}
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in avgs
+               if e.device_type == DeviceType.CUDA and e.key not in labels]
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    b6 = sum(k[1] for k in kernels if "int8_dequant" in k[0])
+    mm = host.get("aten::_int_mm", 0.0)
+    qi = sum(host.get(lb, 0.0) for lb in labels) - mm
+    if min(b6, mm, qi, busy - b6 - mm - qi) < 0 or mm <= 0 or b6 <= 0:
+        raise RuntimeError("int8 profile parts do not add up: busy %g, "
+                           "int8_dequant %g, _int_mm %g, quantize + im2col "
+                           "%g (us)" % (busy, b6, mm, qi))
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    per = reps * 1e3
+    return {"batch": batch, "wall_ms_per_forward": wall_us / per,
+            "device_ms_per_forward": busy / per,
+            "device_busy_share": busy / wall_us,
+            "int8_dequant_ms": b6 / per, "int_mm_ms": mm / per,
+            "quantize_im2col_ms": qi / per,
+            "rest_ms": (busy - b6 - mm - qi) / per,
+            "top_kernels": [{"name": k[0][:120], "ms_per_forward":
+                             k[1] / per, "calls": k[2] // reps}
+                            for k in top]}
+
+
+def int8_main_path(dev, card, report, f32_path, sym, args, aux):
+    """ResNet-50 calibrated on the card, exported as a format-4 artifact
+    and served beside its f32 twin at ``f32_path``; returns B6's
+    launches."""
+    from mxnet_tpu_torch.kernels import int8_dequant as dq
+    rng = np.random.RandomState(2)
+    calib = [rng.randn(8, *IMAGE).astype("f4") for _ in range(4)]
+    qpath = os.path.join(REPO, "build", "chip_smoke", "resnet50.int8.mxtorch")
+    t0 = time.perf_counter()
+    qmeta = mt.quant.export_quantized(sym, args, aux, calib,
+                                      {"data": (None,) + IMAGE}, qpath,
+                                      device=dev)
+    rep = qmeta["quant"]
+    wb = rep["weight_bytes"]
+    log("calibrate (4 batches of 8 on the card) + rewrite + export: %.2fs, "
+        "%.1f MB (f32 artifact %.1f MB); %d sites, skipped %s; weight "
+        "bytes int8 %d / f32 %d = %.4f; fingerprint %s; kernel_tier %s"
+        % (time.perf_counter() - t0, os.path.getsize(qpath) / 1e6,
+           os.path.getsize(f32_path) / 1e6, len(rep["sites"]),
+           rep["skipped"], wb["int8"], wb["f32"], wb["int8"] / wb["f32"],
+           rep["calibration"]["fingerprint"][:16],
+           json.dumps(qmeta["kernel_tier"])))
+    if len(rep["sites"]) != 54 or rep["skipped"]:
+        raise RuntimeError("quantized %d sites (skipped %s), not 54"
+                           % (len(rep["sites"]), rep["skipped"]))
+    if wb["int8"] > 0.3 * wb["f32"]:
+        raise RuntimeError("int8 weight payload is %.3f of the f32 one"
+                           % (wb["int8"] / wb["f32"]))
+    rng = np.random.RandomState(3)
+    mixed = []
+    for dtype in ("f32", "int8"):
+        mixed += [(dtype, rng.randn(1, *IMAGE).astype("f4"))
+                  for _ in range(6)]
+        mixed += [(dtype, rng.randn(b, *IMAGE).astype("f4"))
+                  for b in (8, 32)]
+
+    # -- the main path, with every count zeroed just before it
+    tier.reset_stats()
+    bn_act.reset_launches()
+    dq.reset_launches()
+    srv = mt.serve.Server(f32_path, quantized=qpath, buckets=BUCKETS,
+                          batch_timeout_ms=2)
+    outs = int8_burst(srv, mixed)
+    # the burst may coalesce into bucket 32 alone: one image and one
+    # batch of 8 of each dtype, each sent alone, take buckets 1 and 8
+    for dtype, i in (("f32", 0), ("f32", 6), ("int8", 8), ("int8", 14)):
+        x = mixed[i][1]
+        mixed.append((dtype, x))
+        outs.append(srv.predict(data=x, dtype=dtype, timeout_ms=300000)[0])
+        check_answer(outs[-1], x.shape[0])
+    torch.cuda.synchronize()
+    launches = dict(dq.launches_by_kernel)
+    bn_launches = bn_act.launches
+    stats = tier.stats()
+    est = srv.model.engine_cache.stats()
+    fwd = {"f32": 0, "int8": 0}
+    for e in est["engines"].values():
+        fwd[e["dtype"]] += 1 + e["calls"]      # the warmup, then calls
+    log("int8 main path: %d requests answered (f32 and int8 mixed), "
+        "forwards %s (engines %s), int8_dequant launches %s, bn_act %d, "
+        "tier %s" % (len(outs), fwd, sorted(est["engines"]), launches,
+                     bn_launches, json.dumps(stats["dispatch"])))
+    want = {"column/relu": 33 * fwd["int8"],
+            "column/identity": 21 * fwd["int8"], "row/relu": 0,
+            "row/identity": 0}
+    if launches != want or dq.launches != 54 * fwd["int8"]:
+        raise RuntimeError("expected 54 int8_dequant launches per int8 "
+                           "forward (33 ReLU, 21 identity) over %d "
+                           "forwards, got %s" % (fwd["int8"], launches))
+    if bn_launches != 49 * fwd["f32"]:
+        raise RuntimeError("expected 49 bn_act launches per f32 forward "
+                           "over %d forwards, got %d"
+                           % (fwd["f32"], bn_launches))
+    if stats["fallback"]:
+        raise RuntimeError("kernel tier fell back: %s" % stats["fallback"])
+    served = sorted(est["engines"])
+    if served != sorted([str(b) for b in BUCKETS]
+                        + ["int8:%d" % b for b in BUCKETS]):
+        raise RuntimeError("engines served: %s" % served)
+
+    # -- int8 against the same artifact at tier off on the card, f32
+    # against int8. Tolerance 1e-5 on probabilities: every integer part
+    # is exact and both epilogues round once, so the answers are equal
+    # up to ulps unless an f32 value lands on an int8 rounding tie and
+    # moves one quantized input by one step
+    i8 = [k for k, (d, _) in enumerate(mixed) if d == "int8"]
+    with mt.config.override(kernel_tier="off"):
+        m_off = mt.serving.CompiledModel.load(qpath, device=dev)
+    err_off = max(float(np.abs(outs[k] - m_off.predict(data=mixed[k][1])[0]
+                               .cpu().numpy()).max()) for k in i8)
+    log("int8 tier auto vs off on the card: max abs err %g" % err_off)
+    if err_off > 1e-5:
+        raise RuntimeError("int8 answers disagree with tier off")
+    m_f32 = mt.serving.CompiledModel.load(f32_path, device=dev)
+    p8 = np.concatenate([outs[k] for k in i8])
+    p32 = np.concatenate([m_f32.predict(data=mixed[k][1])[0].cpu().numpy()
+                          for k in i8])
+    dp = np.abs(p8 - p32)
+    top2 = np.sort(p32, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    agree = p8.argmax(1) == p32.argmax(1)
+    clear = margin > 2 * dp.max(axis=1)
+    log("int8 vs f32 on %d images: top-1 agreement %.4f (%d of %d), max "
+        "|dp| %g (f32 max p %g); %d rows with a top-1/top-2 margin above "
+        "twice their |dp|, all of them agree: %s"
+        % (len(agree), agree.mean(), agree.sum(), len(agree), dp.max(),
+           p32.max(), clear.sum(), bool(agree[clear].all())))
+    if not agree[clear].all():
+        raise RuntimeError("int8 changed the top-1 class of a row whose "
+                           "f32 margin exceeds the int8 error")
+
+    # -- latency per bucket and dtype (closed loop, one request in flight)
+    lat = {}
+    for dtype in ("f32", "int8"):
+        for b in BUCKETS:
+            x = np.random.RandomState(b).randn(b, *IMAGE).astype("f4")
+            samples = []
+            t_all = time.perf_counter()
+            for _ in range(20):
+                t1 = time.perf_counter()
+                check_answer(srv.predict(data=x, dtype=dtype,
+                                         timeout_ms=300000)[0], b)
+                samples.append((time.perf_counter() - t1) * 1e3)
+            wall = time.perf_counter() - t_all
+            lat["%s/%d" % (dtype, b)] = {
+                "p50_ms": float(np.percentile(samples, 50)),
+                "p99_ms": float(np.percentile(samples, 99)),
+                "img_per_s": 20 * b / wall}
+            r = lat["%s/%d" % (dtype, b)]
+            log("%-4s bucket %2d: p50 %.3f ms  p99 %.3f ms  %.1f img/s  [%s]"
+                % (dtype, b, r["p50_ms"], r["p99_ms"], r["img_per_s"], card))
+    server_metrics = srv.metrics()
+    srv.close()
+
+    # -- the eager forward at batch 1 and 32, int8 / f32 / f32 / int8
+    m_i8 = mt.serving.CompiledModel.load(qpath, device=dev)
+    fwd_ms = {}
+    for b in (1, 32):
+        a1, f1 = forward_ms(m_i8, dev, b), forward_ms(m_f32, dev, b)
+        f2, a2 = forward_ms(m_f32, dev, b), forward_ms(m_i8, dev, b)
+        fwd_ms[str(b)] = {"int8_ms": [a1, a2], "f32_ms": [f1, f2]}
+        log("batch-%d forward: int8 %.3f / %.3f ms, f32 %.3f / %.3f ms  "
+            "[%s]" % (b, a1, a2, f1, f2, card))
+    prof = {}
+    for b in (1, 32):
+        p = int8_profile(m_i8, dev, b)
+        prof[str(b)] = p
+        log("profile int8 batch %d: wall %.3f ms, device %.3f ms (busy "
+            "%.1f%%): int8_dequant %.3f ms, _int_mm %.3f ms, quantize + "
+            "im2col %.3f ms, rest %.3f ms; top: %s"
+            % (b, p["wall_ms_per_forward"], p["device_ms_per_forward"],
+               100 * p["device_busy_share"], p["int8_dequant_ms"],
+               p["int_mm_ms"], p["quantize_im2col_ms"], p["rest_ms"],
+               "; ".join("%s %.3f ms x%d" % (k["name"][:48],
+                                            k["ms_per_forward"], k["calls"])
+                         for k in p["top_kernels"][:5])))
+    # -- one image on the CPU, last (same tolerance and reason as above)
+    cpu = mt.serving.CompiledModel.load(qpath, device="cpu")
+    ref = cpu.predict(data=mixed[i8[0]][1])[0].numpy()
+    err_cpu = float(np.abs(outs[i8[0]] - ref).max())
+    log("int8 served on the card vs the CPU (one image): max abs err %g"
+        % err_cpu)
+    if err_cpu > 1e-5:
+        raise RuntimeError("int8 answers disagree with the CPU")
+    report.update(int8_path={
+        "launches": launches, "forwards": fwd, "bn_act_launches":
+        bn_launches, "tier_stats": stats, "engines": est,
+        "weight_bytes": wb, "err_vs_off": err_off, "err_vs_cpu": err_cpu,
+        "top1_agreement": float(agree.mean()), "max_dp_vs_f32":
+        float(dp.max()), "latency": lat, "forward": fwd_ms,
+        "profile": prof, "server": server_metrics})
+    return sum(launches.values())
+
+
 # ------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1604,6 +2087,15 @@ def main():
     train_err, train_rows = train_kernel_phase(dev)
     report["train_kernels"] = train_rows
     train_launches = train_main_path(dev, card, report)
+    sym50 = resnet50()
+    args50, aux50 = draw_params(sym50)
+    int8_err, int8_rows, int8_tot = int8_kernel_phase(
+        int8_sites(sym50, args50, aux50), dev)
+    report["int8_kernels"] = {"classes": int8_rows, "totals": int8_tot}
+    int8_launches = int8_main_path(
+        dev, card, report, os.path.join(REPO, "build", "chip_smoke",
+                                        "resnet50.mxtorch"),
+        sym50, args50, aux50)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -1649,6 +2141,14 @@ def main():
                         "ms": r["ms"], "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    kernels.append({"name": "int8_dequant", "route": "cuda",
+                    "source": INT8_SOURCE, "replaces": INT8_REPLACES,
+                    "launches": int8_launches,
+                    "max_abs_err": max(int8_err.values()),
+                    "ms": int8_tot["kernel_ms"],
+                    "plain_ms": int8_tot["plain_ms"],
+                    "bound_ms": int8_tot["bound_ms"],
+                    "bound_by": int8_tot["bound_by"], "library_ms": None})
     report["kernels"] = kernels
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),

@@ -1,13 +1,15 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu, for NVIDIA Hopper.
 
 The port serves ResNet predict artifacts (the op registry, Symbol and
-its JSON, the graph evaluator, the micro-batching server) and GPT
+its JSON, the graph evaluator, the micro-batching server), their int8
+post-training quantization beside the f32 model (``quant``), and GPT
 generate artifacts (the decoder programs, continuous batching over a
 paged KV cache), and trains symbolic models through ``Module.fit`` (the
 executor's forward and backward, the fused train step, SGD and Adam).
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
-``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``
-and the legacy flash forward ``flash_fwd``.
+``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
+the legacy flash forward ``flash_fwd`` and the int8 epilogue
+``int8_dequant``.
 
 Importing does no device work and builds nothing. Entry points run on
 ``cuda:0`` unless the caller asks for the CPU (``device="cpu"`` or
@@ -32,3 +34,4 @@ from . import parallel  # noqa: F401
 from . import kernels  # noqa: F401
 from . import serving  # noqa: F401
 from . import serve  # noqa: F401
+from . import quant  # noqa: F401

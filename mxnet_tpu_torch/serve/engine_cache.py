@@ -4,9 +4,12 @@ Counterpart of ``mxnet_tpu/serve/engine_cache.py``. There an engine is
 an XLA executable compiled for one batch size; here it is the artifact's
 eval function bound to one bucket shape, built lazily, held in an LRU
 and warmed with one zero batch, so the first real request at a bucket
-pays no first-call costs (cuDNN plans, the kernel build). Padding,
-execution and the slice back to the real rows stay on the device; the
-caller does its one device-to-host copy per response batch.
+pays no first-call costs (cuDNN plans, the kernel build). An int8
+variant of the same model (a format_version 4 artifact) can be attached
+beside the primary with :meth:`BucketedEngineCache.add_model`; engines
+are then keyed by (dtype, bucket) and callers route with ``dtype=``.
+Padding, execution and the slice back to the real rows stay on the
+device; the caller does its one device-to-host copy per response batch.
 """
 from __future__ import annotations
 
@@ -20,7 +23,13 @@ from ..base import MXNetError, normalize_dtype
 from ..config import flags
 
 __all__ = ["BucketedEngineCache", "check_buckets", "pick_bucket",
-           "parse_buckets"]
+           "parse_buckets", "model_dtype_label"]
+
+
+def model_dtype_label(model):
+    """Serving dtype label for a loaded artifact: "int8" for
+    format_version-4 quantized artifacts, "f32" otherwise."""
+    return "int8" if getattr(model, "quantized", False) else "f32"
 
 
 def parse_buckets(spec):
@@ -84,14 +93,22 @@ class _Engine:
 
 
 class BucketedEngineCache:
-    """LRU of per-bucket engines over one model. The JAX package keys
-    engines by (dtype, bucket) to serve an int8 variant beside the f32
-    one; the port serves the f32 primary only until the int8 slice."""
+    """LRU of per-bucket engines, possibly over several precision
+    variants of one model.
+
+    The primary artifact (usually f32) defines the input signature; an
+    int8 format-version-4 artifact of the same model can be attached
+    with :meth:`add_model`, after which every bucket can hold one engine
+    per dtype, ``(dtype, bucket)`` being the cache key, and callers
+    route per request with ``dtype=``. Omitting ``dtype`` everywhere
+    keeps the single-model behaviour (stats keys included).
+    """
 
     def __init__(self, model, capacity=None, warmup=None):
         self._model = model
         self._specs = model.meta["inputs"]
-        self.primary_dtype = "f32"
+        self.primary_dtype = model_dtype_label(model)
+        self._models = {self.primary_dtype: model}
         self.capacity = (flags.serve_cache_engines if capacity is None
                          else int(capacity))
         self.warmup = flags.serve_warmup if warmup is None else bool(warmup)
@@ -100,8 +117,47 @@ class BucketedEngineCache:
         self.builds = 0
         self.evictions = 0
 
-    def _build(self, bucket):
-        frozen = (None if self._model.dynamic_batch
+    @property
+    def dtypes(self):
+        """Serving dtypes available for routing, primary first."""
+        rest = sorted(d for d in self._models if d != self.primary_dtype)
+        return (self.primary_dtype,) + tuple(rest)
+
+    def add_model(self, model):
+        """Attach a precision variant (the int8 quantized artifact) of the
+        SAME model: identical input names, per-row shapes, input dtypes
+        and batch mode. Its engines build lazily per bucket, as the
+        primary's do. -> its dtype label."""
+        dtype = model_dtype_label(model)
+
+        def sig(specs, dyn):
+            return (tuple((s["name"], tuple(s["shape"][1:]), s["dtype"])
+                          for s in specs), bool(dyn))
+        have = sig(self._specs, self._model.dynamic_batch)
+        got = sig(model.meta["inputs"], model.dynamic_batch)
+        if have != got:
+            raise MXNetError(
+                "serve: %r variant's input signature %r does not match "
+                "the primary artifact's %r; quantize the SAME model "
+                "with the same export shapes" % (dtype, got, have))
+        with self._lock:
+            if dtype in self._models:
+                raise MXNetError(
+                    "serve: a %r model is already attached" % dtype)
+            self._models[dtype] = model
+        return dtype
+
+    def _resolve(self, dtype):
+        d = self.primary_dtype if dtype is None else str(dtype)
+        model = self._models.get(d)
+        if model is None:
+            raise MXNetError(
+                "serve: no %r engines; attached dtypes are %s"
+                % (d, list(self.dtypes)))
+        return d, model
+
+    def _build(self, bucket, dtype, model):
+        frozen = (None if model.dynamic_batch
                   else self._specs[0]["shape"][0])
         if frozen is not None and bucket != frozen:
             raise MXNetError("serve: bucket %d on a fixed-batch-%d artifact"
@@ -110,9 +166,9 @@ class BucketedEngineCache:
         compile_ms = 0.0
         warmup_ms = 0.0
         if self.warmup:
-            dev = self._model.device
+            dev = model.device
             t1 = time.perf_counter()
-            self._model.run(*[torch.zeros(
+            model.run(*[torch.zeros(
                 (bucket,) + tuple(s["shape"][1:]),
                 dtype=normalize_dtype(s["dtype"]), device=dev)
                 for s in self._specs])
@@ -120,11 +176,13 @@ class BucketedEngineCache:
             warmup_ms = (time.perf_counter() - t1) * 1e3
         with self._lock:
             self.builds += 1
-        return _Engine(bucket, self.primary_dtype, compile_ms, warmup_ms)
+        return _Engine(bucket, dtype, compile_ms, warmup_ms)
 
-    def engine(self, bucket):
-        """Fetch (building lazily) the engine for one bucket."""
-        key = (self.primary_dtype, bucket)
+    def engine(self, bucket, dtype=None):
+        """Fetch (building lazily) the engine for one bucket of one
+        attached dtype (default: the primary artifact's)."""
+        dtype, model = self._resolve(dtype)
+        key = (dtype, bucket)
         with self._lock:
             eng = self._engines.get(key)
             if eng is not None:
@@ -132,7 +190,7 @@ class BucketedEngineCache:
                 return eng
         # build outside the lock: a warmup can take seconds and other
         # buckets' traffic must not stall behind it
-        eng = self._build(bucket)
+        eng = self._build(bucket, dtype, model)
         with self._lock:
             cur = self._engines.get(key)
             if cur is not None:          # lost a build race: keep the first
@@ -144,16 +202,18 @@ class BucketedEngineCache:
                 self.evictions += 1
             return eng
 
-    def run(self, bucket, arrs, rows):
+    def run(self, bucket, arrs, rows, dtype=None):
         """Pad ``arrs`` (one per input, ``rows`` real rows each) to
-        ``bucket``, execute, slice back to the real rows. Everything
-        stays on the device; no host sync."""
-        eng = self.engine(bucket)
+        ``bucket``, execute on the ``dtype`` variant (default the
+        primary), slice back to the real rows. Everything stays on the
+        device; no host sync."""
+        eng = self.engine(bucket, dtype)
+        model = self._models[eng.dtype]
         pad = bucket - rows
         if pad:
             arrs = [torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
                     for a in arrs]
-        outs = self._model.run(*arrs)
+        outs = model.run(*arrs)
         with self._lock:
             eng.calls += 1
             eng.rows += rows
@@ -162,19 +222,23 @@ class BucketedEngineCache:
             outs = tuple(o[:rows] if o.dim() else o for o in outs)
         return outs
 
-    def run_padded(self, buckets, arrs, rows):
+    def run_padded(self, buckets, arrs, rows, dtype=None):
         bucket = pick_bucket(buckets, rows)
         if bucket is None:
             raise MXNetError(
                 "serve: batch of %d rows exceeds the largest bucket %d"
                 % (rows, buckets[-1]))
-        return self.run(bucket, arrs, rows)
+        return self.run(bucket, arrs, rows, dtype=dtype)
 
     def stats(self):
         with self._lock:
             engines = {}
             for e in self._engines.values():
-                engines[str(e.bucket)] = {
+                # primary engines keep the plain-bucket key; other dtypes
+                # are namespaced "dtype:bucket"
+                key = (str(e.bucket) if e.dtype == self.primary_dtype
+                       else "%s:%d" % (e.dtype, e.bucket))
+                engines[key] = {
                     "dtype": e.dtype,
                     "compile_ms": round(e.compile_ms, 3),
                     "warmup_ms": round(e.warmup_ms, 3),
@@ -186,7 +250,7 @@ class BucketedEngineCache:
                 "capacity": self.capacity,
                 "builds": self.builds,
                 "evictions": self.evictions,
-                "dtypes": [self.primary_dtype],
+                "dtypes": list(self.dtypes),
                 "kernel_tier": self._model.meta.get("kernel_tier"),
                 "engines": engines,
             }

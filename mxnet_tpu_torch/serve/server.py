@@ -25,6 +25,14 @@ run).
     out = pending.result(timeout=1.0)      # tuple of numpy arrays
     server.close(drain=True)
 
+An int8-quantized twin (a format_version 4 artifact of the same model,
+``quant.export_quantized``) serves beside the primary: requests route
+per call with ``dtype=``, and a window holding both kinds runs one
+padded device batch per dtype::
+
+    server = Server("model.mxtorch", quantized="model.int8.mxtorch")
+    out = server.predict(data=x, dtype="int8")
+
 A failed batch fails its requests with the error (``Request.result``
 raises it, the cause chained); it does not stop the server.
 """
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import OrderedDict
 
 import torch
 
@@ -76,18 +85,24 @@ class Server:
     ``device`` (default cuda:0). ``auto_start=False`` leaves the batcher
     (or scheduler) thread unstarted: requests queue until
     :meth:`run_once` (``session.run_round`` in generate mode) or
-    :meth:`start`. ``draft=`` is the JAX package's speculative switch;
-    only None and "off" are served until speculative decoding is ported.
+    :meth:`start`. ``quantized=`` (predict mode) attaches the int8 twin
+    of the model, a path or a loaded format_version 4
+    :class:`CompiledModel`, served with ``dtype="int8"``. ``draft=`` is
+    the JAX package's speculative switch; only None and "off" are served
+    until speculative decoding is ported.
     """
 
     def __init__(self, model, config=None, auto_start=True, device=None,
-                 draft=None, **overrides):
+                 draft=None, quantized=None, **overrides):
         if not isinstance(model, (CompiledModel, GenerateModel)):
             model = load_artifact(model, device=device)
         if draft not in (None, "off"):
             raise MXNetError("Server: draft=%r: speculative decoding is not "
                              "ported yet (None or 'off')" % (draft,))
         if isinstance(model, GenerateModel):
+            if quantized is not None:
+                raise MXNetError("Server: quantized= is a predict-mode "
+                                 "option; this is a generate artifact")
             if config is None:
                 config = GenerateConfig(**overrides)
             elif overrides:
@@ -122,6 +137,20 @@ class Server:
                               cache_engines=config.cache_engines,
                               warmup=config.warmup)
         self._cache = model.engine_cache
+        if quantized is not None:
+            # the int8 sibling artifact: the same model, quantized, served
+            # side by side per bucket
+            if not isinstance(quantized, (CompiledModel, GenerateModel)):
+                quantized = load_artifact(quantized, device=model.device)
+            if not isinstance(quantized, CompiledModel):
+                raise MXNetError(
+                    "Server: quantized= must be a predict artifact")
+            if not quantized.quantized:
+                raise MXNetError(
+                    "Server: quantized= artifact is not format_version 4 "
+                    "(quant.export_quantized produces one)")
+            if "int8" not in self._cache.dtypes:  # cache may be reused
+                self._cache.add_model(quantized)
         self.metrics_ = ServeMetrics()
         self._queue = AdmissionQueue(
             config.queue_depth,
@@ -243,18 +272,26 @@ class Server:
                 "larger buckets" % (rows, self.buckets[-1]))
         return arrs, rows
 
-    def submit(self, *data, timeout_ms=None, **kwdata):
+    def submit(self, *data, timeout_ms=None, dtype=None, **kwdata):
         """Admit one request; never blocks. Returns a :class:`Request`
-        whose ``.result()`` blocks for the response. Raises ServerBusy
-        (queue full), ServerClosed, or MXNetError (validation)."""
+        whose ``.result()`` blocks for the response. ``dtype`` routes to
+        an attached precision variant ("f32"/"int8"; default the primary
+        artifact). Raises ServerBusy (queue full), ServerClosed, or
+        MXNetError (validation)."""
         self._require_mode("predict", "submit")
+        if dtype is not None and dtype not in self._cache.dtypes:
+            raise MXNetError(
+                "Server.submit: no %r engines on this server; available "
+                "dtypes are %s (pass quantized= at construction to "
+                "attach an int8 artifact)"
+                % (dtype, list(self._cache.dtypes)))
         arrs, rows = self._prepare(data, kwdata)
         if timeout_ms is None:
             timeout_ms = self.config.timeout_ms
         deadline = (time.monotonic() + timeout_ms / 1e3
                     if timeout_ms and timeout_ms > 0 else None)
         req = Request(tuple(arrs), rows, deadline,
-                      dtype=self._cache.primary_dtype)
+                      dtype=dtype or self._cache.primary_dtype)
         try:
             self._queue.submit(req)
         except ServerClosed:
@@ -266,9 +303,10 @@ class Server:
         self.metrics_.set_queue_depth(self._queue.pending_count())
         return req
 
-    def predict(self, *data, timeout_ms=None, **kwdata):
+    def predict(self, *data, timeout_ms=None, dtype=None, **kwdata):
         """Blocking convenience: submit + result."""
-        req = self.submit(*data, timeout_ms=timeout_ms, **kwdata)
+        req = self.submit(*data, timeout_ms=timeout_ms, dtype=dtype,
+                          **kwdata)
         budget = (None if req.deadline is None
                   else max(0.001, req.deadline - time.monotonic()) + 1.0)
         return req.result(timeout=budget)
@@ -294,11 +332,16 @@ class Server:
                     % ((now - r.deadline) * 1e3)))
             else:
                 live.append(r)
-        if live:
-            self._dispatch_group(live)
+        # one padded device batch per dtype group (f32 and int8 requests
+        # share a window but run on different engines)
+        groups = OrderedDict()
+        for r in live:
+            groups.setdefault(r.dtype, []).append(r)
+        for dtype, group in groups.items():
+            self._dispatch_group(dtype, group)
         return len(reqs)
 
-    def _dispatch_group(self, live):
+    def _dispatch_group(self, dtype, live):
         rows = sum(r.rows for r in live)
         bucket = pick_bucket(self.buckets, rows)
         # take() caps at the largest bucket, so bucket is never None
@@ -310,7 +353,7 @@ class Server:
                     stacked = [torch.cat([r.arrays[i] for r in live])
                                for i in range(len(self.model.input_names))]
                 t0 = time.perf_counter()
-                outs = self._cache.run(bucket, stacked, rows)
+                outs = self._cache.run(bucket, stacked, rows, dtype=dtype)
                 # ONE device-to-host copy per output for the whole batch
                 host = [o.cpu().numpy() for o in outs]
                 exec_ms = (time.perf_counter() - t0) * 1e3
@@ -324,7 +367,6 @@ class Server:
             for r in live:
                 r._fail(err)
             return
-        dtype = self._cache.primary_dtype
         self.metrics_.note_batch(bucket, rows, bucket - rows, exec_ms,
                                  dtype=dtype)
         t_done = time.monotonic()

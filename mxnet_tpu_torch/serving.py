@@ -1,23 +1,26 @@
 """Artifacts: freeze a model into one file and serve it.
 
 Counterpart of ``mxnet_tpu/serving.py`` for predict artifacts
-(format_version 2) and generate artifacts (format_version 3, and 5 with
-chunked prefill; without the speculative draft). The JAX package stages
-its programs out as StableHLO; the port's artifact carries what the
-port needs to rebuild them: the graph as symbol JSON (predict) or the
-decoder geometry (generate), and the weights as an npz.
+(format_version 2, and 4 for int8-quantized graphs from
+:mod:`~mxnet_tpu_torch.quant`) and generate artifacts (format_version 3,
+and 5 with chunked prefill; without the speculative draft). The JAX
+package stages its programs out as StableHLO; the port's artifact
+carries what the port needs to rebuild them: the graph as symbol JSON
+(predict) or the decoder geometry (generate), and the weights as an npz.
 
 File layout (``.mxtorch``): 8-byte magic ``MXTORCH1``, u32 metadata
 length, metadata JSON (the JAX package's keys: ``inputs``,
 ``num_outputs``, ``platforms``, ``dynamic_batch``, ``kernel_tier``,
-``format_version``, and ``generate`` for a generate artifact), then for
-predict the symbol JSON (``symbol_bytes`` long) and the parameters as
-an npz (``arg:<name>`` / ``aux:<name>``), for generate the decoder
-weights as an npz (``generate.params.bytes`` long).
+``format_version``, ``generate`` for a generate artifact and ``quant``
+for an int8 one), then for predict the symbol JSON (``symbol_bytes``
+long) and the parameters as an npz (``arg:<name>`` / ``aux:<name>``),
+for generate the decoder weights as an npz (``generate.params.bytes``
+long).
 
 Surface:
   * export_compiled(sym, arg_params, aux_params, data_shapes, path)
   * CompiledModel.load(path, buckets=None, device=None) -> .predict(**data)
+    (``.quantized`` for a format_version 4 artifact)
   * export_generate(params, spec, path, chunked=False)
   * GenerateModel.load(path, device=None), load_bundled_params(path)
   * load_artifact(path, device=None) - either kind, by format_version
@@ -38,6 +41,7 @@ from .base import MXNetError, dtype_name, normalize_dtype
 from .context import resolve_device
 from .executor import _as_tensor, _graph_eval_fn
 from .kernels import graph_fuse as _gfuse
+from .kernels import int8_dequant as _int8_dequant
 from .kernels import tier as _tier
 from .symbol import load_json
 
@@ -47,6 +51,8 @@ __all__ = ["export_compiled", "CompiledModel", "load_artifact",
 
 _MAGIC = b"MXTORCH1"
 _FORMAT_VERSION = 2       # the JAX package's f32 predict version
+_QUANT_VERSION = 4        # an int8-quantized predict graph
+_PREDICT_VERSIONS = (_FORMAT_VERSION, _QUANT_VERSION)
 _GENERATE_VERSIONS = (3, 5)   # plain; with chunked prefill
 
 
@@ -110,6 +116,7 @@ def params_from_reference(arg_params, aux_params, symbol, device=None, *,
     Convolution weights are OIHW and FullyConnected weights (hidden, in)
     in both packages, so values move across unchanged; every name and
     shape is checked against ``symbol.infer_shape`` at ``data_shapes``.
+    The int8 ``*_weight_q`` arrays of a quantized graph cross unchanged.
     """
     dev = resolve_device(device)
     args, aux = _checked_params(symbol, dict(arg_params), dict(aux_params),
@@ -118,20 +125,32 @@ def params_from_reference(arg_params, aux_params, symbol, device=None, *,
             {k: v.to(dev) for k, v in aux.items()})
 
 
+_QUANT_OPS = ("_contrib_quantized_fc_int8", "_contrib_quantized_conv_int8")
+
+
 def _kernel_census(symbol):
     """Kernels the fusion plan routes in this graph under the current
-    tier, by kernel form: {"bn_act": 33, "bn_act_res": 16} at ResNet-50."""
-    plans, _ = _gfuse.plan(symbol._topo(), list(symbol._entries))
+    tier, by kernel form: {"bn_act": 33, "bn_act_res": 16} at ResNet-50;
+    each quantized site's epilogue counts as one ``int8_dequant``
+    ({"int8_dequant": 54} at ResNet-50 quantized)."""
+    nodes = symbol._topo()
+    plans, _ = _gfuse.plan(nodes, list(symbol._entries))
     census = {}
     for p in plans.values():
         name = p.kind + ("_res" if p.kind == "bn_act"
                          and p.res_entry is not None else "")
         census[name] = census.get(name, 0) + 1
+    if _tier.enabled():
+        n = sum(1 for nd in nodes if not nd.is_variable
+                and nd.op.name in _QUANT_OPS)
+        if n:
+            census[_int8_dequant.OP_NAME] = n
     return census
 
 
 def export_compiled(symbol, arg_params, aux_params, data_shapes, path,
-                    dtype="float32", dynamic_batch=False, device=None):
+                    dtype="float32", dynamic_batch=False, device=None,
+                    format_version=_FORMAT_VERSION, extra_meta=None):
     """Freeze (symbol, params) into an artifact at ``path``.
 
     data_shapes: dict name -> shape. With ``dynamic_batch=True`` (or a
@@ -139,7 +158,14 @@ def export_compiled(symbol, arg_params, aux_params, data_shapes, path,
     writing, the graph runs once at the probe batch on ``device``
     (default cuda:0), as the JAX package traces it at export, so a graph
     that cannot run fails here and not at serving time.
+    ``format_version`` is a predict version (2 = f32, 4 = int8-quantized;
+    the quantization pipeline passes 4); ``extra_meta`` is merged into
+    the metadata (the quant report).
     """
+    if int(format_version) not in _PREDICT_VERSIONS:
+        raise MXNetError("export_compiled emits predict artifacts "
+                         "(format_version %s), not %s"
+                         % (list(_PREDICT_VERSIONS), format_version))
     dev = resolve_device(device)
     data_shapes = {k: tuple(v) for k, v in data_shapes.items()}
     if any(_is_dynamic_dim(s[0]) for s in data_shapes.values() if s):
@@ -164,8 +190,9 @@ def export_compiled(symbol, arg_params, aux_params, data_shapes, path,
         "dynamic_batch": bool(dynamic_batch),
         "kernel_tier": {"tier": _tier.tier(),
                         "kernels": _kernel_census(symbol)},
-        "format_version": _FORMAT_VERSION,
+        "format_version": int(format_version),
     }
+    meta.update(extra_meta or {})
     sym_json = symbol.tojson().encode()
     meta["symbol_bytes"] = len(sym_json)
     buf = io.BytesIO()
@@ -191,12 +218,12 @@ def _read_meta(f, path):
 def _read_artifact(path):
     with open(path, "rb") as f:
         meta = _read_meta(f, path)
-        if int(meta.get("format_version", 0)) != _FORMAT_VERSION:
+        if int(meta.get("format_version", 0)) not in _PREDICT_VERSIONS:
             raise MXNetError("artifact %r has format_version %s; a predict "
-                             "model reads %d (open any kind with "
+                             "model reads %s (open any kind with "
                              "load_artifact)" % (
                                  path, meta.get("format_version"),
-                                 _FORMAT_VERSION))
+                                 list(_PREDICT_VERSIONS)))
         symbol = load_json(f.read(meta["symbol_bytes"]).decode())
         npz = _np.load(io.BytesIO(f.read()))
         args, aux = {}, {}
@@ -215,7 +242,9 @@ class CompiledModel:
     and the outputs sliced back, each bucket served by a lazily built,
     warmed engine from a shared LRU (:mod:`mxnet_tpu_torch.serve.
     engine_cache`). The kernel tier in force when the model is built is
-    the one its graph runs under.
+    the one its graph runs under. ``quantized`` is True for an
+    int8-quantized artifact (format_version 4), which the serve layer
+    labels "int8".
     """
 
     def __init__(self, symbol, arg_params, aux_params, meta, device,
@@ -225,6 +254,8 @@ class CompiledModel:
         self.device = device
         self.input_names = [i["name"] for i in meta["inputs"]]
         self.dynamic_batch = bool(meta.get("dynamic_batch", False))
+        self.quantized = int(meta.get("format_version",
+                                      _FORMAT_VERSION)) == _QUANT_VERSION
         self._args = {k: v.to(device) for k, v in arg_params.items()}
         self._aux = {k: v.to(device) for k, v in aux_params.items()}
         self._eval = _graph_eval_fn(symbol)
@@ -531,8 +562,8 @@ class GenerateModel:
 def load_artifact(path, **kw):
     """Open any ``.mxtorch`` artifact through the format-version
     dispatch: :class:`CompiledModel` for predict artifacts
-    (format_version 2), :class:`GenerateModel` for generate artifacts
-    (3 and 5)."""
+    (format_version 2, and 4 for int8-quantized), :class:`GenerateModel`
+    for generate artifacts (3 and 5)."""
     with open(path, "rb") as f:
         version = int(_read_meta(f, path).get("format_version", 0))
     if version in _GENERATE_VERSIONS:

@@ -1,9 +1,11 @@
 """Port tests that need the card: each CUDA kernel (``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
-``flash_fwd``) against its plain torch version, forward and (for the
-training kernels and ``bn_act``) backward, the wrappers' checks and launch counts, and
-small models (a ResNet-20 predictor, a GPT decoder in generate mode, a
-2-layer GPT trained by ``Module.fit``) on the card against the CPU.
+``flash_fwd``, ``int8_dequant``) against its plain torch version, forward
+and (for the training kernels and ``bn_act``) backward, the wrappers'
+checks and launch counts, the card's ``torch._int_mm`` against the
+CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
+decoder in generate mode, a 2-layer GPT trained by ``Module.fit``) on
+the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -17,7 +19,10 @@ result (both round one f32 value once) plus that 1e-5, which is what
 remains of the FMA difference where a sum cancels near zero. The
 attention kernels sum in another order than torch (and contract FMAs):
 f32 within atol 2e-5, rtol 1e-4; bf16 within one bf16 ulp plus 1e-3.
-``take_rows`` moves bytes and must match bitwise.
+``take_rows`` moves bytes and must match bitwise. ``int8_dequant``
+within one f32 ulp of the larger of |acc * sc| and |y| (the kernel's FMA
+and the plain version's f64 sum both round once), with at least 99 % of
+the outputs bitwise equal; int32 accumulators bitwise.
 """
 import numpy as np
 import pytest
@@ -27,9 +32,11 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.kernels import _build
 from mxnet_tpu_torch.kernels import attention as tattn
 from mxnet_tpu_torch.kernels import bn_act as tbn
+from mxnet_tpu_torch.kernels import int8_dequant as tdq
 from mxnet_tpu_torch.kernels import mlp as tmlp
 from mxnet_tpu_torch.kernels import take as ttake
 from mxnet_tpu_torch.ops import pallas_flash as tpf
+from mxnet_tpu_torch.ops import quant_serve as tqs
 from mxnet_tpu_torch.parallel import blockwise_attention
 from mxnet_tpu_torch.serve import decode_model as tdm
 
@@ -437,3 +444,129 @@ def test_gpt_fit_on_the_card_matches_the_cpu(cuda):
     for k, v in params["cpu"].items():
         torch.testing.assert_close(params[str(cuda)][k], v, rtol=0,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------- int8_dequant
+def _dequant_case(R, S, per_row, device, seed=0, n_coef=None):
+    g = torch.Generator().manual_seed(seed)
+    acc = torch.randint(-2 ** 22, 2 ** 22, (R, S), generator=g,
+                        dtype=torch.int32)
+    n = n_coef or (R if per_row else S)
+    sc = torch.rand(n, generator=g) * 2e-3 - 5e-4
+    sh = torch.randn(n, generator=g)
+    return acc.to(device), sc.to(device), sh.to(device)
+
+
+def _assert_dequant_close(y, ref, acc, sc, per_row):
+    C = sc.numel()
+    coef = (sc.reshape(1, C, 1).expand(acc.shape[0] // C, C, 1)
+            .reshape(-1, 1) if per_row else sc.reshape(1, -1))
+    prod = (acc.float() * coef).abs()
+    big = torch.maximum(prod, ref.abs())
+    tol = torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+    diff = (y.double() - ref.double()).abs()
+    assert bool((diff <= tol.double()).all()), float((diff / tol).max())
+    assert float((y == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("R,S", [(32 * 2048, 49), (32 * 49, 2048),
+                                 (1, 1000), (37, 29), (3, 1)])
+@pytest.mark.parametrize("per_row", [True, False])
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_int8_dequant_matches_plain(cuda, R, S, per_row, act):
+    acc, sc, sh = _dequant_case(R, S, per_row, cuda, seed=R + S)
+    before = tdq.launches_by_kernel["%s/%s" % ("row" if per_row
+                                               else "column", act)]
+    y = tdq._launch(acc, sc, sh, per_row, act, tdq.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    assert tdq.launches_by_kernel["%s/%s" % ("row" if per_row
+                                             else "column", act)] \
+        == before + 1
+    _assert_dequant_close(y, tdq._plain_dequant(acc, sc, sh, per_row, act),
+                          acc, sc, per_row)
+
+
+def test_int8_dequant_untiled_rows_misaligned_and_small_grids(cuda):
+    acc, sc, sh = _dequant_case(6 * 64, 49, True, cuda, seed=1, n_coef=64)
+    y = tdq._launch(acc, sc, sh, True, "relu", tdq.DEFAULT_CONFIG)
+    _assert_dequant_close(y, tdq._plain_dequant(acc, sc, sh, True, "relu"),
+                          acc, sc, True)
+    # an accumulator 4 bytes past an aligned address takes the scalar loop
+    base, sc, sh = _dequant_case(1, 1 + 50 * 64, False, cuda, seed=2)
+    acc = base[0, 1:].view(50, 64)
+    sc, sh = sc[:64].contiguous(), sh[:64].contiguous()
+    y = tdq._launch(acc, sc, sh, False, "identity", tdq.DEFAULT_CONFIG)
+    _assert_dequant_close(y, tdq._plain_dequant(acc, sc, sh, False,
+                                                "identity"), acc, sc, False)
+    acc, sc, sh = _dequant_case(50, 51, False, cuda, seed=3)
+    y = tdq._launch(acc, sc, sh, False, "relu",
+                    {"threads": 64, "max_blocks": 3})
+    torch.cuda.synchronize()
+    _assert_dequant_close(y, tdq._plain_dequant(acc, sc, sh, False, "relu"),
+                          acc, sc, False)
+
+
+def test_int8_dequant_refuses_what_the_kernel_does_not_take(cuda):
+    acc, sc, sh = _dequant_case(8, 8, False, cuda)
+    for bad in (acc.t(), acc.long()):
+        with pytest.raises(mt.MXNetError):
+            tdq._launch(bad, sc, sh, False, "relu", tdq.DEFAULT_CONFIG)
+    with pytest.raises(mt.MXNetError, match="sc must be"):
+        tdq._launch(acc, sc.cpu(), sh, False, "relu", tdq.DEFAULT_CONFIG)
+    with pytest.raises(mt.MXNetError, match="must divide"):
+        tdq._launch(acc, sc[:3], sh[:3], True, "relu", tdq.DEFAULT_CONFIG)
+
+
+@pytest.mark.parametrize("case", [((1, 3, 224, 224), 64, (7, 7), (2, 2),
+                                   (3, 3)),
+                                  ((2, 64, 56, 56), 64, (3, 3), (1, 1),
+                                   (1, 1)),
+                                  ((2, 256, 56, 56), 512, (1, 1), (2, 2),
+                                   (0, 0)),
+                                  ((1, 512, 7, 7), 2048, (1, 1), (1, 1),
+                                   (0, 0)),
+                                  ((3, 2048), 1000, None, None, None)])
+def test_int_mm_on_the_card_is_the_cpus(cuda, case):
+    """The int32 accumulators of the int8 product, through the same
+    padding helper, on the card and on the CPU: bitwise."""
+    shape, O, kernel, stride, pad = case
+    g = torch.Generator().manual_seed(len(shape) + O)
+    xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    K = shape[1] * (kernel[0] * kernel[1] if kernel else 1)
+    w = torch.randint(-127, 128, (O, K), generator=g, dtype=torch.int8)
+    accs = []
+    for dev in ("cpu", cuda):
+        x = xq.to(dev)
+        p = (tqs._patches(x, kernel, stride, pad, (1, 1)) if kernel
+             else x)
+        accs.append(tqs._int8_matmul(p, w.to(dev)).cpu())
+    assert torch.equal(accs[0], accs[1])
+
+
+def test_resnet20_int8_on_the_card_matches_the_cpu(cuda, tmp_path):
+    sym = mt.models.resnet(num_layers=20, num_classes=10,
+                           image_shape=(3, 32, 32))
+    shapes, _, aux_shapes = sym.infer_shape(data=(2, 3, 32, 32))
+    rng = np.random.RandomState(0)
+    args = {n: rng.uniform(-0.5, 0.5, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    aux = {n: (rng.rand(*s) + 0.5).astype(np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    calib = [rng.randn(4, 3, 32, 32).astype(np.float32) for _ in range(2)]
+    path = str(tmp_path / "r20.int8.mxtorch")
+    meta = mt.quant.export_quantized(sym, args, aux, calib,
+                                     {"data": (None, 3, 32, 32)}, path)
+    assert meta["kernel_tier"]["kernels"] == {"int8_dequant": 23}
+    x = rng.randn(3, 3, 32, 32).astype(np.float32)
+    before = tdq.launches
+    srv = mt.serve.Server(path, buckets=(1, 4), batch_timeout_ms=0)
+    try:
+        got = srv.predict(data=x, timeout_ms=60000)[0]
+    finally:
+        srv.close()
+    # one warmup and one request at bucket 4, 23 sites each
+    assert tdq.launches - before == 2 * 23
+    want = mt.serving.CompiledModel.load(path, device="cpu").predict(
+        data=x)[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
