@@ -9,7 +9,10 @@ Phases; any failure raises and the script exits non-zero:
    from nvidia-smi. TF32 is switched off for convolutions and matmuls so
    every comparison below is in full f32.
 2. Build every kernel from ``mxnet_tpu_torch/csrc`` (one nvcc per
-   source, all started together) and print the build time.
+   source, all started together) and print the build time, ptxas's
+   registers, spills and wgmma notes, and the HGMMA (wgmma) count in
+   ``cuobjdump -sass`` of the ``flash_attn`` and ``flash_fwd`` libraries:
+   0 fails (the flash tile must run on tensor cores).
 3. Each kernel against its plain torch version at every distinct shape
    of the 49 fused ResNet-50 sites (33 ``bn_act`` + 16 ``bn_act_res``),
    at batch 1 and 32, f32 and bf16, with and without the residual.
@@ -38,15 +41,20 @@ Phases; any failure raises and the script exits non-zero:
 5. The decode kernels against their plain torch versions, f32 and bf16,
    at the generate path's shapes: ``take_rows`` on a (16400, 768) table
    by (16, 1024) ids, out-of-range ones included (bitwise);
-   ``flash_attn`` at prefill's (16, 12, 128, 64) causal and at T = 100;
+   ``flash_attn`` at prefill's (16, 12, 128, 64) causal and at T = 100
+   with head dims 64, 32 and 128;
    ``flash_attn_paged`` for a decode step (16 slots, W = 1, positions 0,
    page boundaries and a spread up to 1023) and for prompt chunks (one
    slot, W = 128, at positions 0 and 256). f32 within atol 2e-5, rtol
    1e-4 (FMA contraction and another summation order); bf16 within one
    bf16 ulp plus 1e-3. Then each kernel's f32 time beside its plain
    version's, the library call's where one exists (``index_select`` of
-   pre-clipped ids; ``scaled_dot_product_attention``) and the bound, the
-   larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s.
+   pre-clipped ids; ``scaled_dot_product_attention``, its device kernel
+   named from the profiler) and the bound, the larger of bytes over
+   3.35 TB/s and flops over 67 TFLOP/s; for ``flash_attn`` the flops
+   count three times over at 495 TFLOP/s (the TF32 tensor cores and the
+   kernel's three split products), the f32 CUDA-core figure printed
+   beside it.
 6. The generate path: a decoder at GPT-2 small's widths (vocab 50257,
    dim 768, 12 heads, 12 layers, context 1024; ``init_params(spec,
    seed=0)``) exported with chunked prefill and served by ``Server`` in
@@ -71,8 +79,9 @@ Phases; any failure raises and the script exits non-zero:
    (1000, 3000), ReLU, GeLU and identity, with and without the scale,
    forward and the gradients of x, scale and bias; ``flash_fwd`` at
    (8, 12, 1024, 64) causal and not, causal cross-length (tq 100, tk 60:
-   the fully masked rows must be exactly 0) and a ragged T = 100,
-   forward and the q, k, v gradients, against ``blockwise_attention``;
+   the fully masked rows must be exactly 0), a ragged T = 100, head dim
+   32 at T = 100 and head dim 128 at T = 256 (not causal), forward and
+   the q, k, v gradients, against ``blockwise_attention``;
    ``flash_attn`` at (8, 12, 1024, 64) causal and ``take_rows`` on the
    (50257, 768) token table by (8, 1024) ids, forward and the new
    backward. Forwards within the tolerances of phase 5 (the gather
@@ -81,7 +90,7 @@ Phases; any failure raises and the script exits non-zero:
    terms rounded in other places); the row gather's scatter-add bitwise
    (its cotangents are quarters, exact in any order). Then the f32
    times of B5, B7, and of B3 and B2 at these shapes, beside plain,
-   library and bound.
+   library and bound (B3 and B7 bounded as in phase 5, both ways).
 8. The training path: the GPT of ``examples/train_transformer_lm.py``
    at GPT-2 small's widths (vocab 50257, dim 768, 12 heads, 12 layers,
    T 1024; Xavier from seed 0) trained by ``Module.fit`` with Adam (lr
@@ -162,6 +171,7 @@ from mxnet_tpu_torch.symbol.symbol import _infer_shapes
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM TF32 tensor cores, dense
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
 BUCKETS = (1, 8, 32)
 REPLACES = {"bn_act": "mxnet_tpu/kernels/bn_act.py:57",
@@ -290,6 +300,55 @@ def bound_parts(shape, dtype, residual):
 def bound_of(bytes_ms, ops_ms):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def flash_bound_parts(q, pairs):
+    """Least time of one f32 flash forward over q's shape with ``pairs``
+    visible (query, key) pairs: (bytes_ms, ops_ms, core_ops_ms). Bytes:
+    q, k, v read once and o written once. Operations: 4 flops per visible
+    pair and head dim, three times over at the dense TF32 tensor-core
+    rate (the kernel's error-compensated split: three products where
+    both operands are f32) -- the bound the table uses; and once at the
+    f32 CUDA-core rate, the bound of a kernel without tensor cores."""
+    flops = 4 * pairs * q.shape[3]
+    return (4 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+            3 * flops / TF32_FLOPS * 1e3, flops / F32_FLOPS * 1e3)
+
+
+def device_kernels(fn):
+    """The names of the device kernels a call of fn runs, from
+    torch.profiler (CPU and CUDA activities, as the other profiles here):
+    names the library call timed beside a kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    return " + ".join(n[:100] for n in names) or "not recorded"
+
+
+def hgmma_count(name):
+    """HGMMA (wgmma) instructions in ``cuobjdump -sass`` of the built
+    library of csrc/<name>.cu: non-zero when it runs on tensor cores."""
+    path = _build.build([name])[name]
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sass.count("HGMMA")
+
+
+def log_flash_bound(name, r):
+    log("  %-18s bound both ways: TF32 tensor cores (3 products) %.5f ms, "
+        "f32 CUDA cores %.5f ms; library %s" % (
+            name, r["bound_ms"], max(r["bytes_ms"], r["core_ops_ms"]),
+            r["library_kernel"]))
 
 
 def kernel_phase(sites, dev):
@@ -655,8 +714,10 @@ def gpt_kernel_phase(dev):
         "library_ms": time_ms(lambda: torch.index_select(table, 0, clipped),
                               dev),
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": 0.0}
-    # -- B3 flash_attn: prefill (16, 12, 128, 64) causal, and T = 100
-    for shape in ((16, 12, 128, 64), (2, 12, 100, 64)):
+    # -- B3 flash_attn: prefill (16, 12, 128, 64) causal, and T = 100 at
+    # head dims 64, 32 and 128
+    for shape in ((16, 12, 128, 64), (2, 12, 100, 64), (2, 12, 100, 32),
+                  (2, 6, 100, 128)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
                        for _ in range(3))
@@ -668,15 +729,18 @@ def gpt_kernel_phase(dev):
     shape = (16, 12, 128, 64)
     q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
     B, H, T, D = shape
-    pairs = B * H * T * (T + 1) // 2
+    bytes_ms, ops_ms, core_ms = flash_bound_parts(
+        q, B * H * T * (T + 1) // 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
     rows["flash_attn"] = {
         "shape": "(16, 12, 128, 64) f32 causal",
         "ms": time_ms(lambda: attn._launch_flash(q, k, v, True), dev),
         "plain_ms": time_ms(lambda: attn._plain_flash(q, k, v, True), dev),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), dev),
-        "bytes_ms": 4 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": 4 * pairs * D / F32_FLOPS * 1e3}
+        "library_ms": time_ms(sdpa, dev), "library_kernel": device_kernels(
+            sdpa), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "core_ops_ms": core_ms}
     # -- B4 flash_attn_paged: decode (S=16, W=1) and chunks (S=1, W=128)
     cases = [(16, 1, DECODE_POSITIONS), (1, 128, [0]), (1, 128, [256])]
     for S, W, positions in cases:
@@ -710,6 +774,7 @@ def gpt_kernel_phase(dev):
                                     if r["library_ms"] is not None
                                     else "none", r["bound_ms"],
                                     r["bound_by"]))
+    log_flash_bound("flash_attn", rows["flash_attn"])
     log("decode kernels vs plain (f32 and bf16): max abs err %s"
         % json.dumps(err))
     return err, rows
@@ -983,13 +1048,16 @@ TRAIN_REPLACES = {"scale_bias_act": "mxnet_tpu/kernels/mlp.py:53",
                   "flash_fwd": "mxnet_tpu/ops/pallas_flash.py:35"}
 TRAIN_SOURCES = {k: "mxnet_tpu_torch/csrc/%s.cu" % k for k in TRAIN_REPLACES}
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# the flash rows also name the library call's device kernel
+NAMED_KEYS = TIME_KEYS + ("library_kernel",)
 # phase 7's shapes: the MLP up-projection and a ragged one; the attention
 # shape, causal and not, causal cross-length (tq > tk: rows that see no
 # key) and a ragged T; the token-embedding table and its ids
 B5_SHAPES = ((8192, 3072), (1000, 3000))
 ATTN_SHAPE = (8, 12, 1024, 64)
 B7_CASES = ((ATTN_SHAPE, 1024, True), (ATTN_SHAPE, 1024, False),
-            ((1, 2, 100, 64), 60, True), ((2, 12, 100, 64), 100, True))
+            ((1, 2, 100, 64), 60, True), ((2, 12, 100, 64), 100, True),
+            ((2, 12, 100, 32), 100, True), ((1, 4, 256, 128), 256, False))
 EMBED = ((50257, 768), (8, 1024))
 
 
@@ -1154,16 +1222,19 @@ def train_kernel_phase(dev):
     del x
     q, k, v = (rnd(*ATTN_SHAPE) for _ in range(3))
     B_, H_, T_, D_ = q.shape
-    pairs = B_ * H_ * T_ * (T_ + 1) // 2
+    bytes_ms, ops_ms, core_ms = flash_bound_parts(
+        q, B_ * H_ * T_ * (T_ + 1) // 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
     rows["flash_fwd"] = {
         "shape": "%s f32 causal" % (ATTN_SHAPE,),
         "ms": time_ms(lambda: pf._launch(q, k, v, True), dev),
         "plain_ms": time_ms(lambda: blockwise_attention(q, k, v, 128, True),
                             dev),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), dev),
-        "bytes_ms": 4 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-        "ops_ms": 4 * pairs * D_ / F32_FLOPS * 1e3}
+        "library_ms": time_ms(sdpa, dev), "library_kernel": device_kernels(
+            sdpa), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+        "core_ops_ms": core_ms}
     table = rnd(*EMBED[0])
     ids = torch.randint(-300, EMBED[0][0] + 300, EMBED[1], generator=g,
                         device=dev, dtype=torch.int32)
@@ -1184,9 +1255,9 @@ def train_kernel_phase(dev):
         "shape": "%s f32 causal" % (ATTN_SHAPE,),
         "ms": time_ms(lambda: attn._launch_flash(q, k, v, True), dev),
         "plain_ms": time_ms(lambda: attn._plain_flash(q, k, v, True), dev),
-        "library_ms": rows["flash_fwd"]["library_ms"],
-        "bytes_ms": rows["flash_fwd"]["bytes_ms"],
-        "ops_ms": rows["flash_fwd"]["ops_ms"]}
+        **{key: rows["flash_fwd"][key] for key in (
+            "library_ms", "library_kernel", "bytes_ms", "ops_ms",
+            "core_ops_ms")}}
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
         log("  %-18s %-30s ms=%.5f plain_ms=%.5f library_ms=%s "
@@ -1195,6 +1266,8 @@ def train_kernel_phase(dev):
                                     if r["library_ms"] is not None
                                     else "none", r["bound_ms"],
                                     r["bound_by"]))
+    for name in ("flash_fwd", "flash_attn@train"):
+        log_flash_bound(name, rows[name])
     return err, rows
 
 
@@ -2069,11 +2142,18 @@ def main():
     log("build: %s in %.2fs" % (", ".join(_build.sources()), build_s))
     for src in _build.sources():
         for line in (_build.build_log(src) or "").splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line):
+            if "ptxas" in line and ("registers" in line or "spill" in line
+                                    or "wgmma" in line):
                 log("  " + line.strip())
+    hgmma = {src: hgmma_count(src) for src in ("flash_attn", "flash_fwd")}
+    log("HGMMA instructions (cuobjdump -sass): %s" % json.dumps(hgmma))
+    for src, n in hgmma.items():
+        if n == 0:
+            raise RuntimeError("%s has no HGMMA instruction: the flash "
+                               "tile does not run on tensor cores" % src)
 
     report = {"card": card, "device": name, "torch": torch.__version__,
-              "build_s": build_s}
+              "build_s": build_s, "hgmma": hgmma}
     sites = fused_sites(resnet50())
     max_err, per_class, totals = kernel_phase(sites, dev)
     host_us = wrapper_host_us(dev)
@@ -2119,7 +2199,7 @@ def main():
                               train_err[kname + "@train/float32"],
                               train_rows[kname + "@train"])
         by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
-                           **{k: r[k] for k in TIME_KEYS})
+                           **{k: r[k] for k in NAMED_KEYS if k in r})
                    for p, (n, e, r) in paths.items()}
         main_ = max(by_path.values(), key=lambda b: b["launches"])
         kernels.append({"name": kname, "route": "cuda",
@@ -2129,7 +2209,7 @@ def main():
                                         for b in by_path.values()),
                         "max_abs_err": max(b["max_abs_err"]
                                            for b in by_path.values()),
-                        **{k: main_[k] for k in TIME_KEYS},
+                        **{k: main_[k] for k in NAMED_KEYS if k in main_},
                         "by_path": by_path})
     for kname in ("scale_bias_act", "flash_fwd"):
         r = train_rows[kname]
@@ -2138,9 +2218,7 @@ def main():
                         "replaces": TRAIN_REPLACES[kname],
                         "launches": train_launches[kname],
                         "max_abs_err": train_err[kname + "/float32"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        **{k: r[k] for k in NAMED_KEYS if k in r}})
     kernels.append({"name": "int8_dequant", "route": "cuda",
                     "source": INT8_SOURCE, "replaces": INT8_REPLACES,
                     "launches": int8_launches,

@@ -6,15 +6,19 @@
 // bf16 inputs, masked scores -1e30 BEFORE the max and p forced to 0 after
 // the exp, output acc / max(l, 1e-30) rounded once to the input dtype.
 //
-// Bound: at the prefill shape (16, 12, 128, 64) f32 the bytes (q, k, v
-// read once, o written once: 25 MB) and the causal half of the 2*2*T*T*D
-// flops per head (0.4-0.6 GFLOP after 64-row tile pruning, on f32 CUDA
-// cores) take about the same time, a few microseconds each; at this size
-// the launch itself may dominate. Design, simple and right first: the
-// tile of flash_tile.cuh (one CTA per (b*h, 64-row q tile), 4 threads
-// per q row, 64-row K/V tiles in shared memory). The TPU grid walks
-// every KV tile and skips the future ones with pl.when; here the CTA's
-// loop ends at the last tile the causal mask lets it see.
+// Bound: at the prefill shape (16, 12, 128, 64) f32 causal the bytes
+// (q, k, v read once, o written once: 25.2 MB, 0.0075 ms at 3.35 TB/s)
+// outweigh the causal half of the 2*2*T*T*D flops per head (0.41 GFLOP,
+// three times over on the TF32 tensor cores: 0.0025 ms at 495 TFLOP/s);
+// at the training shape (8, 12, 1024, 64) the operations bound it:
+// 3 x 12.9 GFLOP, 0.078 ms. Design: the tile of flash_tile.cuh, shared
+// with flash_fwd.cu (B7): wgmma on TF32 with an error-compensated
+// split (three products where both operands are f32; the scaled q's and
+// p's small parts for bf16), so the result stays the f32 one. p meets V
+// as f32 (the TPU kernel's f32 dot), so its small part is kept in both
+// dtypes. The TPU grid walks every KV tile and skips the future ones
+// with pl.when; here the CTA's loop ends at the last tile the causal
+// mask lets it see, and each warpgroup skips the tiles its rows cannot.
 //
 // C interface for ctypes: mxk_flash_attn launches on the caller's stream
 // and returns cudaGetLastError() (0 = launched).

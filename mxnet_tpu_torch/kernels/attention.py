@@ -60,8 +60,9 @@ __all__ = ["flash_attention", "attend_or_none", "reference_attention",
 OP_NAME = "flash_attn"
 PAGED_OP_NAME = "flash_attn_paged"
 # the compiled tiles, recorded by the tier (the kernels take no others):
-# 64 q rows x 64 kv rows per CTA; 8 query rows x 4 warps per CTA
-DEFAULT_CONFIG = {"block_q": 64, "block_k": 64}
+# 128 q rows (two warpgroups; 64 for head dims over 64) x 64 kv rows per
+# CTA; 8 query rows x 4 warps per CTA
+DEFAULT_CONFIG = {"block_q": 128, "block_k": 64}
 PAGED_DEFAULT_CONFIG = {"block_rows": 8, "warps": 4}
 MAX_HEAD_DIM = 128
 

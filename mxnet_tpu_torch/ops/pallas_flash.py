@@ -9,7 +9,8 @@ rounded to V's dtype before the PV product, output
 ``acc / max(l, 1e-30)``, so a fully masked row (causal with tq > tk) is
 exactly 0. ``block_q``/``block_k`` are recorded for the call: they chose
 the TPU's tiles and do not change the function; the CUDA kernel keeps
-its own 64-row tile (``KV_TILE``). The plain version is
+its own K/V tile of 64 rows (``KV_TILE``), at which its running max
+moves, so where a bf16 p rounds. The plain version is
 :func:`~mxnet_tpu_torch.parallel.blockwise_attention` over the caller's
 ``block_k`` blocks, as the TPU kernel walks them: a CPU tensor takes
 it, and the gradient (:class:`_FlashFwd`'s backward) differentiates it,
@@ -36,7 +37,7 @@ from .registry import register
 
 __all__ = ["flash_attention", "launches", "reset_launches", "KV_TILE"]
 
-KV_TILE = 64          # the CUDA kernel's K/V tile (and q rows per CTA)
+KV_TILE = 64          # the CUDA kernel's K/V tile: its running max step
 MAX_HEAD_DIM = 128
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

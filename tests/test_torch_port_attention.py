@@ -8,6 +8,14 @@ inputs: f32 within atol/rtol 1e-5 (the same function summed in another
 order), bf16 within one bf16 ulp plus 1e-3 of the f32 result (each side
 rounds its f32 result once, after another summation order). Cases cover
 an uneven tail, position 0, page boundaries and W > 1.
+
+The CUDA tile (``csrc/flash_tile.cuh``) computes both products on TF32
+tensor cores with an error-compensated split. :func:`_tc_flash` forms
+them here exactly as the kernel does (3 terms for two f32 operands, 2
+where one side is exact in TF32, 1 where both are) and is held against
+the JAX kernel at the card's tolerance (f32 atol 2e-5, rtol 1e-4; bf16
+one bf16 ulp plus 1e-3); one case shows that a single TF32 product
+misses it, which is why the kernel splits.
 """
 import math
 
@@ -40,6 +48,74 @@ def _close(got, want, dtype):
             float(np.abs(got - want).max())
 
 
+# --------------------------------------------- the tensor-core split
+def _tf32(x):
+    """x (f32) rounded to TF32's 10 mantissa bits, to nearest, ties away
+    from zero, by the mantissa mask (the kernel's ``tf32r``)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc_matmul(a, b, a_full, b_full, terms=3):
+    """a @ b in f32 as the kernel's wgmmas form it. An operand with a
+    full f32 mantissa (``*_full``) is split into big = tf32(x) and small
+    = tf32(x - big); a bf16 one is exact in TF32 and is not. The products
+    kept are big.big, big.small and small.big where those parts exist;
+    ``terms=1`` keeps big.big alone (one plain TF32 product)."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab @ bb
+    if terms == 1:
+        return out
+    if b_full:
+        out = out + ab @ _tf32(b - bb)
+    if a_full:
+        out = out + _tf32(a - ab) @ bb
+    return out
+
+
+def _tc_flash(q, k, v, causal, round_p, terms=3, kv_tile=64):
+    """The CUDA tile's function with its tensor-core products: q scaled
+    in f32, an online softmax whose running max moves once per
+    ``kv_tile`` keys, masked scores -1e30 before the max and p forced to
+    0, ``round_p`` (B7) rounding p to the input dtype before P.V, output
+    ``acc / max(l, 1e-30)`` in the input dtype."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    full = q.dtype == torch.float32          # bf16 K and V are exact
+    qs = q.float() * (1.0 / math.sqrt(d))
+    m = torch.full(q.shape[:3] + (1,), -1e30)
+    l = torch.zeros(q.shape[:3] + (1,))
+    acc = torch.zeros(q.shape[:3] + (d,))
+    qpos = torch.arange(tq)[:, None]
+    for t0 in range(0, tk, kv_tile):
+        kb = k[:, :, t0:t0 + kv_tile].float()
+        vb = v[:, :, t0:t0 + kv_tile].float()
+        s = _tc_matmul(qs, kb.transpose(-1, -2), True, full, terms)
+        mask = torch.arange(t0, t0 + kb.shape[2])[None, :] < tk
+        if causal:
+            mask = mask & (torch.arange(t0, t0 + kb.shape[2])[None, :]
+                           <= qpos + (tk - tq))
+        s = torch.where(mask, s, torch.full((), -1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.where(mask, torch.exp(s - m_new), torch.zeros(()))
+        l = l * corr + p.sum(-1, keepdim=True)
+        pv = p.to(q.dtype).float() if round_p else p
+        acc = acc * corr + _tc_matmul(pv, vb, full or not round_p, full,
+                                      terms)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _card_close(got, want, dtype):
+    """chip_smoke.py's kernel tolerance -> the elements outside it."""
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    diff = np.abs(got - want)
+    if dtype == "float32":
+        return int((diff > 2e-5 + 1e-4 * np.abs(want)).sum())
+    ulp = np.maximum(np.abs(got), np.abs(want)) * 2.0 ** -7
+    return int((diff > ulp + 1e-3).sum())
+
+
 def _qkv(shape, seed):
     rng = np.random.RandomState(seed)
     return [(rng.randn(*shape) / math.sqrt(shape[-1])).astype(np.float32)
@@ -67,6 +143,50 @@ def test_flash_attention_matches_jax_kernel_and_reference(shape, dtype):
     tref = tattn.reference_attention(*(torch.from_numpy(a).to(tdt)
                                        for a in (q, k, v)))
     _close(tref, jref, dtype)
+
+
+# (q shape, tk, causal): square, a ragged tail over two KV tiles, d 16,
+# non-causal cross-length
+TC_CASES = [((1, 2, 128, 64), 128, True), ((1, 2, 100, 64), 100, True),
+            ((1, 2, 100, 16), 100, True), ((1, 2, 40, 16), 100, False)]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tensor_core_split_matches_the_jax_kernel(case, dtype):
+    """The kernel's split products (3 terms f32; 2 terms bf16: the scaled
+    q's and p's small parts) against ``mxk_flash_attn`` in interpret
+    mode, unscaled randn inputs as on the card."""
+    qshape, tk, causal = case
+    rng = np.random.RandomState(qshape[2] + tk)
+    kshape = qshape[:2] + (tk, qshape[3])
+    q, k, v = (rng.randn(*s_).astype(np.float32)
+               for s_ in (qshape, kshape, kshape))
+    jdt = getattr(jnp, dtype)
+    with jconfig.override(kernel_tier="auto"):
+        want = _np(jattn.flash_attention(
+            *(jnp.asarray(a, jdt) for a in (q, k, v)), causal=causal,
+            config={"block_q": 64, "block_k": 64}))
+    got = _tc_flash(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                      for a in (q, k, v)), causal, round_p=False)
+    assert _card_close(got, want, dtype) == 0
+
+
+def test_one_tf32_product_misses_the_f32_tolerance():
+    """Without the split (one TF32 product per matmul) the kernel would
+    fail the card's f32 tolerance; the 3-term split on the same inputs
+    meets it."""
+    rng = np.random.RandomState(0)
+    q, k, v = (rng.randn(1, 4, 256, 64).astype(np.float32)
+               for _ in range(3))
+    with jconfig.override(kernel_tier="auto"):
+        want = _np(jattn.flash_attention(
+            *(jnp.asarray(a) for a in (q, k, v)), causal=True,
+            config={"block_q": 64, "block_k": 64}))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    assert _card_close(_tc_flash(*t, True, False, terms=1), want,
+                       "float32") > 0
+    assert _card_close(_tc_flash(*t, True, False), want, "float32") == 0
 
 
 def test_flash_attention_non_causal_cross_length():

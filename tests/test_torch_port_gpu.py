@@ -179,8 +179,11 @@ def _assert_attn_close(got, want):
         assert bool((diff <= ulp + 1e-3).all()), float(diff.max())
 
 
+# the tile takes 128 q rows a CTA (64 over head dim 64) and 64 kv rows a
+# step: several q tiles, a last one whose second warpgroup has no row
 @pytest.mark.parametrize("shape", [(2, 3, 128, 64), (1, 2, 100, 64),
-                                   (2, 2, 37, 8), (1, 1, 70, 128)])
+                                   (2, 2, 37, 8), (1, 1, 70, 128),
+                                   (1, 2, 300, 32), (1, 2, 200, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attn_matches_plain(cuda, shape, dtype):
     g = torch.Generator().manual_seed(shape[2])
@@ -361,7 +364,10 @@ def test_scale_bias_act_refuses_what_the_kernel_does_not_take(cuda):
     ((1, 2, 100, 64), (1, 2, 100, 64), True),
     ((1, 2, 100, 64), (1, 2, 60, 64), True),
     ((1, 2, 60, 32), (1, 2, 100, 32), True),
-    ((2, 2, 37, 8), (2, 2, 90, 8), False)])
+    ((2, 2, 37, 8), (2, 2, 90, 8), False),
+    ((1, 2, 300, 64), (1, 2, 300, 64), True),
+    ((1, 2, 200, 64), (1, 2, 72, 64), True),
+    ((1, 2, 130, 128), (1, 2, 130, 128), True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fwd_matches_plain(cuda, case, dtype):
     qs, ks, causal = case

@@ -9,6 +9,12 @@ causal and not, cross-length with fully masked rows (exactly 0 on both
 sides), blocks that do not divide T. f32 within atol/rtol 1e-5 (the same
 recurrence, summed in another order); bf16 forward within one bf16 ulp
 plus 1e-3.
+
+The CUDA kernel's tensor-core products are emulated by the attention
+tests' ``_tc_flash`` (3 terms f32; bf16: 2 for the scaled q against K,
+1 for the bf16-rounded p against V) and held against the JAX kernel at
+the card's tolerance (f32 atol 2e-5, rtol 1e-4; bf16 one bf16 ulp plus
+1e-3), with the KV tile at which the running max moves (``KV_TILE``).
 """
 import math
 
@@ -30,6 +36,8 @@ from mxnet_tpu_torch.kernels import tier as ttier
 from mxnet_tpu_torch.ops import pallas_flash as tpf
 from mxnet_tpu_torch.ops import registry as treg
 from mxnet_tpu_torch.parallel import blockwise_attention
+
+from test_torch_port_attention import _card_close, _tc_flash
 
 
 def _f32(x):
@@ -74,6 +82,30 @@ def test_forward_and_grads_match_the_jax_kernel(case):
         np.testing.assert_allclose(leaf.grad.numpy(), _f32(jg), rtol=1e-5,
                                    atol=1e-5)
     assert tpf.launches == 0
+
+
+# (tq, tk, causal, d): square causal and not, a ragged tail at d 16,
+# causal cross-length with fully masked rows (tq > tk) and with tq < tk
+TC_CASES = [(128, 128, True, 64), (128, 128, False, 64),
+            (100, 100, True, 16), (100, 60, True, 64), (60, 100, True, 16)]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tensor_core_split_matches_the_jax_kernel(case, dtype):
+    tq, tk, causal, d = case
+    rng = np.random.RandomState(tq + tk + d)
+    q = rng.randn(1, 2, tq, d).astype(np.float32)
+    k, v = (rng.randn(1, 2, tk, d).astype(np.float32) for _ in range(2))
+    jdt = getattr(jnp, dtype)
+    want = _f32(jpf.flash_attention(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                                    tpf.KV_TILE, tpf.KV_TILE, causal))
+    got = _tc_flash(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                      for a in (q, k, v)), causal, round_p=True,
+                    kv_tile=tpf.KV_TILE)
+    assert _card_close(got, want, dtype) == 0
+    if causal and tq > tk:
+        assert (got[:, :, :tq - tk] == 0).all()
 
 
 @pytest.mark.parametrize("causal", [False, True])
