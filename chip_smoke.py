@@ -47,14 +47,27 @@ Phases; any failure raises and the script exits non-zero:
    page boundaries and a spread up to 1023) and for prompt chunks (one
    slot, W = 128, at positions 0 and 256). f32 within atol 2e-5, rtol
    1e-4 (FMA contraction and another summation order); bf16 within one
-   bf16 ulp plus 1e-3. Then each kernel's f32 time beside its plain
-   version's, the library call's where one exists (``index_select`` of
-   pre-clipped ids; ``scaled_dot_product_attention``, its device kernel
-   named from the profiler) and the bound, the larger of bytes over
-   3.35 TB/s and flops over 67 TFLOP/s; for ``flash_attn`` the flops
-   count three times over at 495 TFLOP/s (the TF32 tensor cores and the
-   kernel's three split products), the f32 CUDA-core figure printed
-   beside it.
+   bf16 ulp plus 1e-3. ``flash_attn_paged`` also on the non-finite
+   cases of ``tests/paged_nonfinite.py`` (NaN or inf planted in V or K
+   at masked positions, a repeated trailing page, a position masked for
+   row 0 only, and a finite control) at the decode geometry and a chunk
+   at position 250, f32 and bf16: the plain version's NaN and inf masks
+   must be the contract's, the kernel's must equal them exactly, and
+   the finite values are held to the tolerance above. Then each
+   kernel's f32 time beside its plain version's, the library call's
+   where one exists (``index_select`` of pre-clipped ids;
+   ``scaled_dot_product_attention``, its device kernel named from the
+   profiler) and the bound, the larger of bytes over 3.35 TB/s and
+   flops over 67 TFLOP/s; for ``flash_attn`` the flops count three
+   times over at 495 TFLOP/s (the TF32 tensor cores and the kernel's
+   three split products), the f32 CUDA-core figure printed beside it.
+   ``flash_attn_paged`` is timed at the decode step with 64 distinct
+   pages a slot and in the serving layout (unused entries page 0), and
+   at chunk@256, and the longest slot alone (position 1023, 12 CTAs of
+   64 pages each); its bound counts the contract's work (visible K and V,
+   and V of every listed row, each row once), the visible rows' bound
+   printed beside it, and each time is also taken after a flush that
+   leaves L2 clean.
 6. The generate path: a decoder at GPT-2 small's widths (vocab 50257,
    dim 768, 12 heads, 12 layers, context 1024; ``init_params(spec,
    seed=0)``) exported with chunked prefill and served by ``Server`` in
@@ -247,21 +260,29 @@ def check_kernel(x, sc, sh, r):
     return float(diff.max())
 
 
-def time_ms(fn, dev, iters=20, warmup=3, hide_host=True):
+def time_ms(fn, dev, iters=20, warmup=3, hide_host=True, clean_l2=False):
     """Median CUDA-event time of fn(), L2 flushed before every launch.
 
     With ``hide_host`` the stream first spins (torch.cuda._sleep) long
     enough for the host to enqueue fn() behind it, so the events time
     the device work alone; without it the time includes whatever the
     host makes the device wait (an eager forward's op-by-op dispatch).
+    The flush writes 96 MB, so L2 starts full of dirty lines whose
+    write-back shares HBM with fn()'s reads; ``clean_l2`` flushes by
+    reading the 96 MB instead, leaving L2 clean.
     """
     flush = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
+    if clean_l2:
         flush.zero_()
+    for s, e in zip(starts, ends):
+        if clean_l2:
+            flush.max()
+        else:
+            flush.zero_()
         if hide_host:
             torch.cuda._sleep(1_000_000)      # ~0.5 ms at 1.98 GHz
         s.record()
@@ -680,6 +701,88 @@ def paged_bound(S, W, positions, dtype):
     return nbytes / HBM_BYTES_PER_S * 1e3, 4 * pairs * C / peak * 1e3
 
 
+def serving_layout(bt, positions, W):
+    """The block table as serving writes it: every entry past the page
+    of a slot's last visible position lists page 0 (the scratch page)."""
+    bt = bt.clone()
+    page = GPT_SPEC["page_size"]
+    for s, p in enumerate(positions):
+        bt[s, (p + W - 1) // page + 1:] = 0
+    return bt
+
+
+def paged_contract_bound(bt, positions, W, dtype):
+    """(bytes_ms, ops_ms) of the work the non-finite contract asks of
+    one paged call: every store row whose K some query row sees and
+    every listed store row's V, each read once however often it is
+    listed, q read and o written once, the block table and positions;
+    4 flops per visible (query row, position, dim) pair."""
+    C, page = GPT_SPEC["dim"], GPT_SPEC["page_size"]
+    rows = GPT_SPEC["num_pages"] * page
+    S, mp = bt.shape
+    size = torch.tensor([], dtype=dtype).element_size()
+    ids = (bt.cpu().long()[:, :, None] * page
+           + torch.arange(page)).reshape(S, -1).clamp(0, rows - 1)
+    krows = torch.cat([ids[s, :max(0, min(p + W, mp * page))]
+                       for s, p in enumerate(positions)]).unique().numel()
+    vrows = ids.unique().numel()
+    nbytes = ((krows + vrows) * C + 2 * S * W * C) * size + S * (mp + 1) * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, paged_bound(
+        S, W, positions, dtype)[1]
+
+
+# the planted non-finite cases (tests/paged_nonfinite.py) at the decode
+# step and at a prompt chunk whose last row's page has a masked tail
+PLANT_CASES = (("decode", 16, 1, DECODE_POSITIONS), ("chunk", 1, 128, [250]))
+
+
+def paged_contract_phase(dev):
+    """B4 against its plain version on every planted non-finite case, at
+    the decode and chunk geometries, f32 and bf16: the plain version's
+    NaN and inf masks are the contract's, the kernel's equal them
+    exactly, and its finite values are within ``attn_check``'s
+    tolerance. -> (cases, max abs err on the finite values)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from paged_nonfinite import CASES, plant
+    from mxnet_tpu_torch.kernels import attention as attn
+    heads, page = GPT_SPEC["num_heads"], GPT_SPEC["page_size"]
+    n, worst = 0, 0.0
+    for geom, S, W, positions in PLANT_CASES:
+        q, kp, vp, bt, pos = paged_inputs(dev, torch.float32, S, W,
+                                          positions, 21)
+        host = [t.cpu().numpy() for t in (kp, vp, bt, pos)]
+        for case in CASES:
+            kpc, vpc, btc, nan, inf = plant(case, *host, W, page)
+            for dtype in (torch.float32, torch.bfloat16):
+                args = (q.to(dtype), torch.from_numpy(kpc).to(dev, dtype),
+                        torch.from_numpy(vpc).to(dev, dtype),
+                        torch.from_numpy(btc).to(dev), pos)
+                want = attn._plain_paged(*args, heads, page)
+                got = attn._launch_paged(*args, heads, page)
+                what = "flash_attn_paged %s %s %s" % (geom, case, dtype)
+                if not (torch.equal(torch.isnan(want).cpu(),
+                                    torch.from_numpy(nan))
+                        and torch.equal(torch.isinf(want).cpu(),
+                                        torch.from_numpy(inf))):
+                    raise RuntimeError("%s: the plain version's NaN/inf "
+                                       "masks are not the contract's" % what)
+                for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                    if not torch.equal(test(got), test(want)):
+                        raise RuntimeError("%s: %s masks differ (kernel %d, "
+                                           "plain %d)" % (
+                                               what, test.__name__,
+                                               int(test(got).sum()),
+                                               int(test(want).sum())))
+                fin = torch.isfinite(want)
+                worst = max(worst, attn_check(got[fin], want[fin], what))
+                n += 1
+    log("flash_attn_paged on %d planted non-finite cases (%s x %s, f32 and "
+        "bf16): NaN/inf masks equal the plain version's and the contract's, "
+        "finite values max abs err %g" % (
+            n, "/".join(g for g, *_ in PLANT_CASES), "/".join(CASES), worst))
+    return n, worst
+
+
 def gpt_kernel_phase(dev):
     """B2, B3 and B4 against their plain versions at the slice's shapes,
     f32 and bf16, then their times (f32) beside plain, library, bound."""
@@ -753,19 +856,35 @@ def gpt_kernel_phase(dev):
                            "flash_attn_paged S=%d W=%d %s" % (S, W, dtype))
             key = "flash_attn_paged/" + str(dtype)[6:]
             err[key] = max(err.get(key, 0.0), e)
-    for name, (S, W, positions) in (("flash_attn_paged", cases[0]),
-                                    ("flash_attn_paged/chunk@256",
-                                     cases[2])):
+    err["flash_attn_paged/planted"] = paged_contract_phase(dev)[1]
+    # the layouts: 64 distinct pages a slot (every entry listed), and the
+    # serving one (unused entries page 0); bound_ms is the contract's
+    # work, visible_bound_ms the visible rows' alone (the earlier bound)
+    # and the longest slot alone (12 CTAs of 64 pages): what one CTA
+    # streams, the time no grid of one CTA per (slot, head) goes below
+    for name, (S, W, positions), layout in (
+            ("flash_attn_paged", cases[0], "distinct"),
+            ("flash_attn_paged/serving", cases[0], "serving"),
+            ("flash_attn_paged/chunk@256", cases[2], "distinct"),
+            ("flash_attn_paged/one-slot@1023", (1, 1, [1023]), "distinct")):
         q, kp, vp, bt, pos = paged_inputs(dev, torch.float32, S, W,
                                           positions, 3)
-        bytes_ms, ops_ms = paged_bound(S, W, positions, torch.float32)
+        if layout == "serving":
+            bt = serving_layout(bt, positions, W)
+        bytes_ms, ops_ms = paged_contract_bound(bt, positions, W,
+                                                torch.float32)
         rows[name] = {
-            "shape": "S=%d W=%d f32 at positions %s" % (S, W, positions),
+            "shape": "S=%d W=%d f32 at positions %s, %s pages" % (
+                S, W, positions, layout),
             "ms": time_ms(lambda: attn._launch_paged(q, kp, vp, bt, pos, 12,
                                                      16), dev),
             "plain_ms": time_ms(lambda: attn._plain_paged(
                 q, kp, vp, bt, pos, 12, 16), dev),
-            "library_ms": None, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+            "ms_clean_l2": time_ms(lambda: attn._launch_paged(
+                q, kp, vp, bt, pos, 12, 16), dev, clean_l2=True),
+            "library_ms": None, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "visible_bound_ms": bound_of(*paged_bound(
+                S, W, positions, torch.float32))[0]}
     for name, r in rows.items():
         r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
         log("  %-28s %-44s ms=%.5f plain_ms=%.5f library_ms=%s "
@@ -775,6 +894,13 @@ def gpt_kernel_phase(dev):
                                     else "none", r["bound_ms"],
                                     r["bound_by"]))
     log_flash_bound("flash_attn", rows["flash_attn"])
+    for name in ("flash_attn_paged", "flash_attn_paged/serving",
+                 "flash_attn_paged/chunk@256",
+                 "flash_attn_paged/one-slot@1023"):
+        log("  %-28s contract bound %.5f ms, visible-row bound %.5f ms; "
+            "%.5f ms after a flush that leaves L2 clean" % (
+                name, rows[name]["bound_ms"], rows[name]["visible_bound_ms"],
+                rows[name]["ms_clean_l2"]))
     log("decode kernels vs plain (f32 and bf16): max abs err %s"
         % json.dumps(err))
     return err, rows
@@ -1049,7 +1175,8 @@ TRAIN_REPLACES = {"scale_bias_act": "mxnet_tpu/kernels/mlp.py:53",
 TRAIN_SOURCES = {k: "mxnet_tpu_torch/csrc/%s.cu" % k for k in TRAIN_REPLACES}
 TIME_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 # the flash rows also name the library call's device kernel
-NAMED_KEYS = TIME_KEYS + ("library_kernel",)
+NAMED_KEYS = TIME_KEYS + ("library_kernel", "visible_bound_ms",
+                          "ms_clean_l2")
 # phase 7's shapes: the MLP up-projection and a ragged one; the attention
 # shape, causal and not, causal cross-length (tq > tk: rows that see no
 # key) and a ragged T; the token-embedding table and its ids

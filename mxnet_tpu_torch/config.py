@@ -22,7 +22,7 @@ import os
 import threading
 from typing import Any, Callable, Dict, NamedTuple
 
-__all__ = ["Flag", "flags", "register_flag", "override"]
+__all__ = ["Flag", "flags", "register_flag", "override", "compute_dtype"]
 
 
 def _parse_bool(s: str) -> bool:
@@ -99,6 +99,41 @@ def override(**kwargs):
         tls.overrides = prev
 
 
+_DTYPE_ALIASES = {
+    "bf16": "bfloat16", "bfloat16": "bfloat16",
+    "f16": "float16", "fp16": "float16", "half": "float16",
+    "float16": "float16",
+}
+_DTYPE_OFF = ("float32", "fp32", "f32", "off", "none", "no")
+
+
+def compute_dtype(default=None):
+    """Resolve the session dtype policy (``MXNET_COMPUTE_DTYPE``, as the
+    JAX package's ``config.compute_dtype`` does) to ``"bfloat16"``,
+    ``"float16"`` or None (no downcast). ``auto`` gives ``default``,
+    the calling path's own choice; ``float32``/``off`` gives None; an
+    unknown value raises ValueError."""
+    val = str(flags.compute_dtype).strip().lower()
+    if val in ("", "auto"):
+        return default
+    if val in _DTYPE_OFF:
+        return None
+    name = _DTYPE_ALIASES.get(val)
+    if name is None:
+        raise ValueError(
+            "MXNET_COMPUTE_DTYPE=%r not understood (expected auto, "
+            "bfloat16, float16, or float32/off)" % val)
+    return name
+
+
+register_flag("compute_dtype", "MXNET_COMPUTE_DTYPE", str, "auto",
+              "Session-wide mixed-precision compute dtype policy, as in "
+              "the JAX package. 'auto' (default): each path keeps its "
+              "contextual default (the port's training runs in the "
+              "parameter dtype). 'bfloat16'/'float16' (aliases bf16/fp16/"
+              "f16/half): a downcast the port has not ported, so "
+              "Module.fit raises instead of training in f32. "
+              "'float32'/'off'/'none': never downcast.")
 register_flag("kernel_tier", "MXNET_KERNEL_TIER", str, "auto",
               "Kernel tier dispatch policy (mxnet_tpu_torch/kernels/). "
               "'auto' (default): a planned fusion runs its hand-written "

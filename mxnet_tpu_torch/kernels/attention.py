@@ -15,6 +15,26 @@ kernel:
   row ``w`` of slot ``s`` sees positions ``t <= positions[s] + w``. It
   serves the decode step (W = 1) and the chunked-prefill chunk (S = 1).
 
+The paged op's non-finite contract is the JAX kernel's. That kernel
+visits every listed page of a slot and adds ``p @ V`` with p = 0 at
+masked positions, so:
+
+* a non-finite V value at a position masked for row ``w`` (``t >
+  positions[s] + w``), in any page ``block_tables[s, :]`` lists, makes
+  row ``w``'s column NaN (``0 * inf = 0 * NaN = NaN``): a page wholly
+  past the position counts, and so does the masked tail of the last
+  visible page;
+* a non-finite K value at a masked position changes nothing (its score
+  is replaced by a select before the max);
+* non-finite values at visible positions propagate as the plain version
+  propagates them (+inf in V with p > 0 gives inf, not NaN).
+
+:func:`_plain_paged` gathers every listed row and computes exactly that;
+the CUDA kernel reads V, not K, at positions no query row of its block
+sees and accumulates ``0 * V`` for them, scanning a run of equal
+trailing block-table entries once (serving lists the scratch page 0 in
+every unused entry). ``tests/paged_nonfinite.py`` plants the cases.
+
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; CPU tensors take the plain torch version beside
 it (:func:`_plain_flash`, :func:`_plain_paged`), the same function.
@@ -61,9 +81,10 @@ OP_NAME = "flash_attn"
 PAGED_OP_NAME = "flash_attn_paged"
 # the compiled tiles, recorded by the tier (the kernels take no others):
 # 128 q rows (two warpgroups; 64 for head dims over 64) x 64 kv rows per
-# CTA; 8 query rows x 4 warps per CTA
+# CTA; 8 query rows (1 at W = 1) x 4 warps per CTA, each warp streaming
+# units of 16 positions through 2 stages
 DEFAULT_CONFIG = {"block_q": 128, "block_k": 64}
-PAGED_DEFAULT_CONFIG = {"block_rows": 8, "warps": 4}
+PAGED_DEFAULT_CONFIG = {"block_rows": 8, "warps": 4, "unit": 16, "stages": 2}
 MAX_HEAD_DIM = 128
 
 _NEG_INF = -1e30

@@ -13,6 +13,7 @@ grouping several steps into one dispatch (``steps_per_dispatch``).
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import NamedTuple
 
@@ -93,16 +94,32 @@ class BaseModule:
             initializer=None, arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None,
-            monitor=None, steps_per_dispatch=None, checkpoint=None):
-        """The epoch loop. ``monitor``, ``checkpoint`` and
-        ``steps_per_dispatch`` > 1 are not ported and raise."""
+            monitor=None, sparse_row_id_fn=None, steps_per_dispatch=None,
+            checkpoint=None):
+        """The epoch loop. ``monitor``, ``sparse_row_id_fn``,
+        ``checkpoint`` and ``steps_per_dispatch`` > 1 are not ported and
+        raise; so do the settings the JAX package's fit obeys and the port
+        does not: ``MXNET_CHECKPOINT_DIR`` or ``MXNET_RESUME_DIR`` set
+        (elastic checkpointing and resume), and ``MXNET_COMPUTE_DTYPE``
+        asking for ``bfloat16`` or ``float16`` compute."""
+        from .. import config as _config
         from .. import initializer as _init
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
-        if monitor is not None or checkpoint is not None or (
-                steps_per_dispatch is not None and steps_per_dispatch != 1):
-            raise MXNetError("fit: monitor, checkpoint and "
+        if monitor is not None or sparse_row_id_fn is not None or \
+                checkpoint is not None or (steps_per_dispatch is not None
+                                           and steps_per_dispatch != 1):
+            raise MXNetError("fit: monitor, sparse_row_id_fn, checkpoint and "
                              "steps_per_dispatch > 1 are not ported")
+        for env in ("MXNET_CHECKPOINT_DIR", "MXNET_RESUME_DIR"):
+            if os.environ.get(env):
+                raise MXNetError("fit: %s is set, but checkpointing and "
+                                 "resume are not ported" % env)
+        cdt = _config.compute_dtype()
+        if cdt is not None:
+            raise MXNetError("fit: MXNET_COMPUTE_DTYPE asks for %s compute, "
+                             "which is not ported (the port trains in the "
+                             "parameter dtype)" % cdt)
         if initializer is None:
             initializer = _init.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,

@@ -17,6 +17,7 @@ the JAX kernel at the card's tolerance (f32 atol 2e-5, rtol 1e-4; bf16
 one bf16 ulp plus 1e-3); one case shows that a single TF32 product
 misses it, which is why the kernel splits.
 """
+import itertools
 import math
 
 import numpy as np
@@ -32,6 +33,8 @@ from mxnet_tpu.kernels import tier as jtier
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.kernels import attention as tattn
 from mxnet_tpu_torch.kernels import tier as ttier
+
+from paged_nonfinite import CASES, plant
 
 
 def _np(x):
@@ -264,6 +267,138 @@ def test_paged_attention_matches_jax_kernel_and_reference(case, dtype):
             jnp.asarray(bt), jnp.asarray(pos), heads=heads,
             page_size=page))
         _close(got, jout, dtype)
+
+
+# ---------------------------------------- the non-finite contract (C2)
+# (S, W, heads, dh, page, mp, positions): decode rows with a masked tail
+# in the last visible page and pages wholly past it; W = 3, whose row 0
+# cannot see position pos + 1 and rows 1-2 can; pages of 32 (two 16-row
+# units in the CUDA kernel); W = 10 (two row blocks of the kernel)
+NONFINITE_GEOMS = {
+    "decode": (3, 1, 2, 8, 8, 4, (2, 13, 21)),
+    "w3": (2, 3, 2, 8, 8, 4, (4, 17)),
+    "page32": (2, 1, 2, 8, 32, 4, (40, 70)),
+    "w10": (1, 10, 2, 8, 8, 4, (5,)),
+}
+
+
+def _nonfinite_setup(case, geom):
+    S, W, heads, dh, page, mp, positions = NONFINITE_GEOMS[geom]
+    q, kp, vp, bt, pos = _paged_setup(S=S, W=W, heads=heads, dh=dh,
+                                      page=page, mp=mp, positions=positions,
+                                      seed=7)
+    kp, vp, bt, nan, inf = plant(case, kp, vp, bt, pos, W, page)
+    return (q, kp, vp, bt, pos), heads, page, nan, inf
+
+
+def _same_nonfinite(got, want, dtype):
+    """NaN, +inf and -inf masks equal exactly; finite entries within the
+    file's tolerance for ``dtype``."""
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(got), test(want))
+    fin = np.isfinite(want)
+    _close(got[fin], want[fin], dtype)
+
+
+def _emulate_paged_kernel(q, kp, vp, bt, pos, heads, page, rows_per_cta=8,
+                          warps=4, unit=16):
+    """``csrc/flash_attn_paged.cu``'s algorithm in plain torch (f32): per
+    (slot, head, block of 8 rows; the kernel's block of 1 row at W = 1
+    computes the same), warp w takes units w, w + 4, ... of 16
+    positions, skipping a unit no row sees when the entry before it lists
+    the same page and that page is wholly unseen; a unit no row sees adds
+    0 * V to every row, a seen one runs the online softmax (masked scores
+    -1e30 by a select, p = 0 there, 0 * V added); the warps' states are
+    merged scaled by exp(m_w - m), none skipped; out = acc / max(l,
+    1e-30) with the CUDA ``fmaxf``'s NaN rule."""
+    S, W, C = q.shape
+    dh = C // heads
+    R, mp = kp.shape[0], bt.shape[1]
+    nsub = -(-page // unit)
+    neg = torch.tensor(-1e30)
+    out = torch.empty(S, W, C)
+    for s, h, w0 in itertools.product(range(S), range(heads),
+                                      range(0, W, rows_per_cta)):
+        nrows = min(rows_per_cta, W - w0)
+        last = int(pos[s]) + w0 + nrows - 1
+        cols = slice(h * dh, (h + 1) * dh)
+        qh = q[s, w0:w0 + nrows, cols].float() * (1.0 / math.sqrt(dh))
+        qpos = int(pos[s]) + w0 + torch.arange(nrows)
+        states = []
+        for warp in range(warps):
+            m = torch.full((nrows,), -1e30)
+            l = torch.zeros(nrows)
+            acc = torch.zeros(nrows, dh)
+            z = torch.zeros(dh)
+            for u in range(warp, mp * nsub, warps):
+                pi, sub = divmod(u, nsub)
+                t0 = pi * page + sub * unit
+                if (t0 > last and pi > 0 and bt[s, pi] == bt[s, pi - 1]
+                        and (pi - 1) * page > last):
+                    continue
+                n_t = min(unit, page - sub * unit)
+                rid = (int(bt[s, pi]) * page + sub * unit
+                       + torch.arange(n_t)).clamp(0, R - 1)
+                v = vp[rid, cols].float()
+                if t0 > last:
+                    z = z + (0.0 * v).sum(0)
+                    continue
+                sc = qh @ kp[rid, cols].float().T
+                vis = (t0 + torch.arange(n_t))[None, :] <= qpos[:, None]
+                sc = torch.where(vis, sc, neg)
+                m_new = torch.fmax(m, sc.max(1).values)
+                corr = torch.exp(m - m_new)
+                p = torch.where(vis, torch.exp(sc - m_new[:, None]),
+                                torch.zeros(()))
+                l = l * corr + p.sum(1)
+                acc = acc * corr[:, None] + (p[:, :, None] * v).sum(1)
+                m = m_new
+            states.append((m, l, acc + z))
+        mm = torch.stack([st[0] for st in states]).max(0).values
+        ll = sum(st[1] * torch.exp(st[0] - mm) for st in states)
+        aa = sum(st[2] * torch.exp(st[0] - mm)[:, None] for st in states)
+        out[s, w0:w0 + nrows, cols] = aa / torch.fmax(ll, torch.tensor(
+            1e-30))[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("geom", sorted(NONFINITE_GEOMS))
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_nonfinite_contract_matches_jax_kernel(dtype, case, geom):
+    """The port's paged attention (its plain version on the CPU) gives
+    the JAX kernel's NaN and inf exactly where the contract puts them,
+    and its finite values within the file's tolerance."""
+    (q, kp, vp, bt, pos), heads, page, nan, inf = _nonfinite_setup(case,
+                                                                  geom)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jout = _np(jattn.paged_attention(
+        jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
+        jnp.asarray(bt), jnp.asarray(pos), heads=heads, page_size=page))
+    np.testing.assert_array_equal(np.isnan(jout), nan)
+    np.testing.assert_array_equal(np.isinf(jout), inf)
+    got = tattn.paged_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(kp).to(tdt),
+        torch.from_numpy(vp).to(tdt), torch.from_numpy(bt),
+        torch.from_numpy(pos), heads=heads, page_size=page)
+    assert got.dtype == tdt
+    _same_nonfinite(got, jout, dtype)
+
+
+@pytest.mark.parametrize("geom", sorted(NONFINITE_GEOMS))
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_algorithm_keeps_the_nonfinite_contract(case, geom):
+    """The CUDA kernel's units, page dedup and warp merge, emulated in
+    plain torch, against the JAX kernel (f32)."""
+    (q, kp, vp, bt, pos), heads, page, _nan, _inf = _nonfinite_setup(
+        case, geom)
+    jout = _np(jattn.paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(pos), heads=heads, page_size=page))
+    got = _emulate_paged_kernel(*(torch.from_numpy(a) for a in (
+        q, kp, vp, bt, pos)), heads, page)
+    _same_nonfinite(got, jout, "float32")
 
 
 def test_guard_reasons():

@@ -19,7 +19,11 @@ result (both round one f32 value once) plus that 1e-5, which is what
 remains of the FMA difference where a sum cancels near zero. The
 attention kernels sum in another order than torch (and contract FMAs):
 f32 within atol 2e-5, rtol 1e-4; bf16 within one bf16 ulp plus 1e-3.
-``take_rows`` moves bytes and must match bitwise. ``int8_dequant``
+``take_rows`` moves bytes and must match bitwise. On the planted
+non-finite cases of ``tests/paged_nonfinite.py``, ``flash_attn_paged``'s
+NaN and inf masks must equal the plain version's exactly (and the plain
+version's the contract's), the finite values within the attention
+tolerance. ``int8_dequant``
 within one f32 ulp of the larger of |acc * sc| and |y| (the kernel's FMA
 and the plain version's f64 sum both round once), with at least 99 % of
 the outputs bitwise equal; int32 accumulators bitwise.
@@ -39,6 +43,8 @@ from mxnet_tpu_torch.ops import pallas_flash as tpf
 from mxnet_tpu_torch.ops import quant_serve as tqs
 from mxnet_tpu_torch.parallel import blockwise_attention
 from mxnet_tpu_torch.serve import decode_model as tdm
+
+from paged_nonfinite import CASES, plant
 
 pytestmark = pytest.mark.gpu
 
@@ -244,16 +250,45 @@ def test_flash_attn_paged_matches_plain(cuda, dtype, S, W, heads, dh, page,
                                                page))
 
 
-def test_flash_attn_paged_never_reads_past_the_last_visible_row(cuda):
-    # a non-finite value in a row nobody may see must not leak into the
-    # result (0 * inf is NaN): the kernel walks visible positions only
-    q, kp, vp, bt, pos = _paged_case(2, 1, 2, 16, 4, 4, [5, 9],
-                                     torch.float32, cuda)
-    for s, p in enumerate((5, 9)):
-        row = int(bt[s, (p + 1) // 4]) * 4 + (p + 1) % 4
-        vp[row] = float("inf")
-    got = tattn.paged_attention(q, kp, vp, bt, pos, heads=2, page_size=4)
-    assert bool(torch.isfinite(got).all())
+def _assert_same_nonfinite(got, want):
+    """NaN, +inf and -inf masks equal exactly; finite entries within the
+    attention tolerance."""
+    for test in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(test(got), test(want)), test.__name__
+    fin = torch.isfinite(want)
+    _assert_attn_close(got[fin], want[fin])
+
+
+# the generate path's decode step and a prompt chunk whose last row's page
+# has a masked tail, and a small W = 3 block
+PLANT_GEOMS = {
+    "decode": (16, 1, 12, 64, 16, 64, [0, 1, 15, 16, 17, 31, 32, 100, 255,
+                                       256, 511, 600, 777, 1000, 1022,
+                                       1023]),
+    "chunk": (1, 128, 12, 64, 16, 64, [250]),
+    "w3": (2, 3, 2, 8, 8, 4, [4, 17]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", sorted(PLANT_GEOMS))
+@pytest.mark.parametrize("case", CASES)
+def test_flash_attn_paged_keeps_the_nonfinite_contract(cuda, dtype, geom,
+                                                       case):
+    S, W, heads, dh, page, mp, positions = PLANT_GEOMS[geom]
+    q, kp, vp, bt, pos = _paged_case(S, W, heads, dh, page, mp, positions,
+                                     torch.float32, "cpu")
+    kp, vp, bt, nan, inf = plant(case, kp.numpy(), vp.numpy(), bt.numpy(),
+                                 pos.numpy(), W, page)
+    q, kp, vp = (torch.as_tensor(a).to(cuda, dtype) for a in (q, kp, vp))
+    bt, pos = torch.from_numpy(bt).to(cuda), pos.to(cuda)
+    want = tattn._plain_paged(q, kp, vp, bt, pos, heads, page)
+    assert torch.equal(torch.isnan(want).cpu(), torch.from_numpy(nan))
+    assert torch.equal(torch.isinf(want).cpu(), torch.from_numpy(inf))
+    got = tattn.paged_attention(q, kp, vp, bt, pos, heads=heads,
+                                page_size=page)
+    torch.cuda.synchronize()
+    _assert_same_nonfinite(got, want)
 
 
 def test_generate_on_the_card_matches_the_cpu(cuda, tmp_path):

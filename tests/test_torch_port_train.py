@@ -28,6 +28,7 @@ test therefore runs Adam at epsilon 1e-4: such an element then moves by
 at most ``1e-3 * 1e-7 / 3.2e-3``, about 3e-8 a step, far inside the 1e-5
 the parameters are held to.
 """
+import inspect
 import math
 
 import numpy as np
@@ -599,3 +600,48 @@ def test_fit_lowers_the_loss_on_a_repeated_batch():
     assert np.isfinite(losses["auto"]).all()
     assert losses["auto"][-1] < losses["auto"][0]
     np.testing.assert_allclose(losses["auto"], losses["off"], rtol=1e-5)
+
+
+def test_fit_takes_the_jax_packages_keywords():
+    want = inspect.signature(mx.mod.BaseModule.fit).parameters
+    assert list(inspect.signature(mt.mod.BaseModule.fit).parameters) == \
+        list(want)
+
+
+@pytest.mark.parametrize("env,value", [
+    ("MXNET_CHECKPOINT_DIR", "ckpt"), ("MXNET_RESUME_DIR", "ckpt"),
+    ("MXNET_COMPUTE_DTYPE", "bfloat16"), ("MXNET_COMPUTE_DTYPE", "fp16")])
+def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch):
+    """The JAX package's fit checkpoints and resumes under these
+    variables and trains in a lower precision under the dtype policy;
+    the port does neither, so it raises instead of training silently."""
+    monkeypatch.setenv(env, value)
+    flags = mt.config.flags
+    monkeypatch.setitem(flags._values, "compute_dtype",
+                        flags._resolve("compute_dtype"))
+    X, Y = _batches()
+    mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
+    with pytest.raises(mt.base.MXNetError, match=env):
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1)
+
+
+def test_fit_refuses_sparse_row_id_fn():
+    X, Y = _batches()
+    mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
+    with pytest.raises(mt.base.MXNetError, match="sparse_row_id_fn"):
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                sparse_row_id_fn=lambda batch: {})
+
+
+@pytest.mark.parametrize("value,want", [
+    ("auto", None), ("bf16", "bfloat16"), ("half", "float16"),
+    ("float32", None), ("off", None)])
+def test_compute_dtype_policy_matches_the_jax_package(value, want):
+    with mt.config.override(compute_dtype=value), \
+            jconfig.override(compute_dtype=value):
+        assert mt.config.compute_dtype() == want
+        jwant = jconfig.compute_dtype()
+        assert (None if jwant is None else jnp.dtype(jwant).name) == want
+    with mt.config.override(compute_dtype="int8"):
+        with pytest.raises(ValueError, match="not understood"):
+            mt.config.compute_dtype()
