@@ -160,13 +160,43 @@ Phases; any failure raises and the script exits non-zero:
    int8), and a torch.profiler pass of the int8 forward at batch 1 and
    32: device busy share, and the device time of B6, of ``_int_mm``, of
    quantize + im2col and of the rest.
-11. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
+11. B1 (``bn_act``) against its plain version at every site class of
+   the bf16 training forward at batch 128 (tolerance of phase 3), then
+   its bf16 times per class and summed over the 49 sites, beside the
+   bound (bf16 bytes over 3.35 TB/s: half of f32's 94.7 MB an image).
+12. The ResNet-50 training path, as bench.py's fit leg runs it: ResNet-50
+   v1 (224x224, 1000 classes, weights from ``Xavier(factor_type="in",
+   magnitude=2)``, seed 0) trained by ``Module.fit`` with SGD (lr 0.05,
+   momentum 0.9, ``multi_precision``: bf16 compute over f32 masters),
+   kvstore ``tpu_sync``, ``steps_per_dispatch=1``, no metric, on one
+   synthetic batch (randn images, randint(0, 1000) labels from
+   RandomState(0)) repeated: 10 steps of batch 128 at tier auto (the
+   main path; counts zeroed just before, read just after: 49 B1 launches
+   a step, 33 + 16, no fallback) and 10 at tier off (none), then 8 steps
+   of f32 at batch 32 at tier auto (49 a step). Every step's master
+   weights must stay f32, the moving statistics f32 and moved, the
+   losses finite and the lowest after the first update below the first.
+   The tiers' step-1 losses within 5e-3 relative and every step's within
+   5e-2 (the JAX package's own bf16 bound; what tier off parts from
+   itself on images moved by half a bf16 ulp is printed beside it); the
+   first-step gradients of the head (``fc1``) within twice their
+   bf16-vs-f32 error. Then the step's numbers per dtype:
+   wall p50 over steps 2-N, images/s, model FLOPs over the dtype's dense
+   peak, peak memory, forward/backward/update (CUDA events), busy
+   share, B1's device time, the batch-statistics and recomputed
+   backward ranges and the top kernels (profiler). Last, ResNet-50 at
+   batch 2 on the card against the CPU, f32 and bf16: outputs and
+   gradients held as ``resnet_card_vs_cpu`` states (the backward's
+   rounding sensitivity at these weights bounds what can be held), the
+   ReLU sign flips counted.
+13. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
 either it fails before printing a result.
 """
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -2245,6 +2275,618 @@ def int8_main_path(dev, card, report, f32_path, sym, args, aux):
     return sum(launches.values())
 
 
+# ------------------------------------------ ResNet-50 training: the kernel
+# forward + backward model FLOPs of one ResNet-50 image at 224x224, as the
+# JAX package's perfmodel counts them (3 x 2 x 4.089 GFLOP multiply-adds)
+RESNET50_TRAIN_FLOPS_PER_IMG = 3 * 2 * 4.089e9
+RESNET_TRAIN = dict(bf16_batch=128, bf16_steps=10, f32_batch=32, f32_steps=8,
+                    cut_batch=2)
+# bench.py's fit leg: SGD with momentum, bf16 compute over f32 masters
+RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+# the parameters between the last BatchNorm and the loss
+HEAD = ("fc1_weight", "fc1_bias")
+
+
+def b1_train_phase(sites, dev, batch=RESNET_TRAIN["bf16_batch"]):
+    """B1 against its plain version at every site class of the bf16
+    training forward (batch 128), then the device times per class and
+    summed over the 49 sites, beside the bound (bf16 bytes over 3.35
+    TB/s)."""
+    max_err = {}
+    rows = []
+    for i, (form, chw) in enumerate(sorted(set(sites))):
+        residual = form == "bn_act_res"
+        shape = (batch,) + chw
+        x, sc, sh, r = make_case(shape, torch.bfloat16, residual, dev,
+                                 100 + i)
+        err = check_kernel(x, sc, sh, r)
+        max_err[form] = max(max_err.get(form, 0.0), err)
+        k = time_ms(lambda: bn_act._launch(x, sc, sh, r, "relu",
+                                           bn_act.DEFAULT_CONFIG), dev)
+        p = time_ms(lambda: bn_act._plain_epilogue(x, sc, sh, r, "relu"),
+                    dev)
+        bytes_ms, ops_ms = bound_parts(shape, torch.bfloat16, residual)
+        b, by = bound_of(bytes_ms, ops_ms)
+        n = sum(1 for s in sites if s == (form, chw))
+        rows.append({"form": form, "shape": list(shape), "sites": n,
+                     "kernel_ms": k, "plain_ms": p, "bytes_ms": bytes_ms,
+                     "ops_ms": ops_ms, "bound_ms": b, "bound_by": by})
+        log("  train %-10s %-20s bf16 sites=%-2d kernel_ms=%.5f "
+            "plain_ms=%.5f bound_ms=%.5f (%s) share=%.3f"
+            % (form, shape, n, k, p, b, by, b / k))
+        del x, r
+    totals = {}
+    for form in ("bn_act", "bn_act_res", "all"):
+        sel = [r for r in rows if form in ("all", r["form"])]
+        tot = {key: sum(r[key] * r["sites"] for r in sel)
+               for key in ("kernel_ms", "plain_ms", "bytes_ms", "ops_ms")}
+        tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
+                                                    tot["ops_ms"])
+        totals[form] = tot
+        log("  batch-%d bf16 training forward, %-10s kernel_ms=%.4f "
+            "plain_ms=%.4f bound_ms=%.4f" % (batch, form, tot["kernel_ms"],
+                                             tot["plain_ms"],
+                                             tot["bound_ms"]))
+    log("B1 vs plain at the batch-%d bf16 training shapes: %d site classes "
+        "agree; max abs err %s" % (batch, len(rows), json.dumps(max_err)))
+    return max_err, rows, totals
+
+
+# -------------------------------------- ResNet-50 training: the main path
+class OneBatchIter(mt.io.DataIter):
+    """bench.py's ``_OneBatchIter``: one batch, already on the card,
+    served ``steps`` times an epoch."""
+
+    def __init__(self, X, Y, steps, dev):
+        super().__init__(X.shape[0])
+        self.batch = mt.io.DataBatch(
+            data=[torch.from_numpy(X).to(dev)],
+            label=[torch.from_numpy(Y).to(dev)])
+        self.steps, self.n = steps, 0
+        self.provide_data = [mt.io.DataDesc("data", X.shape)]
+        self.provide_label = [mt.io.DataDesc("softmax_label", Y.shape)]
+
+    def reset(self):
+        self.n = 0
+
+    def next(self):
+        if self.n >= self.steps:
+            raise StopIteration
+        self.n += 1
+        return self.batch
+
+
+def image_batch(batch, seed=0):
+    """bench.py's fit batch: randn images and randint(0, 1000) labels
+    from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(batch, 3, 224, 224).astype(np.float32)
+    Y = rng.randint(0, 1000, (batch,)).astype(np.float32)
+    return X, Y
+
+
+def resnet_init(sym, dev):
+    """bench.py's initializer, Xavier(factor_type="in", magnitude=2),
+    drawn once on ``dev`` (seed 0) -> (args, aux) on the CPU."""
+    init = mt.mod.Module(sym, context=dev)
+    init.bind([("data", (2, 3, 224, 224))], [("softmax_label", (2,))])
+    init.init_params(mt.init.Xavier(factor_type="in", magnitude=2.0,
+                                    seed=0))
+    args, aux = init.get_params()
+    return ({k: v.cpu() for k, v in args.items()},
+            {k: v.cpu() for k, v in aux.items()})
+
+
+def resnet_fit(sym, X, Y, dev, steps, p0, aux0, mp):
+    """``Module.fit`` as bench.py's fit leg calls it (SGD lr 0.05,
+    momentum 0.9, ``multi_precision`` when ``mp``, kvstore tpu_sync,
+    ``steps_per_dispatch=1``, no metric) over one batch repeated
+    ``steps`` times -> (module, losses, host stamps). After every step
+    the loss (mean cross-entropy of the outputs at the labels, read on
+    the card) is recorded and every master weight must be f32."""
+    mod = mt.mod.Module(sym, context=dev)
+    losses, stamps = [], []
+    it = OneBatchIter(X, Y, steps, dev)
+    lab = it.batch.label[0].long()
+
+    def record(_p):
+        out = mod.get_outputs()[0].float()
+        pick = out.gather(1, lab.unsqueeze(1)).clamp_min(1e-30)
+        losses.append(float(-pick.log().mean()))   # syncs the card
+        stamps.append(time.perf_counter())
+        bad = [k for k, v in mod._exec.arg_dict.items()
+               if k not in ("data", "softmax_label")
+               and v.dtype != torch.float32]
+        if bad:
+            raise RuntimeError("master weights left f32: %s" % bad[:3])
+    stamps.append(time.perf_counter())
+    mod.fit(it, num_epoch=1, eval_metric=None, kvstore="tpu_sync",
+            optimizer="sgd",
+            optimizer_params=dict(RESNET_SGD, multi_precision=mp),
+            arg_params=p0, aux_params=aux0, steps_per_dispatch=1,
+            batch_end_callback=record)
+    want = torch.bfloat16 if mp else None
+    if mod._fused is None or mod._fused.compute_dtype != want:
+        raise RuntimeError("fit did not take the fused step in %s"
+                           % (want or "f32"))
+    return mod, losses, stamps
+
+
+def falling(losses):
+    """Every loss finite, and the lowest after the first update below the
+    first: SGD at lr 0.05 with momentum 0.9 from these weights swings
+    over a repeated batch (at batch 16 and 32 the loss rises again
+    within 3-5 steps before it falls), so the last step alone does not
+    say whether the updates descend."""
+    return bool(np.isfinite(losses).all()) and min(losses[1:]) < losses[0]
+
+
+def check_moving_stats(mod, aux0):
+    """Every moving statistic f32, and moved from its initial value."""
+    aux = mod.get_params()[1]
+    bad = [k for k, v in aux.items() if v.dtype != torch.float32]
+    still = [k for k, v in aux.items() if torch.equal(v.cpu(), aux0[k])]
+    if bad or still:
+        raise RuntimeError("moving statistics: not f32 %s, not moved %s"
+                           % (bad[:3], still[:3]))
+    return len(aux)
+
+
+def resnet_grads(sym, p0, aux0, X, Y, dev, tier_val, mp):
+    """One step's softmax outputs and gradients with respect to the f32
+    masters, through the Module's fused step (bf16 compute under
+    ``mp``), at ``p0`` on (X, Y) -> (outputs, {name: tensor on dev})."""
+    with mt.config.override(kernel_tier=tier_val):
+        mod = mt.mod.Module(sym, context=dev)
+        mod.bind([("data", X.shape)], [("softmax_label", Y.shape)])
+        mod.init_params(arg_params=p0, aux_params=aux0)
+        mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                           optimizer_params=dict(RESNET_SGD,
+                                                 multi_precision=mp))
+        mod._exec.set_inputs(data=X, softmax_label=Y)
+        outs, _aux, leaves = mod._fused.forward()
+        grads = mod._fused.backward(outs, leaves)
+    return (outs[0].detach().float(),
+            {k: v.detach() for k, v in grads.items()})
+
+
+def perturbed(X, rel, seed=0):
+    """X with every element moved by a relative ``rel`` times N(0, 1): a
+    rounding's worth of change, to measure how far the model's own
+    gradients and losses move under one."""
+    noise = np.random.RandomState(seed).randn(*X.shape).astype(np.float32)
+    return (X * (1 + rel * noise)).astype(np.float32)
+
+
+def rel_l2(got, want):
+    """Per tensor: the relative L2 error of got against want."""
+    return {k: float((got[k].to(want[k].device).float() - want[k].float())
+                     .norm() / want[k].float().norm().clamp_min(1e-30))
+            for k in want}
+
+
+def relu_inputs(sym, params, aux, X, dev):
+    """The input of every ReLU of the graph at ``params`` on X, f32, tier
+    off (BatchNorm with batch statistics), on the CPU ->
+    {relu name: tensor}; and for each parameter the ReLUs next to it:
+    the one feeding its op and those its op's output reaches through at
+    most one more op."""
+    from mxnet_tpu_torch.symbol.symbol import Symbol
+    nodes = sym._topo()
+    relus = [n for n in nodes if not n.is_variable
+             and n.op.name == "Activation"]
+    relu_ids = {id(n) for n in relus}
+    consumers = {}
+    for n in nodes:
+        for (src, _oi) in n.inputs:
+            consumers.setdefault(id(src), []).append(n)
+    near = {}
+    for n in nodes:
+        if n.is_variable:
+            continue
+        ids = set()
+        data = n.inputs[0][0] if n.inputs else None
+        if data is not None and id(data) in relu_ids:
+            ids.add(data.name)
+        for c in consumers.get(id(n), []):
+            if id(c) in relu_ids:
+                ids.add(c.name)
+            for c2 in consumers.get(id(c), []):
+                if id(c2) in relu_ids:
+                    ids.add(c2.name)
+        for (src, _oi) in n.inputs[1:]:
+            if src.is_variable:
+                near[src.name] = sorted(ids)
+    with mt.config.override(kernel_tier="off"):
+        ex = Symbol([r.inputs[0] for r in relus]).simple_bind(
+            dev, grad_req="null", data=tuple(X.shape))
+    ex.copy_params_from(params, aux, allow_extra_params=True)
+    outs = ex.forward(is_train=True, data=X)
+    return {r.name: o.cpu() for r, o in zip(relus, outs)}, near
+
+
+def resnet_card_vs_cpu(sym, p0, aux0, dev, report):
+    """ResNet-50 at batch 2 (224x224), one step on the card against the
+    CPU (the kernels' plain versions), tier auto, f32 and bf16.
+
+    The forward is well conditioned: f32 softmax outputs within a
+    relative L2 error of 1e-4 (the CPU against itself at another thread
+    count: 2.4e-6); bf16 outputs within twice the CPU's own bf16-vs-f32
+    error. The backward is not. At these Xavier weights the gradient
+    norms grow from 1.4 (``fc1_bias``) to 518 (``conv0_weight``) going
+    back through the 53 BatchNorms, and so does rounding: a relative
+    change of 1e-7 in the images moves the CPU's own f32 gradients by
+    1-2 % (relative L2) below the last stage, the JAX package and the
+    port on the CPU part by the same 1.7 %, and a bf16 step's gradients
+    there are ~130 % from the f32 step's in both packages, as far as two
+    unrelated draws. So:
+
+    - f32: the head's gradients within a relative L2 error of 1e-4, and
+      the median over all tensors within twice what that perturbation
+      does to the CPU's own (per tensor it is no bound: near the head
+      the sensitivity is 1e-4 to 1e-3, and one flipped ReLU input moves
+      a tensor by more); each tensor's largest error over its largest
+      magnitude is printed, with the ReLU inputs of opposite sign, card
+      against CPU and CPU against the perturbed CPU: the flips behind
+      the outliers;
+    - bf16: the head's gradients (``fc1_weight``, ``fc1_bias``: no
+      BatchNorm between them and the loss) within twice the CPU's own
+      bf16-vs-f32 error; below the head the medians are printed, not
+      held (bf16 rounding alone makes them unrelated draws)."""
+    B_ = RESNET_TRAIN["cut_batch"]
+    X, Y = image_batch(B_, seed=3)
+    Xp = perturbed(X, 1e-7)
+    run = {}
+    for d in (dev, "cpu"):
+        for mp in (False, True):
+            run[(str(d), mp)] = resnet_grads(sym, p0, aux0, X, Y, d, "auto",
+                                             mp)
+    run["cpu_perturbed"] = resnet_grads(sym, p0, aux0, Xp, Y, "cpu", "auto",
+                                        False)
+    card, cpu = str(dev), "cpu"
+
+    def out_err(a, b):
+        return float((run[a][0].cpu() - run[b][0]).norm()
+                     / run[b][0].norm())
+    o32 = out_err((card, False), (cpu, False))
+    o16 = out_err((card, True), (cpu, True))
+    o16_own = out_err((cpu, True), (cpu, False))
+    g = {k: v[1] for k, v in run.items()}
+    e32 = rel_l2(g[(card, False)], g[(cpu, False)])
+    e32_own = rel_l2(g["cpu_perturbed"], g[(cpu, False)])
+    e16 = rel_l2(g[(card, True)], g[(cpu, True)])
+    e16_own = rel_l2(g[(cpu, True)], g[(cpu, False)])
+    med = {n: float(np.median(list(e.values()))) for n, e in
+           (("f32", e32), ("f32_own", e32_own), ("bf16", e16),
+            ("bf16_own", e16_own))}
+    maxrel = {k: float((g[(card, False)][k].cpu() - v).abs().max()
+                       / v.abs().max().clamp_min(1e-30))
+              for k, v in g[(cpu, False)].items()}
+    worst = sorted(maxrel, key=maxrel.get)[-3:]
+    pre_cpu, near = relu_inputs(sym, p0, aux0, X, "cpu")
+    pre_card = relu_inputs(sym, p0, aux0, X, dev)[0]
+    pre_pert = relu_inputs(sym, p0, aux0, Xp, "cpu")[0]
+    flips = {n: int(((a > 0) != (pre_card[n] > 0)).sum())
+             for n, a in pre_cpu.items()}
+    flips_own = {n: int(((a > 0) != (pre_pert[n] > 0)).sum())
+                 for n, a in pre_cpu.items()}
+    near_worst = {k: {r: flips[r] for r in near.get(k, [])}
+                  for k in worst}
+    log("ResNet-50 at batch %d, one step, card vs CPU: outputs f32 %.3g, "
+        "bf16 %.3g (CPU bf16 vs f32 %.3g) relative L2; head gradients f32 "
+        "%s, bf16 %s (CPU bf16 vs f32 %s); gradients, median "
+        "relative L2 over tensors: f32 %.4g (the CPU against itself at "
+        "images x (1 + 1e-7 noise): %.4g), bf16 %.4g (CPU bf16 vs f32 "
+        "%.4g); f32 largest error over largest magnitude %s; ReLU inputs "
+        "of opposite sign, card vs CPU %d elements at %d of %d sites "
+        "(CPU vs perturbed CPU %d at %d), near the worst tensors %s"
+        % (B_, o32, o16, o16_own,
+           json.dumps({k: float("%.3g" % e32[k]) for k in HEAD}),
+           json.dumps({k: float("%.3g" % e16[k]) for k in HEAD}),
+           json.dumps({k: float("%.3g" % e16_own[k]) for k in HEAD}),
+           med["f32"], med["f32_own"], med["bf16"],
+           med["bf16_own"], ", ".join("%s %.3g" % (k, maxrel[k])
+                                      for k in reversed(worst)),
+           sum(flips.values()), sum(1 for v in flips.values() if v),
+           len(flips), sum(flips_own.values()),
+           sum(1 for v in flips_own.values() if v),
+           json.dumps(near_worst)))
+    report["resnet_train"].update(
+        card_vs_cpu={"outputs_rel_l2": {"f32": o32, "bf16": o16,
+                                        "cpu_bf16_vs_f32": o16_own},
+                     "grad_median_rel_l2": med,
+                     "grad_rel_l2_f32": e32, "grad_rel_l2_bf16": e16,
+                     "grad_maxrel_f32": maxrel, "relu_flips": flips,
+                     "relu_flips_cpu_perturbed": flips_own})
+    if o32 > 1e-4 or o16 > 2 * o16_own:
+        raise RuntimeError("card and CPU outputs disagree: f32 %g, bf16 %g "
+                           "(CPU bf16 vs f32 %g)" % (o32, o16, o16_own))
+    bad = {"f32 head": {k: e32[k] for k in HEAD if e32[k] > 1e-4},
+           "bf16 head": {k: e16[k] for k in HEAD
+                         if e16[k] > 2 * e16_own[k]}}
+    if med["f32"] > 2 * med["f32_own"] or bad["f32 head"] \
+            or bad["bf16 head"]:
+        raise RuntimeError("card and CPU gradients disagree past the "
+                           "model's own rounding sensitivity: medians %s, "
+                           "%s" % (json.dumps(med), json.dumps(bad)))
+
+
+def kernel_class(name):
+    """The part of a training step a device kernel belongs to."""
+    n = name.lower()
+    if "bn_act" in n:
+        return "B1"
+    if "nchwtonhwc" in n or "nhwctonchw" in n:
+        return "layout transposes"
+    if any(t in n for t in ("cudnn", "xmma", "gemm", "conv", "grad",
+                            "sm90", "sm80", "cutlass", "fprop")):
+        return "convolutions and GEMMs"
+    if "reduce" in n:
+        return "reductions"
+    return "elementwise and copies"
+
+
+def resnet_step_profile(mod, steps=3):
+    """One fused step at the module's bound batch (inputs already set):
+    forward, backward and update timed with CUDA events (median of
+    ``steps``), then torch.profiler over one more step: busy share, B1's
+    device time, the device time by kind of kernel (``kernel_class``),
+    the named ranges (the batch statistics, the recomputed B1 backward,
+    the low-precision BatchNorm backward: the device time the profiler
+    gives each range, which nests and is not additive) and the top
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fused = mod._fused
+    parts = []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        outs, auxu, leaves = fused.forward()
+        ev[1].record()
+        grads = fused.backward(outs, leaves)
+        ev[2].record()
+        fused.apply(grads, mod._fused_opt_state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      ev[2].elapsed_time(ev[3]), wall))
+        del outs, auxu, leaves, grads
+    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fused.step(mod._fused_opt_state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    names = ("bn_act.coefs", "bn_act.backward", "batch_norm.lowp_backward")
+    ranges = {e.key: e.device_time_total / 1e3 for e in avgs
+              if e.key in names}
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in avgs
+               if e.device_type == DeviceType.CUDA and e.key not in names]
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    b1 = [k for k in kernels if "bn_act" in k[0]]
+    top = sorted(kernels, key=lambda k: -k[1])[:12]
+    classes = {}
+    for k in kernels:
+        c = kernel_class(k[0])
+        classes[c] = classes.get(c, 0.0) + k[1] / 1e3
+    return {"forward_ms": med[0], "backward_ms": med[1], "update_ms": med[2],
+            "classes_ms": classes,
+            "wall_ms": med[3], "profiled_wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
+            "b1_ms": sum(k[1] for k in b1) / 1e3,
+            "b1_launches": sum(k[2] for k in b1),
+            "ranges_ms": {n: ranges.get(n, 0.0) for n in names},
+            "top_kernels": [{"name": k[0][:110], "ms": k[1] / 1e3,
+                             "calls": k[2]} for k in top]}
+
+
+def log_step(what, steps_ms, batch, flops_peak, prof, mem, card):
+    p50 = float(np.median(steps_ms))
+    flops = RESNET50_TRAIN_FLOPS_PER_IMG * batch
+    share = flops / (p50 / 1e3) / flops_peak[1]
+    log("%s: step p50 %.2f ms over steps 2-%d, %.1f images/s, %.3f TFLOP "
+        "model FLOPs a step = %.1f%% of the %s peak; peak memory %.2f GB  "
+        "[%s]" % (what, p50, len(steps_ms) + 1, batch / (p50 / 1e3),
+                  flops / 1e12, 100 * share, flops_peak[0], mem / 1e9,
+                  card))
+    log("  one step: forward %.2f ms, backward %.2f ms, update %.2f ms (CUDA "
+        "events), wall %.2f ms; profiled: %.2f ms wall, %.2f ms device (busy "
+        "%.1f%%); B1 %d launches, %.3f ms; ranges %s"
+        % (prof["forward_ms"], prof["backward_ms"], prof["update_ms"],
+           prof["wall_ms"], prof["profiled_wall_ms"], prof["device_ms"],
+           100 * prof["device_busy_share"], prof["b1_launches"],
+           prof["b1_ms"], json.dumps({k: round(v, 3) for k, v in
+                                      prof["ranges_ms"].items()})))
+    log("  device time by kind (ms): " + json.dumps(
+        {k: round(v, 3) for k, v in sorted(prof["classes_ms"].items(),
+                                           key=lambda kv: -kv[1])}))
+    log("  top kernels: " + "; ".join(
+        "%s %.2f ms x%d" % (k["name"][:70], k["ms"], k["calls"])
+        for k in prof["top_kernels"]))
+    return {"step_ms": steps_ms, "step_ms_p50": p50,
+            "img_per_s": batch / (p50 / 1e3), "model_flops_per_step": flops,
+            "model_flops_share_of_peak": share, "peak_memory_bytes": mem,
+            "profile": prof}
+
+
+def released(dev):
+    """Drop what nothing references any more (cycles included) and hand
+    the cached blocks back -> bytes still allocated on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(dev)
+
+
+def resnet_train_path(dev, card, report):
+    """Phase 12: ResNet-50 trained through Module.fit as bench.py's fit
+    leg runs it, bf16 at batch 128 at tier auto (the main path) and off,
+    then f32 at batch 32; the checks, the numbers and card vs CPU."""
+    P = RESNET_TRAIN
+    sym = resnet50()
+    t0 = time.perf_counter()
+    p0, aux0 = resnet_init(sym, dev)
+    log("ResNet-50 v1 (224x224, 1000 classes): %.1f M f32 parameters, "
+        "Xavier(in, 2) from seed 0 in %.1fs"
+        % (sum(v.numel() for v in p0.values()) / 1e6,
+           time.perf_counter() - t0))
+    report["resnet_train"] = {"allocated_before_bytes": released(dev)}
+    log("allocated on the card before the leg: %.2f GB"
+        % (report["resnet_train"]["allocated_before_bytes"] / 1e9))
+    X, Y = image_batch(P["bf16_batch"])
+    steps = P["bf16_steps"]
+    # -- tier auto, bf16: the main path, counts zeroed just before
+    torch.cuda.reset_peak_memory_stats(dev)
+    tier.reset_stats()
+    bn_act.reset_launches()
+    mod, loss_auto, stamps = resnet_fit(sym, X, Y, dev, steps, p0, aux0,
+                                        mp=True)
+    torch.cuda.synchronize()
+    launches = dict(bn_act.launches_by_kernel)
+    stats = tier.stats()
+    mem = torch.cuda.max_memory_allocated(dev)
+    log("ResNet-50 train path, bf16 batch %d, tier auto: %d steps, losses "
+        "%s, launches %s, tier %s" % (P["bf16_batch"], steps,
+                                      ["%.4f" % x for x in loss_auto],
+                                      launches, json.dumps(stats["dispatch"])))
+    if launches != {"bn_act": 33 * steps, "bn_act_res": 16 * steps} \
+            or stats["fallback"]:
+        raise RuntimeError("expected 49 B1 launches per training forward "
+                           "over %d steps and no fallback, got %s, %s"
+                           % (steps, launches, stats["fallback"]))
+    n_aux = check_moving_stats(mod, aux0)
+    if not falling(loss_auto):
+        raise RuntimeError("losses not finite or not falling over the "
+                           "repeated batch: %s" % loss_auto)
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    prof = resnet_step_profile(mod)
+    bf16 = log_step("ResNet-50 bf16 train step, batch %d, tier auto"
+                    % P["bf16_batch"], step_ms, P["bf16_batch"],
+                    ("989 TFLOP/s bf16", BF16_FLOPS), prof, mem, card)
+    del mod
+    bf16["allocated_after_bytes"] = released(dev)
+    log("  allocated on the card once the module is dropped: %.2f GB"
+        % (bf16["allocated_after_bytes"] / 1e9))
+    # -- tier off, bf16, from the same weights
+    torch.cuda.reset_peak_memory_stats(dev)
+    tier.reset_stats()
+    bn_act.reset_launches()
+    with mt.config.override(kernel_tier="off"):
+        mod_off, loss_off, st_off = resnet_fit(sym, X, Y, dev, steps, p0,
+                                               aux0, mp=True)
+    torch.cuda.synchronize()
+    mem_off = torch.cuda.max_memory_allocated(dev)
+    off_stats = tier.stats()
+    log("ResNet-50 train path, bf16, tier off: losses %s, launches %d"
+        % (["%.4f" % x for x in loss_off], bn_act.launches))
+    if bn_act.launches or off_stats["dispatch"]:
+        raise RuntimeError("tier off launched B1: %d, %s"
+                           % (bn_act.launches, off_stats["dispatch"]))
+    check_moving_stats(mod_off, aux0)
+    off_ms = [(b - a) * 1e3 for a, b in zip(st_off[1:], st_off[2:])]
+    with mt.config.override(kernel_tier="off"):
+        bf16_off = log_step("ResNet-50 bf16 train step, batch %d, tier off"
+                            % P["bf16_batch"], off_ms, P["bf16_batch"],
+                            ("989 TFLOP/s bf16", BF16_FLOPS),
+                            resnet_step_profile(mod_off), mem_off, card)
+    del mod_off
+    released(dev)
+    # -- the control: tier off again, the images moved by half a bf16 ulp
+    # (another rounding of the same batch), for how far bf16 training
+    # parts from itself over these steps
+    with mt.config.override(kernel_tier="off"):
+        mod_ctl, loss_ctl, _s = resnet_fit(sym, perturbed(X, 2 ** -9), Y,
+                                           dev, steps, p0, aux0, mp=True)
+    del mod_ctl
+    released(dev)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(loss_auto, loss_off)]
+    ctl_rel = [abs(a - b) / abs(b) for a, b in zip(loss_ctl, loss_off)]
+    # -- first-step gradients: the tiers, and bf16 against f32
+    g_auto = resnet_grads(sym, p0, aux0, X, Y, dev, "auto", True)[1]
+    g_off = resnet_grads(sym, p0, aux0, X, Y, dev, "off", True)[1]
+    e_tier = rel_l2(g_auto, g_off)
+    del g_auto
+    released(dev)
+    g_f32 = resnet_grads(sym, p0, aux0, X, Y, dev, "off", False)[1]
+    e_bf16 = rel_l2(g_off, g_f32)
+    del g_off, g_f32
+    released(dev)
+    med_tier = float(np.median(list(e_tier.values())))
+    med_bf16 = float(np.median(list(e_bf16.values())))
+    log("tiers, bf16: losses within %.3g relative at step 1, %.3g at worst "
+        "(tier off against itself on images moved by half a bf16 ulp: "
+        "%.3g at worst; losses %s); first-step gradients, relative L2 auto "
+        "vs off: head %s (bf16 vs f32 at tier off: %s), median over all "
+        "tensors %.4g (bf16 vs f32 %.4g)"
+        % (loss_rel[0], max(loss_rel), max(ctl_rel),
+           ["%.4f" % x for x in loss_ctl],
+           json.dumps({k: round(e_tier[k], 5) for k in HEAD}),
+           json.dumps({k: round(e_bf16[k], 5) for k in HEAD}), med_tier,
+           med_bf16))
+    # step 1 is one forward from the same weights; after it the bf16
+    # trajectories part as bf16 training parts from itself (the control),
+    # and they are held to the JAX package's own bf16-vs-f32 bound
+    if loss_rel[0] > 5e-3 or max(loss_rel) > 5e-2 \
+            or not falling(loss_off):
+        raise RuntimeError("bf16 losses disagree across tiers: %s "
+                           "(control %s)" % (loss_rel, ctl_rel))
+    # both tiers round in bf16 where bf16-vs-f32 rounds on one side only:
+    # two independent roundings part by about sqrt(2) times one
+    if any(e_tier[k] > 2 * e_bf16[k] for k in HEAD):
+        raise RuntimeError("the head's first-step gradients across tiers "
+                           "are further apart than twice bf16 from f32: "
+                           "%s, %s"
+                           % ({k: e_tier[k] for k in HEAD},
+                              {k: e_bf16[k] for k in HEAD}))
+    # -- f32 at batch 32, tier auto
+    X32, Y32 = image_batch(P["f32_batch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    tier.reset_stats()
+    bn_act.reset_launches()
+    mod32, loss32, st32 = resnet_fit(sym, X32, Y32, dev, P["f32_steps"], p0,
+                                     aux0, mp=False)
+    torch.cuda.synchronize()
+    launches32 = dict(bn_act.launches_by_kernel)
+    mem32 = torch.cuda.max_memory_allocated(dev)
+    n32 = P["f32_steps"]
+    log("ResNet-50 train path, f32 batch %d, tier auto: losses %s, "
+        "launches %s" % (P["f32_batch"], ["%.4f" % x for x in loss32],
+                         launches32))
+    if launches32 != {"bn_act": 33 * n32, "bn_act_res": 16 * n32} \
+            or tier.stats()["fallback"]:
+        raise RuntimeError("f32: expected 49 B1 launches per forward, got "
+                           "%s" % launches32)
+    check_moving_stats(mod32, aux0)
+    if not falling(loss32):
+        raise RuntimeError("f32 losses not finite or not falling: %s"
+                           % loss32)
+    prof32 = resnet_step_profile(mod32)
+    f32 = log_step("ResNet-50 f32 train step, batch %d, tier auto"
+                   % P["f32_batch"], [(b - a) * 1e3 for a, b in
+                                      zip(st32[1:], st32[2:])],
+                   P["f32_batch"], ("67 TFLOP/s f32", F32_FLOPS), prof32,
+                   mem32, card)
+    del mod32
+    released(dev)
+    report["resnet_train"].update(
+        launches_bf16=launches, launches_f32=launches32, tier_stats=stats,
+        losses_bf16_auto=loss_auto, losses_bf16_off=loss_off,
+        losses_f32=loss32, loss_rel_tiers=loss_rel,
+        losses_bf16_control=loss_ctl, loss_rel_control=ctl_rel,
+        grad_rel_l2_tiers=e_tier, grad_rel_l2_bf16_vs_f32=e_bf16,
+        moving_stats=n_aux, bf16=bf16, f32=f32, bf16_off=bf16_off)
+    resnet_card_vs_cpu(sym, p0, aux0, dev, report)
+    return launches
+
+
 # ------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2303,17 +2945,33 @@ def main():
         dev, card, report, os.path.join(REPO, "build", "chip_smoke",
                                         "resnet50.mxtorch"),
         sym50, args50, aux50)
+    del sym50, args50, aux50
+    b1t_err, b1t_rows, b1t_tot = b1_train_phase(sites, dev)
+    report["train_b1_kernel"] = {"classes": b1t_rows, "totals": b1t_tot}
+    train_b1 = resnet_train_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
-        t = totals["float32/" + form]
+        # B1 on two paths: f32 serving (times summed over a batch-32
+        # forward's sites) and bf16 training (over a batch-128 forward's)
+        paths = {"serve": (launches[form], max_err[form + "/float32"],
+                           totals["float32/" + form], [32, "float32"]),
+                 "train": (train_b1[form], b1t_err[form], b1t_tot[form],
+                           [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
+        by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
+                       "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                       "library_ms": None}
+                   for p, (n, e, t, bd) in paths.items()}
+        main_ = max(by_path.values(), key=lambda b: b["launches"])
         kernels.append({"name": form, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[form],
-                        "launches": launches[form],
-                        "max_abs_err": max_err[form + "/float32"],
-                        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": None})
+                        "launches": sum(b["launches"]
+                                        for b in by_path.values()),
+                        "max_abs_err": max(b["max_abs_err"]
+                                           for b in by_path.values()),
+                        **{k: main_[k] for k in TIME_KEYS},
+                        "by_path": by_path})
     for kname in ("take_rows", "flash_attn", "flash_attn_paged"):
         # the decode path's kernels, two of them also on the training
         # path: launches summed over the paths, the worst error, and the

@@ -5,7 +5,9 @@ its JSON, the graph evaluator, the micro-batching server), their int8
 post-training quantization beside the f32 model (``quant``), and GPT
 generate artifacts (the decoder programs, continuous batching over a
 paged KV cache), and trains symbolic models through ``Module.fit`` (the
-executor's forward and backward, the fused train step, SGD and Adam).
+executor's forward and backward, the fused train step with bf16
+compute over f32 master weights, SGD with ``multi_precision`` and Adam,
+learning-rate schedules).
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 the legacy flash forward ``flash_fwd`` and the int8 epilogue
@@ -25,6 +27,7 @@ from . import symbol as sym  # noqa: F401
 from . import models  # noqa: F401
 from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
+from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import io  # noqa: F401
 from . import metric  # noqa: F401

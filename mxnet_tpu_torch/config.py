@@ -129,11 +129,14 @@ def compute_dtype(default=None):
 register_flag("compute_dtype", "MXNET_COMPUTE_DTYPE", str, "auto",
               "Session-wide mixed-precision compute dtype policy, as in "
               "the JAX package. 'auto' (default): each path keeps its "
-              "contextual default (the port's training runs in the "
-              "parameter dtype). 'bfloat16'/'float16' (aliases bf16/fp16/"
-              "f16/half): a downcast the port has not ported, so "
-              "Module.fit raises instead of training in f32. "
-              "'float32'/'off'/'none': never downcast.")
+              "contextual default (Module's fused train step computes in "
+              "bf16 over f32 master weights when the optimizer has "
+              "multi_precision, else in the parameter dtype). "
+              "'bfloat16'/'float16' (aliases bf16/fp16/f16/half): the "
+              "fused train step casts its data and f32 parameters (not "
+              "BatchNorm's gamma and beta) to that dtype; the masters "
+              "and optimizer state stay f32. 'float32'/'off'/'none': "
+              "never downcast, multi_precision's bf16 included.")
 register_flag("kernel_tier", "MXNET_KERNEL_TIER", str, "auto",
               "Kernel tier dispatch policy (mxnet_tpu_torch/kernels/). "
               "'auto' (default): a planned fusion runs its hand-written "

@@ -93,6 +93,10 @@ def _graph_eval_fn(symbol):
                     continue
                 force(node)
             outputs = [read(n, oi) for (n, oi) in entries]
+        # force and read refer to each other: break the cycle, or it
+        # keeps every activation and input of this call alive until the
+        # garbage collector runs
+        del force, read
         return outputs, aux_updates
 
     return eval_fn

@@ -4,7 +4,9 @@
 dicts of them) in order, into CPU tensors; the executor copies each
 batch to its device. The last partial batch is padded from the start
 (``last_batch_handle="pad"``, the default) or dropped (``"discard"``).
-Shuffling is not ported.
+With ``shuffle=True`` every ``reset`` (the constructor's included)
+shuffles the order with ``numpy.random.shuffle``, as the JAX package
+does, so under one ``numpy.random.seed`` both give the same batches.
 """
 from __future__ import annotations
 
@@ -107,20 +109,19 @@ def _init_data(data, allow_empty, default_name):
 
 
 class NDArrayIter(DataIter):
-    """Iterate over in-memory arrays in order."""
+    """Iterate over in-memory arrays, in order or shuffled."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
                  label_name="softmax_label"):
         super().__init__(batch_size)
-        if shuffle:
-            raise NotImplementedError("NDArrayIter: shuffle is not ported")
         if last_batch_handle not in ("pad", "discard"):
             raise ValueError("last_batch_handle must be 'pad' or 'discard', "
                              "got %r" % (last_batch_handle,))
         self.data = _init_data(data, False, data_name)
         self.label = _init_data(label, True, label_name)
         self.num_data = next(iter(self.data.values())).shape[0]
+        self.shuffle = shuffle
         self.last_batch_handle = last_batch_handle
         self.idx = _np.arange(self.num_data)
         if last_batch_handle == "discard":
@@ -140,6 +141,8 @@ class NDArrayIter(DataIter):
                 for k, v in self.label.items()]
 
     def reset(self):
+        if self.shuffle:
+            _np.random.shuffle(self.idx)
         self.cursor = -1
 
     def iter_next(self):

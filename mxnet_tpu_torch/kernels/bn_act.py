@@ -91,17 +91,19 @@ def shape_key_shapes(shape):
 def _coefs(data, gamma, beta, moving_mean, moving_var, *, eps, momentum,
            fix_gamma, use_global_stats, training):
     """f32 per-channel (sc, sh) and the BatchNorm statistic outputs
-    (mean, var, new_moving_mean, new_moving_var)."""
+    (mean, var, new_moving_mean, new_moving_var), with the statistics of
+    ``ops.nn.batch_norm``: low-precision training data through its
+    widened f32 sums."""
+    from ..ops import nn as _nn
     g32 = torch.ones_like(gamma, dtype=torch.float32) if fix_gamma \
         else gamma.float()
     b32 = beta.float()
     if training and not use_global_stats:
-        x32 = data.float()
-        mean = x32.mean((0, 2, 3))
-        if data.dtype == torch.bfloat16:
-            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if data.dtype in (torch.bfloat16, torch.float16):
+            mean, var = _nn._bn_lowp_stats(data, (0, 2, 3))
         else:
-            var = x32.var((0, 2, 3), correction=0)
+            mean = data.mean((0, 2, 3))
+            var = data.var((0, 2, 3), correction=0)
         new_mean = moving_mean * momentum + mean * (1.0 - momentum)
         new_var = moving_var * momentum + var * (1.0 - momentum)
     else:
@@ -207,8 +209,9 @@ class _BnAct(torch.autograd.Function):
         ctx.kw, ctx.act = kw, act
         ctx.save_for_backward(data, gamma, beta, moving_mean, moving_var,
                               residual)
-        sc, sh, mean, var, new_mean, new_var = _coefs(
-            data, gamma, beta, moving_mean, moving_var, **kw)
+        with torch.profiler.record_function("bn_act.coefs"):
+            sc, sh, mean, var, new_mean, new_var = _coefs(
+                data, gamma, beta, moving_mean, moving_var, **kw)
         out = _epilogue(data, sc, sh, residual, act, config)
         ctx.mark_non_differentiable(mean, var, new_mean, new_var)
         return out, mean, var, new_mean, new_var

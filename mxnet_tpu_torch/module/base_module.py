@@ -9,6 +9,8 @@ epoch-end callbacks and an optional evaluation pass (``score``).
 ``eval_metric=None`` updates no metric, so the loop reads nothing back
 from the device. Not ported: checkpointing and resume, monitors, and
 grouping several steps into one dispatch (``steps_per_dispatch``).
+The session dtype policy (``MXNET_COMPUTE_DTYPE``) is obeyed by the
+Module's fused step.
 """
 from __future__ import annotations
 
@@ -100,26 +102,22 @@ class BaseModule:
         ``checkpoint`` and ``steps_per_dispatch`` > 1 are not ported and
         raise; so do the settings the JAX package's fit obeys and the port
         does not: ``MXNET_CHECKPOINT_DIR`` or ``MXNET_RESUME_DIR`` set
-        (elastic checkpointing and resume), and ``MXNET_COMPUTE_DTYPE``
-        asking for ``bfloat16`` or ``float16`` compute."""
-        from .. import config as _config
+        (elastic checkpointing and resume)."""
         from .. import initializer as _init
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         if monitor is not None or sparse_row_id_fn is not None or \
-                checkpoint is not None or (steps_per_dispatch is not None
-                                           and steps_per_dispatch != 1):
-            raise MXNetError("fit: monitor, sparse_row_id_fn, checkpoint and "
-                             "steps_per_dispatch > 1 are not ported")
+                checkpoint is not None:
+            raise MXNetError("fit: monitor, sparse_row_id_fn and checkpoint "
+                             "are not ported")
+        if steps_per_dispatch is not None and steps_per_dispatch != 1:
+            raise MXNetError("fit: steps_per_dispatch=%r: grouping steps "
+                             "into one dispatch is not ported (ROADMAP "
+                             "A1b); pass 1 or None" % (steps_per_dispatch,))
         for env in ("MXNET_CHECKPOINT_DIR", "MXNET_RESUME_DIR"):
             if os.environ.get(env):
                 raise MXNetError("fit: %s is set, but checkpointing and "
                                  "resume are not ported" % env)
-        cdt = _config.compute_dtype()
-        if cdt is not None:
-            raise MXNetError("fit: MXNET_COMPUTE_DTYPE asks for %s compute, "
-                             "which is not ported (the port trains in the "
-                             "parameter dtype)" % cdt)
         if initializer is None:
             initializer = _init.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,

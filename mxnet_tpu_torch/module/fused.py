@@ -11,9 +11,17 @@ optimizer state (the counterpart of donation: no second copy of the
 weights). Dynamic hyperparameters come from the optimizer per step
 (:meth:`FusedStep.hyper_peek`), so a schedule moves without rebuilding.
 
+Mixed precision, as the JAX package's step: with a ``compute_dtype``
+(bf16 or f16) the forward casts the f32 data inputs and every f32
+parameter that is neither in ``keep_f32`` (BatchNorm's gamma and beta)
+nor empty to that dtype inside the differentiated function, so the
+gradients come back to the f32 master weights in f32 and the update
+applies there; labels are not cast, the ones cotangents take each
+output's dtype, and the aux updates go back to the aux dtype.
+
 Not ported: the K-step ``run_k`` (``lax.scan`` over stacked batches; a
-CUDA graph is its counterpart), data-parallel buckets, the
-mixed-precision downcast and the device-resident metric.
+CUDA graph is its counterpart), data-parallel buckets and the
+device-resident metric.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ class FusedStep:
     before ``update()``.
     """
 
-    def __init__(self, executor, optimizer, param_names):
+    def __init__(self, executor, optimizer, param_names, compute_dtype=None,
+                 data_names=(), keep_f32=()):
         fused = optimizer.fused_ops()
         if fused is None:
             raise ValueError("optimizer %s has no fused form"
@@ -44,6 +53,23 @@ class FusedStep:
         self.param_names = [n for n in param_names
                             if executor._grad_req.get(n, "null") == "write"]
         self._name2idx = {n: i for i, n in enumerate(param_names)}
+        self.compute_dtype = compute_dtype
+        self._data_names = frozenset(data_names)
+        self._keep_f32 = frozenset(keep_f32)
+
+    def _cast(self, leaves):
+        """The executor's values to run the forward on: the leaves, and
+        under a compute dtype the data inputs and the parameters cast
+        to it (a differentiable cast, so gradients return in f32)."""
+        cdt = self.compute_dtype
+        if cdt is None:
+            return leaves
+        vals = {k: v.to(cdt) for k, v in self._exec.arg_dict.items()
+                if k in self._data_names and v.dtype == torch.float32}
+        for k, v in leaves.items():
+            vals[k] = (v.to(cdt) if v.dtype == torch.float32
+                       and k not in self._keep_f32 and v.numel() > 0 else v)
+        return vals
 
     def init_state(self):
         """Zero optimizer state for every updated parameter."""
@@ -77,7 +103,8 @@ class FusedStep:
         leaves = {k: ex.arg_dict[k].detach().requires_grad_(True)
                   for k in self.param_names}
         with torch.enable_grad():
-            outs, auxu = ex._run(True, leaves)
+            outs, auxu = ex._run(True, self._cast(leaves))
+        auxu = {k: v.to(ex.aux_dict[k].dtype) for k, v in auxu.items()}
         return outs, auxu, leaves
 
     @staticmethod

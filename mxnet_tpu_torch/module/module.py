@@ -7,8 +7,13 @@ per-batch ``forward``/``backward``/``update``). With
 :class:`~.fused.FusedStep`; with ``local``/``device`` (or None) it runs
 the eager path, the executor's forward and backward and then one
 optimizer update per parameter. The default ``rescale_grad`` is
-``1 / batch_size``. Other kvstores, several devices, checkpoints and
-the device-resident metric are not ported and raise.
+``1 / batch_size``. The fused step computes in bf16 over the f32 master
+weights when the optimizer has ``multi_precision`` (the JAX package's
+choice), and ``MXNET_COMPUTE_DTYPE`` (``config.compute_dtype``) can
+force bf16 or f16 or veto the downcast; BatchNorm's gamma and beta stay
+f32 (:meth:`Module._norm_stat_params`). Other kvstores, several
+devices, checkpoints and the device-resident metric are not ported and
+raise.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import logging
 
 import torch
 
+from .. import config as _config
 from .. import optimizer as _opt
 from ..base import MXNetError
 from ..context import Context, current_context, resolve_device
@@ -70,7 +76,6 @@ class Module(BaseModule):
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
         self._arg_params = None
-        self._aux_params = None
         self._optimizer = None
         self._updater = None
         self._exec = None
@@ -131,11 +136,14 @@ class Module(BaseModule):
                 req[name] = "null"
             else:
                 req[name] = grad_req if for_training else "null"
+        prev = self._exec
         self._exec = simple_bind(self._symbol, self._device, grad_req=req,
                                  **shapes)
         self.binded = True
         if self._arg_params is not None:
-            self._exec.copy_params_from(self._arg_params, self._aux_params,
+            # the moving statistics from the executor: a training forward
+            # rebinds its aux entries
+            self._exec.copy_params_from(self._arg_params, prev.aux_dict,
                                         allow_extra_params=True)
 
     # ------------------------------------------------------------ parameters
@@ -169,15 +177,16 @@ class Module(BaseModule):
                                      "initializer" % name)
         self.params_initialized = True
         self._arg_params = {n: ex.arg_dict[n] for n in self._param_names}
-        self._aux_params = {n: ex.aux_dict[n] for n in self._aux_names}
 
     def get_params(self):
         """Copies of (arg_params, aux_params), as tensors on the
         Module's device."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("get_params needs a bound, initialized module")
-        return ({k: v.detach().clone() for k, v in self._arg_params.items()},
-                {k: v.detach().clone() for k, v in self._aux_params.items()})
+        ex = self._exec
+        return ({k: ex.arg_dict[k].detach().clone()
+                 for k in self._param_names},
+                {k: ex.aux_dict[k].detach().clone() for k in self._aux_names})
 
     # ------------------------------------------------------------- optimizer
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -207,15 +216,40 @@ class Module(BaseModule):
         self._fused = None
         self._fused_opt_state = None
         self._fused_grads = None
+        ex = self._exec
         if (kvstore == "tpu_sync" and self.for_training
                 and not self.inputs_need_grad
                 and optimizer.fused_ops() is not None
-                and not any(self._exec._grad_req.get(n) == "add"
-                            for n in self._param_names)):
-            self._fused = FusedStep(self._exec, optimizer,
-                                    self._param_names)
+                and not any(ex._grad_req.get(n) == "add"
+                            for n in self._param_names)
+                # low-precision parameters keep the eager path and its
+                # multi-precision f32 masters
+                and all(ex.arg_dict[n].dtype == torch.float32
+                        for n in self._param_names)):
+            default = ("bfloat16" if getattr(optimizer, "multi_precision",
+                                             False) else None)
+            cdt = _config.compute_dtype(default=default)
+            self._fused = FusedStep(
+                ex, optimizer, self._param_names,
+                compute_dtype=None if cdt is None else getattr(torch, cdt),
+                data_names=self._data_names,
+                keep_f32=self._norm_stat_params())
             self._fused_opt_state = self._fused.init_state()
         self.optimizer_initialized = True
+
+    def _norm_stat_params(self):
+        """Names of the parameters that stay f32 under a low-precision
+        compute dtype: BatchNorm's gamma and beta, which the op takes in
+        f32 whatever the data dtype."""
+        keep = set()
+        for node in self._symbol._topo():
+            if not node.is_variable and node.op.name == "BatchNorm":
+                for slot in (1, 2):
+                    if slot < len(node.inputs):
+                        src = node.inputs[slot][0]
+                        if src.is_variable:
+                            keep.add(src.name)
+        return frozenset(keep)
 
     # --------------------------------------------------------------- running
     def _feed(self, data_batch):

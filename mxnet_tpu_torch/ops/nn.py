@@ -9,7 +9,11 @@ than torch's defaults:
 * BatchNorm returns the 5-tuple ``(out, batch_mean, batch_var,
   new_moving_mean, new_moving_var)``; the default eps is 1e-3, gamma is
   ignored under ``fix_gamma`` (the default), and the moving statistics
-  update as ``moving * momentum + batch * (1 - momentum)``.
+  update as ``moving * momentum + batch * (1 - momentum)``. Statistics
+  and aux stay f32 for bf16/f16 data (the JAX op's ``_bn_dtypes``), and
+  training on such data differentiates through the JAX op's own vjp
+  (:class:`_BnLowpTrain`), not through autograd of the forward; under
+  ``fix_gamma`` gamma's gradient is zeros.
 * Pooling pads explicitly (with -inf for max, 0 for sums) and pools
   without ``ceil_mode``: ``pooling_convention="full"`` adds the
   high-side padding the JAX op adds, and ``count_include_pad`` divides
@@ -130,6 +134,106 @@ alias("Pooling", "pooling")
 # BatchNorm
 # ---------------------------------------------------------------------------
 
+def _bn_widened_sums(x, red):
+    """Per-channel sum and sum of squares of a low-precision tensor in
+    f32, and the count reduced over: the JAX op's f32 reductions of bf16
+    products (each product is exact in f32)."""
+    x32 = x.float()
+    n = 1
+    for i in red:
+        n *= x.shape[i]
+    return x32.sum(red), (x32 * x32).sum(red), n
+
+
+def _bn_lowp_stats(x, red):
+    """f32 batch mean and (biased) variance of low-precision data over
+    ``red``, from the widened sums."""
+    s1, s2, n = _bn_widened_sums(x, red)
+    mean = s1 / n
+    return mean, (s2 / n - mean * mean).clamp_min(0.0)
+
+
+def _bn_coef_apply(x, axis, *cols32):
+    """Per-channel f32 coefficient vectors, concatenated and downcast to
+    x's dtype once, each reshaped to broadcast against x."""
+    C = x.shape[axis]
+    coef = torch.cat(cols32).to(x.dtype)
+    shape = [1] * x.dim()
+    shape[axis] = C
+    return [coef[i * C:(i + 1) * C].reshape(shape)
+            for i in range(len(cols32))]
+
+
+def _bn_lowp_fwd_impl(x, g32, b32, eps, axis):
+    red = tuple(i for i in range(x.dim()) if i != axis)
+    mean, var = _bn_lowp_stats(x, red)
+    inv = torch.rsqrt(var + eps)
+    scale = inv * g32
+    shift = b32 - mean * scale
+    sc, sh = _bn_coef_apply(x, axis, scale, shift)
+    return x * sc + sh, mean, var, inv
+
+
+class _BnLowpTrain(torch.autograd.Function):
+    """Training BatchNorm of bf16/f16 data with the JAX op's own vjp
+    (``_bn_lowp_train``): dgamma = inv * (sum(dy*x) - mean * sum(dy)) and
+    dbeta = sum(dy), f32 sums of low-precision products, and dx = dy*a +
+    x*b + c in the data dtype, off per-channel f32 coefficients downcast
+    once. The statistic outputs carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, g32, b32, eps, axis):
+        out, mean, var, inv = _bn_lowp_fwd_impl(x, g32, b32, eps, axis)
+        ctx.save_for_backward(x, g32, mean, inv)
+        ctx.axis = axis
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, g32, mean, inv = ctx.saved_tensors
+        axis = ctx.axis
+        red = tuple(i for i in range(x.dim()) if i != axis)
+        with torch.profiler.record_function("batch_norm.lowp_backward"):
+            dy32 = dy.float()
+            s_dy = dy32.sum(red)
+            s_dyx = (dy32 * x.float()).sum(red)
+            n = 1
+            for i in red:
+                n *= x.shape[i]
+            dgamma = inv * (s_dyx - mean * s_dy)
+            dbeta = s_dy
+            A = g32 * inv
+            B = -A * inv * dgamma / n
+            Cc = -A * s_dy / n - B * mean
+            a, b, c = _bn_coef_apply(x, axis, A, B, Cc)
+            dx = dy * a + x * b + c
+        return dx, dgamma, dbeta, None, None
+
+
+class _UnitGamma(torch.autograd.Function):
+    """f32 ones in gamma's shape, with a zero gradient for gamma: under
+    ``fix_gamma`` gamma's gradient is zeros, as ``jax.grad`` gives."""
+
+    @staticmethod
+    def forward(ctx, gamma):
+        ctx.like = (gamma.shape, gamma.dtype, gamma.device)
+        return torch.ones(gamma.shape, dtype=torch.float32,
+                          device=gamma.device)
+
+    @staticmethod
+    def backward(ctx, _g):
+        shape, dtype, device = ctx.like
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def unit_gamma(gamma):
+    """The gamma BatchNorm uses under ``fix_gamma``."""
+    if gamma.requires_grad and torch.is_grad_enabled():
+        return _UnitGamma.apply(gamma)
+    return torch.ones_like(gamma, dtype=torch.float32)
+
+
 @register("BatchNorm", num_outputs=5)
 def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
                momentum=0.9, fix_gamma=True, use_global_stats=False,
@@ -138,36 +242,40 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
     """Returns (out, batch_mean, batch_var, new_moving_mean,
     new_moving_var). Statistics and coefficients are f32 whatever the
     data dtype; bf16/f16 data is normalized in its own dtype off one
-    per-channel downcast of the coefficients, as in the JAX op."""
+    per-channel downcast of the coefficients, and in training takes
+    :class:`_BnLowpTrain`, the JAX op's custom vjp."""
     axis = axis % data.dim()
     red = tuple(i for i in range(data.dim()) if i != axis)
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
-    g32 = torch.ones_like(gamma, dtype=torch.float32) if fix_gamma \
-        else gamma.float()
+    g32 = unit_gamma(gamma) if fix_gamma else gamma.float()
     b32 = beta.float()
     lowp = data.dtype in (torch.bfloat16, torch.float16)
-    if _training and not use_global_stats:
-        x32 = data.float()
-        mean = x32.mean(red)
-        if lowp:
-            var = ((x32 * x32).mean(red) - mean * mean).clamp_min(0.0)
-        else:
-            var = x32.var(red, correction=0)
+    train = _training and not use_global_stats
+    if train and lowp:
+        out, mean, var = _BnLowpTrain.apply(data, g32, b32, float(eps),
+                                            axis)
+    elif train:
+        mean = data.mean(red)
+        var = data.var(red, correction=0)
+    else:
+        mean, var = moving_mean, moving_var
+    if train:
         new_mean = moving_mean * momentum + mean * (1.0 - momentum)
         new_var = moving_var * momentum + var * (1.0 - momentum)
     else:
-        mean, var = moving_mean, moving_var
         new_mean, new_var = moving_mean, moving_var
-    inv = torch.rsqrt(var + eps)
-    if lowp:
-        sc = (inv * g32).to(data.dtype).reshape(shape)
-        sh = (b32 - mean * (inv * g32)).to(data.dtype).reshape(shape)
-        out = data * sc + sh
-    else:
-        out = ((data - mean.reshape(shape)) * (inv * g32).reshape(shape)
-               + b32.reshape(shape))
-    return out.to(data.dtype), mean, var, new_mean, new_var
+    if not (train and lowp):
+        inv = torch.rsqrt(var + eps)
+        if lowp:
+            sc, sh = _bn_coef_apply(data, axis, inv * g32,
+                                    b32 - mean * (inv * g32))
+            out = data * sc + sh
+        else:
+            out = ((data - mean.reshape(shape)) * (inv * g32).reshape(shape)
+                   + b32.reshape(shape))
+    return (out.to(data.dtype), mean.detach(), var.detach(),
+            new_mean.detach(), new_var.detach())
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,14 @@ Both update the weight and the state tensors in place (the counterpart
 of the JAX package donating them to XLA) through the same functions,
 whose gradient preparation keeps the order of
 ``mxnet_tpu/ops/optimizer_ops.py``: rescale, then clip, then ``+ wd*w``.
+
+``multi_precision=True`` gives a float16 or bfloat16 weight an f32
+master copy in its eager state (``create_state_multi_precision``): the
+update runs on the master and the weight is its rounding
+(``update_multi_precision``; SGD through ``mp_sgd_update_`` and
+``mp_sgd_mom_update_``). The ``Updater`` goes through both. On f32
+weights the flag changes nothing here; the fused train step reads it as
+bf16 compute over the f32 weights (``module.Module``).
 The other optimizers of the JAX package are not ported yet.
 """
 from __future__ import annotations
@@ -31,6 +39,12 @@ __all__ = ["Optimizer", "SGD", "Adam", "create", "register", "Updater",
            "get_updater"]
 
 _OPT_REGISTRY = {}
+
+
+def _is_lowp_float(dtype):
+    """True for the low-precision float dtypes that take an f32 master
+    copy under ``multi_precision``."""
+    return dtype in (torch.float16, torch.bfloat16)
 
 
 def register(klass):
@@ -74,6 +88,29 @@ def sgd_mom_update_(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
 
 
 @torch.no_grad()
+def mp_sgd_update_(weight, grad, weight32, *, lr, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    """w32 -= lr * g on the f32 master, then w = w32 rounded, in
+    place."""
+    g = _prep(grad.float(), rescale_grad, clip_gradient, wd, weight32)
+    weight32.sub_(lr * g)
+    weight.copy_(weight32)
+    return weight, weight32
+
+
+@torch.no_grad()
+def mp_sgd_mom_update_(weight, grad, mom, weight32, *, lr, momentum=0.0,
+                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """mom = momentum * mom - lr * g; w32 += mom on the f32 master, then
+    w = w32 rounded, in place."""
+    g = _prep(grad.float(), rescale_grad, clip_gradient, wd, weight32)
+    mom.mul_(momentum).sub_(lr * g)
+    weight32.add_(mom)
+    weight.copy_(weight32)
+    return weight, mom, weight32
+
+
+@torch.no_grad()
 def adam_update_(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
     """The moments and w -= lr * mean / (sqrt(var) + eps), in place
@@ -90,7 +127,7 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0):
+                 sym=None, begin_num_update=0, multi_precision=False):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -104,11 +141,20 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.sym_info = ((sym.attr_dict(), sym.list_arguments())
                          if sym is not None else None)
+        self.multi_precision = multi_precision
         self.set_lr_mult({})
         self.set_wd_mult({})
 
     def create_state(self, index, weight):
         return None
+
+    def create_state_multi_precision(self, index, weight):
+        """``(state, f32 master)`` for a low-precision weight under
+        ``multi_precision``, else the plain state."""
+        if self.multi_precision and _is_lowp_float(weight.dtype):
+            w32 = weight.detach().float()
+            return (self.create_state(index, w32), w32)
+        return self.create_state(index, weight)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:
@@ -167,6 +213,18 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError
 
+    def update_multi_precision(self, index, weight, grad, state):
+        """The update on the f32 master of a low-precision weight under
+        ``multi_precision``, the weight then its rounding; else
+        :meth:`update`."""
+        if self.multi_precision and _is_lowp_float(weight.dtype):
+            inner, w32 = state
+            self.update(index, w32, grad.float(), inner)
+            with torch.no_grad():
+                weight.copy_(w32)
+        else:
+            self.update(index, weight, grad, state)
+
     def fused_ops(self):
         """``(state_init, update)`` for the fused train step, or None.
         ``state_init(w)`` -> tuple of state tensors (the eager
@@ -200,6 +258,21 @@ class SGD(Optimizer):
         else:
             sgd_mom_update_(weight, grad, state, momentum=self.momentum,
                             **kw)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        if not (self.multi_precision and _is_lowp_float(weight.dtype)):
+            self.update(index, weight, grad, state)
+            return
+        self._update_count(index)
+        inner, w32 = state
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip_const())
+        if inner is None:
+            mp_sgd_update_(weight, grad, w32, **kw)
+        else:
+            mp_sgd_mom_update_(weight, grad, inner, w32,
+                               momentum=self.momentum, **kw)
 
     def fused_ops(self):
         mom, clip = self.momentum, self._clip_const()
@@ -267,8 +340,10 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
 
 
 def get_updater(optimizer):

@@ -4,8 +4,8 @@
 and (for the training kernels and ``bn_act``) backward, the wrappers'
 checks and launch counts, the card's ``torch._int_mm`` against the
 CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
-decoder in generate mode, a 2-layer GPT trained by ``Module.fit``) on
-the card against the CPU.
+decoder in generate mode, a 2-layer GPT and a ResNet-20 in f32 and bf16
+trained by ``Module.fit``) on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -350,6 +350,109 @@ def test_bn_act_backward_on_the_card(cuda, residual, training):
     for a, b in zip(got, want):
         if b is not None:
             torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_bn_act_matches_plain_at_a_training_shape(cuda, residual):
+    """B1 at the largest site of the bf16 ResNet-50 training forward
+    (batch 128, 256 x 56 x 56): kernel against plain, one launch."""
+    x, sc, sh, r = _case((128, 256, 56, 56), torch.bfloat16, residual, cuda)
+    before = tbn.launches
+    y = tbn._launch(x, sc, sh, r, "relu", tbn.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    assert tbn.launches == before + 1
+    _assert_kernel_matches_plain(y, tbn._plain_epilogue(x, sc, sh, r,
+                                                        "relu"))
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_bn_act_bf16_training_on_the_card_matches_the_cpu(cuda, residual):
+    """B1 in training mode on bf16 data, forward (batch statistics
+    through the widened f32 sums) and the recomputed low-precision
+    backward, on the card against the CPU: outputs and gradients within
+    a relative L2 error of 2^-8 (f32 sums in another order can move a
+    bf16 rounding), statistics within 1e-5."""
+    x, _sc, _sh, r = _case((8, 64, 14, 14), torch.bfloat16, residual, "cpu")
+    g = torch.Generator().manual_seed(4)
+    gamma, beta = torch.rand(64, generator=g) + 0.5, torch.randn(64,
+                                                                generator=g)
+    mm, mv = torch.zeros(64), torch.ones(64)
+    kw = dict(eps=2e-5, momentum=0.9, fix_gamma=False, act="relu",
+              training=True)
+    res = {}
+    for dev in ("cpu", cuda):
+        mv_, mm_ = mv.to(dev), mm.to(dev)
+        outs = {}
+
+        def fn(a, b, c, d):
+            o = tbn.fused_bn_act(a, b, c, mm_, mv_, d, **kw)
+            outs["stats"] = o[1:]
+            return o[0]
+        before = tbn.launches
+        out, grads = _grads(fn, *[None if t is None else t.to(dev)
+                                  for t in (x, gamma, beta, r)])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tbn.launches == before + 1
+        res[str(dev)] = (out.detach().float().cpu(),
+                         [None if t is None else t.float().cpu()
+                          for t in grads],
+                         [t.cpu() for t in outs["stats"]])
+    (o1, g1, s1), (o2, g2, s2) = res[str(cuda)], res["cpu"]
+    assert float((o1 - o2).norm() / o2.norm()) <= 2 ** -8
+    for a, b in zip(g1, g2):
+        if b is not None:
+            assert float((a - b).norm() / b.norm()) <= 2 ** -8
+    for a, b in zip(s1, s2):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mp", [False, True], ids=["f32", "bf16"])
+def test_resnet20_fit_on_the_card_matches_the_cpu(cuda, mp):
+    """CIFAR ResNet-20, batch 4, three SGD steps (lr 0.01, momentum 0.9,
+    ``multi_precision`` for bf16) by ``Module.fit`` at tier auto, from
+    one Xavier(in, 2) draw with BatchNorm betas uniform(-0.1, 0.1): 19
+    B1 launches a step on the card, masters f32; parameters and moving
+    statistics within 1e-4 (f32) or a relative L2 error of 0.05 per
+    tensor (bf16, the bound the CPU parity test holds against the JAX
+    package)."""
+    sym = mt.models.resnet(num_layers=20, num_classes=10,
+                           image_shape=(3, 32, 32))
+    init = mt.mod.Module(sym, context="cpu")
+    init.bind([("data", (4, 3, 32, 32))], [("softmax_label", (4,))])
+    init.init_params(mt.init.Xavier(factor_type="in", magnitude=2.0,
+                                    seed=0))
+    args, aux = init.get_params()
+    g = torch.Generator().manual_seed(3)
+    for k in sorted(args):
+        if k.endswith("_beta"):
+            args[k] = torch.rand(args[k].shape, generator=g) * 0.2 - 0.1
+    rng = np.random.RandomState(1)
+    X = rng.randn(12, 3, 32, 32).astype(np.float32)
+    Y = rng.randint(0, 10, (12,)).astype(np.float32)
+    got = {}
+    for dev in ("cpu", cuda):
+        mod = mt.mod.Module(sym, context=dev)
+        before = dict(tbn.launches_by_kernel)
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=4), num_epoch=1,
+                kvstore="tpu_sync", optimizer="sgd",
+                optimizer_params={"learning_rate": 0.01, "momentum": 0.9,
+                                  "multi_precision": mp},
+                arg_params=args, aux_params=aux, eval_metric=None)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            n = sum(tbn.launches_by_kernel[k] - before[k] for k in before)
+            assert n == 3 * 19
+        a, x = mod.get_params()
+        assert all(v.dtype == torch.float32 for v in list(a.values())
+                   + list(x.values()))
+        got[str(dev)] = {k: v.cpu() for k, v in {**a, **x}.items()}
+    for k, v in got["cpu"].items():
+        w = got[str(cuda)][k]
+        if mp:
+            assert float((w - v).norm() / v.norm()) <= 0.05, k
+        else:
+            torch.testing.assert_close(w, v, rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(8192, 3072), (1000, 3000), (3, 5, 7),

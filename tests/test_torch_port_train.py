@@ -609,20 +609,112 @@ def test_fit_takes_the_jax_packages_keywords():
 
 
 @pytest.mark.parametrize("env,value", [
-    ("MXNET_CHECKPOINT_DIR", "ckpt"), ("MXNET_RESUME_DIR", "ckpt"),
-    ("MXNET_COMPUTE_DTYPE", "bfloat16"), ("MXNET_COMPUTE_DTYPE", "fp16")])
+    ("MXNET_CHECKPOINT_DIR", "ckpt"), ("MXNET_RESUME_DIR", "ckpt")])
 def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch):
     """The JAX package's fit checkpoints and resumes under these
-    variables and trains in a lower precision under the dtype policy;
-    the port does neither, so it raises instead of training silently."""
+    variables; the port does not, so it raises instead of training
+    silently."""
     monkeypatch.setenv(env, value)
-    flags = mt.config.flags
-    monkeypatch.setitem(flags._values, "compute_dtype",
-                        flags._resolve("compute_dtype"))
     X, Y = _batches()
     mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
     with pytest.raises(mt.base.MXNetError, match=env):
         mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1)
+
+
+def test_fit_refuses_grouped_dispatch():
+    X, Y = _batches()
+    mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
+    with pytest.raises(mt.base.MXNetError, match="steps_per_dispatch=4"):
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                steps_per_dispatch=4)
+
+
+@pytest.mark.parametrize("value,mp,want", [
+    ("bfloat16", False, "bfloat16"), ("fp16", False, "float16"),
+    ("float32", True, None), ("off", True, None), ("auto", True, "bfloat16"),
+    ("auto", False, None)])
+def test_fit_obeys_the_compute_dtype_policy(value, mp, want, monkeypatch):
+    """``MXNET_COMPUTE_DTYPE`` as the JAX package's Module reads it: bf16
+    or f16 compute over f32 masters when asked for, multi_precision's
+    bf16 by default, and float32/off vetoing it. One fused SGD step of
+    the small GPT; the step's outputs take the compute dtype, the
+    weights stay f32 and move, and the JAX Module picks the same dtype.
+    A vetoed step equals the f32 step."""
+    monkeypatch.setenv("MXNET_COMPUTE_DTYPE", value)
+    opt = dict(OPT["sgd"], multi_precision=mp)
+    X, Y = _batches()
+    X, Y = X[:B], Y[:B]
+    args0 = _jax_init_params()
+
+    def step(net_mod):
+        net_mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                    kvstore="tpu_sync", optimizer="sgd",
+                    optimizer_params=opt, arg_params=args, eval_metric=None)
+        return net_mod
+    args, _ = mt.serving.params_from_reference(
+        args0, {}, _gpt(mt.sym), "cpu", data_shapes={"data": (B, T)})
+    flags, jflags = mt.config.flags, jconfig.flags
+    monkeypatch.setitem(flags._values, "compute_dtype",
+                        flags._resolve("compute_dtype"))
+    monkeypatch.setitem(jflags._values, "compute_dtype",
+                        jflags._resolve("compute_dtype"))
+    mod = step(mt.mod.Module(_gpt(mt.sym), context=mt.cpu()))
+    cdt = mod._fused.compute_dtype
+    assert cdt == (None if want is None else getattr(torch, want))
+    assert mod.get_outputs()[0].dtype == (cdt or torch.float32)
+    got = {k: _t(v) for k, v in mod.get_params()[0].items()}
+    assert all(v.dtype == torch.float32
+               for v in mod.get_params()[0].values())
+    assert all(np.isfinite(v).all() for v in got.values())
+    assert any(not np.array_equal(got[k], args0[k]) for k in got)
+    jmod = mx.mod.Module(_gpt(mx.sym), context=mx.cpu())
+    jmod.bind([("data", (B, T))], [("softmax_label", (B, T))])
+    jmod.init_params(arg_params={k: mx.nd.array(v)
+                                 for k, v in args0.items()})
+    jmod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                        optimizer_params=opt)
+    jcdt = jmod._fused._compute_dtype
+    assert (None if jcdt is None else jnp.dtype(jcdt).name) == want
+    if want is None:
+        monkeypatch.setitem(flags._values, "compute_dtype", "float32")
+        ref = step(mt.mod.Module(_gpt(mt.sym), context=mt.cpu()))
+        for k, v in ref.get_params()[0].items():
+            np.testing.assert_array_equal(got[k], _t(v), err_msg=k)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_a_training_step_leaves_no_reference_cycle(fused):
+    """The graph walk's closures referred to each other, so every
+    activation of a step stayed alive until the garbage collector ran
+    (on the card: tens of GB at ResNet-50's batch 128). A step through
+    the executor, and through the bf16 fused step, now leaves nothing
+    for the collector."""
+    import gc
+    sym = mt.models.resnet(num_layers=20, num_classes=10,
+                           image_shape=(3, 8, 8))
+    X = np.random.RandomState(0).randn(2, 3, 8, 8).astype(np.float32)
+    Y = np.zeros(2, np.float32)
+    mod = mt.mod.Module(sym, context=mt.cpu())
+    mod.bind([("data", X.shape)], [("softmax_label", Y.shape)])
+    mod.init_params(mt.init.Xavier(seed=0))
+    mod.init_optimizer(kvstore="tpu_sync" if fused else "local",
+                       optimizer="sgd",
+                       optimizer_params={"learning_rate": 0.01,
+                                         "multi_precision": True})
+    batch = mt.io.DataBatch([torch.from_numpy(X)], [torch.from_numpy(Y)])
+    mod.forward_backward(batch)
+    mod.update()
+    gc.collect()
+    gc.disable()
+    try:
+        mod.forward_backward(batch)
+        mod.update()
+        mod.forward(batch, is_train=False)
+        found = gc.collect()
+    finally:
+        gc.enable()
+    assert (mod._fused is not None) == fused
+    assert found == 0
 
 
 def test_fit_refuses_sparse_row_id_fn():
