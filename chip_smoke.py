@@ -44,8 +44,9 @@ Phases; any failure raises and the script exits non-zero:
    ``flash_attn`` at prefill's (16, 12, 128, 64) causal and at T = 100
    with head dims 64, 32 and 128;
    ``flash_attn_paged`` for a decode step (16 slots, W = 1, positions 0,
-   page boundaries and a spread up to 1023) and for prompt chunks (one
-   slot, W = 128, at positions 0 and 256). f32 within atol 2e-5, rtol
+   page boundaries and a spread up to 1023), for prompt chunks (one
+   slot, W = 128, at positions 0 and 256) and for the speculative
+   verifier (16 slots, W = 5). f32 within atol 2e-5, rtol
    1e-4 (FMA contraction and another summation order); bf16 within one
    bf16 ulp plus 1e-3. ``flash_attn_paged`` also on the non-finite
    cases of ``tests/paged_nonfinite.py`` (NaN or inf planted in V or K
@@ -64,7 +65,7 @@ Phases; any failure raises and the script exits non-zero:
    ``flash_attn_paged`` is timed at the decode step with 64 distinct
    pages a slot and in the serving layout (unused entries page 0), and
    at chunk@256, and the longest slot alone (position 1023, 12 CTAs of
-   64 pages each); its bound counts the contract's work (visible K and V,
+   64 pages each), and at the verifier's W = 5 in both layouts; its bound counts the contract's work (visible K and V,
    and V of every listed row, each row once), the visible rows' bound
    printed beside it, and each time is also taken after a flush that
    leaves L2 clean.
@@ -87,6 +88,30 @@ Phases; any failure raises and the script exits non-zero:
    1e-4, and no more than 1 sequence in 8 may stop early. Then TTFT and
    TPOT p50/p99, generated tokens/s, the wall time of a decode step and
    its device busy share (torch.profiler).
+   Then the speculative path: the same weights exported with their int8
+   draft (``quantize_decoder_params``) and ``speculate_k=4``, as
+   bench.py's decode leg (the int8 weight bytes against f32's and
+   ``suggest_speculation_depth``'s pick on the H100's rates printed),
+   served by ``Server(..., draft="on")`` to the same 24 requests.
+   Counts are zeroed just before the server is built and read after it
+   closes: ``flash_attn`` 12 launches per prefill run,
+   ``flash_attn_paged`` 12 x (k + 1) per speculative step and 12 per
+   chunk (the verifier's chunks of the long prompts, the draft's chunks
+   of every prompt, and the warmup's decode step, chunk, draft chunk
+   and speculative step), ``take_rows`` none, no tier fallback. Every
+   request's tokens are held against the plain server's (tier off and
+   tier auto) by the near-tie rule above; some greedy request must
+   accept a draft token; ``accepted_tokens_per_step`` and
+   ``draft_acceptance_rate`` printed per request. One speculative step
+   from 16 slots prefilled with the first 16 prompts, at tier auto and
+   at tier off: the draft's proposals, the verifier's tokens and
+   ``n_accept`` equal up to the first row whose draft or verifier
+   top-1/top-2 margin (tier off, as above) is below 1e-4, no more than
+   1 slot in 8 stopping early. Then TTFT, TPOT and tokens/s with
+   speculation on beside the plain path's, and the speculative step's
+   wall time against its device time (torch.profiler). B4 at the
+   verifier's shape (16 slots, W = 5, positions up to 1019) is checked
+   and timed in phase 5 like the decode step.
 7. The training kernels against their plain versions on the card, f32
    and bf16: ``scale_bias_act`` at the MLP's (8192, 3072) and a ragged
    (1000, 3000), ReLU, GeLU and identity, with and without the scale,
@@ -683,6 +708,11 @@ GPT_SOURCES = {k: "mxnet_tpu_torch/csrc/%s.cu" % k for k in GPT_REPLACES}
 # decode-step positions: 0, page boundaries and a spread up to 1023
 DECODE_POSITIONS = [0, 1, 15, 16, 17, 63, 64, 100, 255, 256, 511, 512, 700,
                     900, 1022, 1023]
+# the speculative path: bench.py's depth, and a speculative step's 16
+# slots at the decode step's positions, the last two moved so that the
+# verifier's window of k + 1 rows stays inside the 1024-token context
+SPEC_K = 4
+VERIFY_POSITIONS = DECODE_POSITIONS[:-2] + [1019 - SPEC_K, 1023 - SPEC_K]
 
 
 def attn_check(got, want, what):
@@ -886,6 +916,15 @@ def gpt_kernel_phase(dev):
                            "flash_attn_paged S=%d W=%d %s" % (S, W, dtype))
             key = "flash_attn_paged/" + str(dtype)[6:]
             err[key] = max(err.get(key, 0.0), e)
+    # the speculative verifier's window, W = k + 1, held apart from the
+    # generate path's shapes
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, bt, pos = paged_inputs(dev, dtype, 16, SPEC_K + 1,
+                                          VERIFY_POSITIONS, 5)
+        got = attn._launch_paged(q, kp, vp, bt, pos, 12, 16)
+        err["flash_attn_paged@verify/" + str(dtype)[6:]] = attn_check(
+            got, attn._plain_paged(q, kp, vp, bt, pos, 12, 16),
+            "flash_attn_paged S=16 W=%d %s" % (SPEC_K + 1, dtype))
     err["flash_attn_paged/planted"] = paged_contract_phase(dev)[1]
     # the layouts: 64 distinct pages a slot (every entry listed), and the
     # serving one (unused entries page 0); bound_ms is the contract's
@@ -896,7 +935,11 @@ def gpt_kernel_phase(dev):
             ("flash_attn_paged", cases[0], "distinct"),
             ("flash_attn_paged/serving", cases[0], "serving"),
             ("flash_attn_paged/chunk@256", cases[2], "distinct"),
-            ("flash_attn_paged/one-slot@1023", (1, 1, [1023]), "distinct")):
+            ("flash_attn_paged/one-slot@1023", (1, 1, [1023]), "distinct"),
+            ("flash_attn_paged/verify", (16, SPEC_K + 1, VERIFY_POSITIONS),
+             "distinct"),
+            ("flash_attn_paged/verify-serving",
+             (16, SPEC_K + 1, VERIFY_POSITIONS), "serving")):
         q, kp, vp, bt, pos = paged_inputs(dev, torch.float32, S, W,
                                           positions, 3)
         if layout == "serving":
@@ -926,7 +969,8 @@ def gpt_kernel_phase(dev):
     log_flash_bound("flash_attn", rows["flash_attn"])
     for name in ("flash_attn_paged", "flash_attn_paged/serving",
                  "flash_attn_paged/chunk@256",
-                 "flash_attn_paged/one-slot@1023"):
+                 "flash_attn_paged/one-slot@1023", "flash_attn_paged/verify",
+                 "flash_attn_paged/verify-serving"):
         log("  %-28s contract bound %.5f ms, visible-row bound %.5f ms; "
             "%.5f ms after a flush that leaves L2 clean" % (
                 name, rows[name]["bound_ms"], rows[name]["visible_bound_ms"],
@@ -994,40 +1038,51 @@ def replay_logits(params, spec, seqs, dev):
     return out
 
 
+def z_margins(logits, temps, seeds, pos):
+    """Top-1/top-2 margin of what ``_sample`` takes the argmax of at
+    each (slot, row): the logits when greedy, Gumbel noise under the
+    slot's key at the sampled position + logits / t when sampling.
+    logits (S, n, V), pos (S, n) -> (S, n)."""
+    from mxnet_tpu_torch.serve import _threefry
+    S, n, V = logits.shape
+    lg = logits.float().reshape(S * n, V)
+    t = torch.as_tensor(np.repeat(temps, n), device=lg.device)
+    key = _threefry.fold_in(_threefry.fold_in(
+        _threefry.prng_key(0, lg.device),
+        torch.as_tensor(np.repeat(seeds, n).astype(np.int64),
+                        device=lg.device)),
+        torch.as_tensor(pos.reshape(-1).astype(np.int64), device=lg.device))
+    z = torch.where(t[:, None] > 0,
+                    _threefry.gumbel(key, V) + lg / t.clamp_min(1e-6)[:, None],
+                    lg)
+    top2 = torch.topk(z, 2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]).reshape(S, n).cpu().numpy()
+
+
 def margin_compare(name, work, got, want, plain_logits, auto_logits):
     """Tokens equal up to the first position where the plain run's
     top-1/top-2 margin (of gumbel + logits / t when sampling, with the
     request's key) is below 1e-4; there the two paths' logits must
     agree within 1e-4. -> number of sequences stopped early."""
-    from mxnet_tpu_torch.serve import _threefry
     stopped = 0
     for i, ((prompt, n, t, seed), a, b) in enumerate(zip(work, got, want)):
         lp = len(prompt)
-        rows = plain_logits[i][lp - 1:lp - 1 + n].float()
-        if t > 0:
-            pos = torch.arange(lp, lp + n, device=rows.device)
-            key = _threefry.fold_in(_threefry.fold_in(
-                _threefry.prng_key(0, rows.device),
-                torch.full_like(pos, seed)), pos)
-            z = _threefry.gumbel(key, rows.shape[1]) + rows / max(t, 1e-6)
-        else:
-            z = rows
-        top2 = torch.topk(z, 2, dim=1).values
-        low = (top2[:, 0] - top2[:, 1] < 1e-4).nonzero()
+        margin = z_margins(plain_logits[i][None, lp - 1:lp - 1 + n],
+                           np.array([t], np.float32), np.array([seed]),
+                           np.arange(lp, lp + n)[None])[0]
+        low = np.nonzero(margin < 1e-4)[0]
         stop = int(low[0]) if len(low) else n
         if a[:stop] != b[:stop]:
             j = next(j for j in range(stop) if a[j] != b[j])
             raise RuntimeError("%s: request %d differs at token %d (margin "
-                               "%g)" % (name, i, j, float(top2[j, 0]
-                                                        - top2[j, 1])))
+                               "%g)" % (name, i, j, margin[j]))
         if stop < n:
             stopped += 1
             d = float((auto_logits[i][lp - 1 + stop]
                        - plain_logits[i][lp - 1 + stop]).abs().max())
             log("  %s: request %d stops at token %d of %d (margin %g), "
                 "logits there differ by %g" % (name, i, stop, n,
-                                               float(top2[stop, 0]
-                                                     - top2[stop, 1]), d))
+                                               margin[stop], d))
             if d > 1e-4:
                 raise RuntimeError("%s: logits differ by %g at request %d "
                                    "token %d" % (name, d, i, stop))
@@ -1039,12 +1094,54 @@ def margin_compare(name, work, got, want, plain_logits, auto_logits):
     return stopped
 
 
-def decode_step_profile(model, spec, dev, steps=5):
-    """Decode steps as the session runs them (16 live slots, host inputs,
-    one device-to-host copy each): wall ms per step over 20 steps, then
-    torch.profiler over ``steps`` more for the device busy share."""
+def profile_steps(step, n_wall, steps=5, parts=()):
+    """Steps as the session runs them: wall ms per step over ``n_wall``
+    calls of ``step`` (after 3 warm-up calls), then torch.profiler over
+    ``steps`` more: device ms a step and busy share, the top kernels and
+    host ops (self time, the profiler's own cost included), and for each
+    ``(key, substrings)`` of ``parts`` the device ms a step of the
+    kernels whose names hold one of the substrings."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        step()
+    t0 = time.perf_counter()
+    for _ in range(n_wall):
+        step()
+    step_ms = (time.perf_counter() - t0) / n_wall * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in events
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(x[1] for x in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    host = [(e.key, e.self_cpu_time_total, e.count) for e in events
+            if e.device_type == DeviceType.CPU]
+
+    def top(rows, n):
+        return [{"name": x[0][:100], "ms_per_step": x[1] / steps / 1e3,
+                 "calls": x[2] // steps}
+                for x in sorted(rows, key=lambda x: -x[1])[:n]]
+    out = {"step_ms": step_ms, "profiled_wall_ms": wall_us / steps / 1e3,
+           "device_ms": busy / steps / 1e3,
+           "device_busy_share": busy / wall_us,
+           "top_kernels": top(kernels, 8), "top_host_ops": top(host, 8)}
+    for key, subs in parts:
+        out[key] = sum(x[1] for x in kernels if any(
+            n in x[0].lower() for n in subs)) / steps / 1e3
+    return out
+
+
+def decode_step_profile(model, spec, dev, steps=5):
+    """Decode steps as the session runs them (16 live slots, host inputs,
+    one device-to-host copy each), ``profile_steps`` over 20 and
+    ``steps`` steps."""
     S, mp = spec.max_slots, spec.max_pages_per_slot
     shape = (spec.num_layers, spec.cache_rows, spec.dim)
     k = torch.zeros(shape, device=dev)
@@ -1058,32 +1155,8 @@ def decode_step_profile(model, spec, dev, steps=5):
     def step():
         nxt, _k, _v = model.decode(*args, k, v)
         return nxt.cpu()
-    for _ in range(3):
-        step()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        step()
-    step_ms = (time.perf_counter() - t0) / 20 * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy = sum(x[1] for x in kernels)
-    if busy <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    paged = sum(x[1] for x in kernels if "flash_attn_paged" in x[0])
-    top = sorted(kernels, key=lambda x: -x[1])[:6]
-    return {"step_ms": step_ms, "profiled_wall_ms": wall_us / steps / 1e3,
-            "device_ms": busy / steps / 1e3, "device_busy_share":
-            busy / wall_us, "paged_ms": paged / steps / 1e3,
-            "top_kernels": [{"name": x[0][:100], "ms_per_step":
-                             x[1] / steps / 1e3, "calls": x[2] // steps}
-                            for x in top]}
+    return profile_steps(step, 20, steps,
+                         parts=(("paged_ms", ("flash_attn_paged",)),))
 
 
 def gpt_main_path(dev, card, report):
@@ -1194,6 +1267,253 @@ def gpt_main_path(dev, card, report):
                             "metrics": snap, "stopped_early": stopped,
                             "stopped_early_ref": stopped_ref,
                             "perf": perf})
+    # what the speculative path is held and measured against
+    plain = {"work": work, "tokens": tokens, "off": off,
+             "plain_logits": plain_logits, "auto_logits": auto_logits,
+             "snap": snap, "wall_s": wall_s, "step": prof}
+    return launches, plain
+
+
+# ----------------------------------------- decode: the speculative path
+def spec_state(model, work, dev):
+    """A speculative step's slot state from real prompts: the first 16
+    requests' prompts prefilled through ``chunk_prefill`` (verifier
+    cache, f32) and ``draft_chunk_prefill`` (draft cache, int8), slot s
+    owning pages 64s+1 .. 64s+64. -> (args, [k, v, dk, dv])."""
+    spec = model.spec
+    S, mp, P = spec.max_slots, spec.max_pages_per_slot, spec.max_prompt_len
+    shape = (spec.num_layers, spec.cache_rows, spec.dim)
+    caches = [torch.zeros(shape, device=dev) for _ in range(4)]
+    bt = (np.arange(S * mp, dtype=np.int32) + 1).reshape(S, mp)
+    tokens = np.zeros((S, 1), np.int32)
+    positions = np.zeros(S, np.int32)
+    temps = np.zeros(S, np.float32)
+    seeds = np.zeros(S, np.int32)
+    for s, (prompt, _n, t, seed) in enumerate(work[:S]):
+        for start in range(0, len(prompt), P):
+            part = prompt[start:start + P]
+            toks = np.zeros(P, np.int32)
+            toks[:len(part)] = part
+            args = (toks, start, len(part), bt[s], t, seed)
+            nxt, _k, _v = model.chunk_prefill(*args, caches[0], caches[1])
+            model.draft_chunk_prefill(*args, caches[2], caches[3])
+        tokens[s, 0], positions[s] = int(nxt), len(prompt)
+        temps[s], seeds[s] = t, seed
+    return (tokens, positions, bt, temps, seeds), caches
+
+
+def draft_verify_tiers(model, spec, state):
+    """One speculative step at tier auto and at tier off from the same
+    slot state. Draft proposal j, verifier token j + 1 and n_accept must
+    be equal up to the first row whose draft or verifier margin (of the
+    tier-off logits, ``z_margins``) is below 1e-4; no more than 1 slot
+    in 8 may stop early. -> summary dict."""
+    from mxnet_tpu_torch.serve import decode_model as dm
+    args, caches = state
+    out = {}
+    for tier_val in ("auto", "off"):
+        with mt.config.override(kernel_tier=tier_val):
+            fn = dm.make_draft_verify(model.params, model.draft_params, spec,
+                                      SPEC_K, logits=True)
+        packed, props, dlg, vlg = fn(*args, *[c.clone() for c in caches])
+        out[tier_val] = (packed.cpu().numpy(), props.cpu().numpy(), dlg, vlg)
+    _tokens, positions, _bt, temps, seeds = args
+    pa, ra, _dla, vla = out["auto"]
+    po, ro, dlo, vlo = out["off"]
+    W = SPEC_K + 1
+    pos = positions[:, None] + np.arange(W)[None, :] + 1     # sampled at
+    md = z_margins(dlo, temps, seeds, pos[:, :SPEC_K])
+    mv = z_margins(vlo, temps, seeds, pos)
+    stopped, logit_err = 0, 0.0
+    for s in range(spec.max_slots):
+        low = [j for j in range(W) if mv[s, j] < 1e-4
+               or (j < SPEC_K and md[s, j] < 1e-4)]
+        f = low[0] if low else W
+        same = (np.array_equal(ra[s, :f], ro[s, :f])
+                and np.array_equal(pa[s, 1:1 + f], po[s, 1:1 + f])
+                and (pa[s, 0] == po[s, 0] or po[s, 0] >= f))
+        if not same:
+            raise RuntimeError(
+                "draft_verify tier auto vs off: slot %d differs before its "
+                "first near tie (row %d): packed %s vs %s, proposals %s vs "
+                "%s" % (s, f, pa[s].tolist(), po[s].tolist(),
+                        ra[s].tolist(), ro[s].tolist()))
+        if f < W:
+            stopped += 1
+            log("  draft_verify: slot %d stops at row %d (draft margin %s, "
+                "verifier margin %g)" % (s, f, md[s, f] if f < SPEC_K
+                                         else None, mv[s, f]))
+        if f:
+            logit_err = max(logit_err, float(
+                (vla[s, :f] - vlo[s, :f]).abs().max()))
+    if stopped * 8 > spec.max_slots:
+        raise RuntimeError("draft_verify tier auto vs off: %d of %d slots "
+                           "stopped early" % (stopped, spec.max_slots))
+    summary = {"n_accept_auto": pa[:, 0].tolist(),
+               "n_accept_off": po[:, 0].tolist(),
+               "stopped_early": stopped,
+               "verifier_logits_max_abs_diff": logit_err,
+               "min_draft_margin": float(md.min()),
+               "min_verifier_margin": float(mv.min())}
+    log("draft_verify tier auto vs off on %d prefilled slots: packed equal "
+        "up to near ties (%d slots stopped early); n_accept auto %s, off %s; "
+        "verifier logits within %g before the first tie"
+        % (spec.max_slots, stopped, summary["n_accept_auto"],
+           summary["n_accept_off"], logit_err))
+    return summary
+
+
+def spec_step_profile(model, state, steps=5):
+    """Speculative steps as the session runs them (16 live slots, host
+    inputs, one device-to-host copy of ``packed`` each) from the same
+    slot state, ``profile_steps`` over 10 and ``steps`` steps; the int8
+    GEMMs are the cuBLASLt kernels with an int8 type in their names."""
+    args, caches = state
+
+    def step():
+        packed, _k, _v, _dk, _dv = model.draft_verify(*args, *caches)
+        return packed.cpu()
+    return profile_steps(step, 10, steps, parts=(
+        ("paged_ms", ("flash_attn_paged",)),
+        ("int8_gemm_ms", ("imma", "i8", "int8", "s8"))))
+
+
+def spec_main_path(dev, card, report, plain):
+    """The speculative path: the same GPT-2-small weights exported with
+    their int8 draft (depth SPEC_K, as bench.py's decode leg) and served
+    with draft="on" to the generate path's traffic."""
+    from mxnet_tpu_torch.kernels import attention as attn
+    from mxnet_tpu_torch.kernels import take
+    from mxnet_tpu_torch.serve import decode_model as dm
+    spec = dm.DecoderSpec(**GPT_SPEC)
+    t0 = time.perf_counter()
+    params = dm.init_params(spec, seed=0)
+    draft = dm.quantize_decoder_params(params)
+    q_bytes = sum(v.nbytes for n, v in draft.items() if n.endswith("_q"))
+    f_bytes = sum(params[n[:-2]].nbytes for n in draft if n.endswith("_q"))
+    path = os.path.join(REPO, "build", "chip_smoke", "gpt2s.spec.mxtorch")
+    meta = mt.serving.export_generate(params, spec, path, draft_params=draft,
+                                      speculate_k=SPEC_K)
+    del params, draft
+    suggested = dm.suggest_speculation_depth(spec)
+    log("speculative artifact: int8 draft weights %.1f MB against %.1f MB "
+        "in f32 (%.3fx), export %.1fs, speculate_k %d (the roofline pick on "
+        "the H100's rates: %d), kernel_tier %s"
+        % (q_bytes / 1e6, f_bytes / 1e6, q_bytes / f_bytes,
+           time.perf_counter() - t0, meta["generate"]["speculate_k"],
+           suggested, json.dumps(meta["kernel_tier"]["kernels"])))
+    work = plain["work"]
+    cfg = dict(timeout_ms=0, queue_depth=64)
+
+    # -- the main path, with every count zeroed just before it
+    tier.reset_stats()
+    attn.reset_launches()
+    take.reset_launches()
+    t0 = time.perf_counter()
+    srv = mt.serve.Server(path, config=mt.serve.GenerateConfig(**cfg),
+                          device=dev, draft="on")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = serve_all(srv, work)
+    wall_s = time.perf_counter() - t0
+    srv.close()
+    torch.cuda.synchronize()
+    launches = dict(attn.launches_by_kernel, take_rows=take.launches)
+    stats = tier.stats()
+    snap = srv.metrics()
+    if not srv.session.speculative or srv.session.speculate_k != SPEC_K:
+        raise RuntimeError("the session does not speculate at depth %d"
+                           % SPEC_K)
+    est = snap["engines"]
+    prefill_runs = est["builds"] + sum(e["calls"]
+                                       for e in est["engines"].values())
+    P, L = spec.max_prompt_len, spec.num_layers
+    chunks = sum(-(-len(p) // P) for p, _n, _t, _s in work if len(p) > P)
+    draft_chunks = sum(-(-len(p) // P) for p, _n, _t, _s in work)
+    steps = snap["decode_steps"]
+    # warmup: a decode step, a chunk, a draft chunk and a speculative
+    # step; then every step's k draft token-steps and its verifier, the
+    # long prompts' chunks and every prompt's draft chunks
+    want = {"flash_attn": L * prefill_runs,
+            "flash_attn_paged": L * (SPEC_K + 1) * (steps + 1)
+            + L * (chunks + draft_chunks + 3), "take_rows": 0}
+    log("speculative path: %d requests, %d tokens in %.2fs after %.1fs of "
+        "setup; %d prefill runs, %d chunks, %d draft chunks, %d speculative "
+        "steps (+1 warmup); launches %s; tier %s"
+        % (len(outs), sum(len(o["tokens"]) for o in outs), wall_s, setup_s,
+           prefill_runs, chunks, draft_chunks, steps, launches,
+           json.dumps(stats["dispatch"])))
+    if stats["fallback"]:
+        raise RuntimeError("kernel tier fell back: %s" % stats["fallback"])
+    if launches != want or any(stats["dispatch"].get(k, 0) != n
+                               for k, n in want.items()):
+        raise RuntimeError("launches %s and dispatches %s, expected %s"
+                           % (launches, stats["dispatch"], want))
+    req = snap["requests"]
+    if req["completed"] != len(work) or req["evicted"] or req["rejected"]:
+        raise RuntimeError("requests: %s" % req)
+    tokens = [o["tokens"] for o in outs]
+    stopped = {
+        "vs tier off": margin_compare(
+            "speculative vs plain at tier off", work, tokens, plain["off"],
+            plain["plain_logits"], plain["auto_logits"]),
+        "vs tier auto": margin_compare(
+            "speculative vs plain at tier auto", work, tokens,
+            plain["tokens"], plain["plain_logits"], plain["auto_logits"])}
+
+    # -- acceptance: the draft's own check, so it is held
+    acc = [(o["accepted_tokens_per_step"], o["draft_acceptance_rate"])
+           for o in outs]
+    greedy = [a for (a, _r), w in zip(acc, work) if w[2] == 0]
+    if not any(a > 1.0 for a in greedy):
+        raise RuntimeError("no greedy request accepted a draft token: %s"
+                           % greedy)
+    sp = snap["speculative"]
+    log("acceptance: accepted_tokens_per_step %s, draft_acceptance_rate %s "
+        "over %d slot-steps (k %d); per request (greedy / sampled at 0.8): "
+        "%s" % (sp["accepted_tokens_per_step"], sp["draft_acceptance_rate"],
+                sp["steps"], sp["k"], "; ".join(
+                    "%.2f/%.2f%s" % (a, r, "s" if w[2] > 0 else "")
+                    for (a, r), w in zip(acc, work))))
+    model = srv.model
+    del srv
+    state = spec_state(model, work, dev)
+    tiers = draft_verify_tiers(model, spec, state)
+
+    # -- latency, throughput and the speculative step on the card
+    prof = spec_step_profile(model, state)
+    del state
+    gen = sum(len(t) for t in tokens)
+    ps = plain["snap"]
+    perf = {"ttft_ms": snap["ttft_ms"], "tpot_ms": snap["tpot_ms"],
+            "tokens_per_s": gen / wall_s, "spec_step": prof,
+            "plain": {"ttft_ms": ps["ttft_ms"], "tpot_ms": ps["tpot_ms"],
+                      "tokens_per_s": gen / plain["wall_s"],
+                      "decode_step": plain["step"]}}
+    for name, sn, tps in (("speculation on ", snap, gen / wall_s),
+                          ("speculation off", ps, gen / plain["wall_s"])):
+        log("%s: TTFT p50 %.2f ms p99 %.2f ms, TPOT p50 %.2f ms p99 %.2f "
+            "ms, %.1f generated tokens/s  [%s]"
+            % (name, sn["ttft_ms"]["p50"], sn["ttft_ms"]["p99"],
+               sn["tpot_ms"]["p50"], sn["tpot_ms"]["p99"], tps, card))
+    log("speculative step (16 live slots, k %d): %.2f ms wall; profiled "
+        "%.2f ms wall, %.3f ms device (busy %.1f%%), flash_attn_paged %.3f "
+        "ms, int8 GEMMs %.3f ms; top: %s  [%s]"
+        % (SPEC_K, prof["step_ms"], prof["profiled_wall_ms"],
+           prof["device_ms"], 100 * prof["device_busy_share"],
+           prof["paged_ms"], prof["int8_gemm_ms"], "; ".join(
+               "%s %.3f ms x%d" % (k["name"][:40], k["ms_per_step"],
+                                   k["calls"])
+               for k in prof["top_kernels"][:5]), card))
+    log("  host time by op (self, profiled): %s" % "; ".join(
+        "%s %.2f ms x%d" % (k["name"], k["ms_per_step"], k["calls"])
+        for k in prof["top_host_ops"]))
+    report.update(speculative={
+        "launches": launches, "tier_stats": stats, "metrics": snap,
+        "stopped_early": stopped, "draft_verify_tiers": tiers,
+        "acceptance": acc, "suggested_k": suggested,
+        "draft_weight_bytes": q_bytes, "f32_weight_bytes": f_bytes,
+        "perf": perf})
     return launches
 
 
@@ -2932,7 +3252,9 @@ def main():
     launches = main_path(dev, card, report)
     gpt_err, gpt_rows = gpt_kernel_phase(dev)
     report["decode_kernels"] = gpt_rows
-    gpt_launches = gpt_main_path(dev, card, report)
+    gpt_launches, plain = gpt_main_path(dev, card, report)
+    spec_launches = spec_main_path(dev, card, report, plain)
+    del plain
     train_err, train_rows = train_kernel_phase(dev)
     report["train_kernels"] = train_rows
     train_launches = train_main_path(dev, card, report)
@@ -2979,6 +3301,13 @@ def main():
         # each path's own numbers under "by_path"
         paths = {"generate": (gpt_launches[kname],
                               gpt_err[kname + "/float32"], gpt_rows[kname])}
+        # the speculative path: its own verifier shape for B4, the
+        # generate path's prefill and gather shapes for B3 and B2
+        verify = kname == "flash_attn_paged"
+        paths["speculative"] = (
+            spec_launches[kname],
+            gpt_err[kname + ("@verify" if verify else "") + "/float32"],
+            gpt_rows[kname + ("/verify" if verify else "")])
         if kname in train_launches:
             paths["train"] = (train_launches[kname],
                               train_err[kname + "@train/float32"],

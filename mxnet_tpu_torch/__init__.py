@@ -4,7 +4,7 @@ The port serves ResNet predict artifacts (the op registry, Symbol and
 its JSON, the graph evaluator, the micro-batching server), their int8
 post-training quantization beside the f32 model (``quant``), and GPT
 generate artifacts (the decoder programs, continuous batching over a
-paged KV cache), and trains symbolic models through ``Module.fit`` (the
+paged KV cache, speculative decoding with an int8 draft), and trains symbolic models through ``Module.fit`` (the
 executor's forward and backward, the fused train step with bf16
 compute over f32 master weights, SGD with ``multi_precision`` and Adam,
 learning-rate schedules).

@@ -1,9 +1,9 @@
 """Continuous-batching decode engine: token-level scheduling over a
 device-resident paged KV cache.
 
-Counterpart of ``mxnet_tpu/serve/decode.py`` without speculative
-decoding (the int8 draft is not ported yet), fault injection and the
-profiler's host-sync records. LM generation is ragged and long-lived,
+Counterpart of ``mxnet_tpu/serve/decode.py`` without fault injection,
+the profiler's host-sync records and the lowered-program gates. LM
+generation is ragged and long-lived,
 so one slow sequence must not idle the batch: this engine keeps a
 fixed-capacity slot batch ``[max_slots, 1]`` hot and ADMITS/EVICTS
 sequences BETWEEN decode steps.
@@ -23,12 +23,24 @@ sequences BETWEEN decode steps.
   batchmates; their K/V rows are then copied into freshly allocated
   pages on the device. Prompts longer than ``max_prompt_len`` stream
   through ``chunk_prefill`` (format_version 5).
+* **Speculative decoding.** On an artifact that bundles the int8 draft,
+  each step is one ``draft_verify`` call: k int8 draft token-steps over
+  a second (draft) cache with the verifier cache's geometry, one f32
+  verifier pass over the (k+1)-token window and the acceptance rule.
+  Every emitted token is the verifier's position-keyed sample, so the
+  tokens are the plain engine's at any temperature; the draft only sets
+  how many a step emits. The draft cache shares the verifier cache's
+  page accounting and block tables, and each request reserves
+  ``speculate_k`` more rows so the window never writes into another
+  sequence's pages.
 * **Estimates from a roofline.** Admission retry-after and drain budgets
   come from :func:`roofline_seconds` over the decode step's flops and
   bytes.
 
 Host-sync budget: ONE device-to-host copy per decode step (the sampled
-tokens) and one per prefill group (the first tokens). The scheduler
+tokens, or the speculative step's packed array) and one per prefill
+group (the first tokens) or long prompt (its final chunk's token);
+``d2h_copies`` counts them. The scheduler
 thread runs under ``torch.inference_mode()``, which is thread-local, so
 it is entered there.
 """
@@ -43,6 +55,7 @@ import torch
 
 from ..base import MXNetError
 from ..config import flags
+from ..perfmodel import roofline_seconds
 from ..serving import GenerateModel, load_artifact
 from .admission import (DeadlineExceeded, Evicted, ServerBusy,
                         ServerClosed)
@@ -51,35 +64,23 @@ from .metrics import DecodeMetrics
 __all__ = ["GenerateSession", "GenerateConfig", "GenerateRequest",
            "PagedKVCache", "roofline_seconds"]
 
-# NVIDIA H100 SXM, published: HBM3 bandwidth and f32 rate outside the
-# tensor cores (the port's matmuls run in full f32, TF32 off)
-H100_HBM_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS_PER_S = 67e12
-
-
-def roofline_seconds(flops, bytes_moved):
-    """Roofline lower bound on one program run on an H100: the slower of
-    the compute term (flops over the f32 rate) and the memory term
-    (bytes over the HBM bandwidth). The JAX package's
-    ``perfmodel.roofline_seconds`` formula, with the H100's rates."""
-    return max(max(0.0, float(flops)) / H100_F32_FLOPS_PER_S,
-               max(0.0, float(bytes_moved)) / H100_HBM_BYTES_PER_S)
-
-
 class GenerateConfig:
     """Decode-engine knobs; defaults come from the MXNET_SERVE_* flags.
 
     ``continuous=False`` degrades to STATIC batching: a group is
     admitted only when every slot is free and runs to the last
     straggler. It exists as a baseline (same functions, same cache);
-    never serve with it. The JAX package's ``speculative`` knob comes
-    with speculative decoding, which is not ported yet.
+    never serve with it.
+
+    ``speculative``: None speculates iff the artifact bundles a draft;
+    True requires the draft (the session raises without one); False
+    decodes one token a step even on a speculative artifact.
     """
 
     def __init__(self, queue_depth=None, timeout_ms=None,
                  drain_tokens=None, drain_timeout_s=None,
                  window_steps=None, max_new_tokens=64, continuous=True,
-                 warmup=None):
+                 warmup=None, speculative=None):
         self.queue_depth = (flags.serve_queue_depth if queue_depth is None
                             else int(queue_depth))
         self.timeout_ms = (flags.serve_timeout_ms if timeout_ms is None
@@ -94,6 +95,7 @@ class GenerateConfig:
         self.max_new_tokens = int(max_new_tokens)
         self.continuous = bool(continuous)
         self.warmup = warmup
+        self.speculative = speculative
 
 
 class GenerateRequest:
@@ -183,7 +185,8 @@ class PagedKVCache:
 
 
 class _Slot:
-    __slots__ = ("req", "pages", "gen", "t_first", "drain_cap")
+    __slots__ = ("req", "pages", "gen", "t_first", "drain_cap",
+                 "spec_steps", "accepted")
 
     def __init__(self, req, pages):
         self.req = req
@@ -191,6 +194,8 @@ class _Slot:
         self.gen = []            # every sampled token, first included
         self.t_first = None      # wall stamp of the first token
         self.drain_cap = None    # len(gen) bound once draining
+        self.spec_steps = 0      # speculative steps this slot rode
+        self.accepted = 0        # draft tokens among its emitted ones
 
 
 class GenerateSession:
@@ -236,8 +241,24 @@ class GenerateSession:
         self._commit = model.commit
         self.chunked = model.has_chunk_prefill
         self._chunk_prefill = model.chunk_prefill
+        want = config.speculative
+        if want and not model.speculative:
+            raise MXNetError(
+                "GenerateSession: speculative=True but the artifact "
+                "bundles no draft; re-export with export_generate(..., "
+                "draft_params=quantize_decoder_params(params)) or drop "
+                "speculative=")
+        self.speculative = (model.speculative if want is None
+                            else bool(want))
+        self.speculate_k = model.speculate_k if self.speculative else 0
         self.device = model.device
         self.cache = PagedKVCache(spec, self.device)
+        if self.speculative:
+            # the draft cache mirrors the verifier cache's geometry and
+            # SHARES its page accounting: only the tensors are doubled
+            self._draft_k = torch.zeros_like(self.cache.k)
+            self._draft_v = torch.zeros_like(self.cache.v)
+        self.d2h_copies = 0
         self.metrics_ = DecodeMetrics()
         S = spec.max_slots
         self._slots = [None] * S
@@ -256,6 +277,9 @@ class GenerateSession:
         # metrics window accumulators (host scalars only)
         self._win_steps = 0
         self._win_tokens = 0
+        self._win_spec_steps = 0
+        self._win_drafted = 0
+        self._win_accepted = 0
         # run every program once before traffic by default (flag-
         # controlled, like the predict path's engine warmup), so the
         # first request does not pay the kernel builds against its own
@@ -323,8 +347,9 @@ class GenerateSession:
         """Run every program once before traffic: one all-zeros prefill
         through the bucket engine, a zero-row commit of its K/V rows
         (scratch page only), one all-scratch decode step and, for a
-        chunk-capable artifact, one zero-length chunk. No live slot is
-        touched and nothing is read back."""
+        chunk-capable artifact, one zero-length chunk; when speculating,
+        one zero-length draft chunk and one all-scratch speculative
+        step. No live slot is touched and nothing is read back."""
         spec = self.spec
         S = spec.max_slots
         with torch.inference_mode():
@@ -337,11 +362,18 @@ class GenerateSession:
             self._decode(self._cur[:, None], self._positions, self._block,
                          self._temps, self._seeds, self.cache.k,
                          self.cache.v)
+            chunk_args = (_np.zeros(spec.max_prompt_len, _np.int32), 0, 0,
+                          _np.zeros(spec.max_pages_per_slot, _np.int32),
+                          0.0, 0)
             if self._chunk_prefill is not None:
-                self._chunk_prefill(
-                    _np.zeros(spec.max_prompt_len, _np.int32), 0, 0,
-                    _np.zeros(spec.max_pages_per_slot, _np.int32), 0.0, 0,
-                    self.cache.k, self.cache.v)
+                self._chunk_prefill(*chunk_args, self.cache.k, self.cache.v)
+            if self.speculative:
+                self.model.draft_chunk_prefill(*chunk_args, self._draft_k,
+                                               self._draft_v)
+                self.model.draft_verify(
+                    self._cur[:, None], self._positions, self._block,
+                    self._temps, self._seeds, self.cache.k, self.cache.v,
+                    self._draft_k, self._draft_v)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -497,6 +529,12 @@ class GenerateSession:
                 "resume_prompt": list(req.prompt) + list(gen),
                 "remaining_tokens": max(0, req.max_new_tokens - len(gen))}
 
+    def _to_host(self, t):
+        """The one way a device result reaches the host: a counted
+        device-to-host copy."""
+        self.d2h_copies += 1
+        return t.cpu().numpy()
+
     def _release_slot(self, i):
         slot = self._slots[i]
         self._slots[i] = None
@@ -540,13 +578,22 @@ class GenerateSession:
         if slot.t_first is not None and len(slot.gen) > 1:
             tpot = (now - slot.t_first) * 1e3 / (len(slot.gen) - 1)
         self.metrics_.note_complete(tpot_ms=tpot)
-        req._complete({
+        out = {
             "tokens": list(slot.gen),
             "finish_reason": reason,
             "ttft_ms": req.ttft_ms,
             "tpot_ms": tpot,
             "latency_ms": (now - req.t_submit) * 1e3,
-        })
+        }
+        if self.speculative and slot.spec_steps:
+            # per-request speculation health, from host counts
+            out["accepted_tokens_per_step"] = round(
+                (slot.accepted + slot.spec_steps)
+                / float(slot.spec_steps), 4)
+            out["draft_acceptance_rate"] = round(
+                slot.accepted
+                / float(slot.spec_steps * max(1, self.speculate_k)), 4)
+        req._complete(out)
 
     def _evict_expired(self):
         now = time.monotonic()
@@ -592,9 +639,14 @@ class GenerateSession:
                         "serve: deadline passed %.1fms before prefill"
                         % ((now - req.deadline) * 1e3)))
                     continue
+                # the speculative window writes up to speculate_k rows
+                # past the last emitted position: reserve pages for them
+                # so a full cache cannot make a step write into another
+                # sequence's pages (capped at max_context: rows past it
+                # go to scratch)
                 need = self.cache.pages_needed(
-                    min(len(req.prompt) + req.max_new_tokens,
-                        self.spec.max_context))
+                    min(len(req.prompt) + req.max_new_tokens
+                        + self.speculate_k, self.spec.max_context))
                 if need > self.cache.free_pages:
                     break
                 self._pending.popleft()
@@ -645,7 +697,7 @@ class GenerateSession:
             first, k_rows, v_rows = self.model.prefill(tokens, lengths,
                                                        temps, seeds)
             # the ONE device-to-host copy for this prefill group
-            first_host = first.cpu().numpy()
+            first_host = self._to_host(first)
             self.metrics_.note_prefill(g)
             t_now = time.monotonic()
             for j, (i, req, pages) in enumerate(short):
@@ -659,32 +711,42 @@ class GenerateSession:
         for (i, req, pages) in long:
             self._admit_chunked(i, req, pages)
 
-    def _admit_chunked(self, i, req, pages):
-        """Stream one long prompt through fixed-shape ``chunk_prefill``
-        runs straight into the paged cache. ONE device-to-host copy for
-        the whole prompt: the FINAL chunk's sampled token."""
-        spec = self.spec
-        P = spec.max_prompt_len
-        plen = len(req.prompt)
-        row = _np.zeros(spec.max_pages_per_slot, _np.int32)
-        row[:len(pages)] = pages
-        bt = torch.as_tensor(row, device=self.device)
-        nxt = None
-        for start in range(0, plen, P):
+    def _chunk_args(self, req, block_row):
+        """The fixed-shape chunks of ``req``'s prompt as the leading
+        arguments of a chunk prefill: (tokens, start, n, block table,
+        temperature, seed)."""
+        P = self.spec.max_prompt_len
+        bt = torch.as_tensor(block_row, device=self.device)
+        for start in range(0, len(req.prompt), P):
             chunk = req.prompt[start:start + P]
             toks = _np.zeros(P, _np.int32)
             toks[:len(chunk)] = chunk
-            nxt, _k, _v = self._chunk_prefill(
-                toks, start, len(chunk), bt, req.temperature, req.seed,
-                self.cache.k, self.cache.v)
-        tok = int(nxt)
-        self.metrics_.note_prefill(1)
-        self._activate(i, req, pages, tok, time.monotonic())
+            yield toks, start, len(chunk), bt, req.temperature, req.seed
 
-    def _activate(self, i, req, pages, tok, t_now):
+    def _admit_chunked(self, i, req, pages):
+        """Stream one long prompt through fixed-shape ``chunk_prefill``
+        runs straight into the paged cache (the draft cache rides the
+        same loop when speculating). ONE device-to-host copy for the
+        whole prompt: the FINAL chunk's sampled token."""
+        row = _np.zeros(self.spec.max_pages_per_slot, _np.int32)
+        row[:len(pages)] = pages
+        for args in self._chunk_args(req, row):
+            nxt, _k, _v = self._chunk_prefill(*args, self.cache.k,
+                                              self.cache.v)
+            if self.speculative:
+                self.model.draft_chunk_prefill(*args, self._draft_k,
+                                               self._draft_v)
+        tok = int(self._to_host(nxt))
+        self.metrics_.note_prefill(1)
+        self._activate(i, req, pages, tok, time.monotonic(),
+                       need_draft=False)
+
+    def _activate(self, i, req, pages, tok, t_now, need_draft=True):
         """Post-prefill slot activation shared by the batched and
         chunked paths: record TTFT, seat the slot, then either finish
-        at once or arm the decode-step host state."""
+        at once or arm the decode-step host state (and, on a
+        speculative session, fill the draft cache unless the chunked
+        path already did)."""
         spec = self.spec
         req.ttft_ms = (t_now - req.t_submit) * 1e3
         self.metrics_.note_ttft(req.ttft_ms)
@@ -706,40 +768,78 @@ class GenerateSession:
             self._temps[i] = req.temperature
             self._seeds[i] = req.seed
             self._cur[i] = tok
+            if self.speculative and need_draft:
+                # the draft cache gets the prompt's int8 K/V rows; the
+                # draft chunks' sampled tokens stay on the device, unread
+                for args in self._chunk_args(req, self._block[i].copy()):
+                    self.model.draft_chunk_prefill(*args, self._draft_k,
+                                                   self._draft_v)
 
     def _step(self):
+        """One decode step for every live slot: ``decode`` (one token a
+        slot) or, speculating, ``draft_verify``, whose packed ``(S,
+        k+2)`` int32 rows ``[n_accept, v_1 .. v_{k+1}]`` emit ``v_1 ..
+        v_{n_accept+1}``. Either way the ONE device-to-host copy of the
+        step is its result."""
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             return 0
-        nxt, _k, _v = self._decode(
-            self._cur[:, None], self._positions, self._block, self._temps,
-            self._seeds, self.cache.k, self.cache.v)
-        # the ONE device-to-host copy per decode step: every slot's token
-        host = nxt.cpu().numpy()
-        spec = self.spec
-        for i in active:
-            slot = self._slots[i]
-            tok = int(host[i])
-            slot.gen.append(tok)
-            self._positions[i] += 1
-            self._cur[i] = tok
-            self._win_tokens += 1
-            if spec.eos_id >= 0 and tok == spec.eos_id:
-                self._finish(i, "stop")
-            elif len(slot.gen) >= slot.req.max_new_tokens:
-                self._finish(i, "length")
+        state = (self._cur[:, None], self._positions, self._block,
+                 self._temps, self._seeds, self.cache.k, self.cache.v)
+        if self.speculative:
+            packed = self.model.draft_verify(*state, self._draft_k,
+                                             self._draft_v)[0]
+            host = self._to_host(packed)
+            cands = [host[i, 1:2 + host[i, 0]] for i in active]
+        else:
+            host = self._to_host(self._decode(*state)[0])
+            cands = [host[i:i + 1] for i in active]
+        for i, cand in zip(active, cands):
+            self._emit(i, cand)
         self._win_steps += 1
         if self._win_steps >= max(1, self.config.window_steps):
             self._publish_window()
         return 1
 
+    def _emit(self, i, cand):
+        """Append one step's candidate tokens to slot ``i``, cut at the
+        token budget and at EOS, and finish the slot when it is done."""
+        slot = self._slots[i]
+        eos = self.spec.eos_id
+        budget = slot.req.max_new_tokens - len(slot.gen)
+        emitted = []
+        for t in cand:
+            emitted.append(int(t))
+            if (eos >= 0 and emitted[-1] == eos) or len(emitted) >= budget:
+                break
+        slot.gen.extend(emitted)
+        self._positions[i] += len(emitted)
+        self._cur[i] = emitted[-1]
+        self._win_tokens += len(emitted)
+        if self.speculative:
+            slot.spec_steps += 1
+            slot.accepted += len(emitted) - 1
+            self._win_spec_steps += 1
+            self._win_drafted += self.speculate_k
+            self._win_accepted += len(emitted) - 1
+        if eos >= 0 and emitted[-1] == eos:
+            self._finish(i, "stop")
+        elif len(slot.gen) >= slot.req.max_new_tokens:
+            self._finish(i, "length")
+
     def _publish_window(self, force=False):
         if not force and self._win_steps == 0:
             return
         self.metrics_.publish_window(steps=self._win_steps,
-                                     tokens=self._win_tokens)
+                                     tokens=self._win_tokens,
+                                     spec_steps=self._win_spec_steps,
+                                     drafted=self._win_drafted,
+                                     accepted=self._win_accepted)
         self._win_steps = 0
         self._win_tokens = 0
+        self._win_spec_steps = 0
+        self._win_drafted = 0
+        self._win_accepted = 0
 
     # -- observability -----------------------------------------------------
     def metrics(self):
@@ -757,6 +857,8 @@ class GenerateSession:
             "page_size": self.spec.page_size,
         }
         snap["estimated_step_s"] = self.estimate_step_s()
+        if self.speculative:
+            snap["speculative"]["k"] = self.speculate_k
         snap["engines"] = (self.model.prefill.engine_cache.stats()
                            if self.model.prefill.engine_cache else None)
         snap["status"] = ("closed" if self.closed

@@ -191,8 +191,9 @@ class DecodeMetrics:
     counts, wall clock, completion timestamps), so recording costs no
     device-to-host copy. ``publish_window`` folds a window of decode
     steps in every MXNET_SERVE_DECODE_WINDOW steps. The speculative
-    counters stay 0 until speculative decoding is ported; the snapshot
-    keeps their keys.
+    counters are per slot: a speculative step with n live slots adds n
+    steps, n * k drafted tokens and the draft tokens the verifier
+    accepted among them.
     """
 
     def __init__(self):
@@ -243,13 +244,18 @@ class DecodeMetrics:
             if expired:
                 self.expired += 1
 
-    def publish_window(self, *, steps, tokens):
+    def publish_window(self, *, steps, tokens, spec_steps=0, drafted=0,
+                       accepted=0):
         """Fold one decode window in, from host-held values (the JAX
         package also sets its telemetry gauges here; those are not
-        ported yet)."""
+        ported yet). ``spec_steps``/``drafted``/``accepted`` are 0 on a
+        session that does not speculate."""
         with self._lock:
             self.decode_steps += steps
             self.tokens += tokens
+            self.spec_steps += spec_steps
+            self.drafted += drafted
+            self.accepted += accepted
 
     def snapshot(self):
         with self._lock:
@@ -287,7 +293,14 @@ class DecodeMetrics:
                     "steps": self.spec_steps,
                     "drafted": self.drafted,
                     "accepted": self.accepted,
-                    "accepted_tokens_per_step": None,
-                    "draft_acceptance_rate": None,
+                    # each step emits its accepted prefix and the
+                    # verifier's correction or bonus token
+                    "accepted_tokens_per_step": round(
+                        (self.accepted + self.spec_steps)
+                        / float(self.spec_steps), 4)
+                    if self.spec_steps else None,
+                    "draft_acceptance_rate": round(
+                        self.accepted / float(self.drafted), 4)
+                    if self.drafted else None,
                 },
             }

@@ -87,18 +87,17 @@ class Server:
     :meth:`run_once` (``session.run_round`` in generate mode) or
     :meth:`start`. ``quantized=`` (predict mode) attaches the int8 twin
     of the model, a path or a loaded format_version 4
-    :class:`CompiledModel`, served with ``dtype="int8"``. ``draft=`` is
-    the JAX package's speculative switch; only None and "off" are served
-    until speculative decoding is ported.
+    :class:`CompiledModel`, served with ``dtype="int8"``. ``draft=``
+    (generate mode) switches speculative decoding: "auto" speculates iff
+    the artifact bundles an int8 draft, "on" requires one (the session
+    raises without it), "off" decodes one token a step; it sets the
+    config's ``speculative`` to None, True or False.
     """
 
     def __init__(self, model, config=None, auto_start=True, device=None,
                  draft=None, quantized=None, **overrides):
         if not isinstance(model, (CompiledModel, GenerateModel)):
             model = load_artifact(model, device=device)
-        if draft not in (None, "off"):
-            raise MXNetError("Server: draft=%r: speculative decoding is not "
-                             "ported yet (None or 'off')" % (draft,))
         if isinstance(model, GenerateModel):
             if quantized is not None:
                 raise MXNetError("Server: quantized= is a predict-mode "
@@ -112,6 +111,12 @@ class Server:
                 raise MXNetError(
                     "Server: a generate artifact takes a GenerateConfig "
                     "(continuous-batching knobs), not ServeConfig")
+            if draft is not None:
+                if draft not in ("auto", "on", "off"):
+                    raise MXNetError("Server: draft= must be 'auto', "
+                                     "'on' or 'off' (got %r)" % (draft,))
+                config.speculative = {"auto": None, "on": True,
+                                      "off": False}[draft]
             self.mode = "generate"
             self.model = model
             self.config = config
@@ -122,6 +127,9 @@ class Server:
         if isinstance(config, GenerateConfig):
             raise MXNetError("Server: a GenerateConfig needs a generate "
                              "artifact; this one is a predict artifact")
+        if draft is not None:
+            raise MXNetError("Server: draft= is a generate-mode option; "
+                             "predict artifacts have no draft model")
         self.session = None
         if config is None:
             config = ServeConfig(**overrides)

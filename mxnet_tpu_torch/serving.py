@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/serving.py`` for predict artifacts
 (format_version 2, and 4 for int8-quantized graphs from
 :mod:`~mxnet_tpu_torch.quant`) and generate artifacts (format_version 3,
-and 5 with chunked prefill; without the speculative draft). The JAX
+and 5 with chunked prefill and, optionally, the int8 speculative
+draft). The JAX
 package stages its programs out as StableHLO; the port's artifact
 carries what the port needs to rebuild them: the graph as symbol JSON
 (predict) or the decoder geometry (generate), and the weights as an npz.
@@ -15,13 +16,15 @@ length, metadata JSON (the JAX package's keys: ``inputs``,
 for an int8 one), then for predict the symbol JSON (``symbol_bytes``
 long) and the parameters as an npz (``arg:<name>`` / ``aux:<name>``),
 for generate the decoder weights as an npz (``generate.params.bytes``
-long).
+long) and, in a speculative artifact, the int8 draft's after them
+(``generate.draft_params.bytes`` long).
 
 Surface:
   * export_compiled(sym, arg_params, aux_params, data_shapes, path)
   * CompiledModel.load(path, buckets=None, device=None) -> .predict(**data)
     (``.quantized`` for a format_version 4 artifact)
-  * export_generate(params, spec, path, chunked=False)
+  * export_generate(params, spec, path, chunked=None, draft_params=None,
+    speculate_k=None)
   * GenerateModel.load(path, device=None), load_bundled_params(path)
   * load_artifact(path, device=None) - either kind, by format_version
   * params_from_reference(arg_params, aux_params, symbol, device,
@@ -379,11 +382,13 @@ def _fmt_shape(shape):
 
 # -- generate artifacts (format_version 3 and 5) ----------------------------
 
-def _generate_census(spec):
+def _generate_census(spec, k=None):
     """Kernels the tier in force dispatches per run of each program at
     this geometry: {"prefill": {"flash_attn": L}, "decode":
     {"flash_attn_paged": L}, ...}; a site the paged guard declines
-    gathers its context through ``take_rows`` twice (K and V)."""
+    gathers its context through ``take_rows`` twice (K and V). With a
+    speculation depth ``k``, also the draft's chunk and the speculative
+    step (k draft token-steps at W = 1 and the verifier at W = k+1)."""
     from .kernels import attention as _attn
     from .kernels import take as _take
     if _tier.tier() != "auto":
@@ -391,42 +396,73 @@ def _generate_census(spec):
     L, C, H = spec.num_layers, spec.dim, spec.num_heads
     S, P, MP = spec.max_slots, spec.max_prompt_len, spec.max_pages_per_slot
     f32 = torch.float32
-    out = {}
     q = (S, H, P, spec.head_dim)
-    out["prefill"] = ({_attn.OP_NAME: L}
-                      if _attn.eligible(q, q, q, f32) is None else {})
-    for name, (s, w) in (("decode", (S, 1)), ("chunk_prefill", (1, P))):
+
+    def paged(s, w):
         if _attn.paged_eligible((s, w, C), (spec.cache_rows, C), (s, MP),
                                 (s,), f32, H, spec.page_size) is None:
-            out[name] = {_attn.PAGED_OP_NAME: L}
-        elif _take.eligible((spec.cache_rows, C), f32,
-                            (s, spec.max_context), torch.int64) is None:
-            out[name] = {_take.OP_NAME: 2 * L}
-        else:
-            out[name] = {}
+            return {_attn.PAGED_OP_NAME: L}
+        if _take.eligible((spec.cache_rows, C), f32,
+                          (s, spec.max_context), torch.int64) is None:
+            return {_take.OP_NAME: 2 * L}
+        return {}
+
+    out = {"prefill": ({_attn.OP_NAME: L}
+                       if _attn.eligible(q, q, q, f32) is None else {}),
+           "decode": paged(S, 1), "chunk_prefill": paged(1, P)}
+    if k is not None:
+        out["draft_chunk_prefill"] = out["chunk_prefill"]
+        step = {name: k * n for name, n in out["decode"].items()}
+        for name, n in paged(S, k + 1).items():
+            step[name] = step.get(name, 0) + n
+        out["draft_verify"] = step
     return out
 
 
-def export_generate(params, spec, path, chunked=False):
+def export_generate(params, spec, path, chunked=None, draft_params=None,
+                    speculate_k=None):
     """Freeze a decoder (weights + :class:`~mxnet_tpu_torch.serve.
     decode_model.DecoderSpec` geometry) into a generate artifact.
 
     ``params`` are the JAX package's numpy dict (``init_params``) or the
     port's tensors; every name and shape is checked against the spec.
-    The decoder is f32. With ``chunked=True`` the artifact is
-    format_version 5 and prompts longer than ``max_prompt_len`` stream
-    through ``chunk_prefill``; otherwise format_version 3. The weights
-    travel whole (the JAX package's ``bundle_params=True``); the
-    speculative draft is not ported yet. ``meta["kernel_tier"]`` records
-    the tier in force and the kernels it dispatches per program run at
-    this geometry.
+    The decoder is f32. With ``chunked=True`` (implied by
+    ``draft_params``) the artifact is format_version 5 and prompts
+    longer than ``max_prompt_len`` stream through ``chunk_prefill``;
+    otherwise format_version 3. ``draft_params`` (a
+    :func:`~mxnet_tpu_torch.serve.decode_model.quantize_decoder_params`
+    dict of the same architecture, normally the int8 twin of
+    ``params``) is bundled beside the weights, and the artifact then
+    serves the speculative step drafting ``speculate_k`` tokens per step
+    (default: the :func:`~mxnet_tpu_torch.serve.decode_model.
+    suggest_speculation_depth` pick, recorded in
+    ``meta["generate"]["speculate_k"]``). A draft without chunked
+    prefill raises: the draft cache is filled through it. The weights
+    travel whole (the JAX package's ``bundle_params=True``).
+    ``meta["kernel_tier"]`` records the tier in force and the kernels it
+    dispatches per program run at this geometry.
     """
     from .serve import decode_model as _dm
     spec = _dm.DecoderSpec(*spec).validate()
-    checked = _dm.params_from_reference(params, spec, "cpu")
-    buf = io.BytesIO()
-    _np.savez(buf, **{k: v.numpy() for k, v in checked.items()})
-    blob = buf.getvalue()
+    if chunked is None:
+        chunked = draft_params is not None
+    if draft_params is not None and not chunked:
+        raise MXNetError("export_generate: a speculative artifact needs "
+                         "chunked prefill (the draft cache is populated "
+                         "through it); drop chunked=False")
+    blobs = [_params_npz(_dm.params_from_reference(params, spec, "cpu"))]
+    gen_meta = {"spec": spec._asdict(), "dtype": "float32",
+                "params": {"bytes": len(blobs[0])}}
+    k = None
+    if draft_params is not None:
+        blobs.append(_params_npz(_dm.params_from_reference(
+            draft_params, spec, "cpu")))
+        gen_meta["draft_params"] = {"bytes": len(blobs[1])}
+        k = speculate_k
+        if k is None:
+            k = _dm.suggest_speculation_depth(spec)
+        k = max(1, min(int(k), spec.max_prompt_len))
+        gen_meta["speculate_k"] = k
     P = spec.max_prompt_len
     meta = {
         "format_version": 5 if chunked else 3,
@@ -441,38 +477,50 @@ def export_generate(params, spec, path, chunked=False):
             {"name": "seeds", "shape": [None], "dtype": "int32"},
         ],
         "num_outputs": 3,
-        "generate": {"spec": spec._asdict(), "dtype": "float32",
-                     "params": {"bytes": len(blob)}},
+        "generate": gen_meta,
         "kernel_tier": {"tier": _tier.tier(),
-                        "kernels": _generate_census(spec)},
+                        "kernels": _generate_census(spec, k)},
     }
     mjson = json.dumps(meta).encode()
     with open(path, "wb") as f:
         f.write(_MAGIC)
         f.write(struct.pack("<I", len(mjson)))
         f.write(mjson)
-        f.write(blob)
+        for blob in blobs:
+            f.write(blob)
     return meta
 
 
+def _params_npz(tensors):
+    buf = io.BytesIO()
+    _np.savez(buf, **{k: v.numpy() for k, v in tensors.items()})
+    return buf.getvalue()
+
+
+def _read_npz(f, nbytes):
+    with _np.load(io.BytesIO(f.read(int(nbytes)))) as z:
+        return {k: z[k] for k in z.files}
+
+
 def _read_generate(path):
+    """(meta, params, draft_params or None) of a generate artifact."""
     with open(path, "rb") as f:
         meta = _read_meta(f, path)
         if int(meta.get("format_version", 0)) not in _GENERATE_VERSIONS:
             raise MXNetError("artifact %r has format_version %s, not a "
                              "generate artifact (3 or 5)"
                              % (path, meta.get("format_version")))
-        blob = f.read(int(meta["generate"]["params"]["bytes"]))
-    with _np.load(io.BytesIO(blob)) as z:
-        params = {k: z[k] for k in z.files}
-    return meta, params
+        gen = meta["generate"]
+        params = _read_npz(f, gen["params"]["bytes"])
+        draft = (_read_npz(f, gen["draft_params"]["bytes"])
+                 if gen.get("draft_params") else None)
+    return meta, params, draft
 
 
 def load_bundled_params(path):
     """The decoder weights a generate artifact carries, as
-    ``(params, draft_params_or_None)`` numpy dicts (the port bundles no
-    draft)."""
-    return _read_generate(path)[1], None
+    ``(params, draft_params_or_None)`` numpy dicts."""
+    return _read_generate(path)[1:]
 
 
 class PrefillModel:
@@ -521,11 +569,14 @@ class GenerateModel:
     on the device and the programs over them, each a plain function
     from ``serve.decode_model``: ``prefill`` (a :class:`PrefillModel`),
     ``decode``, ``commit`` and, for format_version 5, ``chunk_prefill``.
-    The kernel tier in force at load is the one every program runs
-    under. Execution is :class:`mxnet_tpu_torch.serve.decode.
-    GenerateSession`'s."""
+    A format_version 5 artifact that bundles an int8 draft also has
+    ``draft_chunk_prefill`` and ``draft_verify`` (``speculative`` true,
+    ``speculate_k`` its depth); one without a draft serves as a plain
+    chunk-capable engine. The kernel tier in force at load is the one
+    every program runs under. Execution is :class:`mxnet_tpu_torch.
+    serve.decode.GenerateSession`'s."""
 
-    def __init__(self, params, meta, device):
+    def __init__(self, params, meta, device, draft_params=None):
         from .serve import decode_model as _dm
         self.meta = meta
         self.device = device
@@ -535,9 +586,21 @@ class GenerateModel:
                                     meta, device)
         self.decode = _dm.make_decode(self.params, spec)
         self.commit = _dm.make_commit(spec)
-        self.chunk_prefill = (
-            _dm.make_chunk_prefill(self.params, spec)
-            if int(meta["format_version"]) == 5 else None)
+        v5 = int(meta["format_version"]) == 5
+        self.chunk_prefill = (_dm.make_chunk_prefill(self.params, spec)
+                              if v5 else None)
+        self.draft_params = self.draft_verify = None
+        self.draft_chunk_prefill = None
+        self.speculate_k = 0
+        if v5 and draft_params is not None:
+            # int8 weights aligned for the product once, here
+            self.draft_params = _dm._int8_aligned(_dm.params_from_reference(
+                draft_params, spec, device))
+            self.speculate_k = int(meta["generate"]["speculate_k"])
+            self.draft_chunk_prefill = _dm.make_chunk_prefill(
+                self.draft_params, spec)
+            self.draft_verify = _dm.make_draft_verify(
+                self.params, self.draft_params, spec, self.speculate_k)
 
     @property
     def spec(self):
@@ -550,13 +613,19 @@ class GenerateModel:
         chunks (format_version 5)."""
         return self.chunk_prefill is not None
 
+    @property
+    def speculative(self):
+        """The artifact bundles the int8 draft: sessions speculate
+        unless asked not to."""
+        return self.draft_verify is not None
+
     @classmethod
     def load(cls, path, device=None):
         """Load onto ``device`` (default cuda:0; raises without a card
         unless the CPU is asked for)."""
         dev = resolve_device(device)
-        meta, params = _read_generate(path)
-        return cls(params, meta, dev)
+        meta, params, draft = _read_generate(path)
+        return cls(params, meta, dev, draft)
 
 
 def load_artifact(path, **kw):

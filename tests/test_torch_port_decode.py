@@ -331,8 +331,9 @@ def test_metrics_keys_match_the_jax_package(served):
 
 
 def test_server_refuses_what_is_not_ported(served):
-    with pytest.raises(mt.MXNetError, match="not ported yet"):
-        mt.serve.Server(served["path"], device="cpu", draft="auto")
+    # the artifact bundles no draft: speculation cannot be asked for
+    with pytest.raises(mt.MXNetError, match="bundles no draft"):
+        mt.serve.Server(served["path"], device="cpu", draft="on")
     srv = mt.serve.Server(served["path"], config=mt.serve.GenerateConfig(
         timeout_ms=0, warmup=False), device="cpu", auto_start=False)
     try:

@@ -4,8 +4,9 @@
 and (for the training kernels and ``bn_act``) backward, the wrappers'
 checks and launch counts, the card's ``torch._int_mm`` against the
 CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
-decoder in generate mode, a 2-layer GPT and a ResNet-20 in f32 and bf16
-trained by ``Module.fit``) on the card against the CPU.
+decoder in generate mode and its speculative step, a 2-layer GPT and a
+ResNet-20 in f32 and bf16 trained by ``Module.fit``) on the card against
+the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -236,6 +237,9 @@ def _paged_case(S, W, heads, dh, page, mp, positions, dtype, device,
     (1, 128, 12, 64, 16, 64, [256]),
     (3, 5, 4, 8, 8, 4, [0, 7, 26]),
     (2, 3, 2, 100, 4, 5, [3, 17]),
+    # the speculative verifier's window at GPT-2 small (k = 4)
+    (16, 5, 12, 64, 16, 64, [0, 1, 15, 16, 17, 31, 32, 100, 255, 256, 511,
+                             600, 777, 1000, 1015, 1019]),
 ])
 def test_flash_attn_paged_matches_plain(cuda, dtype, S, W, heads, dh, page,
                                         mp, positions):
@@ -312,6 +316,53 @@ def test_generate_on_the_card_matches_the_cpu(cuda, tmp_path):
         finally:
             srv.close()
     assert outs["cpu"] == outs[str(cuda)]
+
+
+def test_draft_verify_on_the_card_matches_the_cpu(cuda):
+    """One speculative step (k = 3) from caches prefilled on the CPU: on
+    the card (B4 at W = 1 and W = 4, the int8 products through
+    ``_int_mm``) against the CPU's plain run."""
+    spec = tdm.DecoderSpec(vocab=61, dim=64, num_heads=4, num_layers=2,
+                           max_prompt_len=8, page_size=4,
+                           max_pages_per_slot=8, max_slots=4, num_pages=33)
+    k = 3
+    params = tdm.init_params(spec, seed=0)
+    draft = tdm.quantize_decoder_params(params)
+    weights = {}
+    for dev in ("cpu", cuda):
+        weights[str(dev)] = (tdm.params_from_reference(params, spec, dev),
+                             tdm.params_from_reference(draft, spec, dev))
+    p, dp = weights["cpu"]
+    shape = (spec.num_layers, spec.cache_rows, spec.dim)
+    caches = [torch.zeros(shape) for _ in range(4)]
+    bt = (np.arange(32, dtype=np.int32) + 1).reshape(4, 8)
+    prompts = [[5, 9, 13], list(range(1, 20)), [4, 4, 6, 7], [60] * 27]
+    tokens = np.zeros((4, 1), np.int32)
+    for s, prompt in enumerate(prompts):
+        for start in range(0, len(prompt), 8):
+            toks = np.zeros(8, np.int32)
+            part = prompt[start:start + 8]
+            toks[:len(part)] = part
+            nxt, _k, _v = tdm.make_chunk_prefill(p, spec)(
+                toks, start, len(part), bt[s], 0.0, 0, caches[0], caches[1])
+            tdm.make_chunk_prefill(dp, spec)(
+                toks, start, len(part), bt[s], 0.0, 0, caches[2], caches[3])
+        tokens[s, 0] = int(nxt)
+    args = (tokens, np.array([len(q) for q in prompts], np.int32), bt,
+            np.array([0.0, 0.8, 0.0, 0.0], np.float32),
+            np.array([0, 3, 0, 0], np.int32))
+    host = [c.clone() for c in caches]
+    want = tdm.make_draft_verify(p, dp, spec, k)(*args, *host)[0]
+    card = [c.to(cuda) for c in caches]
+    before = tattn.launches_by_kernel["flash_attn_paged"]
+    got = tdm.make_draft_verify(*weights[str(cuda)], spec, k)(*args, *card)[0]
+    torch.cuda.synchronize()
+    assert tattn.launches_by_kernel["flash_attn_paged"] == \
+        before + spec.num_layers * (k + 1)
+    assert torch.equal(got.cpu(), want)
+    for c, h in zip(card[:2], host[:2]):
+        np.testing.assert_allclose(c.cpu().numpy(), h.numpy(), rtol=1e-4,
+                                   atol=1e-4)
 
 
 # ------------------------------------------------- training kernels (B5, B7)
