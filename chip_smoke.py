@@ -143,15 +143,42 @@ Phases; any failure raises and the script exits non-zero:
    times the loss at step 6 is below step 1's. Then the step's numbers:
    wall time p50 and tokens/s, forward, backward and update times (CUDA
    events), a torch.profiler pass (device busy share, top kernels, B3's
-   recomputed backward) and model FLOPs over the f32 peak. Last the
-   model cut to 2 layers at T 128, batch 2, on the card against the
-   CPU: each of two steps' gradients within 1e-3 of each tensor's
-   largest magnitude (the sign flips of the ReLU inputs between the two
-   counted), and after 2 SGD-momentum steps by ``Module.fit``
+   recomputed backward), the peak memory and model FLOPs over the f32
+   peak. Last the model cut to 2 layers at T 128, batch 2, on the card
+   against the CPU: each of two steps' gradients within 1e-3 of each
+   tensor's largest magnitude (at most 4 ReLU inputs of opposite sign
+   between the two, each within 1e-4 of its tensor's largest magnitude
+   from 0), and after 2 SGD-momentum steps by ``Module.fit``
    (lr 1e-4) losses within 1e-5 relative and parameters within 1e-4;
    the same steps at lr 0.01 are printed beside two CPU runs that
    differ only in thread count.
-9. The int8 kernel ``int8_dequant`` (B6) against its plain version on
+9. The Gluon path: the GPT of ``examples/train_transformer_lm.py``,
+   class for class (``tests/gluon_gpt.py``), built on the port's Gluon
+   at the widths of phase 8 (Xavier seed 0, ``pos_weight``
+   Normal(0.02)) and trained as the example trains it:
+   ``autograd.record()`` -> ``loss.backward()`` -> ``trainer.step(1)``,
+   ``SoftmaxCrossEntropyLoss`` on ``logits[:, 17:]``, Adam (lr 3e-4, wd
+   0.01), hybridized, on phase 8's batches: 8 steps at tier auto (the
+   main path; counts zeroed just before, read just after), 8 at tier off
+   and 5 un-hybridized at auto, each from the same weights. Every step's
+   launches are counted: at auto 12 ``flash_attn``, 1 ``take_rows``, no
+   ``scale_bias_act`` (Gluon never fuses bias and ReLU, as in the JAX
+   package) and no ``flash_fwd``; at off 12 ``flash_fwd`` and nothing
+   else; no tier fallback. Tier off and the eager run are held against
+   the hybridized auto run: losses within 1e-4 relative, step 1's
+   gradients within 1e-3 of each tensor's largest magnitude (the head's
+   printed). One batch six times: the loss falls. Then the step p50
+   (steps 2-N) of each run and tokens/s beside ``Module.fit``'s p50 from
+   phase 8, one step's forward (with the loss), backward and update
+   (CUDA events), a torch.profiler pass (busy share, launches, B3's
+   recomputed backward, top kernels) and the peak memory. Last the model
+   cut to 2 layers at T 128, batch 2, on the card against the CPU from
+   the same weights: step 1's gradients within 1e-3 of each tensor's
+   largest magnitude of the CPU's taking the card's ReLU decisions, at
+   most 4 ReLU inputs of opposite sign, each within 1e-4 of its
+   tensor's largest magnitude from 0, and after 2 SGD-momentum steps
+   (lr 1e-4) losses within 1e-5 relative and parameters within 1e-4.
+10. The int8 kernel ``int8_dequant`` (B6) against its plain version on
    the card at every distinct (accumulator shape, activation) of the 54
    quantized ResNet-50 sites, batch 1 and 32, in the per-column form the
    path uses ((N*OH*OW, O) from the GEMM; (N, 1000) for the FC) and, at
@@ -164,7 +191,7 @@ Phases; any failure raises and the script exits non-zero:
    version and the bound (8 bytes an element over 3.35 TB/s). Then the
    int8 product: ``torch._int_mm`` through the port's padding helper on
    the card against the CPU at every site's shape (batch 1), bitwise.
-10. The int8 serving path: the same ResNet-50 weights calibrated on the
+11. The int8 serving path: the same ResNet-50 weights calibrated on the
    card over 4 batches of 8 synthetic images (RandomState(2)), exported
    by ``quant.export_quantized`` as a format-4 artifact (54 sites, none
    skipped; int8 weight payload at most 0.3x the f32 one), and served by
@@ -185,11 +212,11 @@ Phases; any failure raises and the script exits non-zero:
    int8), and a torch.profiler pass of the int8 forward at batch 1 and
    32: device busy share, and the device time of B6, of ``_int_mm``, of
    quantize + im2col and of the rest.
-11. B1 (``bn_act``) against its plain version at every site class of
+12. B1 (``bn_act``) against its plain version at every site class of
    the bf16 training forward at batch 128 (tolerance of phase 3), then
    its bf16 times per class and summed over the 49 sites, beside the
    bound (bf16 bytes over 3.35 TB/s: half of f32's 94.7 MB an image).
-12. The ResNet-50 training path, as bench.py's fit leg runs it: ResNet-50
+13. The ResNet-50 training path, as bench.py's fit leg runs it: ResNet-50
    v1 (224x224, 1000 classes, weights from ``Xavier(factor_type="in",
    magnitude=2)``, seed 0) trained by ``Module.fit`` with SGD (lr 0.05,
    momentum 0.9, ``multi_precision``: bf16 compute over f32 masters),
@@ -214,7 +241,7 @@ Phases; any failure raises and the script exits non-zero:
    gradients held as ``resnet_card_vs_cpu`` states (the backward's
    rounding sensitivity at these weights bounds what can be held), the
    ReLU sign flips counted.
-13. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
+14. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
    result line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
@@ -1820,6 +1847,40 @@ def rel_grad_err(got, want):
             for k in want if k not in ("data", "softmax_label")}
 
 
+# A ReLU input within f32 noise of 0 may open on the card and not on
+# the CPU (their GEMMs sum in other orders). The cut-depth checks allow
+# at most RELU_FLIPS_MAX such flips in all, each within RELU_FLIP_NOISE
+# of its tensor's largest magnitude on both sides; more flips, or one
+# far from 0, is a fault in the forward.
+RELU_FLIPS_MAX = 4
+RELU_FLIP_NOISE = 1e-4
+
+
+def relu_flips(pairs):
+    """``{name: (a, b)}`` ReLU inputs of two runs -> ``({name: sign
+    flips}, the largest |input| at a flip, on either side, over its
+    tensor's largest magnitude)``."""
+    flips, worst = {}, 0.0
+    for name, (a, b) in pairs.items():
+        flip = (a > 0) != (b > 0)
+        flips[name] = int(flip.sum())
+        if flips[name]:
+            far = torch.maximum(a.abs(), b.abs())[flip].max()
+            worst = max(worst, float(far / a.abs().max().clamp_min(1e-30)))
+    return flips, worst
+
+
+def check_relu_flips(flips, worst, what):
+    n = sum(flips.values())
+    if n > RELU_FLIPS_MAX or worst > RELU_FLIP_NOISE:
+        raise RuntimeError(
+            "%s: %d ReLU inputs flipped sign between card and CPU (at most "
+            "%d allowed), the farthest %.3g of its tensor's largest "
+            "magnitude from 0 (at most %g): %s"
+            % (what, n, RELU_FLIPS_MAX, worst, RELU_FLIP_NOISE,
+               json.dumps(flips)))
+
+
 def mlp_preacts(net, params, X, dev, B_):
     """Each block's MLP up-projection before its ReLU (the outputs of
     the ``mlp1`` FullyConnected nodes) at ``params`` on ``X[:B_]``,
@@ -1842,7 +1903,8 @@ def cut_depth_check(dev, report):
     are held to. The card's GEMMs sum in another order than the CPU's,
     so a ReLU input within f32 noise of 0 may open on one side only; it
     moves that unit's row of the up-projection's gradient. The sign
-    flips are counted and the worst difference is placed. Then 2
+    flips are held to ``check_relu_flips`` (at most 4, each within f32
+    noise of 0) and the worst difference is placed. Then 2
     SGD-momentum steps by ``Module.fit`` on each: losses within 1e-5
     relative and every parameter within 1e-4. The lr is 1e-4 (largest
     update about 0.014). At lr 0.01 the first step moves elements by up
@@ -1870,7 +1932,7 @@ def cut_depth_check(dev, report):
     # -- each step's gradients, card vs CPU, at the same weights, and
     # the sign flips of the ReLU inputs between them
     p1, _l = fit_params("cpu", Xs[:2], Ys[:2], 1e-4)
-    grad_err, flips, where = {}, {}, {}
+    grad_err, pairs, where = {}, {}, {}
     for step, (params, X, Y) in enumerate(((p0, Xs[:2], Ys[:2]),
                                            (p1, Xs[2:], Ys[2:])), 1):
         want = step_grads(small, params, X, Y, "cpu", "auto", B_=2)
@@ -1879,14 +1941,16 @@ def cut_depth_check(dev, report):
             grad_err["step%d/%s" % (step, k)] = e
         pre = [mlp_preacts(small, params, X, d, 2) for d in ("cpu", dev)]
         for name, a in pre[0].items():
+            pairs["step%d/%s" % (step, name)] = (a, pre[1][name])
             flip = ((a > 0) != (pre[1][name] > 0)).reshape(-1, a.shape[-1])
-            flips["step%d/%s" % (step, name)] = int(flip.sum())
             # the up-projection's gradient row that differs most, and
             # whether that unit's ReLU input flipped at any token
             w = name + "_weight"
             row = int((got[w].cpu() - want[w]).abs().amax(1).argmax())
             where["step%d/%s" % (step, w)] = {
                 "row": row, "row_flipped": bool(flip[:, row].any())}
+    flips, flip_far = relu_flips(pairs)
+    del pairs
     worst_g = max(grad_err, key=grad_err.get)
     # -- 2 steps by Module.fit on each
     cut, cut_loss = {}, {}
@@ -1901,14 +1965,16 @@ def cut_depth_check(dev, report):
     worst = max(cut_err, key=cut_err.get)
     log("cut depth (2 layers, T 128, batch 2), card vs CPU: each step's "
         "gradients within %.3g of the tensor's largest magnitude (worst "
-        "%s); ReLU inputs of opposite sign %s; the up-projections' most "
+        "%s); ReLU inputs of opposite sign %s, the farthest %.3g of its "
+        "tensor's largest magnitude from 0; the up-projections' most "
         "different gradient rows %s; 2 SGD-momentum steps at lr 1e-4: "
         "losses within %.3g relative, parameters within %.3g (worst %s; "
         "largest update %.3g)"
-        % (grad_err[worst_g], worst_g, json.dumps(flips), json.dumps(where),
-           loss_err, cut_err[worst], worst, max_update))
+        % (grad_err[worst_g], worst_g, json.dumps(flips), flip_far,
+           json.dumps(where), loss_err, cut_err[worst], worst, max_update))
     report["train"].update(cut_depth_grad_err=grad_err,
                            cut_depth_relu_flips=flips,
+                           cut_depth_relu_flip_far=flip_far,
                            cut_depth_worst_rows=where,
                            cut_depth_param_err=cut_err,
                            cut_depth_max_update=max_update,
@@ -1918,6 +1984,7 @@ def cut_depth_check(dev, report):
                            "losses %g relative, parameters %g (%s)"
                            % (grad_err[worst_g], worst_g, loss_err,
                               cut_err[worst], worst))
+    check_relu_flips(flips, flip_far, "cut depth")
     # -- lr 0.01: the card against the CPU, and the CPU against itself
     # at one thread
     big = {"card": fit_params(dev, Xs, Ys, 1e-2)[0],
@@ -2054,7 +2121,9 @@ def train_main_path(dev, card, report):
                            "%s" % (auto_counts, want,
                                    auto_stats["fallback"]))
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps[1:], stamps[2:])]
+    torch.cuda.reset_peak_memory_stats(dev)
     prof = step_profile(mod, X, Y)
+    prof["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
     del mod
     torch.cuda.empty_cache()
     # -- tier off from the same weights
@@ -2124,12 +2193,13 @@ def train_main_path(dev, card, report):
         "events), wall %.2f ms; profiled: %.2f ms wall, %.2f ms device (busy "
         "%.1f%%), flash_attn.backward %.2f ms (%.1f%% of the device time), "
         "scale_bias_act.backward %.2f ms; B3's reference backward alone x12: "
-        "%.2f ms  [%s]"
+        "%.2f ms; peak memory %.2f GB  [%s]"
         % (prof["forward_ms"], prof["backward_ms"], prof["update_ms"],
            prof["wall_ms"], prof["profiled_wall_ms"], prof["device_ms"],
            100 * prof["device_busy_share"], prof["flash_attn_backward_ms"],
            100 * prof["flash_attn_backward_ms"] / prof["device_ms"],
-           prof["scale_bias_act_backward_ms"], 12 * ref_bwd, card))
+           prof["scale_bias_act_backward_ms"], 12 * ref_bwd,
+           prof["peak_memory_bytes"] / 1e9, card))
     log("top kernels of one step: " + "; ".join(
         "%s %.2f ms x%d" % (k["name"][:60], k["ms"], k["calls"])
         for k in prof["top_kernels"][:8]))
@@ -2142,6 +2212,416 @@ def train_main_path(dev, card, report):
     cut_depth_check(dev, report)
     return {"scale_bias_act": auto_counts["scale_bias_act"],
             "flash_attn": auto_counts["flash_attn"],
+            "take_rows": auto_counts["take_rows"],
+            "flash_fwd": off_counts["flash_fwd"]}
+
+
+# ------------------------------------------------- Gluon: the main path
+GLUON_STEPS = 8          # hybridized, at each tier
+GLUON_EAGER_STEPS = 5    # un-hybridized, tier auto
+WANT_AUTO = {"flash_attn": GPT_TRAIN["layers"], "take_rows": 1,
+             "scale_bias_act": 0, "flash_fwd": 0, "flash_attn_paged": 0}
+WANT_OFF = {"flash_attn": 0, "take_rows": 0, "scale_bias_act": 0,
+            "flash_fwd": GPT_TRAIN["layers"], "flash_attn_paged": 0}
+
+
+def gluon_gpt(layers, seq_len):
+    """The GPT of examples/train_transformer_lm.py, class for class
+    (``tests/gluon_gpt.py``), on the port's Gluon at GPT_TRAIN's widths
+    and the given depth and context."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from gluon_gpt import gpt_classes
+    _attn, _block, GPT = gpt_classes(mt, mt.gluon, mt.gluon.nn)
+    P = GPT_TRAIN
+    return GPT(P["vocab"], P["dim"], P["heads"], layers, seq_len)
+
+
+def gluon_params(net):
+    """{name relative to the root prefix: Parameter}."""
+    return {n[len(net.prefix):]: p for n, p in net.collect_params().items()}
+
+
+def gluon_init(net, ctx, X):
+    """Xavier (seed 0; pos_weight Normal(0.02)) on ``ctx``; one forward
+    outside recording completes the deferred shapes. Returns a copy of
+    every parameter, by relative name."""
+    net.initialize(mt.init.Xavier(seed=0), ctx=ctx)
+    with mt.autograd.predict_mode():
+        net(mt.nd.array(X[:1], ctx=ctx))
+    return {k: p.data()._data.detach().clone()
+            for k, p in gluon_params(net).items()}
+
+
+def gluon_load(net, snap):
+    """Every parameter set (in place) from ``snap``."""
+    for k, p in gluon_params(net).items():
+        p.set_data(mt.nd.NDArray(snap[k].to(p.data()._data.device)))
+
+
+def gluon_train(net, X, Y, ctx, steps, batch, hybrid, opt=ADAM,
+                grads_at=None):
+    """The example's loop: ``autograd.record()`` -> ``loss.backward()`` ->
+    ``trainer.step(1)``, on batches of ``batch`` rows of (X, Y). Returns
+    the losses (read after each step, as the example does), the host
+    time of each step, the launches each step made, and a copy of the
+    gradients of step ``grads_at`` (0-based) before its update."""
+    lag = GPT_TRAIN["lag"]
+    net.hybridize(active=hybrid, static_alloc=True)
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mt.gluon.Trainer(net.collect_params(), opt[0], dict(opt[1]))
+    cuda = ctx.device_type == "gpu"
+    losses, walls, census, grads = [], [], [], None
+    for s in range(steps):
+        before = train_counts()
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = mt.nd.array(X[s * batch:(s + 1) * batch], ctx=ctx)
+        y = mt.nd.array(Y[s * batch:(s + 1) * batch], ctx=ctx)
+        with mt.autograd.record():
+            logits = net(x)
+            loss = loss_fn(logits[:, lag:, :], y[:, lag:]).mean()
+        loss.backward()
+        if s == grads_at:
+            grads = {k: p.grad()._data.detach().clone()
+                     for k, p in gluon_params(net).items()}
+        trainer.step(1)
+        losses.append(float(loss.asnumpy()))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = train_counts()
+        census.append({k: after[k] - before[k] for k in after})
+        del logits, loss
+    return losses, walls, census, grads
+
+
+def gluon_step_profile(net, X, Y, ctx):
+    """One hybridized step at tier auto: forward (with the loss),
+    backward and update timed with CUDA events (median of 3), then
+    torch.profiler over one more step: busy share, B3's recomputed
+    backward (its named range) and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    B_, lag = GPT_TRAIN["batch"], GPT_TRAIN["lag"]
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mt.gluon.Trainer(net.collect_params(), ADAM[0], dict(ADAM[1]))
+    x = mt.nd.array(X[:B_], ctx=ctx)
+    y = mt.nd.array(Y[:B_], ctx=ctx)
+
+    def step(ev=None):
+        if ev:
+            ev[0].record()
+        with mt.autograd.record():
+            loss = loss_fn(net(x)[:, lag:, :], y[:, lag:]).mean()
+        if ev:
+            ev[1].record()
+        loss.backward()
+        if ev:
+            ev[2].record()
+        trainer.step(1)
+        if ev:
+            ev[3].record()
+    parts = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(ev)
+        torch.cuda.synchronize()
+        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      ev[2].elapsed_time(ev[3]),
+                      (time.perf_counter() - t0) * 1e3))
+    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    avgs = prof.key_averages()
+    names = ("flash_attn.backward",)
+    ranges = {e.key: e.device_time_total for e in avgs if e.key in names}
+    kernels = [(e.key, e.self_device_time_total, e.count) for e in avgs
+               if e.device_type == DeviceType.CUDA and e.key not in names]
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"forward_ms": med[0], "backward_ms": med[1], "update_ms": med[2],
+            "wall_ms": med[3], "profiled_wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
+            "flash_attn_backward_ms": ranges.get("flash_attn.backward",
+                                                 0.0) / 1e3,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "top_kernels": [{"name": k[0][:100], "ms": k[1] / 1e3,
+                             "calls": k[2]} for k in top]}
+
+
+def check_census(census, want, what):
+    bad = [(i + 1, c) for i, c in enumerate(census) if c != want]
+    if bad:
+        raise RuntimeError("%s: launches per step %s, expected %s at every "
+                           "step" % (what, bad[:3], want))
+
+
+def gluon_relu_inputs(net, ctx, X):
+    """Each block's MLP up-projection before its ReLU (the input of the
+    ``mlp1`` Dense's Activation child) on ``X``, on the CPU, beside the
+    relative name of that Dense's weight."""
+    seen = []
+    blocks = list(net.blocks)
+    for blk in blocks:
+        blk.mlp1.act.register_forward_pre_hook(
+            lambda _b, args: seen.append(args[0].detach().float().cpu()))
+    try:
+        with mt.autograd.predict_mode():
+            net(mt.nd.array(X, ctx=ctx))
+    finally:
+        for blk in blocks:
+            blk.mlp1.act._forward_pre_hooks.clear()
+    return [(blk.mlp1.weight.name[len(net.prefix):], a)
+            for blk, a in zip(blocks, seen)]
+
+
+def gluon_grads(net, X, Y, ctx, masks=None):
+    """The gradients of the example's loss on (X, Y) at the current
+    weights, on the CPU. ``masks`` (one per block) replace each MLP's
+    ReLU by ``x * mask``: the same forward up to the sign decisions, with
+    the decisions given."""
+    lag = GPT_TRAIN["lag"]
+    acts = [blk.mlp1.act for blk in net.blocks] if masks else []
+    for act, m in zip(acts, masks or ()):
+        act.hybrid_forward = (lambda F, x, _m=m: x * _m.to(x.device))
+    try:
+        x, y = mt.nd.array(X, ctx=ctx), mt.nd.array(Y, ctx=ctx)
+        with mt.autograd.record():
+            loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(x)[:, lag:, :], y[:, lag:]).mean()
+        loss.backward()
+    finally:
+        for act in acts:
+            del act.hybrid_forward
+    return {k: p.grad()._data.detach().cpu().clone()
+            for k, p in gluon_params(net).items()}
+
+
+def gluon_cut_depth(dev, report):
+    """The Gluon GPT cut to 2 layers at T 128, batch 2, on the card
+    against the CPU, from the CPU's Xavier draw. The card's GEMMs sum in
+    another order than the CPU's, so a ReLU input within f32 noise of 0
+    may open on one side only; one such token moves every gradient
+    upstream of it (the model is well conditioned otherwise: on the CPU
+    a change of thread count moves them by 1e-6). So step 1's gradients
+    on the card are held against the CPU's taking the card's ReLU
+    decisions (``gluon_grads`` with the card's masks), within 1e-3 of
+    each tensor's largest magnitude, the limit of ``cut_depth_check``;
+    the plain CPU's difference is printed beside. The flips themselves
+    are held to ``check_relu_flips``: at most 4, each within f32 noise of
+    0. Then after 2 SGD-momentum steps (lr 1e-4) losses within 1e-5
+    relative and every parameter within 1e-4."""
+    P = GPT_TRAIN
+    Xs, Ys = train_batches(2, 2, 128, P["vocab"], P["lag"], seed=1)
+    sgd = ("sgd", {"learning_rate": 1e-4, "momentum": 0.9, "wd": 0.01})
+    runs, nets = {}, {}
+    p0 = None
+    for name, ctx in (("cpu", mt.cpu()), ("card", mt.gpu(0))):
+        net = nets[name] = gluon_gpt(2, 128)
+        snap = gluon_init(net, ctx, Xs)
+        if p0 is None:
+            p0 = {k: v.cpu() for k, v in snap.items()}
+        gluon_load(net, p0)
+        net.hybridize(active=True)
+        pre = gluon_relu_inputs(net, ctx, Xs[:2])
+        losses, _w, _c, grads = gluon_train(net, Xs, Ys, ctx, 2, 2, True,
+                                            opt=sgd, grads_at=0)
+        runs[name] = (losses, {k: v.cpu() for k, v in grads.items()},
+                      {k: p.data()._data.detach().cpu().clone()
+                       for k, p in gluon_params(net).items()}, pre)
+    del nets["card"]
+    (lc, gc_, pc, prc), (lg, gg, pg, prg) = runs["cpu"], runs["card"]
+    flips, flip_far = relu_flips({name: (a, b) for (name, a), (_n, b)
+                                  in zip(prc, prg)})
+    gluon_load(nets["cpu"], p0)
+    gm = gluon_grads(nets["cpu"], Xs[:2], Ys[:2], mt.cpu(),
+                     masks=[(b > 0).float() for _n, b in prg])
+
+    def rel(want):
+        return {k: float((gg[k] - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30))
+                for k, v in want.items()}
+    grad_err, plain_err = rel(gm), rel(gc_)
+    param_err = {k: float((pg[k] - v).abs().max()) for k, v in pc.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    wg = max(grad_err, key=grad_err.get)
+    wpl = max(plain_err, key=plain_err.get)
+    wp = max(param_err, key=param_err.get)
+    log("gluon cut depth (2 layers, T 128, batch 2), card vs CPU: step-1 "
+        "gradients within %.3g of the tensor's largest magnitude (worst %s) "
+        "of the CPU's taking the card's ReLU decisions; ReLU inputs of "
+        "opposite sign %s, the farthest %.3g of its tensor's largest "
+        "magnitude from 0; the plain CPU's within %.3g (worst %s); after 2 "
+        "SGD-momentum steps at lr 1e-4 losses within %.3g relative, "
+        "parameters within %.3g (worst %s)"
+        % (grad_err[wg], wg, json.dumps(flips), flip_far, plain_err[wpl],
+           wpl, loss_err, param_err[wp], wp))
+    report["gluon"].update(cut_depth_grad_err=grad_err,
+                           cut_depth_plain_grad_err=plain_err,
+                           cut_depth_relu_flips=flips,
+                           cut_depth_relu_flip_far=flip_far,
+                           cut_depth_param_err=param_err,
+                           cut_depth_loss_err=loss_err)
+    if grad_err[wg] > 1e-3 or param_err[wp] > 1e-4 or loss_err > 1e-5:
+        raise RuntimeError("gluon: card and CPU disagree at cut depth: "
+                           "gradients %g (%s), losses %g, parameters %g (%s)"
+                           % (grad_err[wg], wg, loss_err, param_err[wp],
+                              wp))
+    check_relu_flips(flips, flip_far, "gluon cut depth")
+
+
+def gluon_main_path(dev, card, report):
+    """Phase 9: the example's GPT through Gluon (hybridized, Adam) at
+    GPT-2 small's widths, at tier auto and tier off from the same
+    weights, and un-hybridized at auto; the launch census of every step,
+    the tiers and the two modes held against each other on step 1, the
+    card against the CPU at cut depth, a falling loss on a repeated
+    batch; then the step's numbers beside Module.fit's from phase 8."""
+    P = GPT_TRAIN
+    L, B_ = P["layers"], P["batch"]
+    ctx = mt.gpu(0)
+    X, Y = train_batches(GLUON_STEPS, B_, P["seq_len"], P["vocab"],
+                         P["lag"])
+    tokens = B_ * P["seq_len"]
+    t0 = time.perf_counter()
+    net = gluon_gpt(L, P["seq_len"])
+    p0 = gluon_init(net, ctx, X)
+    nparam = sum(v.numel() for v in p0.values())
+    head_key = net.head.weight.name[len(net.prefix):]
+    log("Gluon GPT (tests/gluon_gpt.py) at GPT-2-small widths: %.1f M f32 "
+        "parameters in %d tensors, Xavier (seed 0) in %.1fs"
+        % (nparam / 1e6, len(p0), time.perf_counter() - t0))
+    report["gluon"] = {}
+    # -- the main path: hybridized, tier auto; counts zeroed just before
+    reset_train_counts()
+    loss_auto, wall_auto, census_auto, g_auto = gluon_train(
+        net, X, Y, ctx, GLUON_STEPS, B_, True, grads_at=0)
+    torch.cuda.synchronize()
+    auto_counts = train_counts()
+    auto_stats = tier.stats()
+    log("gluon path, hybridized, tier auto: losses %s, launches %s, tier %s"
+        % (["%.5f" % v for v in loss_auto], auto_counts,
+           json.dumps(auto_stats["dispatch"])))
+    check_census(census_auto, WANT_AUTO, "gluon tier auto")
+    if auto_stats["fallback"]:
+        raise RuntimeError("gluon tier auto: fallback %s"
+                           % auto_stats["fallback"])
+    # -- hybridized, tier off, from the same weights
+    gluon_load(net, p0)
+    reset_train_counts()
+    with mt.config.override(kernel_tier="off"):
+        loss_off, wall_off, census_off, g_off = gluon_train(
+            net, X, Y, ctx, GLUON_STEPS, B_, True, grads_at=0)
+    torch.cuda.synchronize()
+    off_counts = train_counts()
+    log("gluon path, hybridized, tier off: losses %s, launches %s"
+        % (["%.5f" % v for v in loss_off], off_counts))
+    check_census(census_off, WANT_OFF, "gluon tier off")
+    # -- un-hybridized (eager), tier auto, from the same weights
+    gluon_load(net, p0)
+    reset_train_counts()
+    loss_eager, wall_eager, census_eager, g_eager = gluon_train(
+        net, X, Y, ctx, GLUON_EAGER_STEPS, B_, False, grads_at=0)
+    torch.cuda.synchronize()
+    log("gluon path, eager, tier auto: losses %s, launches %s"
+        % (["%.5f" % v for v in loss_eager], train_counts()))
+    check_census(census_eager, WANT_AUTO, "gluon eager")
+    # -- step 1 held: auto against off, hybridized against eager
+    checks = {}
+    for what, want_l, want_g in (("tier off", loss_off, g_off),
+                                 ("eager", loss_eager, g_eager)):
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(loss_auto, want_l))
+        grel = {k: float((g_auto[k] - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30))
+                for k, v in want_g.items()}
+        worst = max(grel, key=grel.get)
+        head = grel[head_key]
+        checks[what] = {"loss_rel": lrel, "grad_rel": grel,
+                        "worst": worst, "head_grad_rel": head}
+        log("gluon, tier auto hybridized against %s: losses within %.3g "
+            "relative over %d steps, step-1 gradients within %.3g of each "
+            "tensor's largest magnitude (worst %s; the head %.3g)"
+            % (what, lrel, len(want_l), grel[worst], worst, head))
+        if not all(np.isfinite(loss_auto + want_l)) or lrel > 1e-4 \
+                or grel[worst] > 1e-3:
+            raise RuntimeError("gluon: tier auto hybridized disagrees with "
+                               "%s: losses %g, gradients %g (%s)"
+                               % (what, lrel, grel[worst], worst))
+    del g_auto, g_off, g_eager
+    torch.cuda.empty_cache()
+    # -- one batch repeated six times: the loss falls
+    gluon_load(net, p0)
+    Xr, Yr = np.tile(X[:B_], (6, 1)), np.tile(Y[:B_], (6, 1))
+    loss_rep, _w, _c, _g = gluon_train(net, Xr, Yr, ctx, 6, B_, True)
+    log("gluon, one batch six times: losses %s"
+        % ["%.5f" % v for v in loss_rep])
+    if not loss_rep[-1] < loss_rep[0]:
+        raise RuntimeError("gluon: the loss did not fall on a repeated "
+                           "batch")
+    # -- the numbers
+    gluon_load(net, p0)
+    net.hybridize(active=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prof = gluon_step_profile(net, X, Y, ctx)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del net
+    torch.cuda.empty_cache()
+    n_dense = nparam - P["vocab"] * P["dim"] - P["seq_len"] * P["dim"]
+    T_ = P["seq_len"]
+    attn_flops = 3 * 4 * B_ * P["heads"] * (T_ * (T_ + 1) // 2) \
+        * (P["dim"] // P["heads"]) * L
+    flops = 6 * n_dense * tokens + attn_flops
+    fit_p50 = report["train"]["perf"]["step_ms_p50"]
+    perf = {}
+    for what, walls in (("hybridized_auto", wall_auto),
+                        ("hybridized_off", wall_off),
+                        ("eager_auto", wall_eager)):
+        p50 = float(np.median(walls[1:]))
+        perf[what] = {"step_ms": walls, "step_ms_p50": p50,
+                      "tokens_per_s": tokens / (p50 / 1e3),
+                      "model_flops_share_of_f32_peak":
+                      flops / (p50 / 1e3) / F32_FLOPS}
+    perf.update(module_fit_step_ms_p50=fit_p50, profile=prof,
+                peak_memory_bytes=peak, model_flops_per_step=flops)
+    log("gluon train step at GPT-2-small widths, batch 8 x 1024, f32, p50 "
+        "over steps 2-N: hybridized tier auto %.2f ms (%.0f tokens/s, %.1f%% "
+        "of the f32 peak), tier off %.2f ms, eager tier auto %.2f ms; "
+        "Module.fit's step in this run (phase 8) %.2f ms; peak memory "
+        "%.2f GB  [%s]"
+        % (perf["hybridized_auto"]["step_ms_p50"],
+           perf["hybridized_auto"]["tokens_per_s"],
+           100 * perf["hybridized_auto"]["model_flops_share_of_f32_peak"],
+           perf["hybridized_off"]["step_ms_p50"],
+           perf["eager_auto"]["step_ms_p50"], fit_p50, peak / 1e9, card))
+    log("gluon, one hybridized step at tier auto: forward with the loss "
+        "%.2f ms, backward %.2f ms, update %.2f ms (CUDA events), wall "
+        "%.2f ms; profiled: %.2f ms wall, %.2f ms device (busy %.1f%%), "
+        "%d kernel launches, flash_attn.backward %.2f ms  [%s]"
+        % (prof["forward_ms"], prof["backward_ms"], prof["update_ms"],
+           prof["wall_ms"], prof["profiled_wall_ms"], prof["device_ms"],
+           100 * prof["device_busy_share"], prof["kernel_launches"],
+           prof["flash_attn_backward_ms"], card))
+    log("gluon, top kernels of one step: " + "; ".join(
+        "%s %.2f ms x%d" % (k["name"][:60], k["ms"], k["calls"])
+        for k in prof["top_kernels"][:8]))
+    report["gluon"].update(
+        launches_auto=auto_counts, launches_off=off_counts,
+        census_auto=census_auto, census_off=census_off,
+        census_eager=census_eager, tier_stats_auto=auto_stats,
+        losses_auto=loss_auto, losses_off=loss_off,
+        losses_eager=loss_eager, losses_repeated=loss_rep,
+        checks={k: {kk: vv for kk, vv in v.items() if kk != "grad_rel"}
+                for k, v in checks.items()}, perf=perf)
+    gluon_cut_depth(dev, report)
+    return {"flash_attn": auto_counts["flash_attn"],
             "take_rows": auto_counts["take_rows"],
             "flash_fwd": off_counts["flash_fwd"]}
 
@@ -3047,7 +3527,7 @@ def released(dev):
 
 
 def resnet_train_path(dev, card, report):
-    """Phase 12: ResNet-50 trained through Module.fit as bench.py's fit
+    """Phase 13: ResNet-50 trained through Module.fit as bench.py's fit
     leg runs it, bf16 at batch 128 at tier auto (the main path) and off,
     then f32 at batch 32; the checks, the numbers and card vs CPU."""
     P = RESNET_TRAIN
@@ -3258,6 +3738,7 @@ def main():
     train_err, train_rows = train_kernel_phase(dev)
     report["train_kernels"] = train_rows
     train_launches = train_main_path(dev, card, report)
+    gluon_launches = gluon_main_path(dev, card, report)
     sym50 = resnet50()
     args50, aux50 = draw_params(sym50)
     int8_err, int8_rows, int8_tot = int8_kernel_phase(
@@ -3312,6 +3793,12 @@ def main():
             paths["train"] = (train_launches[kname],
                               train_err[kname + "@train/float32"],
                               train_rows[kname + "@train"])
+        if kname in gluon_launches:
+            # the Gluon path runs the training path's shapes: phase 7's
+            # check and times at those shapes are its numbers too
+            paths["gluon"] = (gluon_launches[kname],
+                              train_err[kname + "@train/float32"],
+                              train_rows[kname + "@train"])
         by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
                            **{k: r[k] for k in NAMED_KEYS if k in r})
                    for p, (n, e, r) in paths.items()}
@@ -3327,12 +3814,22 @@ def main():
                         "by_path": by_path})
     for kname in ("scale_bias_act", "flash_fwd"):
         r = train_rows[kname]
-        kernels.append({"name": kname, "route": "cuda",
-                        "source": TRAIN_SOURCES[kname],
-                        "replaces": TRAIN_REPLACES[kname],
-                        "launches": train_launches[kname],
-                        "max_abs_err": train_err[kname + "/float32"],
-                        **{k: r[k] for k in NAMED_KEYS if k in r}})
+        entry = {"name": kname, "route": "cuda",
+                 "source": TRAIN_SOURCES[kname],
+                 "replaces": TRAIN_REPLACES[kname],
+                 "launches": train_launches[kname],
+                 "max_abs_err": train_err[kname + "/float32"],
+                 **{k: r[k] for k in NAMED_KEYS if k in r}}
+        if kname in gluon_launches:
+            # B7 on both training paths (tier off), at the same shape
+            entry["by_path"] = {
+                p: dict(launches=n, max_abs_err=entry["max_abs_err"],
+                        shape=r["shape"],
+                        **{k: r[k] for k in NAMED_KEYS if k in r})
+                for p, n in (("train", train_launches[kname]),
+                             ("gluon", gluon_launches[kname]))}
+            entry["launches"] += gluon_launches[kname]
+        kernels.append(entry)
     kernels.append({"name": "int8_dequant", "route": "cuda",
                     "source": INT8_SOURCE, "replaces": INT8_REPLACES,
                     "launches": int8_launches,

@@ -7,7 +7,9 @@ generate artifacts (the decoder programs, continuous batching over a
 paged KV cache, speculative decoding with an int8 draft), and trains symbolic models through ``Module.fit`` (the
 executor's forward and backward, the fused train step with bf16
 compute over f32 master weights, SGD with ``multi_precision`` and Adam,
-learning-rate schedules).
+learning-rate schedules), and trains eagerly through the NDArray,
+``autograd`` and Gluon (``Block``, ``HybridBlock``, ``nn``, ``loss``,
+``Trainer``) layers.
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 the legacy flash forward ``flash_fwd`` and the int8 epilogue
@@ -38,3 +40,8 @@ from . import kernels  # noqa: F401
 from . import serving  # noqa: F401
 from . import serve  # noqa: F401
 from . import quant  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import autograd  # noqa: F401
+from . import gluon  # noqa: F401
+from . import name  # noqa: F401

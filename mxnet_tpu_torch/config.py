@@ -1,5 +1,5 @@
 """Typed config/flag registry (the subset of ``mxnet_tpu/config.py`` that
-the serving slice reads).
+the port reads).
 
 Every flag has a name, an environment variable, a parser, a default and a
 docstring; values are read from the environment once and can be
@@ -145,6 +145,12 @@ register_flag("kernel_tier", "MXNET_KERNEL_TIER", str, "auto",
               "tuning cache exists in the port yet, so every call-site "
               "falls back with the reason recorded. 'off': every op runs "
               "its plain PyTorch implementation.")
+register_flag("trainer_fused_update", "MXNET_TRAINER_FUSED_UPDATE",
+              _parse_bool, True,
+              "Gluon Trainer.step applies every parameter's update in one "
+              "pass through the optimizer's fused_ops, in place, instead "
+              "of one Updater call per parameter; the same numbers as the "
+              "per-parameter path.")
 register_flag("serve_buckets", "MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
               "Batch-size buckets the online serving runtime pads "
               "coalesced request batches to, comma separated ascending.")

@@ -1,0 +1,192 @@
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``).
+
+``step(batch_size)`` scales the gradients by ``1 / batch_size``
+(``rescale_grad``), reduces them across devices (one device here: a
+no-op) and updates every parameter whose gradient a backward wrote
+since the last step; a stale one raises unless ``ignore_stale_grad``.
+
+With ``MXNET_TRAINER_FUSED_UPDATE`` on (the default, as in the JAX
+package) the update is one pass over all parameters through the
+optimizer's ``fused_ops``, in place under ``torch.no_grad()``, so every
+``Parameter.data()`` tensor stays the same object; off, the
+optimizer's ``Updater`` runs once per parameter. Both use the same
+update functions and the same state. The fused pass rounds lr, wd and
+rescale to f32 and computes Adam's bias correction in f32, as the JAX
+package's fused program does, so its Adam steps differ from the
+per-parameter path's by that rounding (SGD's agree bit for bit). Only
+kvstores on one device are ported:
+``dist_*`` (ROADMAP A6) raises. ``save_checkpoint`` and
+``restore_checkpoint`` need ``checkpoint.py`` (ROADMAP A6) and raise.
+"""
+from __future__ import annotations
+
+import numpy as _np
+import torch
+
+from ..base import MXNetError
+from .. import optimizer as _opt
+from ..optimizer.optimizer import _is_lowp_float
+from .parameter import Parameter, ParameterDict
+
+__all__ = ["Trainer"]
+
+
+def _flat_state(state):
+    """An optimizer state as a tuple of tensors (None -> (), x -> (x,))."""
+    if state is None:
+        return ()
+    if isinstance(state, tuple):
+        return state
+    return (state,)
+
+
+class Trainer:
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None, checkpoint=None):
+        if isinstance(params, (dict, ParameterDict)):
+            params = list(params.values())
+        if not isinstance(params, (list, tuple)):
+            raise ValueError("First argument must be a list or dict of "
+                             "Parameters, got %s." % type(params))
+        self._params = []
+        self._param2idx = {}
+        for i, param in enumerate(params):
+            if not isinstance(param, Parameter):
+                raise ValueError("First argument must be a list or dict of "
+                                 "Parameters, got list of %s."
+                                 % type(param))
+            self._param2idx[param.name] = i
+            self._params.append(param)
+            param._trainer = self
+        if isinstance(kvstore, str) and kvstore.startswith("dist") \
+                or update_on_kvstore or checkpoint is not None \
+                or compression_params:
+            raise MXNetError("Trainer: distributed kvstores, update on the "
+                             "kvstore, gradient compression and "
+                             "checkpointing are not ported yet (ROADMAP A6)")
+        optimizer_params = optimizer_params or {}
+        self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        param_dict = dict(enumerate(self._params))
+        if isinstance(optimizer, _opt.Optimizer):
+            if optimizer_params:
+                raise MXNetError("optimizer_params must be None if "
+                                 "optimizer is an Optimizer instance")
+            self._optimizer = optimizer
+        else:
+            self._optimizer = _opt.create(optimizer, **optimizer_params)
+        self._optimizer.param_dict = param_dict
+        self._updaters = [_opt.get_updater(self._optimizer)]
+        self._fused_ops_cache = False
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.lr
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        self._optimizer.set_learning_rate(lr)
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """allreduce, then the update, the gradients scaled by
+        ``1 / batch_size``."""
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self.allreduce_grads()
+        self._update(ignore_stale_grad)
+
+    def allreduce_grads(self):
+        """Reduce the gradients across devices: one device, nothing to
+        do."""
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        self._optimizer.rescale_grad = self._scale / batch_size
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad=False):
+        work = []
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null":
+                continue
+            info = param._data._ag if param._data is not None else None
+            if info is None or not info.fresh:
+                if not ignore_stale_grad:
+                    raise UserWarning(
+                        "Gradient of Parameter `%s` has not been updated by "
+                        "backward since last `step`. This could mean a bug "
+                        "in your model that made it only use a subset of the "
+                        "Parameters for this iteration. If you are "
+                        "intentionally only using a subset, call step with "
+                        "ignore_stale_grad=True to suppress this warning"
+                        % param.name)
+                continue
+            work.append((i, param))
+            info.fresh = False
+        if work and not self._fused_update(work):
+            upd = self._updaters[0]
+            for i, param in work:
+                upd(i, param.grad()._data, param.data()._data)
+
+    def _fused_update(self, work):
+        """One pass of the optimizer's fused update over ``work``, as
+        the JAX package's fused program: lr, wd and rescale rounded to
+        f32, ``t`` per parameter. False where the flag is off, the
+        optimizer has no fused form, or a low-precision weight has no
+        f32 master (the per-parameter path takes those)."""
+        from ..config import flags
+        if not flags.trainer_fused_update:
+            return False
+        if self._fused_ops_cache is False:
+            self._fused_ops_cache = self._optimizer.fused_ops()
+        if self._fused_ops_cache is None:
+            return False
+        update = self._fused_ops_cache[1]
+        opt, upd0 = self._optimizer, self._updaters[0]
+        for _i, param in work:
+            w = param.data()._data
+            if w.dtype != torch.float32 and not (
+                    opt.multi_precision and _is_lowp_float(w.dtype)):
+                return False
+        for i, param in work:
+            if i not in upd0.states:
+                upd0.states[i] = opt.create_state_multi_precision(
+                    i, param.data()._data)
+        for i, _p in work:
+            opt._update_count(i)
+        f32 = lambda v: float(_np.float32(v))  # noqa: E731
+        rescale = f32(opt.rescale_grad)
+        with torch.no_grad():
+            for i, param in work:
+                w, g = param.data()._data, param.grad()._data
+                args = (f32(opt._get_lr(i)), f32(opt._get_wd(i)), rescale,
+                        opt._index_update_count[i])
+                if w.dtype != torch.float32:
+                    inner, w32 = upd0.states[i]
+                    update(w32, g.float(), _flat_state(inner), *args)
+                    w.copy_(w32)
+                else:
+                    update(w, g, _flat_state(upd0.states[i]), *args)
+        return True
+
+    def save_states(self, fname):
+        with open(fname, "wb") as f:
+            f.write(self._updaters[0].get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        with open(fname, "rb") as f:
+            blob = f.read()
+        self._updaters[0].set_states(
+            blob, device=lambda i: self._params[i].data()._data.device)
+        # the trainer's optimizer stays (it holds the Parameters)
+        self._updaters[0].optimizer = self._optimizer
+        self._fused_ops_cache = False
+
+    def save_checkpoint(self, step=None, blocking=True):
+        raise MXNetError("Trainer checkpoints need checkpoint.py, which is "
+                         "not ported yet (ROADMAP A6)")
+
+    def restore_checkpoint(self, step=None):
+        raise MXNetError("Trainer checkpoints need checkpoint.py, which is "
+                         "not ported yet (ROADMAP A6)")

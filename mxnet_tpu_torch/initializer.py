@@ -1,6 +1,6 @@
 """Weight initializers (counterpart of a subset of ``mxnet_tpu/initializer.py``):
 the name-suffix rules of ``Initializer`` and ``Uniform``, ``Normal``,
-``Zero``, ``One`` and ``Xavier``.
+``Zero``, ``One``, ``Constant`` and ``Xavier``.
 
 Each initializer draws from its own ``torch.Generator`` seeded by its
 ``seed`` argument (the JAX package draws from numpy's global state), on
@@ -14,7 +14,8 @@ import json
 
 import torch
 
-__all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Xavier",
+__all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
+           "Xavier",
            "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
@@ -147,6 +148,18 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, _, arr):
         self._init_one(_, arr)
+
+
+@register
+class Constant(Initializer):
+    """Every weight element set to ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        self._set(arr, torch.full(tuple(arr.shape), float(self.value)))
 
 
 @register

@@ -1,0 +1,13 @@
+"""Eager NDArray package (counterpart of ``mxnet_tpu/ndarray/``): the
+``NDArray`` type, its creation functions and one eager function per
+registered op (``nd.FullyConnected(...)``), with the ``contrib``
+namespace (``nd.contrib.FlashAttention(...)``)."""
+from .. import ops as _ops  # noqa: F401  (registers the ops)
+from .ndarray import (NDArray, arange, array, concat, empty,  # noqa: F401
+                      full, invoke, load, ones, save, waitall, zeros,
+                      zeros_like)
+from . import register as _register
+
+_register.populate(__name__)
+
+from . import contrib  # noqa: E402,F401

@@ -1,4 +1,5 @@
 """Operator library: importing this package registers every op."""
 from . import registry  # noqa: F401
-from . import nn, elemwise, matrix, pallas_flash, quant_serve  # noqa: F401
+from . import (nn, elemwise, matrix, reduce, init_ops,  # noqa: F401
+               pallas_flash, quant_serve)
 from ..kernels import mlp  # noqa: F401,E402  (_contrib_FusedScaleBiasGeLU)

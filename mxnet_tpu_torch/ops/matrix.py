@@ -1,7 +1,8 @@
 """Shape operators (counterpart of a subset of ``mxnet_tpu/ops/matrix.py``):
 Flatten, MXNet's Reshape with its special codes, transpose, expand_dims,
-squeeze, slice_axis, split and batch_dot. Each is a plain function on
-tensors that torch autograd differentiates."""
+squeeze, slice_axis, split, batch_dot, Concat, swapaxes, dot,
+pick (clip mode) and reshape_like. Each is a plain function on tensors
+that torch autograd differentiates."""
 from __future__ import annotations
 
 import torch
@@ -116,3 +117,59 @@ def batch_dot(lhs, rhs, *, transpose_a=False, transpose_b=False):
     a = lhs.transpose(-1, -2) if transpose_a else lhs
     b = rhs.transpose(-1, -2) if transpose_b else rhs
     return torch.matmul(a, b)
+
+
+@register("Concat")
+def concat(*data, dim=1):
+    return torch.cat(data, dim=dim)
+
+
+alias("Concat", "concat")
+
+
+@register("swapaxes")
+def swapaxes(data, *, dim1=0, dim2=0):
+    return data.transpose(dim1, dim2)
+
+
+alias("swapaxes", "SwapAxis")
+
+
+@register("dot")
+def dot(lhs, rhs, *, transpose_a=False, transpose_b=False):
+    """MXNet dot: the last axis of lhs against the first of rhs."""
+    a = lhs.permute(*reversed(range(lhs.dim()))) if transpose_a else lhs
+    b = rhs.permute(*reversed(range(rhs.dim()))) if transpose_b else rhs
+    if a.dim() == 1 and b.dim() == 1:
+        return torch.dot(a, b)
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [0]))
+
+
+@register("pick")
+def pick(data, index, *, axis=-1, keepdims=False, mode="clip"):
+    """``data`` at ``index`` along ``axis``, indices clipped to the
+    axis (the JAX op clips whatever ``mode`` says)."""
+    axis = axis % data.dim()
+    idx = index.to(torch.int64).clamp(0, data.shape[axis] - 1)
+    out = torch.gather(data, axis, idx.unsqueeze(axis))
+    return out if keepdims else out.squeeze(axis)
+
+
+@register("reshape_like")
+def reshape_like(lhs, rhs, *, lhs_begin=None, lhs_end=None, rhs_begin=None,
+                 rhs_end=None):
+    """lhs in rhs's shape; with begin/end ranges only lhs dims
+    [lhs_begin, lhs_end) take rhs dims [rhs_begin, rhs_end). rhs gives
+    its shape, not its values, so no gradient reaches it."""
+    def rng(b, e, ndim, what):
+        b = 0 if b is None else (b + ndim if b < 0 else b)
+        e = ndim if e is None else (e + ndim if e < 0 else e)
+        if not 0 <= b <= e <= ndim:
+            raise ValueError("reshape_like: invalid %s range [%s, %s) for "
+                             "%d dims" % (what, b, e, ndim))
+        return b, e
+
+    lb, le = rng(lhs_begin, lhs_end, lhs.dim(), "lhs")
+    rb, re = rng(rhs_begin, rhs_end, rhs.dim(), "rhs")
+    return lhs.reshape(tuple(lhs.shape[:lb]) + tuple(rhs.shape[rb:re])
+                       + tuple(lhs.shape[le:]))

@@ -2,9 +2,10 @@
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution
 (2-D, NCHW data and OIHW weights, through ``F.conv2d``), Pooling,
-BatchNorm, LayerNorm, Activation, LeakyReLU, softmax, Embedding and
-SoftmaxOutput, each with the JAX op's keyword names and contract rather
-than torch's defaults:
+BatchNorm, LayerNorm, InstanceNorm, Activation, LeakyReLU, softmax,
+log_softmax, Embedding, Dropout (the identity only) and SoftmaxOutput,
+each with the JAX op's keyword names and contract rather than torch's
+defaults:
 
 * BatchNorm returns the 5-tuple ``(out, batch_mean, batch_var,
   new_moving_mean, new_moving_var)``; the default eps is 1e-3, gamma is
@@ -303,19 +304,39 @@ def activation(data, *, act_type="relu"):
 @register("LeakyReLU")
 def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
                lower_bound=0.125, upper_bound=0.334):
-    """``leaky`` and the exact (erf) ``gelu``; the JAX op's other
-    act_types are not ported."""
+    """``leaky``, ``elu``, ``selu``, ``prelu`` (a per-channel ``gamma``
+    on axis 1) and the exact (erf) ``gelu``; ``rrelu`` draws from the
+    random key chain, which is not ported (ROADMAP A3b)."""
     if act_type == "leaky":
         return torch.where(data >= 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        a, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data >= 0, data, a * torch.expm1(data))
     if act_type == "gelu":
         return F.gelu(data)
-    raise MXNetError("LeakyReLU: act_type %r is not ported" % (act_type,))
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() == 1 and data.dim() > 1:
+            shape = [1] * data.dim()
+            shape[1] = g.shape[0]
+            g = g.reshape(shape)
+        return torch.where(data >= 0, data, g * data)
+    raise MXNetError("LeakyReLU: act_type %r is not ported (rrelu needs "
+                     "the random key chain, ROADMAP A3b)" % (act_type,))
 
 
 @register("softmax")
 def softmax(data, *, axis=-1, temperature=None, length=None):
     x = data / temperature if temperature else data
     return torch.softmax(x, dim=axis)
+
+
+@register("log_softmax")
+def log_softmax(data, *, axis=-1, temperature=None):
+    x = data / temperature if temperature else data
+    return torch.log_softmax(x, dim=axis)
 
 
 class _SoftmaxOutputGrad(torch.autograd.Function):
@@ -398,6 +419,28 @@ def layer_norm(data, gamma, beta, *, axis=-1, eps=1e-5,
     shape[axis] = data.shape[axis]
     return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape)
             + beta.reshape(shape))
+
+
+@register("InstanceNorm")
+def instance_norm(data, gamma, beta, *, eps=1e-3):
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(red, keepdim=True)
+    var = data.var(red, correction=0, keepdim=True)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return ((data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape)
+            + beta.reshape(shape))
+
+
+@register("Dropout")
+def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
+            _training=True):
+    """The identity at ``p <= 0`` or outside training (``mode``
+    'always' aside); a real mask needs the JAX package's threefry key
+    chain (``random.py``), which is not ported yet, so that raises."""
+    if (not _training and mode != "always") or p <= 0.0:
+        return data * 1.0
+    raise MXNetError("Dropout at p=%g in training needs random.py's key "
+                     "chain, not ported yet (ROADMAP A3b)" % p)
 
 
 def _maybe_take_rows(data, weight):

@@ -31,6 +31,7 @@ The other optimizers of the JAX package are not ported yet.
 from __future__ import annotations
 
 import math
+import pickle
 
 import numpy as _np
 import torch
@@ -127,7 +128,8 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
-                 sym=None, begin_num_update=0, multi_precision=False):
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -141,6 +143,9 @@ class Optimizer:
         self.idx2name = dict(param_idx2name or {})
         self.sym_info = ((sym.attr_dict(), sym.list_arguments())
                          if sym is not None else None)
+        # the Gluon Trainer's {index: Parameter}: lr_mult and wd_mult are
+        # read from the Parameter, live, in place of the name rules
+        self.param_dict = param_dict or {}
         self.multi_precision = multi_precision
         self.set_lr_mult({})
         self.set_wd_mult({})
@@ -202,9 +207,13 @@ class Optimizer:
                                    else num_update)
         else:
             lr = self.lr
+        if index in self.param_dict:
+            return lr * getattr(self.param_dict[index], "lr_mult", 1.0)
         return lr * self.lr_mult.get(self._name(index), 1.0)
 
     def _get_wd(self, index):
+        if index in self.param_dict:
+            return self.wd * getattr(self.param_dict[index], "wd_mult", 1.0)
         return self.wd * self.wd_mult.get(self._name(index), 1.0)
 
     def _clip_const(self):
@@ -330,6 +339,16 @@ class Adam(Optimizer):
         return (lambda w: (torch.zeros_like(w), torch.zeros_like(w))), upd
 
 
+def _state_to(state, fn):
+    """``fn`` applied to every tensor (or array) of an optimizer state:
+    None, one tensor, or a tuple of states."""
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_state_to(s, fn) for s in state)
+    return fn(state)
+
+
 class Updater:
     """Applies (index, grad, weight) to the optimizer, creating each
     index's state at its first update."""
@@ -337,6 +356,32 @@ class Updater:
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+
+    def get_states(self, dump_optimizer=False):
+        """The states as a pickle of numpy arrays, with the optimizer
+        (its ``param_dict`` left out) when ``dump_optimizer``."""
+        st = {k: _state_to(v, lambda t: t.detach().cpu().numpy().copy())
+              for k, v in self.states.items()}
+        if not dump_optimizer:
+            return pickle.dumps(st)
+        opt = self.optimizer
+        keep, opt.param_dict = opt.param_dict, {}
+        try:
+            return pickle.dumps((st, opt))
+        finally:
+            opt.param_dict = keep
+
+    def set_states(self, states, device=None):
+        """Load what :meth:`get_states` wrote; ``device(index)`` places
+        each index's state (the CPU when None)."""
+        obj = pickle.loads(states)
+        if isinstance(obj, tuple) and len(obj) == 2 \
+                and isinstance(obj[1], Optimizer):
+            obj, self.optimizer = obj
+        self.states = {
+            k: _state_to(v, lambda a, k=k: torch.from_numpy(a).to(
+                device(k) if device is not None else "cpu"))
+            for k, v in obj.items()}
 
     def __call__(self, index, grad, weight):
         if index not in self.states:

@@ -128,11 +128,41 @@ class Symbol:
     def __radd__(self, other):
         return self.__add__(other)
 
+    def __sub__(self, other):
+        return _sym_binary("broadcast_sub", "_minus_scalar", self, other)
+
+    def __rsub__(self, other):
+        return _sym_binary_r("broadcast_sub", "_rminus_scalar", self, other)
+
     def __mul__(self, other):
         return _sym_binary("broadcast_mul", "_mul_scalar", self, other)
 
     def __rmul__(self, other):
         return self.__mul__(other)
+
+    def __truediv__(self, other):
+        return _sym_binary("broadcast_div", "_div_scalar", self, other)
+
+    def __rtruediv__(self, other):
+        return _sym_binary_r("broadcast_div", "_rdiv_scalar", self, other)
+
+    def __neg__(self):
+        return invoke_sym("negative", [self], {})
+
+    # ------------------------------------------------------------ outputs
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            index = self.list_outputs().index(index)
+        if isinstance(index, slice):
+            return Symbol(self._entries[index])
+        return Symbol([self._entries[index]])
+
+    def __iter__(self):
+        for i in range(len(self._entries)):
+            yield self[i]
+
+    def __len__(self):
+        return len(self._entries)
 
     # ----------------------------------------------------------------- bind
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
@@ -232,12 +262,35 @@ def _sym_binary(op_name, scalar_op, lhs, rhs):
     return invoke_sym(scalar_op, [lhs], {"scalar": float(rhs)})
 
 
-def Variable(name, attr=None, shape=None):
-    """A graph input; ``shape`` (stored as ``__shape__``) seeds shape
-    inference."""
+def _sym_binary_r(op_name, rscalar_op, lhs, rhs):
+    """rhs OP lhs, rhs a scalar or a Symbol (the reflected operators)."""
+    if isinstance(rhs, Symbol):
+        return invoke_sym(op_name, [rhs, lhs], {})
+    return invoke_sym(rscalar_op, [lhs], {"scalar": float(rhs)})
+
+
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, stype=None, **kwargs):
+    """A graph input. ``shape`` (stored as ``__shape__``) seeds shape
+    inference; the other keywords become the JAX package's dunder
+    attrs (``__dtype__`` by its numpy name, ``__init__`` as the
+    initializer's ``dumps()``)."""
     attrs = dict(attr or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
+    if dtype is not None:
+        attrs["__dtype__"] = str(getattr(dtype, "name", None)
+                                 or str(dtype).replace("torch.", ""))
+    if lr_mult is not None:
+        attrs["__lr_mult__"] = lr_mult
+    if wd_mult is not None:
+        attrs["__wd_mult__"] = wd_mult
+    if init is not None:
+        attrs["__init__"] = init.dumps() if hasattr(init, "dumps") \
+            else str(init)
+    if stype is not None:
+        attrs["__storage_type__"] = stype
+    attrs.update(kwargs)
     return Symbol([(Node(None, name, [], {}, attrs), 0)])
 
 

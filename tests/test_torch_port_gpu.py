@@ -5,8 +5,8 @@ and (for the training kernels and ``bn_act``) backward, the wrappers'
 checks and launch counts, the card's ``torch._int_mm`` against the
 CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
 decoder in generate mode and its speculative step, a 2-layer GPT and a
-ResNet-20 in f32 and bf16 trained by ``Module.fit``) on the card against
-the CPU.
+ResNet-20 in f32 and bf16 trained by ``Module.fit``, the example's GPT
+trained through Gluon) on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -639,6 +639,103 @@ def test_gpt_fit_on_the_card_matches_the_cpu(cuda):
     for k, v in params["cpu"].items():
         torch.testing.assert_close(params[str(cuda)][k], v, rtol=0,
                                    atol=1e-4)
+
+
+def _gluon_step_grads(net, ctx, xb, yb, lag, masks=None):
+    """One forward and backward of the Gluon GPT on (xb, yb): the loss,
+    every gradient and each block's ReLU input, on the CPU. ``masks``
+    (one per block) replace each MLP's ReLU by ``x * mask``: the same
+    forward up to the sign decisions, with the decisions given."""
+    acts = [blk.mlp1.act for blk in net.blocks]
+    seen = []
+    for act, m in zip(acts, masks or [None] * len(acts)):
+        act.register_forward_pre_hook(
+            lambda _b, args: seen.append(args[0].detach().cpu()))
+        if m is not None:
+            act.hybrid_forward = (lambda F, x, _m=m: x * _m.to(x.device))
+    try:
+        x, y = mt.nd.array(xb, ctx=ctx), mt.nd.array(yb, ctx=ctx)
+        with mt.autograd.record():
+            loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(x)[:, lag:, :], y[:, lag:]).mean()
+        loss.backward()
+    finally:
+        for act in acts:
+            act._forward_pre_hooks.clear()
+            act.__dict__.pop("hybrid_forward", None)
+    grads = {n[len(net.prefix):]: p.grad()._data.detach().cpu().clone()
+             for n, p in net.collect_params().items()}
+    return float(loss.asnumpy()), grads, seen
+
+
+def test_gluon_gpt_hybridized_on_the_card_matches_the_cpu(cuda):
+    """The example's GPT through Gluon (``tests/gluon_gpt.py``),
+    hybridized, at dim 128, 4 heads, 2 layers, T 128, batch 2, two Adam
+    steps at tier auto from the same weights: every step on the card
+    launches ``flash_attn`` once a layer and ``take_rows`` once, and
+    never ``scale_bias_act`` (Gluon does not fuse bias and ReLU) or
+    ``flash_fwd``. Step 1's gradients on the card are within 1e-3 of
+    each tensor's largest magnitude of the CPU's taking the card's ReLU
+    decisions (a ReLU input within f32 noise of 0 may open on one side
+    only: at most 4 such flips, each within 1e-4 of its tensor's
+    largest magnitude from 0); the losses end within 1e-4 relative and
+    the parameters within 1e-4 of the CPU's (plain versions)."""
+    from gluon_gpt import gpt_classes, make_copy_batch
+    _a, _b, GPT = gpt_classes(mt, mt.gluon, mt.gluon.nn)
+    vocab, dim, heads, layers, T, B, lag = 512, 128, 4, 2, 128, 2, 17
+    rng = np.random.RandomState(0)
+    batches = [make_copy_batch(rng, B, T, vocab, lag) for _ in range(2)]
+    runs, nets, p0 = {}, {}, None
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        net = nets[ctx.device_type] = GPT(vocab, dim, heads, layers, T)
+        net.initialize(mt.init.Xavier(seed=0), ctx=ctx)
+        net.hybridize()
+        with mt.autograd.predict_mode():
+            net(mt.nd.array(batches[0][0], ctx=ctx))
+        rel = {n[len(net.prefix):]: p
+               for n, p in net.collect_params().items()}
+        if p0 is None:
+            p0 = {k: p.data().asnumpy() for k, p in rel.items()}
+        mt.gluon.utils.params_from_reference(net, p0)
+        trainer = mt.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 3e-4, "wd": 0.01,
+                                    "epsilon": 1e-4})
+        losses, grads1, pre1 = [], None, None
+        for step, (xb, yb) in enumerate(batches):
+            before = (tmlp.launches, tattn.launches_by_kernel["flash_attn"],
+                      ttake.launches, tpf.launches)
+            loss, grads, pre = _gluon_step_grads(net, ctx, xb, yb, lag)
+            trainer.step(1)
+            losses.append(loss)
+            if step == 0:
+                grads1, pre1 = grads, pre
+            after = (tmlp.launches, tattn.launches_by_kernel["flash_attn"],
+                     ttake.launches, tpf.launches)
+            if ctx.device_type == "gpu":
+                assert [a - b for a, b in zip(after, before)] == \
+                    [0, layers, 1, 0]
+        runs[ctx.device_type] = (losses, {k: p.data()._data.cpu().clone()
+                                          for k, p in rel.items()},
+                                 grads1, pre1)
+    (lc, pc, _gc, prc), (lg, pg, gg, prg) = runs["cpu"], runs["gpu"]
+    assert len(prc) == len(prg) == layers
+    flips = [(a > 0) != (b > 0) for a, b in zip(prc, prg)]
+    assert sum(int(f.sum()) for f in flips) <= 4
+    for a, b, f in zip(prc, prg, flips):
+        if f.any():
+            far = torch.maximum(a.abs(), b.abs())[f].max()
+            assert float(far / a.abs().max().clamp_min(1e-30)) <= 1e-4
+    cpu = nets["cpu"]
+    mt.gluon.utils.params_from_reference(cpu, p0)
+    _l, want, _p = _gluon_step_grads(cpu, mt.cpu(), *batches[0], lag,
+                                      masks=[(b > 0).float() for b in prg])
+    for k, v in want.items():
+        err = float((gg[k] - v).abs().max()
+                    / v.abs().max().clamp_min(1e-30))
+        assert err <= 1e-3, (k, err)
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for k, v in pc.items():
+        torch.testing.assert_close(pg[k], v, rtol=0, atol=1e-4)
 
 
 # ---------------------------------------------------------- int8_dequant
