@@ -241,8 +241,46 @@ Phases; any failure raises and the script exits non-zero:
    gradients held as ``resnet_card_vs_cpu`` states (the backward's
    rounding sensitivity at these weights bounds what can be held), the
    ReLU sign flips counted.
-14. The ``kernels`` JSON line, the card's nvidia-smi line, and last the
-   result line ``{"ok": true, "device": {...}}``.
+14. Gluon image training. First the random key chain: after
+   ``random.seed(0)`` uniform, randint, Dropout masks (eager and in a
+   hybridized block), shuffles and multinomial draws on the card equal
+   the same draws on the CPU bitwise, normal and exponential draws
+   within 4 f32 ulp. Then the main path: ResNet-50 v1 from
+   ``gluon.model_zoo.vision`` (224x224, 1000 classes, Xavier(in, 2) from
+   seed 0), hybridized, trained in f32 through Gluon as a user trains
+   it: 320 uint8 HWC images and labels from numpy RandomState(0) in an
+   ``ArrayDataset`` whose images pass RandomFlipLeftRight, ToTensor and
+   Normalize, a shuffled ``DataLoader`` (batch 32, last batch
+   discarded), ``autograd.record()`` -> ``SoftmaxCrossEntropyLoss`` ->
+   ``backward()`` -> ``Trainer.step(32)`` (SGD lr 0.05, momentum 0.9, wd
+   1e-4), 10 steps. Counts are zeroed just before and read just after:
+   every step launches no kernel and the tier dispatches nothing (Gluon
+   fuses no BatchNorm+ReLU, in either package). Every loss finite, every
+   parameter f32; on one batch repeated six times the loss falls. Then
+   the step p50 over steps 2-10 and images/s, model FLOPs (24.5 GFLOP an
+   image) over the f32 peak, the DataLoader's host time a batch and the
+   loop's images/s with it, forward/backward/update (CUDA events), the
+   busy share, device time by kind and top kernels (profiler), the peak
+   memory, beside phase 13's f32 batch-32 ``Module.fit`` step. Then
+   ``save_parameters`` and ``resnet50_v1().load_parameters(path,
+   ctx=gpu(0))``: inference outputs bitwise equal, and the file's bytes
+   those of a save of the same values from CPU tensors. Then the
+   DataLoader with ``num_workers=2`` (forked workers batchify to numpy,
+   the main process places the batch on the card): bitwise the in-process
+   batches. Then ``resnet18_v1(thumbnail=True, classes=10)`` at 32x32,
+   batch 2, on the card against the CPU with phase 9's limits, the CPU
+   differentiating through the card's ReLU decisions. Last B1's op
+   surface ``_contrib_FusedBNAct`` at the 9 site classes of ResNet-50,
+   f32 at batch 32 and bf16 at batch 128, in training and inference,
+   eagerly (``nd.contrib``) and in a hybridized block (``F.contrib``):
+   one B1 launch a call (counts zeroed just before, read after), no
+   fallback; outputs and moving statistics within phase 3's tolerances
+   of the op's plain version, gradients within them of the plain vjp;
+   the eager op's inference time summed over the 49 sites beside
+   phase 3's and phase 12's kernel totals.
+15. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
+   among its paths), the card's nvidia-smi line, and last the result
+   line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
 either it fails before printing a result.
@@ -335,10 +373,22 @@ def check_kernel(x, sc, sh, r):
         ulp = torch.maximum(y.float().abs(), ref.float().abs()) * 2 ** -7
         bad = diff > ulp + 1e-5
     if bool(bad.any()):
-        raise RuntimeError("bn_act kernel disagrees with its plain version "
-                           "at %s %s residual=%s: max abs err %g"
-                           % (tuple(x.shape), x.dtype, r is not None,
-                              float(diff.max())))
+        # what tells a systematic fault from a one-off corrupted value:
+        # how many elements, the worst one's inputs, and a second launch
+        i = int(diff.flatten().argmax())
+        ch = i // (x.shape[2] * x.shape[3]) % x.shape[1]
+        again = bn_act._launch(x, sc, sh, r, "relu", bn_act.DEFAULT_CONFIG)
+        torch.cuda.synchronize()
+        raise RuntimeError(
+            "bn_act kernel disagrees with its plain version at %s %s "
+            "residual=%s: max abs err %g in %d of %d elements; worst at "
+            "flat index %d (channel %d): kernel %r, plain %r, x %r, sc %r, "
+            "sh %r; a second launch on the same inputs is off by %g"
+            % (tuple(x.shape), x.dtype, r is not None, float(diff.max()),
+               int(bad.sum()), x.numel(), i, ch,
+               float(y.flatten()[i]), float(ref.flatten()[i]),
+               float(x.flatten()[i]), float(sc[ch]), float(sh[ch]),
+               float((again.float() - ref.float()).abs().max())))
     return float(diff.max())
 
 
@@ -3687,6 +3737,733 @@ def resnet_train_path(dev, card, report):
     return launches
 
 
+# ------------------------------------------ Gluon image training (phase 14)
+GLUON_IMG = dict(batch=32, steps=10, repeat_steps=6, workers_batches=2,
+                 cut_batch=2, cut_size=32, cut_classes=10)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+RANDOM_ULP = 4          # normal/exponential draws, card vs CPU (f32 ulp)
+B1_OP_BATCHES = (("float32", 32), ("bfloat16", 128))
+
+
+def reset_all_counts():
+    from mxnet_tpu_torch.kernels import int8_dequant as dq
+    reset_train_counts()
+    bn_act.reset_launches()
+    dq.reset_launches()
+
+
+def all_counts():
+    """Every kernel's launch count."""
+    from mxnet_tpu_torch.kernels import int8_dequant as dq
+    counts = dict(train_counts())
+    counts.update(bn_act.launches_by_kernel)
+    counts["int8_dequant"] = dq.launches
+    return counts
+
+
+def f32_ulps(a, b):
+    """Distance of two f32 arrays in units in the last place."""
+    def ordered(x):
+        i = np.asarray(x, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return np.abs(ordered(a) - ordered(b))
+
+
+def key_chain_phase(dev, report):
+    """After ``random.seed(0)`` the same draws on the card and on the
+    CPU: uniform, randint, Dropout masks (eager and in a hybridized
+    block), shuffles and multinomial bitwise; normal and exponential
+    within RANDOM_ULP f32 ulp (the card's log1p and sqrt)."""
+    def draws(ctx):
+        mt.random.seed(0)
+        x = mt.nd.array(np.linspace(1, 3, 64 * 64).reshape(64, 64), ctx=ctx)
+        drop = mt.gluon.nn.HybridSequential()
+        drop.add(mt.gluon.nn.Dropout(0.5), mt.gluon.nn.Dropout(0.25))
+        drop.hybridize()
+        xg = x.copy()
+        xg.attach_grad()
+        with mt.autograd.record():
+            hyb = drop(xg)
+        probs = mt.nd.array(np.random.RandomState(3).dirichlet(
+            np.ones(50), 40), ctx=ctx)
+        out = {
+            "uniform": mt.nd.random.uniform(-1, 2, shape=(200000,), ctx=ctx),
+            "randint": mt.nd.random.randint(0, 1000, shape=(200000,),
+                                            ctx=ctx),
+            "dropout": mt.nd.Dropout(x, p=0.5, mode="always"),
+            "dropout_hybridized": hyb,
+            "shuffle": mt.nd.random.shuffle(mt.nd.array(
+                np.arange(20000).reshape(4000, 5), ctx=ctx)),
+            "multinomial": mt.nd.random.multinomial(probs, shape=(8,)),
+            "normal": mt.nd.random.normal(shape=(200000,), ctx=ctx),
+            "exponential": mt.nd.random.exponential(shape=(200000,),
+                                                    ctx=ctx)}
+        out = {k: v.asnumpy() for k, v in out.items()}
+        out["state"] = np.asarray(mt.random.get_state()[0])
+        return out
+    card, cpu = draws(mt.gpu(0)), draws(mt.cpu())
+    ulps = {}
+    for k in card:
+        if k in ("normal", "exponential"):
+            ulps[k] = int(f32_ulps(card[k], cpu[k]).max())
+            if ulps[k] > RANDOM_ULP:
+                raise RuntimeError("random %s: card and CPU %d ulp apart (at "
+                                   "most %d)" % (k, ulps[k], RANDOM_ULP))
+        elif not np.array_equal(card[k], cpu[k]):
+            raise RuntimeError("random %s: the card's draws are not the "
+                               "CPU's" % k)
+    log("key chain after seed(0), card against CPU: uniform, randint, "
+        "Dropout masks (eager and hybridized), shuffle, multinomial and the "
+        "chain state bitwise; normal and exponential within %s f32 ulp"
+        % json.dumps(ulps))
+    report["gluon_image"]["key_chain_ulps"] = ulps
+
+
+def image_set(n, seed=0):
+    """uint8 HWC 224x224 images and labels in [0, 1000) from numpy
+    RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (n, 224, 224, 3)).astype(np.uint8)
+    labels = rng.randint(0, 1000, (n,)).astype(np.float32)
+    return images, labels
+
+
+def image_dataset(images, labels, flip=True):
+    """ArrayDataset on the host, its images through RandomFlipLeftRight
+    (when ``flip``), ToTensor and Normalize."""
+    T = mt.gluon.data.vision.transforms
+    chain = ([T.RandomFlipLeftRight()] if flip else []) \
+        + [T.ToTensor(), T.Normalize(IMAGENET_MEAN, IMAGENET_STD)]
+    ds = mt.gluon.data.ArrayDataset(
+        mt.nd.array(images, ctx=mt.cpu(), dtype="uint8"), labels)
+    return ds.transform_first(T.Compose(chain))
+
+
+def gluon_snapshot(net):
+    return {k: p.data()._data.detach().clone()
+            for k, p in gluon_params(net).items()}
+
+
+def zoo_train(net, batches, ctx, trainer, loss_fn):
+    """The Gluon loop over ``batches`` (an iterator of (x, y)): fetch,
+    place on ``ctx``, ``record`` -> loss -> ``backward`` -> ``step``.
+    Returns per step the loss (read on the card), the host time of the
+    fetch and of the step, and the launches the step made; every
+    parameter must stay f32."""
+    losses, fetch_ms, step_ms, census = [], [], [], []
+    params = list(net.collect_params().values())
+    while True:
+        t0 = time.perf_counter()
+        try:
+            x, y = next(batches)
+        except StopIteration:
+            break
+        x, y = x.as_in_context(ctx), y.as_in_context(ctx)
+        t1 = time.perf_counter()
+        before = all_counts()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(float(loss.mean().asscalar()))     # syncs the card
+        t2 = time.perf_counter()
+        after = all_counts()
+        census.append({k: after[k] - before[k] for k in after
+                       if after[k] != before[k]})
+        fetch_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        bad = [p.name for p in params if p.data().dtype != torch.float32]
+        if bad:
+            raise RuntimeError("gluon image: parameters left f32: %s"
+                               % bad[:3])
+    return losses, fetch_ms, step_ms, census
+
+
+def zoo_step_profile(net, x, y, trainer, loss_fn):
+    """One hybridized step: forward (with the loss), backward and update
+    with CUDA events (median of 3), then torch.profiler over one more:
+    busy share, device time by kind of kernel and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def step(ev=None):
+        if ev:
+            ev[0].record()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        if ev:
+            ev[1].record()
+        loss.backward()
+        if ev:
+            ev[2].record()
+        trainer.step(x.shape[0])
+        if ev:
+            ev[3].record()
+    parts = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(ev)
+        torch.cuda.synchronize()
+        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      ev[2].elapsed_time(ev[3]),
+                      (time.perf_counter() - t0) * 1e3))
+    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(k[1] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    classes = {}
+    for k in kernels:
+        c = kernel_class(k[0])
+        classes[c] = classes.get(c, 0.0) + k[1] / 1e3
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return {"forward_ms": med[0], "backward_ms": med[1], "update_ms": med[2],
+            "wall_ms": med[3], "profiled_wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
+            "kernel_launches": sum(k[2] for k in kernels),
+            "classes_ms": classes,
+            "top_kernels": [{"name": k[0][:100], "ms": k[1] / 1e3,
+                             "calls": k[2]} for k in top]}
+
+
+def params_round_trip(net, x, dev, report):
+    """``save_parameters`` then ``resnet50_v1().load_parameters(path,
+    ctx=gpu(0))``: the reloaded net's inference outputs bitwise the
+    original's, and the file's bytes those of a save of the same values
+    from CPU tensors (the format writes kCPU, 0 from any device)."""
+    out_dir = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "gluon_resnet50_v1.params")
+    host_path = os.path.join(out_dir, "gluon_resnet50_v1.host.params")
+    t0 = time.perf_counter()
+    net.save_parameters(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = mt.gluon.model_zoo.vision.resnet50_v1(classes=1000)
+    again.load_parameters(path, ctx=mt.gpu(0))
+    load_s = time.perf_counter() - t0
+    again.hybridize()
+    with mt.autograd.predict_mode():
+        a = net(x).data
+        b = again(x).data
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise RuntimeError("gluon: the reloaded net's outputs are not the "
+                           "saved net's (max abs diff %g)"
+                           % float((a - b).abs().max()))
+    mt.nd.save(host_path, {k: mt.nd.NDArray(p.data()._data.detach().cpu())
+                           for k, p in
+                           net._collect_params_with_prefix().items()})
+    with open(path, "rb") as f1, open(host_path, "rb") as f2:
+        same = f1.read() == f2.read()
+    size = os.path.getsize(path)
+    log("gluon .params round trip: %.1f MB saved in %.2fs from the card, "
+        "loaded onto a fresh resnet50_v1 on the card in %.2fs; inference "
+        "outputs bitwise equal; file bytes equal to a save from CPU "
+        "tensors: %s" % (size / 1e6, save_s, load_s, same))
+    if not same:
+        raise RuntimeError("gluon: the .params bytes saved from the card "
+                           "differ from a save of the same values on the "
+                           "host")
+    report["gluon_image"]["params_file"] = {
+        "bytes": size, "save_s": save_s, "load_s": load_s}
+    del again
+    for p in (path, host_path):
+        os.remove(p)
+
+
+class ReluTape:
+    """Stands in for the ``Activation`` op: records each relu input
+    (``record``), or applies recorded ReLU decisions while recording the
+    inputs it sees (``replay``)."""
+
+    def __init__(self):
+        self.op = mt.ops.registry.get("Activation")
+        self.fn = self.op.fn
+        self.seen, self.masks = [], []
+
+    def __enter__(self):
+        self.op.fn = self._call
+        return self
+
+    def __exit__(self, *a):
+        self.op.fn = self.fn
+
+    def _call(self, data, *, act_type="relu"):
+        if act_type != "relu":
+            return self.fn(data, act_type=act_type)
+        self.seen.append(data.detach().float().cpu())
+        if not self.masks:
+            return self.fn(data, act_type=act_type)
+        m = self.masks.pop(0)
+        return data * m.to(data.device, data.dtype)
+
+
+def zoo_cut_check(report):
+    """``resnet18_v1(thumbnail=True, classes=10)`` at 32x32, batch 2, on
+    the card against the CPU from the same weights: two SGD-momentum
+    steps (lr 1e-4), the CPU differentiating through the card's ReLU
+    decisions; phase 9's limits: step-1 gradients within 1e-3 of each
+    tensor's largest magnitude, losses within 1e-5 relative, parameters
+    within 1e-4, at most 4 ReLU inputs of opposite sign, each within
+    1e-4 of its tensor's largest magnitude from 0."""
+    P = GLUON_IMG
+    rng = np.random.RandomState(5)
+    X = rng.randn(2 * P["cut_batch"], 3, P["cut_size"], P["cut_size"]) \
+        .astype(np.float32)
+    Y = rng.randint(0, P["cut_classes"], 2 * P["cut_batch"]) \
+        .astype(np.float32)
+    sgd = {"learning_rate": 1e-4, "momentum": 0.9, "wd": 0.01}
+    p0, runs, card_masks = None, {}, []
+    for name, ctx in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        net = mt.gluon.model_zoo.vision.resnet18_v1(
+            thumbnail=True, classes=P["cut_classes"])
+        net.initialize(mt.init.Xavier(factor_type="in", magnitude=2,
+                                      seed=0), ctx=ctx)
+        with mt.autograd.predict_mode():
+            net(mt.nd.array(X[:1], ctx=ctx))
+        if p0 is None:
+            p0 = {k: v.cpu() for k, v in gluon_snapshot(net).items()}
+        gluon_load(net, p0)
+        net.hybridize()
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, grads, seen = [], None, []
+        for s in range(2):
+            b = slice(s * P["cut_batch"], (s + 1) * P["cut_batch"])
+            x, y = mt.nd.array(X[b], ctx=ctx), mt.nd.array(Y[b], ctx=ctx)
+            with ReluTape() as tape:
+                if name == "cpu":
+                    tape.masks = [(m > 0).float() for m in card_masks[s]]
+                with mt.autograd.record():
+                    loss = loss_fn(net(x), y)
+            if name == "card":
+                card_masks.append(tape.seen)
+            seen.append(tape.seen)
+            loss.backward()
+            if s == 0:
+                grads = {k: p.grad()._data.detach().cpu().clone()
+                         for k, p in gluon_params(net).items()
+                         if p.grad_req != "null"}
+            trainer.step(P["cut_batch"])
+            losses.append(float(loss.mean().asscalar()))
+        runs[name] = (losses, grads, {k: v.cpu() for k, v in
+                                      gluon_snapshot(net).items()}, seen)
+        del net, trainer
+    (lg, gg, pg, sg), (lc, gc_, pc, sc_) = runs["card"], runs["cpu"]
+    flips, flip_far = relu_flips({
+        "step%d/relu%d" % (s, i): (a, b)
+        for s in range(2) for i, (a, b) in enumerate(zip(sc_[s], sg[s]))})
+    flips = {k: v for k, v in flips.items() if v}
+    grad_err = {k: float((gg[k] - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30))
+                for k, v in gc_.items()}
+    param_err = {k: float((pg[k] - v).abs().max()) for k, v in pc.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    wg = max(grad_err, key=grad_err.get)
+    wp = max(param_err, key=param_err.get)
+    log("gluon resnet18_v1 (thumbnail, 10 classes, 32x32, batch 2), card "
+        "vs CPU through the card's ReLU decisions: step-1 gradients within "
+        "%.3g of the tensor's largest magnitude (worst %s); ReLU inputs of "
+        "opposite sign %s, the farthest %.3g of its tensor's largest "
+        "magnitude from 0; after 2 SGD-momentum steps at lr 1e-4 losses "
+        "within %.3g relative, parameters within %.3g (worst %s)"
+        % (grad_err[wg], wg, json.dumps(flips), flip_far, loss_err,
+           param_err[wp], wp))
+    report["gluon_image"].update(
+        cut_grad_err_worst=grad_err[wg], cut_relu_flips=flips,
+        cut_relu_flip_far=flip_far, cut_loss_err=loss_err,
+        cut_param_err_worst=param_err[wp])
+    if grad_err[wg] > 1e-3 or param_err[wp] > 1e-4 or loss_err > 1e-5:
+        raise RuntimeError("gluon resnet18: card and CPU disagree at cut "
+                           "size: gradients %g (%s), losses %g, parameters "
+                           "%g (%s)" % (grad_err[wg], wg, loss_err,
+                                        param_err[wp], wp))
+    check_relu_flips(flips, flip_far, "gluon resnet18 cut size")
+
+
+def workers_check(images, labels, dev, report):
+    """The DataLoader with ``num_workers=2`` while the card is in use:
+    forked workers batchify to numpy, the main process places each batch
+    on the card; the batches equal ``num_workers=0``'s bitwise."""
+    ds = image_dataset(images, labels, flip=False)
+    got = {}
+    for workers in (0, 2):
+        loader = mt.gluon.data.DataLoader(ds, batch_size=GLUON_IMG["batch"],
+                                          num_workers=workers)
+        t0 = time.perf_counter()
+        done = []
+
+        def run(loader=loader):
+            try:
+                done.append([[a.as_in_context(mt.gpu(0)) for a in b]
+                             for b in loader])
+            except BaseException as e:     # raised below, in this thread
+                done.append(e)
+        # a worker that dies leaves a Pool waiting for ever: bound the wait
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        th.join(timeout=300)
+        if not done:
+            raise RuntimeError("gluon DataLoader with %d workers gave no "
+                               "batches within 300 s" % workers)
+        if isinstance(done[0], BaseException):
+            raise done[0]
+        batches = done[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+        got[workers] = (batches, ms)
+    (b0, ms0), (b2, ms2) = got[0], got[2]
+    same = len(b0) == len(b2) and all(
+        torch.equal(a.data, b.data) and a.data.device.type == "cuda"
+        for x0, x2 in zip(b0, b2) for a, b in zip(x0, x2))
+    log("gluon DataLoader, num_workers=2 beside a card in use: %d batches "
+        "of %d on the card, bitwise num_workers=0's: %s; host time a batch "
+        "%.1f ms (2 workers, pool start included) vs %.1f ms (in process)"
+        % (len(b2), GLUON_IMG["batch"], same, ms2, ms0))
+    if not same:
+        raise RuntimeError("gluon DataLoader: the workers' batches are not "
+                           "the main process's")
+    report["gluon_image"]["workers"] = {"batch_ms_2": ms2, "batch_ms_0": ms0}
+
+
+def b1_op_case(form, chw, dtype, batch, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = chw[0]
+    shape = (batch,) + tuple(chw)
+    return dict(
+        x=torch.randn(shape, generator=g, device=dev).to(dtype),
+        r=(torch.randn(shape, generator=g, device=dev).to(dtype)
+           if form == "bn_act_res" else None),
+        gamma=torch.rand(C, generator=g, device=dev) + 0.5,
+        beta=torch.randn(C, generator=g, device=dev),
+        mm=0.3 * torch.randn(C, generator=g, device=dev),
+        mv=torch.rand(C, generator=g, device=dev) + 0.5,
+        cot=torch.randn(shape, generator=g, device=dev).to(dtype))
+
+
+def b1_close(got, want, dtype_name, what, rel_to_max=False):
+    """Phase 3's tolerance: f32 within atol/rtol 1e-5; bf16 within one
+    bf16 ulp plus 1e-5. Gradients (``rel_to_max``) relative to the
+    tensor's largest magnitude."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    scale = want.abs().max().clamp_min(1e-30) if rel_to_max \
+        else want.abs()
+    if dtype_name == "float32":
+        bad = diff > 1e-5 + 1e-5 * scale
+    else:
+        bad = diff > torch.maximum(got.abs(), want.abs()) * 2 ** -7 \
+            + 1e-5 * (scale if rel_to_max else 1.0)
+    if bool(bad.any()):
+        raise RuntimeError("_contrib_FusedBNAct %s: max abs err %g"
+                           % (what, float(diff.max())))
+    return float(diff.max())
+
+
+def b1_op_plain(d, training):
+    """The plain version: the op's coefficients and statistics
+    (``bn_act._coefs``), the kernel's plain version on them, and the vjp
+    of the unfused composition (``bn_act._reference``) the op's backward
+    is defined by -> (out, moving mean, moving var, grads of x, gamma,
+    beta[, r])."""
+    leaves = [d["x"], d["gamma"], d["beta"]] \
+        + ([d["r"]] if d["r"] is not None else [])
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    kw = dict(eps=1e-3, momentum=0.9, fix_gamma=False,
+              use_global_stats=False, training=training)
+    with torch.enable_grad():
+        ref = bn_act._reference(leaves[0], leaves[1], leaves[2], d["mm"],
+                                d["mv"], leaves[3] if len(leaves) > 3
+                                else None, "relu", **kw)
+        grads = torch.autograd.grad(ref, leaves, d["cot"])
+    sc, sh, _m, _v, new_mean, new_var = bn_act._coefs(
+        d["x"], d["gamma"], d["beta"], d["mm"], d["mv"], **kw)
+    out = bn_act._plain_epilogue(d["x"], sc, sh, d["r"], "relu")
+    return [out, new_mean, new_var] + list(grads)
+
+
+def b1_op_eager(d, training):
+    """``nd.contrib.FusedBNAct`` (recorded when ``training``) -> the same
+    list as ``b1_op_plain``, the moving statistics as written back."""
+    nd = mt.nd
+    x, g, b = (nd.NDArray(d[k].clone()) for k in ("x", "gamma", "beta"))
+    mm, mv = nd.NDArray(d["mm"].clone()), nd.NDArray(d["mv"].clone())
+    ins = [x, g, b, mm, mv] + ([nd.NDArray(d["r"].clone())]
+                               if d["r"] is not None else [])
+    diff = [x, g, b] + ins[5:]
+    for v in diff:
+        v.attach_grad()
+    with mt.autograd.record(train_mode=training):
+        out = nd.contrib.FusedBNAct(*ins, act="relu", fix_gamma=False,
+                                    eps=1e-3, momentum=0.9)
+        (out * nd.NDArray(d["cot"])).sum().backward()
+    return [t.detach() for t in [out.data, mm.data, mv.data]
+            + [v.grad.data for v in diff]]
+
+
+class FusedBNActBlock(mt.gluon.HybridBlock):
+    """A HybridBlock around ``F.contrib.FusedBNAct`` with BatchNorm's four
+    parameters, the moving statistics as aux."""
+
+    def __init__(self, channels, **kw):
+        super().__init__(**kw)
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(channels,))
+            self.beta = self.params.get("beta", shape=(channels,))
+            self.running_mean = self.params.get(
+                "running_mean", shape=(channels,), grad_req="null")
+            self.running_var = self.params.get(
+                "running_var", shape=(channels,), grad_req="null")
+
+    def hybrid_forward(self, F, x, *res, gamma, beta, running_mean,
+                       running_var):
+        return F.contrib.FusedBNAct(x, gamma, beta, running_mean,
+                                    running_var, *res, act="relu",
+                                    fix_gamma=False, eps=1e-3, momentum=0.9)
+
+
+def b1_op_block(d, training):
+    """The same through ``F.contrib.FusedBNAct`` in a hybridized block."""
+    blk = FusedBNActBlock(d["x"].shape[1], prefix="fusedbnact_")
+    blk.initialize(ctx=mt.gpu(0))
+    for name, key in (("gamma", "gamma"), ("beta", "beta"),
+                      ("running_mean", "mm"), ("running_var", "mv")):
+        getattr(blk, name).set_data(mt.nd.NDArray(d[key].clone()))
+    blk.hybridize()
+    ins = [mt.nd.NDArray(d["x"].clone())] + (
+        [mt.nd.NDArray(d["r"].clone())] if d["r"] is not None else [])
+    for v in ins:
+        v.attach_grad()
+    with mt.autograd.record(train_mode=training):
+        out = blk(*ins)
+        (out * mt.nd.NDArray(d["cot"])).sum().backward()
+    grads = [ins[0].grad.data, blk.gamma.grad().data, blk.beta.grad().data]
+    grads += [v.grad.data for v in ins[1:]]
+    return [t.detach() for t in [out.data, blk.running_mean.data().data,
+                                 blk.running_var.data().data] + grads]
+
+
+def b1_op_phase(sites, dev, report, b1_train_totals, serve_totals):
+    """B1's op surface, ``_contrib_FusedBNAct``: at the 9 site classes of
+    ResNet-50, f32 at batch 32 and bf16 at batch 128, with the residual
+    where the class has it, in training (recorded) and in inference,
+    eagerly (``nd.contrib``) and in a hybridized block (``F.contrib``),
+    each call launching B1 exactly once, no fallback; outputs and moving
+    statistics to phase 3's tolerances against the plain version, the
+    gradients against its vjp. Then the eager op's time per class in
+    inference (the coefficients and the kernel), summed over the 49
+    sites, beside phase 3's and phase 12's kernel totals."""
+    classes = sorted(set(sites))
+    max_err = {"bn_act": 0.0, "bn_act_res": 0.0}
+    tier.reset_stats()
+    bn_act.reset_launches()
+    calls = {"bn_act": 0, "bn_act_res": 0}
+    names = ("out", "moving_mean", "moving_var", "dx", "dgamma", "dbeta",
+             "dr")
+    for dtype_name, batch in B1_OP_BATCHES:
+        dtype = getattr(torch, dtype_name)
+        for i, (form, chw) in enumerate(classes):
+            d = b1_op_case(form, chw, dtype, batch, dev, 300 + i)
+            for training in (True, False):
+                want = b1_op_plain(d, training)
+                for how, fn in (("eager", b1_op_eager),
+                                ("F.contrib", b1_op_block)):
+                    before = bn_act.launches
+                    got = fn(d, training)
+                    torch.cuda.synchronize()
+                    calls[form] += 1
+                    if bn_act.launches - before != 1:
+                        raise RuntimeError(
+                            "_contrib_FusedBNAct (%s) launched B1 %d times "
+                            "in one call" % (how, bn_act.launches - before))
+                    for n, g_, w in zip(names, got, want):
+                        what = "%s %s %s %s training=%s %s" % (
+                            how, form, (batch,) + chw, n, training,
+                            dtype_name)
+                        e = b1_close(g_, w, str(w.dtype).replace(
+                            "torch.", ""), what,
+                            rel_to_max=n.startswith("d"))
+                        if n == "out":
+                            max_err[form] = max(max_err[form], e)
+                del got
+            del d, want
+    torch.cuda.synchronize()
+    launches = dict(bn_act.launches_by_kernel)
+    stats = tier.stats()
+    if launches != calls or stats["fallback"]:
+        raise RuntimeError("_contrib_FusedBNAct: launches %s for %s calls, "
+                           "fallback %s" % (launches, calls,
+                                            stats["fallback"]))
+    # times: the eager op in inference, per class, summed over the sites
+    op_totals = {}
+    for dtype_name, batch in B1_OP_BATCHES:
+        dtype = getattr(torch, dtype_name)
+        tot = 0.0
+        for i, (form, chw) in enumerate(classes):
+            d = b1_op_case(form, chw, dtype, batch, dev, 300 + i)
+            ins = [mt.nd.NDArray(d[k]) for k in ("x", "gamma", "beta",
+                                                  "mm", "mv")]
+            if d["r"] is not None:
+                ins.append(mt.nd.NDArray(d["r"]))
+            with mt.autograd.predict_mode():
+                ms = time_ms(lambda: mt.nd.contrib.FusedBNAct(
+                    *ins, act="relu", fix_gamma=False), dev)
+            tot += ms * sum(1 for s in sites if s == (form, chw))
+            del d, ins
+        op_totals[dtype_name] = tot
+    kern32 = serve_totals["float32/all"]["kernel_ms"]
+    kern16 = b1_train_totals["all"]["kernel_ms"]
+    log("_contrib_FusedBNAct: %d calls (%s), each one B1 launch, no "
+        "fallback; outputs, moving statistics and gradients within phase "
+        "3's tolerances of the plain version (max abs err of the outputs "
+        "%s); the eager op in inference summed over the 49 sites: f32 "
+        "batch 32 %.4f ms (phase 3's kernel alone %.4f ms), bf16 batch 128 "
+        "%.4f ms (phase 12's kernel alone %.4f ms)"
+        % (sum(calls.values()), json.dumps(calls), json.dumps(max_err),
+           op_totals["float32"], kern32, op_totals["bfloat16"], kern16))
+    report["gluon_image"]["b1_op"] = {
+        "calls": calls, "launches": launches, "max_abs_err": max_err,
+        "op_ms_49_sites": op_totals, "kernel_ms_49_sites": {
+            "float32": kern32, "bfloat16": kern16}}
+    return launches, max_err, op_totals
+
+
+def gluon_image_path(dev, card, report, sites, b1_train_totals,
+                     serve_totals):
+    """Phase 14: ResNet-50 v1 from gluon.model_zoo trained through Gluon
+    at full width (the main path), the key chain on the card, the
+    DataLoader's workers, the .params round trip, card against CPU at
+    cut size, and B1's op surface ``_contrib_FusedBNAct``."""
+    P = GLUON_IMG
+    ctx = mt.gpu(0)
+    report["gluon_image"] = {}
+    key_chain_phase(dev, report)
+    released(dev)
+    n_img = P["batch"] * P["steps"]
+    t0 = time.perf_counter()
+    images, labels = image_set(n_img)
+    mt.random.seed(0)
+    net = mt.gluon.model_zoo.vision.resnet50_v1(classes=1000)
+    net.initialize(mt.init.Xavier(factor_type="in", magnitude=2, seed=0),
+                   ctx=ctx)
+    with mt.autograd.predict_mode():
+        net(mt.nd.zeros((1, 3, 224, 224), ctx=ctx))
+    p0 = gluon_snapshot(net)
+    net.hybridize()
+    log("gluon model_zoo resnet50_v1 (224x224, 1000 classes): %.1f M f32 "
+        "parameters in %d tensors, Xavier(in, 2) from seed 0; %d uint8 "
+        "images in %.1fs" % (sum(v.numel() for v in p0.values()) / 1e6,
+                             len(p0), n_img, time.perf_counter() - t0))
+    ds = image_dataset(images, labels)
+    loader = mt.gluon.data.DataLoader(ds, batch_size=P["batch"],
+                                      shuffle=True, last_batch="discard")
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.05, "momentum": 0.9,
+                                "wd": 1e-4})
+    # -- the main path: counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_counts()
+    losses, fetch_ms, step_ms, census = zoo_train(net, iter(loader), ctx,
+                                                  trainer, loss_fn)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    stats = tier.stats()
+    mem = torch.cuda.max_memory_allocated(dev)
+    log("gluon image path, resnet50_v1 hybridized, f32 batch %d, %d steps: "
+        "losses %s; launches %s, tier %s"
+        % (P["batch"], len(losses), ["%.4f" % v for v in losses],
+           json.dumps(counts), json.dumps(stats["dispatch"])))
+    if len(losses) != P["steps"] or any(census) or any(counts.values()) \
+            or stats["dispatch"] or stats["fallback"]:
+        raise RuntimeError("gluon image path: expected %d steps launching "
+                           "no kernel (Gluon fuses no BatchNorm+ReLU), got "
+                           "%d steps, census %s, tier %s"
+                           % (P["steps"], len(losses), census[:2], stats))
+    if not np.isfinite(losses).all():
+        raise RuntimeError("gluon image path: losses not finite: %s"
+                           % losses)
+    x_last = None
+    for x_last, y_last in loader:
+        break
+    x_last = x_last.as_in_context(ctx)
+    y_last = y_last.as_in_context(ctx)
+    # -- one batch repeated: the loss falls
+    gluon_load(net, p0)
+    trainer_rep = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.05, "momentum": 0.9,
+                                    "wd": 1e-4})
+    rep = zoo_train(net, iter([(x_last, y_last)] * P["repeat_steps"]), ctx,
+                    trainer_rep, loss_fn)[0]
+    log("gluon image path, one batch %d times: losses %s"
+        % (P["repeat_steps"], ["%.4f" % v for v in rep]))
+    if not falling(rep):
+        raise RuntimeError("gluon image path: the loss did not fall on a "
+                           "repeated batch: %s" % rep)
+    # -- the numbers
+    prof = zoo_step_profile(net, x_last, y_last, trainer_rep, loss_fn)
+    p50 = float(np.median(step_ms[1:]))
+    loop = float(np.median([a + b for a, b in zip(fetch_ms[1:],
+                                                  step_ms[1:])]))
+    fetch = float(np.median(fetch_ms[1:]))
+    flops = RESNET50_TRAIN_FLOPS_PER_IMG * P["batch"]
+    share = flops / (p50 / 1e3) / F32_FLOPS
+    fit_p50 = report["resnet_train"]["f32"]["step_ms_p50"]
+    log("gluon resnet50_v1 train step, f32 batch %d: p50 %.2f ms over steps "
+        "2-%d (%.1f images/s; %.3f TFLOP model FLOPs a step = %.1f%% of the "
+        "67 TFLOP/s f32 peak); with the DataLoader's fetch %.2f ms a batch "
+        "(host: flip, ToTensor, Normalize, stack, copy to the card) the loop "
+        "runs %.2f ms a batch (%.1f images/s); Module.fit's f32 batch-%d "
+        "step in this run (phase 13) %.2f ms; peak memory %.2f GB  [%s]"
+        % (P["batch"], p50, len(step_ms), P["batch"] / (p50 / 1e3),
+           flops / 1e12, 100 * share, fetch, loop,
+           P["batch"] / (loop / 1e3), RESNET_TRAIN["f32_batch"], fit_p50,
+           mem / 1e9, card))
+    log("  one step: forward %.2f ms, backward %.2f ms, update %.2f ms (CUDA "
+        "events), wall %.2f ms; profiled: %.2f ms wall, %.2f ms device (busy "
+        "%.1f%%), %d kernel launches; device time by kind (ms) %s"
+        % (prof["forward_ms"], prof["backward_ms"], prof["update_ms"],
+           prof["wall_ms"], prof["profiled_wall_ms"], prof["device_ms"],
+           100 * prof["device_busy_share"], prof["kernel_launches"],
+           json.dumps({k: round(v, 3) for k, v in sorted(
+               prof["classes_ms"].items(), key=lambda kv: -kv[1])})))
+    log("  top kernels: " + "; ".join(
+        "%s %.2f ms x%d" % (k["name"][:70], k["ms"], k["calls"])
+        for k in prof["top_kernels"][:8]))
+    report["gluon_image"].update(
+        losses=losses, losses_repeated=rep, launches=counts, census=census,
+        tier_stats=stats, perf={
+            "step_ms": step_ms, "fetch_ms": fetch_ms, "step_ms_p50": p50,
+            "img_per_s": P["batch"] / (p50 / 1e3), "loop_ms_p50": loop,
+            "loop_img_per_s": P["batch"] / (loop / 1e3),
+            "fetch_ms_p50": fetch, "model_flops_per_step": flops,
+            "model_flops_share_of_f32_peak": share,
+            "peak_memory_bytes": mem, "module_fit_f32_step_ms_p50": fit_p50,
+            "profile": prof})
+    params_round_trip(net, x_last, dev, report)
+    del net, trainer, trainer_rep, x_last, y_last, loader
+    released(dev)
+    workers_check(images[:P["batch"] * P["workers_batches"]],
+                  labels[:P["batch"] * P["workers_batches"]], dev, report)
+    del images, ds
+    zoo_cut_check(report)
+    released(dev)
+    return b1_op_phase(sites, dev, report, b1_train_totals, serve_totals)
+
+
 # ------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3752,20 +4529,28 @@ def main():
     b1t_err, b1t_rows, b1t_tot = b1_train_phase(sites, dev)
     report["train_b1_kernel"] = {"classes": b1t_rows, "totals": b1t_tot}
     train_b1 = resnet_train_path(dev, card, report)
+    op_launches, op_err, op_ms = gluon_image_path(dev, card, report, sites,
+                                                  b1t_tot, totals)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
         # B1 on two paths: f32 serving (times summed over a batch-32
         # forward's sites) and bf16 training (over a batch-128 forward's)
+        # and its op surface (phase 14), whose calls run the bf16 training
+        # shapes among others: phase 12's kernel times are its times
         paths = {"serve": (launches[form], max_err[form + "/float32"],
                            totals["float32/" + form], [32, "float32"]),
                  "train": (train_b1[form], b1t_err[form], b1t_tot[form],
-                           [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
+                           [RESNET_TRAIN["bf16_batch"], "bfloat16"]),
+                 "_contrib_FusedBNAct": (
+                     op_launches[form], op_err[form], b1t_tot[form],
+                     [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                        "library_ms": None}
                    for p, (n, e, t, bd) in paths.items()}
+        by_path["_contrib_FusedBNAct"]["op_ms_49_sites"] = op_ms
         main_ = max(by_path.values(), key=lambda b: b["launches"])
         kernels.append({"name": form, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[form],

@@ -8,8 +8,10 @@ paged KV cache, speculative decoding with an int8 draft), and trains symbolic mo
 executor's forward and backward, the fused train step with bf16
 compute over f32 master weights, SGD with ``multi_precision`` and Adam,
 learning-rate schedules), and trains eagerly through the NDArray,
-``autograd`` and Gluon (``Block``, ``HybridBlock``, ``nn``, ``loss``,
-``Trainer``) layers.
+``autograd`` and Gluon (``Block``, ``HybridBlock``, ``nn`` with the
+convolution layers, ``loss``, ``Trainer``, ``data``, ``model_zoo``)
+layers, with the JAX package's random key chain (``random``) and its
+``.params`` files.
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 the legacy flash forward ``flash_fwd`` and the int8 epilogue
@@ -40,6 +42,7 @@ from . import kernels  # noqa: F401
 from . import serving  # noqa: F401
 from . import serve  # noqa: F401
 from . import quant  # noqa: F401
+from . import random  # noqa: F401
 from . import ndarray  # noqa: F401
 from . import ndarray as nd  # noqa: F401
 from . import autograd  # noqa: F401

@@ -17,15 +17,20 @@ semantics where they differ from torch's defaults:
   adds to it, 'null' does nothing. A variable the heads do not reach
   keeps its old gradient. A written variable is marked ``fresh``; the
   Gluon Trainer reads that mark.
+* :func:`grad` returns new gradient NDArrays and, as the JAX package's
+  (which runs ``backward`` into temporary sinks), writes the buffer of
+  every other marked variable its backward reaches.
 * ``grad(create_graph=True)`` raises NotImplementedError, as in the JAX
   package.
 
-One difference stays: torch frees a graph's saved tensors when a
-backward without ``retain_graph=True`` ends (the JAX tape keeps them
-as long as its arrays live), so a second backward through the same
-graph needs ``retain_graph=True`` on the first and raises MXNetError
-otherwise. Freeing them keeps a training step's activations from
-living on into the next step's forward.
+One difference stays, by choice: torch frees a graph's saved tensors
+when a backward without ``retain_graph=True`` ends, so a second
+backward (or ``grad``) through the same graph needs ``retain_graph=True``
+on the first and raises MXNetError otherwise. The JAX package's tape
+frees nothing: there a second backward through the same graph runs and
+writes the gradients again. Keeping every graph alive would keep a
+training step's activations alive into the next step's forward, which
+the port's Gluon training does not pay for.
 """
 from __future__ import annotations
 
@@ -218,8 +223,11 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables``, returned as
-    new NDArrays (zeros where a variable is not reached); the variables'
-    own gradient buffers are left alone."""
+    new NDArrays (zeros where a variable is not reached). As in the JAX
+    package, whose ``grad`` runs ``backward`` into temporary sinks, the
+    backward also writes the buffer of every other marked variable it
+    reaches, by that variable's ``grad_req``; the buffers of
+    ``variables`` themselves are left alone."""
     from .ndarray import ndarray as _nd
     if create_graph:
         raise NotImplementedError("create_graph=True (higher-order eager "
@@ -228,12 +236,17 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if single:
         variables = [variables]
     outs, gouts = _heads(heads, head_grads)
+    asked = {id(v) for v in variables}
     live = [v for v in variables if v._data.requires_grad]
+    others = [v for v in _live_variables() if id(v) not in asked]
     got = {}
-    if outs and live:
-        res = _grads(outs, [v._data for v in live], gouts,
+    if outs and (live or others):
+        res = _grads(outs, [v._data for v in live + others], gouts,
                      bool(retain_graph))
         got = {id(v): g for v, g in zip(live, res)}
+        for v, g in zip(others, res[len(live):]):
+            if g is not None:
+                _accumulate(v._ag, g)
     sinks = []
     for v in variables:
         g = got.get(id(v))

@@ -6,6 +6,8 @@ DAG eagerly, op by op, in topological order (:func:`_graph_eval_fn`),
 under torch autograd when a gradient is wanted. Auxiliary states
 (BatchNorm's moving statistics) are explicit inputs and their updates
 explicit outputs, committed after each training forward, as there.
+Every forward draws one key from the random chain for the graph's
+random ops (Dropout), as there.
 
 :class:`Executor` is ``bind``'s result: ``forward(is_train=...)`` and
 ``backward(out_grads=None)`` (the default head gradient is ones, as in
@@ -21,6 +23,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from . import random as _random
 from .base import MXNetError, normalize_dtype
 from .config import override
 from .context import resolve_device
@@ -221,9 +224,13 @@ class Executor:
                     raise MXNetError("unknown %s %r" % (what, k))
 
     def _run(self, training, leaves=None):
+        """One evaluation of the graph. It draws one key from the random
+        chain, which the graph's random ops fold, as the JAX package's
+        executor feeds one to every forward."""
         vals = dict(self.arg_dict)
         vals.update(leaves or {})
-        return self._eval_fn(vals, self.aux_dict, training)
+        with _random.trace_scope(_random.next_key()):
+            return self._eval_fn(vals, self.aux_dict, training)
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph; with ``is_train`` and arguments that want a

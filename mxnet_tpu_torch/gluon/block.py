@@ -8,7 +8,9 @@
 * hybridized (after ``hybridize()``, on NDArrays): the whole forward,
   children included, runs once on raw tensors with ``F`` a namespace of
   registry functions, with no NDArray wrapper per op (the counterpart of
-  the JAX package's traced ``_F_JAX``). Parameters are bound from the
+  the JAX package's traced ``_F_JAX``). Each call draws one key from
+  the random chain, which its random ops fold (``random.trace_scope``),
+  as the JAX package feeds one to its program. Parameters are bound from the
   call's trace context; BatchNorm's moving statistics are written back
   after the call (``_apply_aux``). Under ``config.compute_dtype`` the
   float32 parameters and inputs are cast to the compute dtype inside the
@@ -28,8 +30,8 @@ Deferred shapes are completed layer by layer: each layer's
 the forward reaches it, and the parameter is allocated there. No probe
 forward runs (the JAX package's ``jax.eval_shape`` has no cost; a
 forward here would). ``save_parameters``, ``load_parameters`` and
-``export`` need the ``.params`` format, which is not ported yet
-(ROADMAP A7), and raise.
+``export`` write and read the ``.params`` format, the JAX package's
+bytes.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 
 from ..base import MXNetError
 from .. import autograd as _autograd
+from .. import random as _random
 from ..ndarray import ndarray as _nd
 from ..ops import registry as _registry
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
@@ -370,16 +373,61 @@ class Block:
             child.hybridize(active, **kwargs)
 
     def save_parameters(self, filename):
-        raise MXNetError("save_parameters needs the .params format, which "
-                         "is not ported yet (ROADMAP A7)")
+        """Write this block's parameters to a ``.params`` file under
+        their structural names (``features.0.weight``), the JAX
+        package's bytes."""
+        params = self._collect_params_with_prefix()
+        _nd.save(filename, {key: val.data() for key, val in params.items()
+                            if val._data is not None})
 
     def load_parameters(self, filename, ctx=None, allow_missing=False,
                         ignore_extra=False, cast_dtype=False):
-        raise MXNetError("load_parameters needs the .params format, which "
-                         "is not ported yet (ROADMAP A7)")
+        """Set this block's parameters from a ``.params`` file: one of
+        structural names (``save_parameters``) or of full names
+        (``ParameterDict.save``, ``export``). Values take each
+        parameter's dtype (``cast_dtype`` changes nothing, as in the JAX
+        package); a parameter keeps its device, and one not yet
+        allocated lands on ``ctx`` (default ``current_context()``)."""
+        from ..context import cpu
+        loaded = _nd.load(filename, ctx=cpu())
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if loaded and not any("." in k for k in loaded.keys()):
+            # full names: restore the prefix only if the file's names
+            # were stripped of it
+            stripped = not any(k.split(":", 1)[-1].startswith(self.prefix)
+                               for k in loaded.keys()) if self.prefix \
+                else False
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra,
+                                       self.prefix if stripped else "")
+            return
+        if not allow_missing:
+            for name in params.keys():
+                if name not in loaded:
+                    raise IOError("Parameter '%s' is missing in file '%s'"
+                                  % (name, filename))
+        from .parameter import _set_loaded
+        for name in loaded:
+            if name not in params:
+                if not ignore_extra:
+                    raise IOError(
+                        "Parameter '%s' loaded from '%s' is not present in "
+                        "the Block" % (name, filename))
+                continue
+            _set_loaded(params[name], loaded[name], ctx)
 
     save_params = save_parameters
     load_params = load_parameters
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
 
     def __call__(self, *args):
         for hook in self._forward_pre_hooks:
@@ -448,7 +496,9 @@ class HybridBlock(Block):
     def infer_shape(self, *args):
         """Complete every deferred parameter shape from example inputs:
         one forward without gradient, each layer completing its own."""
-        with _autograd.pause(), torch.no_grad():
+        # a fixed key: completing shapes draws nothing from the chain
+        with _autograd.pause(), torch.no_grad(), \
+                _random.trace_scope(_random.prng_key(0)):
             self._call_cached(*args) if self._active else self(*args)
 
     # --------------------------------------------------------------- forward
@@ -505,13 +555,29 @@ class HybridBlock(Block):
                     a = a.to(cdt_t)
             call.append(a)
         tctx = _TraceCtx(training, cdt_t)
-        with _autograd.grad_mode(), _trace_scope(tctx):
+        # one key a call, random op inside or not, as the JAX package
+        # feeds its compiled program; its random ops fold it
+        with _autograd.grad_mode(), _trace_scope(tctx), \
+                _random.trace_scope(_random.next_key()):
             out = self.forward(*_unflatten(tree, iter(call)))
         _apply_aux(tctx.aux_updates)
         return _wrap(out)
 
     # ---------------------------------------------------------------- export
     def export(self, path, epoch=0):
-        raise MXNetError("export writes a .params file, a format that is "
-                         "not ported yet (ROADMAP A7); the symbol JSON is "
-                         "block(mxnet_tpu_torch.sym.var('data')).tojson()")
+        """Write ``path-symbol.json`` and ``path-NNNN.params`` (every
+        parameter as ``arg:<full name>``, moving statistics included,
+        as the JAX package writes them); returns the Symbol."""
+        from .. import symbol as _sym
+        data = _sym.Variable("data")
+        with _autograd.pause():
+            out = self(data)
+        if isinstance(out, (list, tuple)):
+            out = _sym.Group(list(out))
+        with open("%s-symbol.json" % path, "w") as f:
+            f.write(out.tojson())
+        _nd.save("%s-%04d.params" % (path, epoch),
+                 {"arg:%s" % name: param.data()
+                  for name, param in self.collect_params().items()
+                  if param._data is not None})
+        return out

@@ -372,10 +372,50 @@ class ParameterDict:
             setattr(v, name, value)
 
     def save(self, filename, strip_prefix=""):
-        raise MXNetError("ParameterDict.save (the .params format) is not "
-                         "ported yet (ROADMAP A7)")
+        """Write every parameter to a ``.params`` file under its full
+        name less ``strip_prefix``."""
+        arg_dict = {}
+        for param in self.values():
+            weight = param.data()
+            if not param.name.startswith(strip_prefix):
+                raise ValueError(
+                    "Prefix '%s' is to be stripped before saving, but "
+                    "Parameter's name '%s' does not start with it"
+                    % (strip_prefix, param.name))
+            arg_dict[param.name[len(strip_prefix):]] = weight
+        _nd.save(filename, arg_dict)
 
     def load(self, filename, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):
-        raise MXNetError("ParameterDict.load (the .params format) is not "
-                         "ported yet (ROADMAP A7)")
+        """Set parameters from a ``.params`` file (an ``arg:``/``aux:``
+        tag before a name is dropped; ``restore_prefix`` goes before
+        it). A parameter keeps its device; one not yet allocated lands on
+        ``ctx`` (default ``current_context()``)."""
+        from ..context import cpu
+        arg_dict = _nd.load(filename, ctx=cpu())
+        arg_dict = {restore_prefix + k.split(":", 1)[-1]: v
+                    for k, v in arg_dict.items()}
+        if not allow_missing:
+            for name in self.keys():
+                if name not in arg_dict:
+                    raise IOError("Parameter '%s' is missing in file '%s'"
+                                  % (name, filename))
+        for name, arr in arg_dict.items():
+            if name not in self._params:
+                if not ignore_extra:
+                    raise IOError(
+                        "Parameter '%s' loaded from file '%s' is not present "
+                        "in ParameterDict" % (name, filename))
+                continue
+            _set_loaded(self[name], arr, ctx)
+
+
+def _set_loaded(param, arr, ctx):
+    """Set a value read from a file: a parameter keeps its device; one
+    not yet allocated lands on ``ctx`` (the first of a list; default
+    ``current_context()``)."""
+    if param._data is None and param._deferred_init is None:
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        arr = arr.as_in_context(ctx or current_context())
+    param.set_data(arr)

@@ -258,3 +258,30 @@ def fused_bn_act(data, gamma, beta, moving_mean, moving_var, residual=None,
               training=bool(training))
     return _BnAct.apply(data, gamma, beta, moving_mean, moving_var,
                         residual, kw, act, cfg)
+
+
+# ------------------------------------------------- the registered op surface
+from ..ops.registry import register as _register  # noqa: E402
+from ..ops.registry import set_op_meta as _set_op_meta  # noqa: E402
+
+
+@_register("_contrib_FusedBNAct", num_outputs=5)
+def _contrib_fused_bn_act(data, gamma, beta, moving_mean, moving_var,
+                          residual=None, *, eps=1e-3, momentum=0.9,
+                          fix_gamma=True, use_global_stats=False,
+                          act="relu", _training=True):
+    """BatchNorm -> (+residual) -> act as a registered op
+    (``nd.contrib.FusedBNAct``, ``F.contrib.FusedBNAct``): the five
+    outputs of :func:`fused_bn_act`, the activated one visible, the
+    moving statistics written back through the aux slots (3, 4). A CUDA
+    tensor launches the kernel (or raises); a CPU tensor takes its plain
+    version."""
+    return fused_bn_act(data, gamma, beta, moving_mean, moving_var,
+                        residual, eps=eps, momentum=momentum,
+                        fix_gamma=fix_gamma,
+                        use_global_stats=use_global_stats, act=act,
+                        training=_training)
+
+
+_set_op_meta("_contrib_FusedBNAct", aux_inputs=(3, 4), aux_outputs=(3, 4),
+             num_visible_outputs=1)

@@ -1,7 +1,8 @@
 """Eager NDArray package (counterpart of ``mxnet_tpu/ndarray/``): the
 ``NDArray`` type, its creation functions and one eager function per
 registered op (``nd.FullyConnected(...)``), with the ``contrib``
-namespace (``nd.contrib.FlashAttention(...)``)."""
+namespace (``nd.contrib.FlashAttention(...)``) and the samplers
+(``nd.random.uniform(...)``)."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .ndarray import (NDArray, arange, array, concat, empty,  # noqa: F401
                       full, invoke, load, ones, save, waitall, zeros,
@@ -11,3 +12,4 @@ from . import register as _register
 _register.populate(__name__)
 
 from . import contrib  # noqa: E402,F401
+from . import random  # noqa: E402,F401

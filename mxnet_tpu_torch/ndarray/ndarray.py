@@ -17,8 +17,8 @@ step shows the step, where a JAX array would not.
 ``array``, ``zeros``, ``ones``, ``full``, ``empty`` and ``arange`` place
 their result on ``ctx``, else on ``current_context()``, which is
 ``cuda:0`` unless a ``with mxnet_tpu_torch.cpu():`` scope says
-otherwise; without a card that raises. ``save`` and ``load`` (the
-``.params`` format) are not ported yet (ROADMAP A7) and raise.
+otherwise; without a card that raises. ``save`` and ``load`` write and
+read the ``.params`` format (``serialization.py``).
 """
 from __future__ import annotations
 
@@ -419,6 +419,13 @@ def _norm_index(key):
 # op invocation
 # ---------------------------------------------------------------------------
 
+def _recorded(tensors):
+    """Whether autograd records this call: recording, and a floating
+    input that a gradient reaches."""
+    return _autograd.is_recording() and any(
+        t.requires_grad and t.is_floating_point() for t in tensors)
+
+
 def invoke(op_name, inputs, params, out=None):
     """Run registry op ``op_name`` on the NDArrays ``inputs``: recorded
     inside ``autograd.record()``, else under ``torch.no_grad()``. An
@@ -435,7 +442,14 @@ def invoke(op_name, inputs, params, out=None):
     if "ctx" in op.param_names:
         params["ctx"] = resolve_device(req_ctx)
     with _autograd.grad_mode():
-        out_data = op.fn(*tensors, **params)
+        if op.is_random and _recorded(tensors):
+            # as the JAX package records a random op: one key from the
+            # chain, which the op's draws fold (site 0, 1, ...)
+            from .. import random as _random
+            with _random.trace_scope(_random.next_key()):
+                out_data = op.fn(*tensors, **params)
+        else:
+            out_data = op.fn(*tensors, **params)
     outs = out_data if isinstance(out_data, tuple) else (out_data,)
     if isinstance(req_ctx, Context):
         ctx = req_ctx
@@ -533,13 +547,45 @@ def waitall():
         torch.cuda.synchronize()
 
 
+def _to_record(a):
+    """An NDArray as a host numpy array for the file; a dtype outside the
+    mshadow table (bfloat16, bool, ...) raises as the format does."""
+    from .serialization import _to_flag
+    name = str(a.dtype).replace("torch.", "")
+    if a.dtype in (torch.bfloat16, torch.bool):
+        _to_flag(name)
+    return a.asnumpy()
+
+
 def save(fname, data):
-    raise MXNetError("NDArray save (the .params format, "
-                     "ndarray/serialization.py) is not ported yet "
-                     "(ROADMAP A7)")
+    """Write NDArrays (one, a list, or a name -> NDArray dict) in the
+    ``.params`` format (``serialization.py``), the JAX package's and
+    MXNet's bytes."""
+    from . import serialization as _ser
+    if isinstance(data, NDArray):
+        data = [data]
+    if isinstance(data, dict):
+        keys = list(data.keys())
+        arrays = [data[k] for k in keys]
+    else:
+        keys = []
+        arrays = list(data)
+    _ser.save_file(fname, [_to_record(a) for a in arrays], keys)
 
 
-def load(fname):
-    raise MXNetError("NDArray load (the .params format, "
-                     "ndarray/serialization.py) is not ported yet "
-                     "(ROADMAP A7)")
+def load(fname, ctx=None):
+    """Read a ``.params`` file: a list of NDArrays, or a name -> NDArray
+    dict when the file names its arrays. They land on ``ctx`` (default
+    ``current_context()``); 64-bit data narrows to 32 bits as
+    :func:`array` narrows it."""
+    from . import serialization as _ser
+    arrays, names = _ser.load_file(fname)
+    out = []
+    for rec in arrays:
+        if not isinstance(rec, _np.ndarray):
+            raise MXNetError("%s holds a %s array; sparse storage is not "
+                             "ported yet (ROADMAP A4)" % (fname, rec[0]))
+        out.append(array(rec, ctx=ctx, dtype=_dtype_of(rec, None)))
+    if not names:
+        return out
+    return dict(zip(names, out))

@@ -1,12 +1,14 @@
 """Shape operators (counterpart of a subset of ``mxnet_tpu/ops/matrix.py``):
 Flatten, MXNet's Reshape with its special codes, transpose, expand_dims,
-squeeze, slice_axis, split, batch_dot, Concat, swapaxes, dot,
-pick (clip mode) and reshape_like. Each is a plain function on tensors
-that torch autograd differentiates."""
+squeeze, slice_axis, split, batch_dot, Concat, stack, pad, swapaxes,
+dot, pick (clip mode) and reshape_like. Each is a plain function on
+tensors that torch autograd differentiates."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from ..base import MXNetError
 from .registry import alias, register
 
 
@@ -125,6 +127,40 @@ def concat(*data, dim=1):
 
 
 alias("Concat", "concat")
+
+
+@register("stack")
+def stack(*data, axis=0):
+    return torch.stack(data, dim=axis)
+
+
+@register("pad")
+def pad(data, *, mode="constant", pad_width=None, constant_value=0.0):
+    """MXNet's flat ``pad_width`` (before, after per axis). ``edge`` and
+    ``reflect`` (numpy's modes) pad at most the last three axes, as
+    MXNet's op pads the spatial ones."""
+    pw = [(int(pad_width[2 * i]), int(pad_width[2 * i + 1]))
+          for i in range(data.dim())]
+    padded = [i for i, p in enumerate(pw) if p != (0, 0)]
+    flat = []
+    for lo, hi in reversed(pw[padded[0]:] if padded else []):
+        flat += [lo, hi]
+    if not flat:
+        return data * 1
+    if mode == "constant":
+        return F.pad(data, flat, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise MXNetError("pad: unsupported mode %r" % (mode,))
+    k = data.dim() - padded[0]
+    if k > 3 or padded[0] == 0:
+        raise MXNetError("pad: %s mode pads at most the last three axes "
+                         "of a batched tensor, got pad_width %s"
+                         % (mode, tuple(pad_width)))
+    return F.pad(data, flat, mode="replicate" if mode == "edge"
+                 else "reflect")
+
+
+alias("pad", "Pad")
 
 
 @register("swapaxes")

@@ -1,9 +1,11 @@
 """Neural-network operators of the serving and training slices.
 
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution
-(2-D, NCHW data and OIHW weights, through ``F.conv2d``), Pooling,
+and Deconvolution (1-, 2- and 3-D, NC... data and O/I-major weights,
+through ``F.conv{n}d`` / ``F.conv_transpose{n}d``), Pooling (1-3 D),
 BatchNorm, LayerNorm, InstanceNorm, Activation, LeakyReLU, softmax,
-log_softmax, Embedding, Dropout (the identity only) and SoftmaxOutput,
+log_softmax, Embedding, Dropout (its mask from the random key chain)
+and SoftmaxOutput,
 each with the JAX op's keyword names and contract rather than torch's
 defaults:
 
@@ -34,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
 from .registry import alias, register, set_op_meta
 
@@ -65,33 +68,115 @@ alias("FullyConnected", "fully_connected")
 # Convolution
 # ---------------------------------------------------------------------------
 
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _spatial(data, kernel, op):
+    n = len(kernel)
+    if n not in _CONV or data.dim() != n + 2:
+        raise MXNetError("%s: kernel %s needs %d-D NC%s data, got %d-D"
+                         % (op, tuple(kernel), n + 2, "DHW"[3 - n:],
+                            data.dim()))
+    return n
+
+
 @register("Convolution")
 def convolution(data, weight, bias=None, *, kernel, num_filter,
                 stride=None, dilate=None, pad=None, num_group=1,
                 no_bias=False, layout=None):
-    n = len(kernel)
-    if n != 2 or data.dim() != 4:
-        raise MXNetError("Convolution: the port supports 2-D NCHW "
-                         "convolution only, got kernel %s on %d-D data"
-                         % (tuple(kernel), data.dim()))
+    """1-, 2- or 3-D convolution of NC(D)(H)W data with O I/g k... weights
+    (``layout`` is taken and ignored, as in the JAX op)."""
+    n = _spatial(data, kernel, "Convolution")
     stride = tuple(s if s else 1 for s in _tuplize(stride, n))
     dilate = tuple(d if d else 1 for d in _tuplize(dilate, n))
-    return F.conv2d(data, weight, None if no_bias else bias, stride,
+    return _CONV[n](data, weight, None if no_bias else bias, stride,
                     _tuplize(pad, n), dilate, int(num_group))
+
+
+@register("Deconvolution")
+def deconvolution(data, weight, bias=None, *, kernel, num_filter,
+                  stride=None, dilate=None, pad=None, adj=None,
+                  target_shape=None, num_group=1, no_bias=True, layout=None):
+    """Transposed convolution, weights ``(in, num_filter / num_group,
+    k...)``; output ``(in - 1) * stride - 2 * pad + dilate * (k - 1) + 1
+    + adj``. A ``target_shape`` with a nonzero entry replaces pad and adj
+    as the JAX op derives them (``total = stride * (in - 1) + dilated k
+    - target``, ``adj = total % 2``, ``pad = (total + 1) // 2``)."""
+    n = _spatial(data, kernel, "Deconvolution")
+    stride = tuple(s if s else 1 for s in _tuplize(stride, n))
+    dilate = tuple(d if d else 1 for d in _tuplize(dilate, n))
+    pad_ = _tuplize(pad, n)
+    adj_ = _tuplize(adj, n)
+    spatial = tuple(data.shape[2:])
+    if target_shape and any(int(t) > 0 for t in target_shape):
+        target = tuple(int(t) for t in target_shape)
+        dk = tuple(dilate[i] * (kernel[i] - 1) + 1 for i in range(n))
+        total = tuple(stride[i] * (spatial[i] - 1) + dk[i] - target[i]
+                      for i in range(n))
+        if any(t < 0 for t in total):
+            raise ValueError("too big target shape %s (natural zero-pad "
+                             "output is %s)" % (target, tuple(
+                                 stride[i] * (spatial[i] - 1) + dk[i]
+                                 for i in range(n))))
+        adj_ = tuple(t % 2 for t in total)
+        pad_ = tuple((t + 1) // 2 for t in total)
+    b = None if no_bias else bias
+    if all(a < max(s, d) for a, s, d in zip(adj_, stride, dilate)):
+        return _CONV_T[n](data, weight, b, stride, pad_, adj_,
+                          int(num_group), dilate)
+    # an adj torch's output_padding does not take: the full transposed
+    # convolution, cropped by pad, zero-extended by adj on the high side
+    full = _CONV_T[n](data, weight, b, stride, 0, 0, int(num_group),
+                      dilate)
+    idx = [slice(None), slice(None)]
+    extra = []
+    for i in range(n):
+        size = full.shape[2 + i] - 2 * pad_[i] + adj_[i]
+        stop = min(pad_[i] + size, full.shape[2 + i])
+        idx.append(slice(pad_[i], stop))
+        extra.append(size - (stop - pad_[i]))
+    out = full[tuple(idx)]
+    if any(extra):
+        padding = []
+        for e in reversed(extra):
+            padding += [0, e]
+        fill = F.pad(out, padding)
+        if b is not None:
+            # the extension holds no product, only the bias
+            mask = F.pad(torch.zeros_like(out[:1, :1]), padding, value=1.0)
+            fill = fill + mask * b.reshape((1, -1) + (1,) * n)
+        out = fill
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Pooling
 # ---------------------------------------------------------------------------
 
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _window_sum(x, kernel, stride):
+    """Window sums without padding (``divisor_override=1``; 1-D runs as
+    2-D over a unit height)."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + tuple(kernel),
+                            (1,) + tuple(stride),
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
 @register("Pooling")
 def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
             stride=None, pad=None, pooling_convention="valid",
             count_include_pad=True, cudnn_off=False, p_value=2):
     n = data.dim() - 2
-    if n != 2:
-        raise MXNetError("Pooling: the port supports 2-D pooling only, "
-                         "got %d-D data" % data.dim())
+    if n not in _MAX_POOL:
+        raise MXNetError("Pooling: 1-, 2- or 3-D pooling of NC... data, got "
+                         "%d-D data" % data.dim())
     if global_pool:
         kernel = tuple(data.shape[2:])
         stride = (1,) * n
@@ -112,19 +197,21 @@ def pooling(data, *, kernel=(), pool_type="max", global_pool=False,
     if pool_type == "max":
         x = F.pad(data, padding, value=float("-inf")) if any(padding) \
             else data
-        return F.max_pool2d(x, kernel, stride)
+        return _MAX_POOL[n](x, kernel, stride)
     if pool_type not in ("avg", "sum"):
         raise MXNetError("Pooling: unsupported pool_type %r" % (pool_type,))
     x = F.pad(data, padding) if any(padding) else data
-    s = F.avg_pool2d(x, kernel, stride, divisor_override=1)   # window sums
+    s = _window_sum(x, kernel, stride)
     if pool_type == "sum":
         return s
     if count_include_pad:
-        return s / (kernel[0] * kernel[1])
+        denom = 1.0
+        for k in kernel:
+            denom *= k
+        return s / denom
     ones = torch.ones((1, 1) + tuple(data.shape[2:]), dtype=data.dtype,
                       device=data.device)
-    cnt = F.avg_pool2d(F.pad(ones, padding), kernel, stride,
-                       divisor_override=1)
+    cnt = _window_sum(F.pad(ones, padding), kernel, stride)
     return s / cnt
 
 
@@ -305,8 +392,9 @@ def activation(data, *, act_type="relu"):
 def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
                lower_bound=0.125, upper_bound=0.334):
     """``leaky``, ``elu``, ``selu``, ``prelu`` (a per-channel ``gamma``
-    on axis 1) and the exact (erf) ``gelu``; ``rrelu`` draws from the
-    random key chain, which is not ported (ROADMAP A3b)."""
+    on axis 1), the exact (erf) ``gelu`` and ``rrelu``, whose negative
+    slopes are uniform in [lower_bound, upper_bound) from the random key
+    chain, in training and out of it, as in the JAX op."""
     if act_type == "leaky":
         return torch.where(data >= 0, data, slope * data)
     if act_type == "elu":
@@ -323,8 +411,11 @@ def leaky_relu(data, gamma=None, *, act_type="leaky", slope=0.25,
             shape[1] = g.shape[0]
             g = g.reshape(shape)
         return torch.where(data >= 0, data, g * data)
-    raise MXNetError("LeakyReLU: act_type %r is not ported (rrelu needs "
-                     "the random key chain, ROADMAP A3b)" % (act_type,))
+    if act_type == "rrelu":
+        slope_r = _random.uniform(_random.next_key(), data.shape, data.dtype,
+                                  lower_bound, upper_bound, data.device)
+        return torch.where(data >= 0, data, slope_r * data)
+    raise MXNetError("LeakyReLU: unsupported act_type %r" % (act_type,))
 
 
 @register("softmax")
@@ -431,16 +522,24 @@ def instance_norm(data, gamma, beta, *, eps=1e-3):
             + beta.reshape(shape))
 
 
-@register("Dropout")
+@register("Dropout", is_random=True)
 def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
             _training=True):
-    """The identity at ``p <= 0`` or outside training (``mode``
-    'always' aside); a real mask needs the JAX package's threefry key
-    chain (``random.py``), which is not ported yet, so that raises."""
+    """The JAX op's inverted dropout: ``where(mask, data / (1 - p), 0)``
+    with ``mask = bernoulli(key, 1 - p)`` over ``data``'s shape (1 on
+    ``axes``), the key from the random chain. The identity at ``p <= 0``
+    or outside training (``mode='always'`` aside)."""
     if (not _training and mode != "always") or p <= 0.0:
         return data * 1.0
-    raise MXNetError("Dropout at p=%g in training needs random.py's key "
-                     "chain, not ported yet (ROADMAP A3b)" % p)
+    shape = list(data.shape)
+    for a in axes or ():
+        shape[a] = 1
+    keep = 1.0 - p
+    mask = _random.bernoulli(_random.next_key(), keep, shape, data.device)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which rounds differently from the JAX op's division
+    kt = torch.tensor(keep, dtype=data.dtype, device=data.device)
+    return torch.where(mask, data / kt, torch.zeros_like(data))
 
 
 def _maybe_take_rows(data, weight):
@@ -531,7 +630,20 @@ def _softmax_out_shapes(ins, p):
 
 
 set_op_meta("FullyConnected", shape_hook=_fc_shapes)
+def _deconv_shapes(ins, p):
+    data = ins[0]
+    nf = int(p["num_filter"])
+    ng = int(p.get("num_group", 1))
+    out = list(ins)
+    if data is not None and len(ins) > 1 and ins[1] is None:
+        out[1] = (data[1], nf // ng) + tuple(p["kernel"])
+    if len(ins) > 2 and ins[2] is None:
+        out[2] = (nf,)
+    return out
+
+
 set_op_meta("Convolution", shape_hook=_conv_shapes)
+set_op_meta("Deconvolution", shape_hook=_deconv_shapes)
 set_op_meta("BatchNorm", shape_hook=_bn_shapes, aux_inputs=(3, 4),
             aux_outputs=(3, 4),
             num_visible_outputs=lambda p: 3 if p.get("output_mean_var")

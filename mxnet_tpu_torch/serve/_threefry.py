@@ -8,7 +8,8 @@ defines it for its default ``threefry2x32`` implementation with
 ``jax_threefry_partitionable`` on:
 
 * ``threefry2x32``: Threefry-2x32 with 20 rounds (five groups of four,
-  rotations 13 15 26 6 / 17 29 16 24, key schedule with 0x1BD11BDA).
+  rotations 13 15 26 6 / 17 29 16 24, key schedule with 0x1BD11BDA),
+  shared with the random key chain (``mxnet_tpu_torch/random.py``).
 * ``PRNGKey(0)`` is the pair (0, 0); ``fold_in(key, d)`` hashes the
   count pair (0, d) under ``key`` and the two outputs are the new key.
 * 32 random bits for flat index i of an array: both hash outputs of the
@@ -28,31 +29,12 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
+from ..random import _M32, threefry2x32  # noqa: F401
+
 __all__ = ["threefry2x32", "prng_key", "fold_in", "random_bits", "uniform",
            "gumbel", "categorical"]
 
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = float(_np.finfo(_np.float32).tiny)
-
-
-def _rotl(x, r):
-    return ((x << r) | (x >> (32 - r))) & _M32
-
-
-def threefry2x32(k1, k2, x1, x2):
-    """Threefry-2x32 of the count words (x1, x2) under the key (k1, k2);
-    uint32 values held in int64 tensors (or ints), broadcast together."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (x1 + ks[0]) & _M32
-    x2 = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _M32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _M32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x1, x2
 
 
 def prng_key(seed, device=None):

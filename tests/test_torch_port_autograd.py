@@ -142,20 +142,35 @@ def test_a_second_backward_through_a_retained_graph():
 
 
 def test_a_second_backward_through_a_freed_graph_raises():
+    """The one kept divergence: the JAX package's tape frees nothing, so
+    its second backward through the same graph runs and writes the
+    gradient again; torch frees the graph at the first backward, and the
+    port raises on the second unless the first retained it."""
+    xj = mx.nd.array(X)
+    xj.attach_grad()
+    with mx.autograd.record():
+        yj = (mx.nd.exp(xj) * xj).sum()
+    yj.backward()
+    first = _g(xj)
+    yj.backward()
+    np.testing.assert_allclose(_g(xj), first, rtol=1e-6)
     x = mt.nd.array(X, ctx=mt.cpu())
     x.attach_grad()
     with mt.autograd.record():
         y = (mt.nd.exp(x) * x).sum()
     y.backward()
+    np.testing.assert_allclose(_g(x), first, rtol=1e-6, atol=1e-6)
     with pytest.raises(mt.MXNetError, match="retain_graph"):
         y.backward()
 
 
 def test_grad_returns_new_arrays_and_leaves_the_buffers_alone():
-    """The returned gradients equal the JAX package's. The JAX package's
-    ``grad`` also writes the buffer of every other marked variable its
-    backward reaches (its tape writes every sink); the port's, as
-    reference MXNet's, writes none."""
+    """The returned gradients equal the JAX package's, and so do the
+    buffers afterwards: ``grad`` leaves the buffers of the variables it
+    was asked for alone and writes the buffer of every other marked
+    variable its backward reaches (the JAX package's ``grad`` runs
+    ``backward`` into temporary sinks), so a Trainer reads the same
+    fresh gradient in both packages."""
     def program(nd, ag, mk):
         x, z, u = mk(X), mk(W), mk(W)
         for v in (x, z, u):
@@ -163,12 +178,19 @@ def test_grad_returns_new_arrays_and_leaves_the_buffers_alone():
         with ag.record():
             y = (nd.tanh(x) * z).sum()
         gx, gu = ag.grad(y, [x, u], retain_graph=True)
+        after_first = [_g(x), _g(z), _g(u), float(z._ag.fresh)]
         single = ag.grad(y, z)
-        program.bufs = [_g(x), _g(z)]
-        return [gx.asnumpy(), gu.asnumpy(), single.asnumpy()]
-    gx, gu, gz = _both(program)
+        return [gx.asnumpy(), gu.asnumpy(), single.asnumpy()] \
+            + after_first + [_g(x), _g(z), _g(u)]
+    (gx, gu, gz, x1, z1, u1, zfresh, x2, z2, u2) = _both(program)
     assert not gu.any()
-    assert not any(b.any() for b in program.bufs)
+    # the first call wrote z (reached, not asked for), not x or u
+    assert not x1.any() and not u1.any() and zfresh == 1.0
+    np.testing.assert_allclose(z1, gz, rtol=1e-6)
+    # the second wrote x, and left z (asked for) as the first call left it
+    np.testing.assert_allclose(x2, gx, rtol=1e-6)
+    np.testing.assert_array_equal(z2, z1)
+    assert not u2.any()
     with mt.autograd.record():
         x = mt.nd.array(X, ctx=mt.cpu())
         x.attach_grad()

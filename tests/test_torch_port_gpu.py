@@ -2,7 +2,9 @@
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 ``flash_fwd``, ``int8_dequant``) against its plain torch version, forward
 and (for the training kernels and ``bn_act``) backward, the wrappers'
-checks and launch counts, the card's ``torch._int_mm`` against the
+checks and launch counts, B1's op surface ``_contrib_FusedBNAct`` (one
+launch a call, against the CPU), the random key chain's draws against
+the CPU's, the card's ``torch._int_mm`` against the
 CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
 decoder in generate mode and its speculative step, a 2-layer GPT and a
 ResNet-20 in f32 and bf16 trained by ``Module.fit``, the example's GPT
@@ -862,3 +864,62 @@ def test_resnet20_int8_on_the_card_matches_the_cpu(cuda, tmp_path):
     want = mt.serving.CompiledModel.load(path, device="cpu").predict(
         data=x)[0].numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------- B1's op surface, the key chain
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("training", [True, False])
+def test_fused_bn_act_op_launches_b1_once_on_the_card(cuda, dtype, residual,
+                                                       training):
+    """``nd.contrib.FusedBNAct`` on CUDA tensors: one B1 launch a call,
+    the output against the op's plain version on the CPU (the kernel's
+    tolerance), the moving statistics written back in training only."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    shape = (4, 8, 6, 5)
+    host = [torch.randn(shape, generator=g).to(dtype)] \
+        + [torch.rand(8, generator=g) + 0.5 for _ in range(2)] \
+        + [0.3 * torch.randn(8, generator=g), torch.rand(8, generator=g)
+           + 0.5] + ([torch.randn(shape, generator=g).to(dtype)]
+                     if residual else [])
+    outs = {}
+    for where in ("cuda", "cpu"):
+        ins = [mt.nd.NDArray(t.to(where).clone()) for t in host]
+        ins[0].attach_grad()
+        before = tbn.launches
+        with mt.autograd.record(train_mode=training):
+            y = mt.nd.contrib.FusedBNAct(*ins, act="relu", fix_gamma=False)
+        y.backward()
+        torch.cuda.synchronize()
+        assert tbn.launches - before == (1 if where == "cuda" else 0)
+        outs[where] = [y.data.detach().cpu(), ins[3].data.cpu(),
+                       ins[4].data.cpu(), ins[0].grad.data.cpu()]
+    _assert_kernel_matches_plain(outs["cuda"][0], outs["cpu"][0])
+    for a, b in zip(outs["cuda"][1:3], outs["cpu"][1:3]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert torch.equal(outs["cuda"][1], host[3]) != training
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    torch.testing.assert_close(outs["cuda"][3].float(),
+                               outs["cpu"][3].float(), rtol=tol, atol=tol)
+
+
+def test_key_chain_draws_on_the_card_equal_the_cpus(cuda):
+    """After ``random.seed(0)``: uniform, randint, Dropout masks and
+    shuffles bitwise; normal draws within 4 f32 ulp."""
+    def draws(ctx):
+        mt.random.seed(0)
+        x = mt.nd.array(np.linspace(1, 2, 300).reshape(20, 15), ctx=ctx)
+        return [mt.nd.random.uniform(shape=(5000,), ctx=ctx).asnumpy(),
+                mt.nd.random.randint(-3, 70, shape=(5000,), ctx=ctx)
+                .asnumpy(),
+                mt.nd.Dropout(x, p=0.3, mode="always").asnumpy(),
+                mt.nd.random.shuffle(x).asnumpy(),
+                mt.nd.random.normal(shape=(5000,), ctx=ctx).asnumpy()]
+    card, host = draws(mt.gpu(0)), draws(mt.cpu())
+    for a, b in zip(card[:4], host[:4]):
+        np.testing.assert_array_equal(a, b)
+    ia = card[4].view(np.int32).astype(np.int64)
+    ib = host[4].view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    assert np.abs(ia - ib).max() <= 4

@@ -286,21 +286,30 @@ def test_new_ops_keep_the_jax_signatures(name):
 
 
 def test_dropout_raises_in_training_and_is_the_identity_elsewhere():
+    """Dropout no longer raises in training: it draws its mask from the
+    random key chain (``test_torch_port_random.py`` holds it against
+    the JAX package's); at p = 0 and outside training it is the
+    identity."""
     x = mt.nd.array(np.ones((2, 3), np.float32), ctx=CPU)
     with mt.autograd.train_mode():
         np.testing.assert_array_equal(mt.nd.Dropout(x, p=0.0).asnumpy(),
                                       1.0)
-        with pytest.raises(mt.MXNetError, match="A3b"):
-            mt.nd.Dropout(x, p=0.5)
+        y = mt.nd.Dropout(x, p=0.5).asnumpy()
+    assert set(np.unique(y)) <= {0.0, 2.0}
     np.testing.assert_array_equal(mt.nd.Dropout(x, p=0.5).asnumpy(), 1.0)
 
 
 def test_save_load_raise_naming_the_roadmap_item(tmp_path):
-    x = mt.nd.zeros((2,), ctx=CPU)
-    with pytest.raises(mt.MXNetError, match="A7"):
-        mt.nd.save(str(tmp_path / "x.params"), [x])
-    with pytest.raises(mt.MXNetError, match="A7"):
-        mt.nd.load(str(tmp_path / "x.params"))
+    """``save`` and ``load`` no longer raise: the ``.params`` format is
+    ported (``test_torch_port_params.py`` holds its bytes against the
+    JAX package's); a list and a dict round-trip here."""
+    x = mt.nd.array(np.arange(3, dtype=np.float32), ctx=CPU)
+    mt.nd.save(str(tmp_path / "x.params"), [x])
+    mt.nd.save(str(tmp_path / "d.params"), {"w": x})
+    got = mt.nd.load(str(tmp_path / "x.params"), ctx=CPU)
+    np.testing.assert_array_equal(got[0].asnumpy(), x.asnumpy())
+    got = mt.nd.load(str(tmp_path / "d.params"), ctx=CPU)
+    np.testing.assert_array_equal(got["w"].asnumpy(), x.asnumpy())
 
 
 def test_creation_defaults_to_the_card():
