@@ -278,9 +278,44 @@ Phases; any failure raises and the script exits non-zero:
    of the op's plain version, gradients within them of the plain vjp;
    the eager op's inference time summed over the 49 sites beside
    phase 3's and phase 12's kernel totals.
-15. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
-   among its paths), the card's nvidia-smi line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+15. Grouped dispatch. The main path: ResNet-50 v1 set up as in phase
+   13 (Xavier(in, 2) seed 0, SGD lr 0.05, momentum 0.9,
+   ``multi_precision``, ``tpu_sync``, one synthetic batch of 128
+   repeated) trained by ``Module.fit(steps_per_dispatch=30)`` for 3
+   windows at tier auto: window 1 runs 2 eager warm-up steps, captures
+   the step as a CUDA graph and replays it 28 times; windows 2-3 only
+   replay, under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync inside a window). B1 counts are zeroed just before and read
+   after: 49 launches through the wrapper for each of the 3 eager
+   forwards (warm-up and capture), no fallback; one graph, no eager
+   step after the warm-up, 88 replays, the update count at 90; f32
+   masters; moving statistics f32 and moved; window 1's losses against
+   K = 1 from the same start within 5e-3 relative at step 1 and 5e-2 at
+   every step, and falling. Two more windows under torch.profiler (the
+   first in its warm-up cycle): 49 x 30 B1 kernels on the device in the
+   second (33 + 16 an inner step). Printed: the
+   grouped step (wall over windows 2-3 / 60), images/s and share of the
+   bf16 peak beside phase 13's per-step p50, the busy share, the peak
+   memory, the capture time and window 1's wall. Then ``fit`` on
+   defaults (``eval_metric="acc"``, no K given) over 32 batches: K must
+   be ``MXNET_STEPS_PER_DISPATCH``'s 16 with the metric on the device,
+   equal to the accuracy of the same outputs counted on the host. Then
+   phase 8's GPT cut to 2 layers (batch 8 x 1024, Adam, tier auto)
+   (epsilon 1e-4) through ``fit(steps_per_dispatch=4)`` against K = 1
+   from the same weights with phase 9's bounds between tiers: losses
+   within 1e-4 relative, the parameters within 1e-3 (the L2 norm of
+   their difference over that of the K = 1 update); every update count
+   4, one graph;
+   a replayed window's census 1 B2, 2 B3 and 2 B5 kernels an inner step
+   and no launch through the wrappers. Last a small f32 MLP with
+   Dropout(0.5) trained by Adam with K = 4 and K = 1 from
+   ``random.seed(5)``: losses and parameters bitwise equal (a mask or
+   Adam's bias correction frozen into the graph would part them) and
+   the key chains equal.
+16. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
+   and ``grouped`` among its paths, B2, B3 and B5 ``grouped``), the
+   card's nvidia-smi line, and last the result line ``{"ok": true,
+   "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
 either it fails before printing a result.
@@ -288,6 +323,7 @@ either it fails before printing a result.
 import argparse
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4465,6 +4501,437 @@ def gluon_image_path(dev, card, report, sites, b1_train_totals,
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------ grouped dispatch (phase 15)
+GROUPED = dict(k=30, windows=3, auto_batches=32, auto_k=16, gpt_layers=2,
+               gpt_k=4, drop_k=4, drop_batches=8, drop_batch=64)
+# the graph kernels a census counts: B1 by its residual template flag,
+# B2, B3 (the flash tile; B7 shares it and runs only at tier off), B5
+CENSUS_KERNELS = (("bn_act_kernel", "bn_act"), ("take_rows_kernel",
+                                                "take_rows"),
+                  ("flash_attn_kernel", "flash_attn"),
+                  ("scale_bias_act_kernel", "scale_bias_act"))
+
+
+def census_name(name):
+    """The port's kernel a profiled device kernel name is, or None; B1's
+    residual flag (its third template argument) read from the demangled
+    ``<..., true, ...>`` or the mangled ``Lb1E`` form."""
+    for sub, kname in CENSUS_KERNELS:
+        if sub in name and "paged" not in name:
+            if kname != "bn_act":
+                return kname
+            rest = name.split(sub, 1)[1]
+            if rest.startswith("<"):
+                flag = rest[1:].split(">", 1)[0].split(",")[2].strip()
+                res = flag == "true"
+            else:
+                res = rest.split("Lb", 1)[1][:1] == "1"
+            return "bn_act_res" if res else "bn_act"
+    return None
+
+
+def graph_census(fn):
+    """torch.profiler over a call of ``fn`` (a replayed window): the
+    port's kernels counted by their device names, the device time, the
+    wall time and the busy share. The Python launch counters count where
+    a wrapper launches, which under a graph is the capture only, so a
+    replay's census comes from the device. ``fn`` runs twice, the first
+    time in the profiler's warm-up cycle, whose records are dropped: in
+    full runs of this script (the profiler started and stopped many
+    times before) the first cycle lost the record of the first kernel of
+    the window's first replay (B2, the GPT's first kernel); runs of the
+    phase alone lost none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the schedule's "ProfilerStep#" range is a device-side annotation
+    # spanning the cycle, not a kernel
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+    busy = sum(k[1] for k in kernels) / 1e3
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    counts, kms, names = {}, {}, {}
+    for key, us, n in kernels:
+        c = census_name(key)
+        if c is not None:
+            counts[c] = counts.get(c, 0) + n
+            kms[c] = kms.get(c, 0.0) + us / 1e3
+            names[key[:90]] = n
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    return {"counts": counts, "kernel_ms": kms, "device_ms": busy,
+            "wall_ms": wall_ms, "busy_share": busy / wall_ms,
+            "names": names,
+            "top_kernels": ["%s %.2f ms x%d" % (k[0][:70], k[1] / 1e3, k[2])
+                            for k in top]}
+
+
+def window_recorder(mod):
+    """Wrap ``mod._fit_step_k`` so every window's stacked outputs are
+    kept (the per-step losses and metric of a grouped run) -> the list
+    they are appended to."""
+    seen = []
+    real = mod._fit_step_k
+
+    def record(batches):
+        outs = real(batches)
+        seen.append([o.detach() for o in outs])
+        return outs
+    mod._fit_step_k = record
+    return seen
+
+
+def window_losses(windows, lab):
+    """Per-step mean cross-entropy of stacked softmax outputs at ``lab``
+    (read on the card)."""
+    out = []
+    for outs in windows:
+        p = outs[0].float().gather(2, lab.view(1, -1, 1).expand(
+            outs[0].shape[0], -1, 1)).clamp_min(1e-30)
+        out.extend((-p.log().mean(dim=(1, 2))).tolist())
+    return out
+
+
+def grouped_module(sym, X, Y, dev, p0, aux0):
+    """Phase 13's set-up for the grouped run: bound at the batch,
+    ``p0``/``aux0``, SGD lr 0.05 momentum 0.9 ``multi_precision``,
+    ``tpu_sync`` (bf16 compute over f32 masters)."""
+    mod = mt.mod.Module(sym, context=dev)
+    mod.bind([("data", X.shape)], [("softmax_label", Y.shape)])
+    mod.init_params(arg_params=p0, aux_params=aux0)
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                       optimizer_params=dict(RESNET_SGD,
+                                             multi_precision=True))
+    return mod
+
+
+def grouped_fit(mod, it, k, eval_metric=None):
+    """``mod.fit`` over ``it`` (a bound, initialized module: the set-up
+    is kept) with ``steps_per_dispatch=k``."""
+    mod.fit(it, num_epoch=1, eval_metric=eval_metric, kvstore="tpu_sync",
+            steps_per_dispatch=k)
+
+
+def grouped_resnet(dev, card, report):
+    """The main path of phase 15: ResNet-50 bf16 at batch 128 through
+    ``Module.fit(steps_per_dispatch=30)``, 3 windows, each one captured
+    CUDA graph of the step replayed; held against K = 1 from the same
+    start; then a profiled window and fit's automatic K on defaults."""
+    P, G = RESNET_TRAIN, GROUPED
+    K, W = G["k"], G["windows"]
+    sym = resnet50()
+    p0, aux0 = resnet_init(sym, dev)
+    X, Y = image_batch(P["bf16_batch"])
+    released(dev)
+    # -- the reference: K = 1 from the same start, K steps
+    mod1, loss1, _st = resnet_fit(sym, X, Y, dev, K, p0, aux0, mp=True)
+    del mod1
+    released(dev)
+    # -- the main path: counts zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    mod = grouped_module(sym, X, Y, dev, p0, aux0)
+    fused = mod._fused
+    windows = window_recorder(mod)
+    lab = torch.from_numpy(Y).to(dev).long()
+    tier.reset_stats()
+    bn_act.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grouped_fit(mod, OneBatchIter(X, Y, K, dev), K)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    if fused.captures != 1 or fused.eager_steps != 2 \
+            or fused.replays != K - 2:
+        raise RuntimeError("window 1: %d captures, %d eager steps, %d "
+                           "replays; expected 1, 2 (the warm-up), %d"
+                           % (fused.captures, fused.eager_steps,
+                              fused.replays, K - 2))
+    # windows 2..W: replays only, no host sync inside (the one wait
+    # allowed is the DepthController's event, which this mode lets by);
+    # the batch goes to the card before
+    it = OneBatchIter(X, Y, (W - 1) * K, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grouped_fit(mod, it, K)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(bn_act.launches_by_kernel)
+    stats = tier.stats()
+    mem = torch.cuda.max_memory_allocated(dev)
+    n_update = mod._optimizer.num_update
+    if fused.captures != 1 or fused.eager_steps != 2 \
+            or fused.replays != W * K - 2:
+        raise RuntimeError("windows 2-%d fell back or recaptured: %d "
+                           "captures, %d eager steps, %d replays"
+                           % (W, fused.captures, fused.eager_steps,
+                              fused.replays))
+    if n_update != W * K:
+        raise RuntimeError("update count %d after %d steps"
+                           % (n_update, W * K))
+    if launches != {"bn_act": 33 * 3, "bn_act_res": 16 * 3} \
+            or stats["fallback"]:
+        raise RuntimeError("B1 launches through the wrapper (2 warm-up "
+                           "steps and the capture): %s, fallback %s"
+                           % (launches, stats["fallback"]))
+    bad = [k for k, v in mod._exec.arg_dict.items()
+           if v.dtype != torch.float32]
+    if bad:
+        raise RuntimeError("master weights left f32: %s" % bad[:3])
+    n_aux = check_moving_stats(mod, aux0)
+    loss_k = window_losses(windows[:1], lab)
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss_k, loss1)]
+    log("grouped ResNet-50 bf16, batch %d, K %d: losses of window 1 %s; "
+        "K = 1 from the same start %s; relative %.3g at step 1, %.3g at "
+        "worst" % (P["bf16_batch"], K, ["%.4f" % x for x in loss_k],
+                   ["%.4f" % x for x in loss1], rel[0], max(rel)))
+    if rel[0] > 5e-3 or max(rel) > 5e-2 or not falling(loss_k):
+        raise RuntimeError("grouped losses against K = 1: %s" % rel)
+    # -- two more windows under the profiler: the second one's census
+    cen = graph_census(lambda: grouped_fit(mod, OneBatchIter(X, Y, K, dev),
+                                           K))
+    want = {"bn_act": 33 * K, "bn_act_res": 16 * K}
+    got = {k: cen["counts"].get(k, 0) for k in want}
+    log("  profiled window: %s B1 launches (%s per inner step), %.2f ms "
+        "device of %.2f ms wall (busy %.1f%%); top %s"
+        % (json.dumps(got), json.dumps({k: v / K for k, v in got.items()}),
+           cen["device_ms"], cen["wall_ms"], 100 * cen["busy_share"],
+           "; ".join(cen["top_kernels"][:5])))
+    if got != want or cen["counts"].get("take_rows") \
+            or cen["counts"].get("flash_attn"):
+        raise RuntimeError("replayed window census %s, expected %s"
+                           % (cen["counts"], want))
+    step_ms = wall_ms / ((W - 1) * K)
+    flops = RESNET50_TRAIN_FLOPS_PER_IMG * P["bf16_batch"]
+    per_step = report["resnet_train"]["bf16"]["step_ms_p50"]
+    log("grouped ResNet-50 bf16 train step, batch %d, K %d: %.2f ms (wall "
+        "over windows 2-%d / %d), %.1f images/s, %.2f%% of the 989 TFLOP/s "
+        "bf16 peak; phase 13's per-step p50 %.2f ms; busy %.1f%% "
+        "(profiled window); peak memory %.2f GB; capture %.1f ms of window "
+        "1's %.1f ms wall (2 warm-up steps, %d replays); %d moving "
+        "statistics f32 and moved  [%s]"
+        % (P["bf16_batch"], K, step_ms, W, (W - 1) * K,
+           P["bf16_batch"] / (step_ms / 1e3),
+           100 * flops / (step_ms / 1e3) / BF16_FLOPS, per_step,
+           100 * cen["busy_share"], mem / 1e9, fused.capture_ms[0],
+           first_ms, K - 2, n_aux, card))
+    # -- fit's automatic K on defaults (eval_metric="acc"): the metric
+    # folds into the step and K is MXNET_STEPS_PER_DISPATCH's 16
+    sizes, real = [], mod._fit_group
+
+    def spy(batches, *a, **kw):
+        sizes.append(len(batches))
+        return real(batches, *a, **kw)
+    mod._fit_group = spy
+    del windows[:]
+    m_dev = mt.metric.Accuracy()
+    grouped_fit(mod, OneBatchIter(X, Y, G["auto_batches"], dev), None,
+                eval_metric=m_dev)
+    dev_acc = m_dev.get()[1]
+    hits = [(o[0].argmax(dim=2) == lab.view(1, -1)).sum().item()
+            for o in windows]
+    host_acc = sum(hits) / (G["auto_batches"] * P["bf16_batch"])
+    log("  automatic K on defaults: %s (groups %s), device-resident "
+        "accuracy %.6f, host accuracy of the same outputs %.6f"
+        % (max(sizes or [1]), sizes, dev_acc, host_acc))
+    if max(sizes or [1]) != G["auto_k"] or mod._device_plan is None \
+            or abs(dev_acc - host_acc) > 1e-6:
+        raise RuntimeError("automatic K %s (want %d), device metric %s "
+                           "against host %s" % (sizes, G["auto_k"],
+                                                dev_acc, host_acc))
+    report["grouped"] = {
+        "k": K, "windows": W, "step_ms": step_ms,
+        "img_per_s": P["bf16_batch"] / (step_ms / 1e3),
+        "model_flops_share_of_peak": flops / (step_ms / 1e3) / BF16_FLOPS,
+        "per_step_ms_p50": per_step, "first_window_ms": first_ms,
+        "capture_ms": list(fused.capture_ms), "peak_memory_bytes": mem,
+        "census": cen, "losses": loss_k, "losses_k1": loss1,
+        "loss_rel": rel, "auto_k": max(sizes), "device_acc": dev_acc,
+        "host_acc": host_acc}
+    # the graphs' pools hold a step's peak until they go
+    fused.release_graphs()
+    del mod, fused, windows
+    report["grouped"]["allocated_after_bytes"] = released(dev)
+    return launches, cen["counts"]
+
+
+def grouped_gpt(dev, card, report):
+    """Phase 8's GPT at GPT-2 small's widths cut to 2 layers, batch 8 x
+    1024, Adam, tier auto: ``fit(steps_per_dispatch=4)`` against K = 1
+    from the same Xavier weights (seed 0), with phase 9's bounds between
+    tiers: losses within 1e-4 relative at every step, and the parameters
+    within 1e-3, taken as the L2 norm of the two runs' difference over
+    that of the K = 1 run's update, over the whole model; every update
+    count 4. Then a replayed window's census: B2 1, B3 2 and B5 2 an
+    inner step. The runs are not bitwise alike: B2's backward sums with
+    atomics, in another order every run, so after step 1 a ReLU input
+    near 0 may flip and Adam moves the elements it feeds by a part of lr
+    (up to 4.8e-5 of the largest element difference in four runs). Adam
+    runs at epsilon 1e-4: at the default an element whose gradient is
+    float noise moves by +-lr whichever way the noise points. A
+    hyperparameter frozen into the graph (Adam's t) would move every
+    element by 10-30 % of its update."""
+    G, P = GROUPED, GPT_TRAIN
+    K = G["gpt_k"]
+    net = mt.models.gpt_lm(P["vocab"], P["dim"], P["heads"],
+                           G["gpt_layers"], P["seq_len"])
+    X, Y = train_batches(K, P["batch"], P["seq_len"], P["vocab"], P["lag"])
+    opt = (ADAM[0], dict(ADAM[1], epsilon=1e-4))
+    init = mt.mod.Module(net, context=dev)
+    init.bind([("data", (P["batch"], P["seq_len"]))],
+              [("softmax_label", (P["batch"], P["seq_len"]))])
+    init.init_params(mt.init.Xavier(seed=0))
+    p0 = init.get_params()[0]
+    del init
+    ref, loss1, _st = fit_steps(net, X, Y, dev, P["batch"],
+                                initializer=mt.init.Xavier(seed=0), opt=opt)
+    want = {k: v.clone() for k, v in ref.get_params()[0].items()}
+    del ref
+    released(dev)
+    reset_train_counts()
+    mod = mt.mod.Module(net, context=dev)
+    windows = window_recorder(mod)
+    mod.fit(mt.io.NDArrayIter(X, Y, batch_size=P["batch"]), num_epoch=1,
+            kvstore="tpu_sync", optimizer=opt[0], optimizer_params=opt[1],
+            initializer=mt.init.Xavier(seed=0), eval_metric=None,
+            steps_per_dispatch=K)
+    torch.cuda.synchronize()
+    counts = train_counts()
+    lab = torch.from_numpy(Y).to(dev).long().view(K, P["batch"], -1)
+    probs = windows[0][0].gather(3, lab.unsqueeze(3)).clamp_min(1e-30)
+    loss_k = (-probs.log().mean(dim=(1, 2, 3))).tolist()
+    del windows[:], probs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(loss_k, loss1))
+    fused, optim = mod._fused, mod._optimizer
+    got = mod.get_params()[0]
+    err = {k: float((got[k] - v).abs().max()) for k, v in want.items()}
+    worst = max(err, key=err.get)
+    part = math.sqrt(sum(float((got[k] - v).double().square().sum())
+                         for k, v in want.items())
+                     / sum(float((v - p0[k]).double().square().sum())
+                           for k, v in want.items()))
+    ts = sorted(set(optim._index_update_count.values()))
+    log("grouped GPT (2 layers, batch %d x %d, Adam, tier auto), K %d "
+        "against K = 1 from the same weights: losses %s and %s, within %.3g "
+        "relative; parameters %.3g of the K = 1 update apart (L2 over the "
+        "model), the largest element difference %.3g (%s); update counts "
+        "%s; %d captured, %d eager (warm-up), %d replayed; launches "
+        "through the wrappers %s"
+        % (P["batch"], P["seq_len"], K, ["%.5f" % x for x in loss_k],
+           ["%.5f" % x for x in loss1], loss_rel, part, err[worst],
+           json.dumps({k: "%.3g" % err[k] for k in sorted(
+               err, key=err.get)[-3:]}),
+           ts, fused.captures, fused.eager_steps, fused.replays,
+           json.dumps(counts)))
+    if loss_rel > 1e-4 or part > 1e-3 or ts != [K] \
+            or optim.num_update != K or fused.captures != 1 \
+            or fused.replays != K - 2:
+        raise RuntimeError("grouped GPT: losses %.3g, parameters %.3g from "
+                           "K = 1, counts %s, %d captures, %d replays"
+                           % (loss_rel, part, ts, fused.captures,
+                              fused.replays))
+    cen = graph_census(lambda: mod.fit(
+        mt.io.NDArrayIter(X, Y, batch_size=P["batch"]), num_epoch=1,
+        kvstore="tpu_sync", eval_metric=None, steps_per_dispatch=K))
+    per = {k: cen["counts"].get(k, 0) / K
+           for k in ("take_rows", "flash_attn", "scale_bias_act")}
+    log("  replayed GPT window: per inner step %s, %.2f ms device of %.2f "
+        "ms wall a step (busy %.1f%%)  [%s]"
+        % (json.dumps(per), cen["device_ms"] / K, cen["wall_ms"] / K,
+           100 * cen["busy_share"], card))
+    L = G["gpt_layers"]
+    if per != {"take_rows": 1, "flash_attn": L, "scale_bias_act": L} \
+            or fused.replays != 3 * K - 2 or train_counts() != counts:
+        raise RuntimeError("grouped GPT census %s (kernels %s), %d "
+                           "replays, launches through the wrappers %s (a "
+                           "replayed window launches none)"
+                           % (cen["counts"], cen["names"], fused.replays,
+                              train_counts()))
+    fused.release_graphs()
+    del mod, fused
+    released(dev)
+    report["grouped_gpt"] = {"k": K, "losses": loss_k, "losses_k1": loss1,
+                             "param_part": part, "param_err": err[worst],
+                             "census_per_step": per, "census": cen,
+                             "launches": counts}
+    return counts
+
+
+def dropout_net():
+    data = mt.sym.Variable("data")
+    net = mt.sym.FullyConnected(data, num_hidden=256, name="fc1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.Dropout(net, p=0.5)
+    net = mt.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def grouped_dropout(dev, report):
+    """A small f32 MLP with Dropout(0.5) trained by Adam grouped (K = 4)
+    and per step from the same seed: losses and parameters bitwise equal
+    (a mask, or Adam's bias correction, frozen into the graph would part
+    them), and the key chain's state after both equal."""
+    G = GROUPED
+    rng = np.random.RandomState(0)
+    n = G["drop_batches"] * G["drop_batch"]
+    X = rng.randn(n, 64).astype(np.float32)
+    Y = rng.randint(0, 10, (n,)).astype(np.float32)
+    runs = {}
+    for k in (1, G["drop_k"]):
+        mod = mt.mod.Module(dropout_net(), context=dev)
+        windows = window_recorder(mod)
+        losses = []
+
+        def record(p):
+            if k == 1:
+                out = mod.get_outputs()[0]
+                lab = p.locals["data_batch"].label[0].to(dev).long()
+                losses.append(out.gather(1, lab.unsqueeze(1)).log().mean())
+        mt.random.seed(5)
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=G["drop_batch"]),
+                num_epoch=1, kvstore="tpu_sync", optimizer="adam",
+                optimizer_params={"learning_rate": 0.01},
+                initializer=mt.init.Xavier(seed=0), eval_metric=None,
+                steps_per_dispatch=k, batch_end_callback=record)
+        if k > 1:
+            labs = torch.from_numpy(Y).to(dev).long().view(
+                -1, k, G["drop_batch"])
+            for w, outs in enumerate(windows):
+                p = outs[0].gather(2, labs[w].unsqueeze(2))
+                losses.extend(p.log().mean(dim=(1, 2)).unbind())
+        runs[k] = (torch.stack(losses).cpu(),
+                   {n_: v.cpu() for n_, v in mod.get_params()[0].items()},
+                   mt.random.get_state()[0].copy(), mod._fused.replays)
+        del mod
+    (l1, p1, c1, _r1), (lk, pk, ck, rk) = runs[1], runs[G["drop_k"]]
+    same = torch.equal(l1, lk) and all(torch.equal(p1[k], pk[k])
+                                       for k in p1)
+    log("grouped Dropout MLP, K %d against K = 1 from seed 5: losses %s "
+        "and %s, parameters %s, key chains %s and %s, %d replayed steps"
+        % (G["drop_k"], ["%.5f" % x for x in l1.tolist()],
+           "bitwise equal" if torch.equal(l1, lk) else "DIFFERENT",
+           "bitwise equal" if same else "DIFFERENT", c1.tolist(),
+           ck.tolist(), rk))
+    if not same or not np.array_equal(c1, ck) or rk < G["drop_batches"] - 2:
+        raise RuntimeError("grouped Dropout differs from per step: losses "
+                           "%s vs %s" % (l1.tolist(), lk.tolist()))
+    report["grouped_dropout"] = {"losses": l1.tolist(), "bitwise": same}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -4531,6 +4998,9 @@ def main():
     train_b1 = resnet_train_path(dev, card, report)
     op_launches, op_err, op_ms = gluon_image_path(dev, card, report, sites,
                                                   b1t_tot, totals)
+    grouped_b1, grouped_census = grouped_resnet(dev, card, report)
+    grouped_counts = grouped_gpt(dev, card, report)
+    grouped_dropout(dev, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -4544,13 +5014,21 @@ def main():
                            [RESNET_TRAIN["bf16_batch"], "bfloat16"]),
                  "_contrib_FusedBNAct": (
                      op_launches[form], op_err[form], b1t_tot[form],
-                     [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
+                     [RESNET_TRAIN["bf16_batch"], "bfloat16"]),
+                 # phase 15: the same shapes inside the captured graph
+                 "grouped": (grouped_b1[form], b1t_err[form],
+                             b1t_tot[form],
+                             [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                        "library_ms": None}
                    for p, (n, e, t, bd) in paths.items()}
         by_path["_contrib_FusedBNAct"]["op_ms_49_sites"] = op_ms
+        # the wrapper counts the warm-up and the capture; a profiled
+        # replayed window's device census beside it
+        by_path["grouped"]["replayed_window_launches"] = \
+            grouped_census.get(form, 0)
         main_ = max(by_path.values(), key=lambda b: b["launches"])
         kernels.append({"name": form, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[form],
@@ -4584,6 +5062,12 @@ def main():
             paths["gluon"] = (gluon_launches[kname],
                               train_err[kname + "@train/float32"],
                               train_rows[kname + "@train"])
+        if grouped_counts.get(kname):
+            # so does phase 15's grouped GPT (the graph's warm-up and
+            # capture through the wrapper)
+            paths["grouped"] = (grouped_counts[kname],
+                                train_err[kname + "@train/float32"],
+                                train_rows[kname + "@train"])
         by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
                            **{k: r[k] for k in NAMED_KEYS if k in r})
                    for p, (n, e, r) in paths.items()}
@@ -4605,15 +5089,18 @@ def main():
                  "launches": train_launches[kname],
                  "max_abs_err": train_err[kname + "/float32"],
                  **{k: r[k] for k in NAMED_KEYS if k in r}}
-        if kname in gluon_launches:
-            # B7 on both training paths (tier off), at the same shape
+        # B7 on both training paths (tier off), B5 on Module.fit's and
+        # phase 15's grouped GPT, at the same shape
+        more = [(p, n[kname]) for p, n in (("gluon", gluon_launches),
+                                           ("grouped", grouped_counts))
+                if n.get(kname)]
+        if more:
             entry["by_path"] = {
                 p: dict(launches=n, max_abs_err=entry["max_abs_err"],
                         shape=r["shape"],
                         **{k: r[k] for k in NAMED_KEYS if k in r})
-                for p, n in (("train", train_launches[kname]),
-                             ("gluon", gluon_launches[kname]))}
-            entry["launches"] += gluon_launches[kname]
+                for p, n in [("train", train_launches[kname])] + more}
+            entry["launches"] += sum(n for _p, n in more)
         kernels.append(entry)
     kernels.append({"name": "int8_dequant", "route": "cuda",
                     "source": INT8_SOURCE, "replaces": INT8_REPLACES,

@@ -151,6 +151,27 @@ register_flag("trainer_fused_update", "MXNET_TRAINER_FUSED_UPDATE",
               "pass through the optimizer's fused_ops, in place, instead "
               "of one Updater call per parameter; the same numbers as the "
               "per-parameter path.")
+register_flag("engine_depth", "MXNET_ENGINE_DEPTH", int, 2,
+              "Bounded in-flight dispatch depth for the async training "
+              "loops (Module.fit, gluon.Trainer.step): up to this many "
+              "dispatched steps may be pending on the device before the "
+              "host blocks on the oldest. The counterpart of the "
+              "reference ThreadedEngine's bounded pending-op queue. "
+              "1 = fully synchronous stepping; 0/negative = unbounded "
+              "(host never throttles; device errors surface late).")
+register_flag("steps_per_dispatch", "MXNET_STEPS_PER_DISPATCH", int, 16,
+              "K used by fit()'s automatic K-step dispatch "
+              "(module/fused.py run_k; a captured CUDA graph of the step "
+              "on the card) when the caller leaves steps_per_dispatch=None "
+              "and no per-step host observer (batch_end_callback, "
+              "monitor, lr scheduler, host-side metric, checkpoint "
+              "manager) forces per-step dispatch.")
+register_flag("device_metrics", "MXNET_DEVICE_METRICS", _parse_bool, True,
+              "Fold supported eval metrics (acc/top_k/ce/nll/loss) into "
+              "the fused train step as device-resident (sum, count) "
+              "accumulators, transferring to host only at display/epoch "
+              "boundaries. Off: per-batch host update (reference "
+              "semantics, one device->host sync per batch).")
 register_flag("serve_buckets", "MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
               "Batch-size buckets the online serving runtime pads "
               "coalesced request batches to, comma separated ascending.")

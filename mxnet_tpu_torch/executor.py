@@ -223,13 +223,15 @@ class Executor:
                 elif not allow_extra_params:
                     raise MXNetError("unknown %s %r" % (what, k))
 
-    def _run(self, training, leaves=None):
-        """One evaluation of the graph. It draws one key from the random
-        chain, which the graph's random ops fold, as the JAX package's
-        executor feeds one to every forward."""
+    def _run(self, training, leaves=None, key=None):
+        """One evaluation of the graph. The graph's random ops fold one
+        key: ``key`` when given (the grouped step stages its keys on the
+        device), else one drawn from the random chain, as the JAX
+        package's executor feeds one to every forward."""
         vals = dict(self.arg_dict)
         vals.update(leaves or {})
-        with _random.trace_scope(_random.next_key()):
+        with _random.trace_scope(_random.next_key() if key is None
+                                 else key):
             return self._eval_fn(vals, self.aux_dict, training)
 
     def forward(self, is_train=False, **kwargs):

@@ -4,6 +4,9 @@
 (``rescale_grad``), reduces them across devices (one device here: a
 no-op) and updates every parameter whose gradient a backward wrote
 since the last step; a stale one raises unless ``ignore_stale_grad``.
+Each step is admitted to a ``DepthController`` (``MXNET_ENGINE_DEPTH``),
+so the host runs at most that many steps ahead of the card;
+``quiesce()`` waits for all of them.
 
 With ``MXNET_TRAINER_FUSED_UPDATE`` on (the default, as in the JAX
 package) the update is one pass over all parameters through the
@@ -78,6 +81,7 @@ class Trainer:
         self._optimizer.param_dict = param_dict
         self._updaters = [_opt.get_updater(self._optimizer)]
         self._fused_ops_cache = False
+        self._depth_ctl = None
 
     @property
     def learning_rate(self):
@@ -96,6 +100,23 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self._update(ignore_stale_grad)
+        # enqueue, don't wait: one updated parameter stands for the
+        # step; the controller waits only past flags.engine_depth
+        if self._depth_ctl is None:
+            from ..engine import DepthController
+            self._depth_ctl = DepthController()
+        self._depth_ctl.admit(self._step_handles())
+
+    def _step_handles(self):
+        for param in self._params:
+            if param.grad_req != "null" and param._data is not None:
+                return [param.data()._data]
+        return []
+
+    def quiesce(self):
+        """Wait until every step in flight has completed on the device."""
+        if self._depth_ctl is not None:
+            self._depth_ctl.quiesce()
 
     def allreduce_grads(self):
         """Reduce the gradients across devices: one device, nothing to
@@ -160,8 +181,9 @@ class Trainer:
         with torch.no_grad():
             for i, param in work:
                 w, g = param.data()._data, param.grad()._data
-                args = (f32(opt._get_lr(i)), f32(opt._get_wd(i)), rescale,
-                        opt._index_update_count[i])
+                lr = opt.fused_lr(_np.float32(opt._get_lr(i)),
+                                  opt._index_update_count[i])
+                args = (float(lr), f32(opt._get_wd(i)), rescale)
                 if w.dtype != torch.float32:
                     inner, w32 = upd0.states[i]
                     update(w32, g.float(), _flat_state(inner), *args)

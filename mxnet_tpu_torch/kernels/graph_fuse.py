@@ -175,9 +175,12 @@ def _eval_bn_act(p, read, training):
         tuple(data.shape), data.dtype, axis=int(bp.get("axis", 1)),
         act=p.act, residual_shape=None if residual is None
         else tuple(residual.shape))
+    # the tier's key is the 4-D site's (rows, cols) view: a declined
+    # site (a BatchNorm over 2-D features) has none and falls back
     go, cfg = tier.should_dispatch(
-        bn_act.OP_NAME, bn_act.shape_key_shapes(tuple(data.shape)),
-        dtype_name(data.dtype), bn_act.DEFAULT_CONFIG, guard_reason=reason)
+        bn_act.OP_NAME, bn_act.shape_key_shapes(tuple(data.shape))
+        if reason is None else (), dtype_name(data.dtype),
+        bn_act.DEFAULT_CONFIG, guard_reason=reason)
     if not go:
         return None
     return bn_act.fused_bn_act(

@@ -1,8 +1,11 @@
 """Evaluation metrics (counterpart of a subset of ``mxnet_tpu/metric.py``):
-``EvalMetric``, ``Accuracy``, ``CrossEntropy``, ``Perplexity`` and
-``create``. Labels and predictions are copied to the host as numpy
-arrays once per ``update_dict``; ``fit(eval_metric=None)`` calls no
-metric at all, so it reads nothing back from the device."""
+``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``,
+``CrossEntropy``, ``NegativeLogLikelihood``, ``Perplexity``, ``Loss``
+(with its aliases ``Torch`` and ``Caffe``) and ``create``. Labels and
+predictions are copied to the host as numpy arrays once per
+``update_dict``; ``fit(eval_metric=None)`` calls no metric at all, so it
+reads nothing back from the device, and ``fit`` folds the metrics that
+``device_metric`` supports into the fused step."""
 from __future__ import annotations
 
 import math
@@ -10,8 +13,9 @@ import math
 import numpy as _np
 import torch
 
-__all__ = ["EvalMetric", "Accuracy", "CrossEntropy", "Perplexity",
-           "create", "register"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "CrossEntropy", "NegativeLogLikelihood", "Perplexity", "Loss",
+           "Torch", "Caffe", "create", "register"]
 
 _METRIC_REGISTRY = {}
 
@@ -24,8 +28,15 @@ def register(klass):
 def create(metric, *args, **kwargs):
     if isinstance(metric, EvalMetric):
         return metric
+    if isinstance(metric, list):
+        composite = CompositeEvalMetric()
+        for m in metric:
+            composite.add(create(m, *args, **kwargs))
+        return composite
     name = str(metric).lower()
-    aliases = {"acc": "accuracy", "ce": "crossentropy"}
+    aliases = {"acc": "accuracy", "ce": "crossentropy",
+               "nll_loss": "negativeloglikelihood",
+               "top_k_accuracy": "topkaccuracy"}
     name = aliases.get(name, name)
     try:
         return _METRIC_REGISTRY[name](*args, **kwargs)
@@ -91,6 +102,44 @@ class EvalMetric:
         return "EvalMetric: %s" % dict(self.get_name_value())
 
 
+class CompositeEvalMetric(EvalMetric):
+    """Several metrics updated together; ``get`` lists their names and
+    values."""
+
+    def __init__(self, metrics=None, name="composite", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.metrics = [create(m) for m in (metrics or [])]
+
+    def add(self, metric):
+        self.metrics.append(create(metric))
+
+    def update(self, labels, preds):
+        labels = [_as_np(x) for x in labels]
+        preds = [_as_np(x) for x in preds]
+        for m in self.metrics:
+            m.update(labels, preds)
+
+    def update_dict(self, labels, preds):
+        # one host copy of each array for all the metrics
+        labels = {k: _as_np(v) for k, v in labels.items()}
+        preds = {k: _as_np(v) for k, v in preds.items()}
+        for m in self.metrics:
+            m.update_dict(labels, preds)
+
+    def reset(self):
+        for m in getattr(self, "metrics", []):
+            m.reset()
+
+    def get(self):
+        names, values = [], []
+        for m in self.metrics:
+            n, v = m.get()
+            names.extend(n if isinstance(n, list) else [n])
+            values.extend(v if isinstance(v, list) else [v])
+        return names, values
+
+
 @register
 class Accuracy(EvalMetric):
     def __init__(self, axis=1, name="accuracy", output_names=None,
@@ -108,6 +157,24 @@ class Accuracy(EvalMetric):
             pred = pred.astype(_np.int32).ravel()
             label = label.astype(_np.int32).ravel()
             self.sum_metric += (pred == label).sum()
+            self.num_inst += len(label)
+
+
+@register
+class TopKAccuracy(EvalMetric):
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+        self.top_k = top_k
+        self.name += "_%d" % top_k
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            label = _as_np(label).astype(_np.int32)
+            pred = _as_np(pred)
+            idx = _np.argsort(pred, axis=1)[:, -self.top_k:]
+            self.sum_metric += (idx == label.reshape(-1, 1)).any(axis=1).sum()
             self.num_inst += len(label)
 
 
@@ -161,3 +228,36 @@ class CrossEntropy(EvalMetric):
             prob = pred[_np.arange(label.shape[0]), label.astype(_np.int64)]
             self.sum_metric += (-_np.log(prob + self.eps)).sum()
             self.num_inst += label.shape[0]
+
+
+@register
+class NegativeLogLikelihood(CrossEntropy):
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(eps, name, output_names, label_names)
+
+
+@register
+class Loss(EvalMetric):
+    """Mean of the raw loss output."""
+
+    def __init__(self, name="loss", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, _, preds):
+        for pred in preds:
+            pred = _as_np(pred)
+            self.sum_metric += pred.sum()
+            self.num_inst += pred.size
+
+
+@register
+class Torch(Loss):
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)

@@ -7,10 +7,11 @@ when the Module has one, else forward, backward, update), the metric
 update and the batch-end callbacks; per epoch the metric log, the
 epoch-end callbacks and an optional evaluation pass (``score``).
 ``eval_metric=None`` updates no metric, so the loop reads nothing back
-from the device. Not ported: checkpointing and resume, monitors, and
-grouping several steps into one dispatch (``steps_per_dispatch``).
-The session dtype policy (``MXNET_COMPUTE_DTYPE``) is obeyed by the
-Module's fused step.
+from the device. Grouped dispatch (``steps_per_dispatch``, and the
+automatic K), the device-resident metric and the bounded in-flight
+queue are the JAX package's. Not ported: checkpointing and resume,
+monitors. The session dtype policy (``MXNET_COMPUTE_DTYPE``) is obeyed
+by the Module's fused step.
 """
 from __future__ import annotations
 
@@ -98,22 +99,60 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None,
             monitor=None, sparse_row_id_fn=None, steps_per_dispatch=None,
             checkpoint=None):
-        """The epoch loop. ``monitor``, ``sparse_row_id_fn``,
-        ``checkpoint`` and ``steps_per_dispatch`` > 1 are not ported and
-        raise; so do the settings the JAX package's fit obeys and the port
-        does not: ``MXNET_CHECKPOINT_DIR`` or ``MXNET_RESUME_DIR`` set
-        (elastic checkpointing and resume)."""
+        """The epoch loop.
+
+        ``steps_per_dispatch=K > 1`` groups K batches into ONE dispatch
+        (``FusedStep.run_k``: a captured CUDA graph of the step replayed
+        K times on a card, a loop of eager steps on the CPU). Metric
+        updates stay per batch; ``batch_end_callback`` fires per batch
+        but only after its group completes; a short tail runs per step;
+        lr/wd schedules advance in steps of K. Needs a module with a
+        grouped fused step (plain :class:`Module`) and no monitor.
+
+        ``steps_per_dispatch=None`` (default) picks K automatically:
+        ``flags.steps_per_dispatch`` (MXNET_STEPS_PER_DISPATCH, default
+        16) when nothing in the loop needs per-step host attention: no
+        monitor/batch_end_callback/checkpoint/sparse_row_id_fn/
+        lr_scheduler, and the eval metric either absent or folded into
+        the device step (``device_metric``). Otherwise K = 1, reference
+        per-step semantics.
+
+        Dispatches are not waited for one by one: a
+        :class:`~mxnet_tpu_torch.engine.DepthController`
+        (``flags.engine_depth``, default 2) bounds the in-flight queue,
+        and the loop waits for all of it at epoch ends, before the
+        metric, the parameters and the scoring are read.
+
+        ``monitor``, ``sparse_row_id_fn`` and ``checkpoint`` are not
+        ported and raise; so do the settings the JAX package's fit obeys
+        and the port does not: ``MXNET_CHECKPOINT_DIR`` or
+        ``MXNET_RESUME_DIR`` set (elastic checkpointing and resume)."""
         from .. import initializer as _init
+        from ..config import flags as _flags
+        from ..engine import DepthController
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
+        # validate an EXPLICIT steps_per_dispatch BEFORE any side effect;
+        # None = decide automatically once the module is set up
+        explicit_k = steps_per_dispatch is not None
+        if explicit_k:
+            if steps_per_dispatch < 1:
+                raise ValueError("steps_per_dispatch must be >= 1, got %r"
+                                 % (steps_per_dispatch,))
+            if steps_per_dispatch > 1:
+                if not hasattr(self, "_fit_group"):
+                    raise ValueError(
+                        "steps_per_dispatch > 1 needs a module with a "
+                        "grouped fused step (plain Module); %s has none"
+                        % type(self).__name__)
+                if monitor is not None or sparse_row_id_fn is not None:
+                    raise ValueError(
+                        "steps_per_dispatch > 1 is incompatible with "
+                        "monitor / sparse_row_id_fn")
         if monitor is not None or sparse_row_id_fn is not None or \
                 checkpoint is not None:
             raise MXNetError("fit: monitor, sparse_row_id_fn and checkpoint "
                              "are not ported")
-        if steps_per_dispatch is not None and steps_per_dispatch != 1:
-            raise MXNetError("fit: steps_per_dispatch=%r: grouping steps "
-                             "into one dispatch is not ported (ROADMAP "
-                             "A1b); pass 1 or None" % (steps_per_dispatch,))
         for env in ("MXNET_CHECKPOINT_DIR", "MXNET_RESUME_DIR"):
             if os.environ.get(env):
                 raise MXNetError("fit: %s is set, but checkpointing and "
@@ -136,6 +175,34 @@ class BaseModule:
             validation_metric = eval_metric
         if eval_metric is not None:
             eval_metric = _metric.create(eval_metric)
+        # 1. fold the metric into the device step when its math allows:
+        #    per-batch update_metric becomes a no-op on the proxy and the
+        #    (sum, count) carry moves to the host only when read
+        if hasattr(self, "_engage_device_metric"):
+            if eval_metric is not None:
+                proxy = self._engage_device_metric(eval_metric)
+                if proxy is not None:
+                    eval_metric = proxy
+            else:
+                self._detach_device_metric()
+        # 2. with no per-step host observer left, run K steps a dispatch
+        if not explicit_k:
+            auto_k = (batch_end_callback is None
+                      and hasattr(self, "_fit_group")
+                      and getattr(self, "_fused", None) is not None
+                      and (eval_metric is None or
+                           getattr(eval_metric, "_device_resident", False))
+                      and getattr(getattr(self, "_optimizer", None),
+                                  "lr_scheduler", None) is None)
+            steps_per_dispatch = max(1, int(_flags.steps_per_dispatch)) \
+                if auto_k else 1
+        grouped = steps_per_dispatch > 1
+        # 3. dispatch without waiting; bound the in-flight queue
+        depth_ctl = DepthController()
+
+        def batch_end(epoch, nbatch, frame):
+            for cb in _as_list(batch_end_callback or []):
+                cb(BatchEndParam(epoch, nbatch, eval_metric, frame))
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -144,23 +211,50 @@ class BaseModule:
             nbatch = 0
             data_iter = iter(train_data)
             end_of_batch = False
-            try:
-                next_batch = next(data_iter)
-            except StopIteration:
-                end_of_batch = True
-            while not end_of_batch:
-                data_batch = next_batch
-                self._fit_step(data_batch)
-                if eval_metric is not None:
-                    self.update_metric(eval_metric, data_batch.label)
+            if grouped:
+                # one dispatch per K batches; callbacks fire per batch,
+                # from this frame, after the group's dispatch
+                group = []
+                while not end_of_batch:
+                    try:
+                        group.append(next(data_iter))
+                    except StopIteration:
+                        end_of_batch = True
+                    if len(group) == steps_per_dispatch or \
+                            (end_of_batch and group):
+                        if len(group) == steps_per_dispatch:
+                            self._fit_group(group, eval_metric)
+                            depth_ctl.admit(self._dispatch_handles())
+                        else:
+                            # tail: the per-step path
+                            for b in group:
+                                self._fit_group([b], eval_metric)
+                                depth_ctl.admit(self._dispatch_handles())
+                        for data_batch in group:
+                            batch_end(epoch, nbatch, locals())
+                            nbatch += 1
+                        group = []
+            else:
                 try:
                     next_batch = next(data_iter)
-                    self.prepare(next_batch)
                 except StopIteration:
                     end_of_batch = True
-                for cb in _as_list(batch_end_callback or []):
-                    cb(BatchEndParam(epoch, nbatch, eval_metric, locals()))
-                nbatch += 1
+                while not end_of_batch:
+                    data_batch = next_batch
+                    self._fit_step(data_batch)
+                    depth_ctl.admit(self._dispatch_handles())
+                    if eval_metric is not None:
+                        self.update_metric(eval_metric, data_batch.label)
+                    try:
+                        next_batch = next(data_iter)
+                        self.prepare(next_batch)
+                    except StopIteration:
+                        end_of_batch = True
+                    batch_end(epoch, nbatch, locals())
+                    nbatch += 1
+            # epoch boundary: drain the in-flight dispatches before the
+            # host reads the metric and the parameters
+            depth_ctl.quiesce()
             for name, val in (eval_metric.get_name_value()
                               if eval_metric is not None else []):
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
@@ -178,3 +272,14 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+
+    def _dispatch_handles(self):
+        """Tensors standing for the most recent dispatch, for the
+        :class:`~mxnet_tpu_torch.engine.DepthController`: the first
+        output (an event after it marks the whole dispatch, one
+        stream)."""
+        try:
+            outs = self.get_outputs()
+        except MXNetError:
+            return []
+        return list(outs[:1])

@@ -11,14 +11,17 @@ optimizer update per parameter. The default ``rescale_grad`` is
 weights when the optimizer has ``multi_precision`` (the JAX package's
 choice), and ``MXNET_COMPUTE_DTYPE`` (``config.compute_dtype``) can
 force bf16 or f16 or veto the downcast; BatchNorm's gamma and beta stay
-f32 (:meth:`Module._norm_stat_params`). Other kvstores, several
-devices, checkpoints and the device-resident metric are not ported and
+f32 (:meth:`Module._norm_stat_params`). ``fit`` groups K steps into
+one dispatch (:meth:`Module._fit_group`, ``FusedStep.run_k``) and folds
+a supported metric into the step (:meth:`Module._engage_device_metric`).
+Other kvstores, several devices and checkpoints are not ported and
 raise.
 """
 from __future__ import annotations
 
 import logging
 
+import numpy as _np
 import torch
 
 from .. import config as _config
@@ -28,7 +31,7 @@ from ..context import Context, current_context, resolve_device
 from ..executor import _as_tensor, simple_bind
 from ..initializer import InitDesc
 from .base_module import BaseModule
-from .fused import FusedStep
+from .fused import FusedStep, _tensor
 
 __all__ = ["Module"]
 
@@ -84,6 +87,14 @@ class Module(BaseModule):
         self._fused = None
         self._fused_opt_state = None
         self._fused_grads = None
+        # the device-resident metric (device_metric.py): its plan, the
+        # (sum, count) carry the fused step adds to, the proxy fit uses,
+        # and a version bumped whenever the carry moves
+        self._device_plan = None
+        self._fused_met_state = None
+        self._device_proxy = None
+        self._device_met_version = 0
+        self._warned_group_fallback = False
 
     # ------------------------------------------------------------ properties
     @property
@@ -118,6 +129,7 @@ class Module(BaseModule):
         if self.binded and not force_rebind:
             self.logger.warning("Already bound, ignoring bind()")
             return
+        self._detach_device_metric()
         self._fused = None
         self._fused_opt_state = None
         self._fused_grads = None
@@ -213,6 +225,7 @@ class Module(BaseModule):
                 **optimizer_params)
         self._optimizer = optimizer
         self._updater = _opt.get_updater(optimizer)
+        self._detach_device_metric()
         self._fused = None
         self._fused_opt_state = None
         self._fused_grads = None
@@ -306,8 +319,137 @@ class Module(BaseModule):
         if self._fused is None:
             super()._fit_step(data_batch)
             return
-        self._exec.set_inputs(**self._feed(data_batch))
-        self._commit(*self._fused.step(self._fused_opt_state))
+        ex = self._exec
+        ex.set_inputs(**self._feed(data_batch))
+        ex.outputs = self._fused.step(self._fused_opt_state,
+                                      met_state=self._fused_met_state)
+        ex._pending = None
+        if self._fused_met_state is not None:
+            self._device_met_version += 1
+
+    def _fit_group(self, data_batches, eval_metric=None):
+        """fit's grouped entry (``steps_per_dispatch``): the batches
+        through :meth:`_fit_step_k`, then ``eval_metric`` updated once
+        per sub-batch from the stacked per-step outputs (the per-step
+        loop's metric semantics), or nothing to replay when the metric
+        is device-resident. One batch, or no fused step, takes the
+        per-step path."""
+        if self._fused is None or not self.optimizer_initialized \
+                or len(data_batches) == 1:
+            if len(data_batches) > 1 and not self._warned_group_fallback:
+                self._warned_group_fallback = True
+                self.logger.warning(
+                    "steps_per_dispatch: fused step not engaged "
+                    "(optimizer/kvstore/grad_req unfusable?) - falling "
+                    "back to one dispatch per batch")
+            for b in data_batches:
+                self._fit_step(b)
+                if eval_metric is not None:
+                    self.update_metric(eval_metric, b.label)
+            return
+        outs = self._fit_step_k(data_batches)
+        if getattr(eval_metric, "_device_resident", False):
+            return  # accumulated inside the step; nothing to replay
+        if eval_metric is not None:
+            ex = self._exec
+            last = ex.outputs
+            for i, b in enumerate(data_batches):
+                ex.outputs = [o[i] for o in outs]
+                self.update_metric(eval_metric, b.label)
+            ex.outputs = last
+
+    def _fit_step_k(self, data_batches):
+        """K fit steps in one dispatch (``FusedStep.run_k``). The caller
+        (:meth:`_fit_group`) guarantees the fused step is engaged and
+        K > 1. The executor's inputs take the last feed (shape checks,
+        later forward() calls), K keys are drawn from the chain, one an
+        inner step as the per-step path draws them. Returns the stacked
+        per-step outputs (a list of ``(K, ...)`` tensors)."""
+        from .. import random as _random
+        ex, fused = self._exec, self._fused
+        feeds = [self._feed(b) for b in data_batches]
+        stacked = fused.stack_feeds(feeds)
+        with torch.no_grad():
+            for name, val in feeds[-1].items():
+                dst = ex.arg_dict.get(name)
+                if dst is not None:
+                    dst.copy_(fused._stage(_tensor(val).to(dtype=dst.dtype)
+                                           .reshape(dst.shape)))
+        keys = _np.stack([_random.next_key() for _ in data_batches])
+        outs = fused.run_k(stacked, keys, self._fused_opt_state,
+                           met_state=self._fused_met_state)
+        ex.outputs = [o[-1] for o in outs]
+        ex._pending = None
+        if self._fused_met_state is not None:
+            self._device_met_version += 1
+        return outs
+
+    # ------------------------------------------------- device-resident metric
+    def _engage_device_metric(self, eval_metric):
+        """Fold ``eval_metric``'s accumulation into the fused step
+        (``device_metric``): a :class:`DeviceMetricProxy` for fit's loop,
+        or None when the metric's math has no device form or the fused
+        step is not engaged (the caller keeps the per-batch host
+        path)."""
+        from .. import device_metric as _dm
+        if self._fused is None or not _config.flags.device_metrics \
+                or eval_metric is None \
+                or getattr(eval_metric, "_device_resident", False):
+            self._detach_device_metric()
+            return None
+        out_names = list(self._output_names)
+        label_names = list(self._label_names)
+        plan = _dm.plan_for(eval_metric, out_names, label_names)
+        if plan is None:
+            # a previous fit() may have attached a carry for another
+            # metric; a stale one would ride every step for nothing
+            self._detach_device_metric()
+            return None
+        ex = self._exec
+
+        def met_fn(state, outs, feed):
+            src = dict(ex.arg_dict)
+            src.update(feed or {})
+            plan.update(state, {k: src[k] for k in label_names if k in src},
+                        dict(zip(out_names, outs)))
+
+        self._device_plan = plan
+        self._fused.attach_metric(met_fn)
+        self._fused_met_state = plan.init_state(self._device)
+        self._device_met_version += 1
+        proxy = _dm.DeviceMetricProxy(self, eval_metric)
+        proxy._pub_version = self._device_met_version
+        self._device_proxy = proxy
+        return proxy
+
+    def _reset_device_metric(self):
+        """Zero the device carry in place (stream-ordered after the steps
+        in flight, and the tensors a captured graph adds to stay)."""
+        if self._fused_met_state is None:
+            return
+        with torch.no_grad():
+            for pair in self._fused_met_state:
+                for t in pair:
+                    t.zero_()
+        self._device_met_version += 1
+
+    def _publish_device_metric(self):
+        """ONE device-to-host copy of the whole metric carry, written into
+        the wrapped metric's host accumulators: the only copy the
+        device-metric path pays, and only when someone reads it."""
+        if self._device_plan is None or self._fused_met_state is None:
+            return
+        flat = torch.stack([t.to(torch.float64)
+                            for pair in self._fused_met_state
+                            for t in pair]).cpu().tolist()
+        self._device_plan.publish(list(zip(flat[0::2], flat[1::2])))
+
+    def _detach_device_metric(self):
+        if self._fused is not None:
+            self._fused.detach_metric()
+        self._fused_met_state = None
+        self._device_plan = None
+        self._device_proxy = None
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs

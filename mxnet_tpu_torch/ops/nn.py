@@ -464,10 +464,14 @@ class _SoftmaxOutputGrad(torch.autograd.Function):
             # out - onehot without building the one-hot tensor
             grad = out.movedim(axis, -1).clone(
                 memory_format=torch.contiguous_format)
+            # 1 off at each in-range label, nothing elsewhere (x - 0 is
+            # x), by gather and scatter: no host read of the labels, so
+            # the step stays capturable as a CUDA graph
             rows = grad.reshape(-1, ncls)
-            ids = lab.reshape(-1).long()
-            hit = ((ids >= 0) & (ids < ncls)).nonzero().squeeze(1)
-            rows[hit, ids[hit]] -= 1.0
+            ids = lab.reshape(-1, 1).long()
+            hit = ((ids >= 0) & (ids < ncls)).to(rows.dtype)
+            safe = ids.clamp(0, ncls - 1)
+            rows.scatter_(1, safe, rows.gather(1, safe) - hit)
             grad = grad.movedim(-1, axis)
         valid = lab != int(ignore_label)
         if use_ignore:
@@ -537,8 +541,10 @@ def dropout(data, *, p=0.5, mode="training", axes=(), cudnn_off=False,
     keep = 1.0 - p
     mask = _random.bernoulli(_random.next_key(), keep, shape, data.device)
     # a tensor divisor: CUDA divides by a Python scalar as a product with
-    # its reciprocal, which rounds differently from the JAX op's division
-    kt = torch.tensor(keep, dtype=data.dtype, device=data.device)
+    # its reciprocal, which rounds differently from the JAX op's division;
+    # filled on the device (torch.tensor would copy from the host, which
+    # a CUDA graph cannot capture)
+    kt = torch.full((), keep, dtype=data.dtype, device=data.device)
     return torch.where(mask, data / kt, torch.zeros_like(data))
 
 

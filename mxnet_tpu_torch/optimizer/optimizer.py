@@ -10,9 +10,13 @@ in ``_weight`` nor in ``_gamma``, so biases and betas do not decay;
 * the eager ``update(index, weight, grad, state)`` the ``Updater``
   applies per parameter (Adam's bias correction folded into ``lr_t`` in
   Python floats);
-* ``fused_ops()`` -> ``(state_init, update)`` for the fused train step,
-  ``update(w, g, state, lr, wd, rescale, t) -> (w, state)`` with lr, wd
-  and rescale as f32 scalars and the bias correction in f32.
+* ``fused_ops()`` -> ``(state_init, update)`` for the fused train step
+  and the Gluon Trainer's fused pass, ``update(w, g, state, lr, wd,
+  rescale) -> (w, state)`` with lr, wd and rescale as f32 values: Python
+  floats, or 0-d f32 tensors on the weight's device, which a captured
+  CUDA graph reads anew on every replay. ``lr`` is what
+  ``fused_lr(lr, t)`` made of the schedule's rate at update count t on
+  the host, in numpy f32 (Adam folds its bias correction in there).
 
 Both update the weight and the state tensors in place (the counterpart
 of the JAX package donating them to XLA) through the same functions,
@@ -238,9 +242,15 @@ class Optimizer:
         """``(state_init, update)`` for the fused train step, or None.
         ``state_init(w)`` -> tuple of state tensors (the eager
         ``create_state`` result flattened: None -> (), x -> (x,));
-        ``update(w, g, state, lr, wd, rescale, t)`` updates w and the
-        state in place and returns ``(w, state)``."""
+        ``update(w, g, state, lr, wd, rescale)`` updates w and the state
+        in place and returns ``(w, state)``; ``lr`` comes from
+        :meth:`fused_lr`."""
         return None
+
+    def fused_lr(self, lr, t):
+        """The learning rates (an f32 array, one per parameter) the fused
+        update applies at update count ``t``: ``lr`` itself here."""
+        return _np.asarray(lr, _np.float32)
 
 
 @register
@@ -286,13 +296,13 @@ class SGD(Optimizer):
     def fused_ops(self):
         mom, clip = self.momentum, self._clip_const()
         if mom == 0.0:
-            def upd0(w, g, s, lr, wd, rescale, t):
+            def upd0(w, g, s, lr, wd, rescale):
                 sgd_update_(w, g, lr=lr, wd=wd, rescale_grad=rescale,
                             clip_gradient=clip)
                 return w, ()
             return (lambda w: ()), upd0
 
-        def upd(w, g, s, lr, wd, rescale, t):
+        def upd(w, g, s, lr, wd, rescale):
             sgd_mom_update_(w, g, s[0], lr=lr, momentum=mom, wd=wd,
                             rescale_grad=rescale, clip_gradient=clip)
             return w, s
@@ -326,17 +336,20 @@ class Adam(Optimizer):
     def fused_ops(self):
         b1, b2, eps, clip = self.beta1, self.beta2, self.epsilon, \
             self._clip_const()
-        one = _np.float32(1.0)
 
-        def upd(w, g, s, lr, wd, rescale, t):
-            tf = _np.float32(t)
-            lr_t = _np.float32(lr) * _np.sqrt(one - _np.float32(b2) ** tf) \
-                / (one - _np.float32(b1) ** tf)
-            adam_update_(w, g, s[0], s[1], lr=float(lr_t), beta1=b1,
-                         beta2=b2, epsilon=eps, wd=wd, rescale_grad=rescale,
+        def upd(w, g, s, lr, wd, rescale):
+            adam_update_(w, g, s[0], s[1], lr=lr, beta1=b1, beta2=b2,
+                         epsilon=eps, wd=wd, rescale_grad=rescale,
                          clip_gradient=clip)
             return w, s
         return (lambda w: (torch.zeros_like(w), torch.zeros_like(w))), upd
+
+    def fused_lr(self, lr, t):
+        """``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)`` in f32."""
+        one, tf = _np.float32(1.0), _np.float32(t)
+        return _np.asarray(lr, _np.float32) \
+            * _np.sqrt(one - _np.float32(self.beta2) ** tf) \
+            / (one - _np.float32(self.beta1) ** tf)
 
 
 def _state_to(state, fn):

@@ -13,7 +13,10 @@ stream.
 
 A key is a numpy ``uint32`` pair on the host; the chain, ``split`` and
 ``fold_in`` of one key run there on Python ints, so drawing a key never
-touches a device. The samplers (:func:`uniform`, :func:`normal`, ...)
+touches a device. A key may also be an int64 tensor pair on a device
+(the grouped train step stages its keys so): then ``fold_in``,
+``split`` and the samplers hash it there in tensor ops and never read
+it back, so a captured CUDA graph draws fresh bits on every replay. The samplers (:func:`uniform`, :func:`normal`, ...)
 hash the element counts under a key on the device the caller names.
 Each follows its ``jax.random`` namesake step for step; where a step is
 a transcendental (``normal``'s ``erf_inv``, ``exponential``'s
@@ -89,9 +92,14 @@ def _key(k1, k2):
 
 def _words(key):
     """A key (numpy uint32 pair, int64 tensor pair, or a sequence) as
-    two Python ints."""
+    two words: Python ints, or for a tensor key its two 0-d int64
+    tensors, left on their device (no host read)."""
     if isinstance(key, torch.Tensor):
-        key = key.tolist()
+        if tuple(key.shape) != (2,):
+            raise MXNetError("a PRNG key is a pair of uint32 words, got "
+                             "shape %s" % (tuple(key.shape),))
+        key = key.to(torch.int64)
+        return key[0], key[1]
     k = _np.asarray(key, dtype=_np.int64).reshape(-1)
     if k.shape != (2,):
         raise MXNetError("a PRNG key is a pair of uint32 words, got shape "
@@ -107,9 +115,21 @@ def prng_key(seed_state):
     return _key(hi, s)
 
 
+def _pack(k1, k2):
+    """Two words as a key of the kind they came from: a numpy uint32
+    pair, or a stacked int64 tensor pair."""
+    if isinstance(k1, torch.Tensor):
+        return torch.stack([k1, k2])
+    return _key(k1, k2)
+
+
 def split(key, num=2):
-    """``jax.random.split``: ``num`` keys, a ``(num, 2)`` uint32 array."""
+    """``jax.random.split``: ``num`` keys, a ``(num, 2)`` uint32 array
+    (an int64 tensor for a tensor key)."""
     k1, k2 = _words(key)
+    if isinstance(k1, torch.Tensor):
+        i = torch.arange(int(num), dtype=torch.int64, device=k1.device)
+        return torch.stack(threefry2x32(k1, k2, i >> 32, i & _M32), 1)
     out = _np.empty((int(num), 2), _np.uint32)
     for i in range(int(num)):
         out[i] = threefry2x32(k1, k2, i >> 32, i & _M32)
@@ -119,7 +139,7 @@ def split(key, num=2):
 def fold_in(key, data):
     """``jax.random.fold_in`` of an int (taken mod 2**32)."""
     k1, k2 = _words(key)
-    return _key(*threefry2x32(k1, k2, 0, int(data) & _M32))
+    return _pack(*threefry2x32(k1, k2, 0, int(data) & _M32))
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +256,8 @@ def bits(key, shape, device=None):
     shape = _shape(shape)
     k1, k2 = _words(key)
     i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    if isinstance(k1, torch.Tensor):
+        k1, k2 = k1.to(i.device), k2.to(i.device)
     b1, b2 = threefry2x32(k1, k2, i >> 32, i & _M32)
     return (b1 ^ b2).reshape(shape)
 
@@ -255,8 +277,10 @@ def _scale(f, minval, maxval):
     """``max(lo, f * (hi - lo) + lo)`` in f's dtype, the multiply-add
     fused as XLA's CPU backend fuses it for f32 and f16 (emulated in f64,
     where the product is exact); bfloat16 rounds after each step."""
-    lo = torch.tensor(minval, dtype=f.dtype, device=f.device)
-    hi = torch.tensor(maxval, dtype=f.dtype, device=f.device)
+    # torch.full, not torch.tensor: a fill on the device, where
+    # torch.tensor would copy from the host (no copy inside a CUDA graph)
+    lo = torch.full((), minval, dtype=f.dtype, device=f.device)
+    hi = torch.full((), maxval, dtype=f.dtype, device=f.device)
     if f.dtype == torch.bfloat16:
         return torch.maximum(lo, f * (hi - lo) + lo)
     y = f.double() * (hi - lo).double() + lo.double()
@@ -288,8 +312,9 @@ def erfinv(x):
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
-                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+        return torch.where(lt, torch.full((), _ERFINV_LT5[i],
+                                          device=x.device),
+                           torch.full((), _ERFINV_GE5[i], device=x.device))
     p = coef(0)
     for i in range(1, len(_ERFINV_LT5)):
         p = coef(i) + p * w
@@ -307,7 +332,8 @@ def normal(key, shape, dtype="float32", device=None):
         lo = float(torch.nextafter(torch.tensor(-1.0, dtype=dt),
                                    torch.tensor(0.0, dtype=dt)))
     u = uniform(key, shape, dt, lo, 1.0, device)
-    return torch.tensor(math.sqrt(2), dtype=dt, device=u.device) * erfinv(u)
+    return torch.full((), math.sqrt(2), dtype=dt, device=u.device) \
+        * erfinv(u)
 
 
 def exponential(key, shape, dtype="float32", device=None):
@@ -318,7 +344,8 @@ def exponential(key, shape, dtype="float32", device=None):
 def bernoulli(key, p, shape, device=None):
     """``jax.random.bernoulli`` with a float ``p``: ``uniform < p``."""
     u = uniform(key, shape, torch.float32, device=device)
-    return u < torch.tensor(float(p), dtype=torch.float32, device=u.device)
+    return u < torch.full((), float(p), dtype=torch.float32,
+                          device=u.device)
 
 
 def randint(key, shape, low, high, dtype="int32", device=None):
@@ -369,8 +396,9 @@ def categorical_rows(key, logits, n):
     row r of ``(R, K)`` f32 logits, ``k_r`` the r-th key of
     ``split(key, R)`` -> ``(R, n)`` int64 draws."""
     R, K = logits.shape
-    keys = torch.as_tensor(split(key, R).astype(_np.int64),
-                           device=logits.device)
+    keys = split(key, R)
+    keys = (keys.to(logits.device) if isinstance(keys, torch.Tensor) else
+            torch.as_tensor(keys.astype(_np.int64), device=logits.device))
     i = torch.arange(n * K, dtype=torch.int64, device=logits.device)
     b1, b2 = threefry2x32(keys[:, 0:1], keys[:, 1:2], (i >> 32)[None],
                           (i & _M32)[None])

@@ -923,3 +923,76 @@ def test_key_chain_draws_on_the_card_equal_the_cpus(cuda):
     ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
     ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
     assert np.abs(ia - ib).max() <= 4
+
+
+# --------------------------------------------------- grouped dispatch (A1b)
+def _grouped_mlp():
+    data = mt.sym.Variable("data")
+    net = mt.sym.FullyConnected(data, num_hidden=64, name="fc1")
+    net = mt.sym.BatchNorm(net, name="bn1")
+    net = mt.sym.Activation(net, act_type="relu")
+    net = mt.sym.Dropout(net, p=0.5)
+    net = mt.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    return mt.sym.SoftmaxOutput(net, name="softmax")
+
+
+def _grouped_fit(k, ctx, n=12, metric=None):
+    rng = np.random.RandomState(0)
+    X = rng.randn(n * 32, 16).astype(np.float32)
+    Y = rng.randint(0, 10, (n * 32,)).astype(np.float32)
+    mod = mt.mod.Module(_grouped_mlp(), context=ctx)
+    mt.random.seed(3)
+    mod.fit(mt.io.NDArrayIter(X, Y, batch_size=32), num_epoch=2,
+            kvstore="tpu_sync", optimizer="adam",
+            optimizer_params={"learning_rate": 0.01},
+            initializer=mt.init.Xavier(seed=0), eval_metric=metric,
+            steps_per_dispatch=k)
+    args, aux = mod.get_params()
+    state = {k_: v.cpu() for k_, v in {**args, **aux}.items()}
+    return mod, state, mt.random.get_state()[0].copy()
+
+
+def test_grouped_graph_replay_matches_the_eager_steps(cuda):
+    """K = 4 over 12 batches, 2 epochs, on the card: one graph captured
+    after 2 warm-up steps and replayed 46 times; weights, moving
+    statistics, outputs, the device metric and the key chain bitwise
+    those of the eager per-step run on the card (Dropout's masks drawn
+    from staged keys inside the graph)."""
+    runs = {}
+    for k in (1, 4):
+        m = mt.metric.create(["acc", "ce"])
+        mod, state, chain = _grouped_fit(k, cuda, metric=m)
+        runs[k] = (state, chain, m.get_name_value(),
+                   mod.get_outputs()[0].cpu(), mod._fused)
+    (s1, c1, m1, o1, f1), (s4, c4, m4, o4, f4) = runs[1], runs[4]
+    assert (f4.captures, f4.eager_steps, f4.replays) == (1, 2, 22)
+    assert f1.captures == 0 and f1.eager_steps == 24
+    for k in s1:
+        assert torch.equal(s4[k], s1[k]), k
+    assert torch.equal(o4, o1)
+    np.testing.assert_array_equal(c4, c1)
+    assert m4 == m1
+
+
+def test_grouped_capture_failure_raises(cuda, monkeypatch):
+    """A step that reads the card from the host cannot be captured:
+    run_k raises MXNetError naming the capture, and runs no eager step
+    in the graph's place."""
+    mod = mt.mod.Module(_grouped_mlp(), context=cuda)
+    mod.bind([("data", (32, 16))], [("softmax_label", (32,))])
+    mod.init_params(mt.init.Xavier(seed=0))
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd")
+    ex = mod._exec
+    real = ex._run
+
+    def reads_back(*a, **kw):
+        outs, auxu = real(*a, **kw)
+        float(outs[0].sum())
+        return outs, auxu
+    monkeypatch.setattr(ex, "_run", reads_back)
+    X = np.zeros((4 * 32, 16), np.float32)
+    Y = np.zeros(4 * 32, np.float32)
+    with pytest.raises(mt.base.MXNetError, match="capturing the fused step"):
+        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=32), num_epoch=1,
+                eval_metric=None, steps_per_dispatch=4)
+    assert mod._fused.eager_steps == 2 and mod._fused.replays == 0

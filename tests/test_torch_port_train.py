@@ -622,11 +622,43 @@ def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch):
 
 
 def test_fit_refuses_grouped_dispatch():
+    """fit refuses grouped dispatch only where the JAX package's does
+    (K < 1, or with sparse_row_id_fn), before binding anything; else
+    ``steps_per_dispatch=4`` trains one window of four SGD steps and
+    matches the JAX package's grouped fit at this file's per-step fit
+    tolerances (outputs rtol 1e-4, atol 1e-5; parameters atol 1e-5)."""
     X, Y = _batches()
+    X, Y = np.concatenate([X, X[:B]]), np.concatenate([Y, Y[:B]])
+    for kw in (dict(steps_per_dispatch=0),
+               dict(steps_per_dispatch=4, sparse_row_id_fn=lambda b: {})):
+        mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
+        with pytest.raises(ValueError, match="steps_per_dispatch"):
+            mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                    **kw)
+        assert not mod.binded
+    jmod = mx.mod.Module(_gpt(mx.sym), context=mx.cpu())
+    jmod.fit(mx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+             kvstore="tpu_sync", optimizer="sgd", optimizer_params=OPT["sgd"],
+             arg_params={k: mx.nd.array(v)
+                         for k, v in _jax_init_params().items()},
+             eval_metric=None, steps_per_dispatch=4)
+    args, _ = mt.serving.params_from_reference(
+        _jax_init_params(), {}, _gpt(mt.sym), "cpu",
+        data_shapes={"data": (B, T)})
     mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
-    with pytest.raises(mt.base.MXNetError, match="steps_per_dispatch=4"):
-        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
-                steps_per_dispatch=4)
+    mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+            kvstore="tpu_sync", optimizer="sgd", optimizer_params=OPT["sgd"],
+            arg_params=args, eval_metric=None, steps_per_dispatch=4)
+    assert mod._optimizer.num_update == 4
+    np.testing.assert_allclose(_t(mod.get_outputs()[0]),
+                               _f32(jmod.get_outputs()[0]),
+                               rtol=1e-4, atol=1e-5)
+    want = jmod.get_params()[0]
+    got = mod.get_params()[0]
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(_t(got[k]), _f32(want[k]), rtol=0,
+                                   atol=1e-5, err_msg=k)
 
 
 @pytest.mark.parametrize("value,mp,want", [
