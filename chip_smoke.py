@@ -312,10 +312,49 @@ Phases; any failure raises and the script exits non-zero:
    ``random.seed(5)``: losses and parameters bitwise equal (a mask or
    Adam's bias correction frozen into the graph would part them) and
    the key chains equal.
-16. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
-   and ``grouped`` among its paths, B2, B3 and B5 ``grouped``), the
-   card's nvidia-smi line, and last the result line ``{"ok": true,
-   "device": {...}}``.
+16. Recommend: ``bench.py``'s recommend leg at its chip sizes, nothing
+   cut. B2 first, bitwise its plain gather with out-of-range ids, and
+   timed (as phase 3) beside ``index_select`` of the clipped ids and its
+   bound, at the served lookup's (1024, 64) cache by 16 x 64 slots, a
+   (8192, 64) cache by 512 ids and the matrix factorization's (200, 16)
+   table by 256 ids. Then the two-tower training: spill stores of 65536
+   (seed 1) and 4096 (seed 2) rows of 64 f32 from ``row_init``, hot-row
+   caches of 8192 and 4096 rows, 30 steps of 512 (Zipf(1.3)
+   user ids, uniform item ids, normal ratings from ``RandomState(0)`` in
+   ``bench.py``'s order), each ``bench.py``'s step in torch (a sum of
+   each row's contributions in batch order, then one SGD update at lr
+   0.1) between ``ensure`` and ``note_updated``; then ``flush``. The
+   same 30 steps run again under torch.profiler (the step's device
+   time) and once on dense tables: all three runs' final tables must be
+   bitwise equal, and the cache must have spilled. Printed: the wall ms
+   a step over steps 2-30, its device ms, the user cache's hit rate,
+   evictions, spill and upload bytes. Then ``export_recommend`` of the
+   flushed tables (max 64 ids, k 10) and ``Server(path,
+   queue_depth=64)`` with the engine's defaults (buckets 1/4/16, a
+   1024-row cache) answering 256 requests of ``measure_recommend``'s
+   traffic (RandomState(0), longtail lengths of mean 8 in 1..64, Zipf
+   ids) at concurrency 8, twice: cold, as ``bench.py`` measures it,
+   then warm. Counts zeroed just before each run, read just after: one
+   B2 launch and one dispatch per executed batch, no fallback, one
+   device-to-host copy per batch, the cache buffer in place. Every
+   response against a float64 numpy oracle on the exported tables
+   (mean of the rows, corpus scores, stable top 10): the items rank
+   for rank, save near ties (a returned item's oracle score within
+   rtol 1e-5 of the oracle's at its rank), the scores within rtol
+   1e-5; ``check_discipline()`` clean. Printed: goodput QPS, request
+   p50/p99, the batches by bucket, the engine's and cache's stats, and
+   a 16-request batch's wall and device time and busy share from
+   torch.profiler. Last ``examples/matrix_factorization.py``'s
+   ``MFBlock`` at its defaults (200 users, 150 items, factor 16,
+   ``groupadagrad`` lr 0.05, ``Normal(0.1)``, ``L2Loss``, its synthetic
+   ratings of seed 0, batch 256): one step on the card against the
+   same step on the CPU within 1e-5, the rows of zero gradient bitwise
+   unchanged and the others moved; then two epochs, whose RMSE must
+   fall, with 2 B2 launches and dispatches a forward.
+17. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
+   and ``grouped`` among its paths, B2, B3 and B5 ``grouped``, B2
+   ``recommend`` and ``matrix_factorization``), the card's nvidia-smi
+   line, and last the result line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
 either it fails before printing a result.
@@ -4932,6 +4971,499 @@ def grouped_dropout(dev, report):
     report["grouped_dropout"] = {"losses": l1.tolist(), "bitwise": same}
 
 
+# ------------------------------------------------ recommend (phase 16)
+# bench.py's recommend leg at its chip sizes (bench.py:_reco_leg, on_tpu)
+RECO = {"users": 65536, "items": 4096, "dim": 64, "batch": 512,
+        "steps": 30, "cache_rows": 8192, "lr": 0.1, "max_ids": 64, "k": 10,
+        "requests": 256, "concurrency": 8, "mean_ids": 8, "zipf": 1.3}
+# examples/matrix_factorization.py's defaults
+MF = {"users": 200, "items": 150, "factor": 16, "batch": 256, "lr": 0.05,
+      "epochs": 2, "ratings": 20000}
+
+
+def b2_recommend_phase(dev):
+    """B2 at the recommend path's shapes, bitwise against its plain
+    version, out-of-range ids included: the served lookup's (1024, 64)
+    cache by a (16 x 64) slot matrix, a (8192, 64) training cache by
+    512 ids, and the matrix factorization's (200, 16) table by 256 ids.
+    Then their times beside the plain gather, ``index_select`` of the
+    clipped ids and the bound (the gathered rows read and written and
+    the ids read, over the HBM rate)."""
+    from mxnet_tpu_torch.kernels import take
+    g = torch.Generator(device=dev).manual_seed(16)
+    rows = {}
+
+    def case(name, V, D, idx_shape):
+        table = torch.randn(V, D, generator=g, device=dev)
+        ids = torch.randint(-64, V + 64, idx_shape, generator=g,
+                            device=dev, dtype=torch.int32)
+        got = take.take_rows(table, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got, take._plain_take(table, ids)):
+            raise RuntimeError("take_rows is not bitwise the clipped gather "
+                               "at %s" % name)
+        flat = ids.reshape(-1).contiguous()
+        clipped = flat.long().clamp(0, V - 1)
+        n = flat.numel()
+        r = {"shape": "table (%d, %d) f32, ids %s" % (V, D, idx_shape),
+             "ms": time_ms(lambda: take._launch(table, flat,
+                                                take.DEFAULT_CONFIG), dev),
+             "plain_ms": time_ms(lambda: take._plain_take(table, ids), dev),
+             "library_ms": time_ms(
+                 lambda: torch.index_select(table, 0, clipped), dev),
+             "bytes_ms": (2 * n * D * 4 + n * 4) / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": 0.0}
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
+        rows[name] = r
+        log("  %-22s %-40s ms=%.5f plain_ms=%.5f index_select_ms=%.5f "
+            "bound_ms=%.6f (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
+                                    r["library_ms"], r["bound_ms"],
+                                    r["bound_by"]))
+
+    case("take_rows@serve", 1024, 64, (16, 64))
+    case("take_rows@train", 8192, 64, (512,))
+    case("take_rows@mf", MF["users"], MF["factor"], (MF["batch"],))
+    log("B2 at the recommend shapes: bitwise the plain gather")
+    return rows
+
+
+def reco_train_data():
+    """bench.py's training stream, in its order: Zipf user ids, uniform
+    item ids, normal ratings, all from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    S, B = RECO["steps"], RECO["batch"]
+    u_ids = ((rng.zipf(RECO["zipf"], size=(S, B)) - 1)
+             % RECO["users"]).astype("int64")
+    i_ids = rng.randint(0, RECO["items"], size=(S, B)).astype("int64")
+    ratings = rng.randn(S, B).astype("f4")
+    return u_ids, i_ids, ratings
+
+
+def reco_step(u_buf, i_buf, us, isl, r, lr):
+    """bench.py's two-tower step (bench.py:209-216) in torch, in place.
+    Each row's contributions are summed before its one update, by
+    ``index_put_(accumulate=True)`` under deterministic algorithms: a
+    stable sort by row, then a sum in batch order, so the tables do not
+    depend on which slot a row sits in (``index_add_``'s atomics would
+    add Zipf's repeated ids in any order)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        uv, iv = u_buf[us], i_buf[isl]
+        err = (uv * iv).sum(-1) - r
+        d = (2.0 / r.shape[0]) * err
+        gu = torch.zeros_like(u_buf).index_put_((us,), d[:, None] * iv,
+                                                accumulate=True)
+        gi = torch.zeros_like(i_buf).index_put_((isl,), d[:, None] * uv,
+                                                accumulate=True)
+        u_buf.sub_(lr * gu)
+        i_buf.sub_(lr * gi)
+        return (err ** 2).sum()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def reco_train(dev, data, cached, profiled=False):
+    """The 30 steps through the hot-row caches (``ensure`` before and
+    ``note_updated`` after every step, ``flush`` at the end), or on
+    dense tables on the card. Returns the final tables, the stores, the
+    user cache, the wall ms a step over steps 2-30 and, when
+    ``profiled``, their device ms a step from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.embed import HotRowCache, SpillStore, row_init
+    u_ids, i_ids, ratings = data
+    U, I, D = RECO["users"], RECO["items"], RECO["dim"]
+    lr = float(np.float32(RECO["lr"]))
+    r_dev = torch.from_numpy(ratings).to(dev)
+    if cached:
+        store_u, store_i = SpillStore(U, D, seed=1), SpillStore(I, D, seed=2)
+        cache_u = HotRowCache(store_u, RECO["cache_rows"], device=dev)
+        cache_i = HotRowCache(store_i, min(RECO["cache_rows"], I),
+                              device=dev)
+    else:
+        u_tab = torch.from_numpy(row_init(1, np.arange(U), D)).to(dev)
+        i_tab = torch.from_numpy(row_init(2, np.arange(I), D)).to(dev)
+
+    def step(s):
+        if cached:
+            us = torch.from_numpy(cache_u.ensure(u_ids[s])).to(dev).long()
+            isl = torch.from_numpy(cache_i.ensure(i_ids[s])).to(dev).long()
+            loss = reco_step(cache_u.buf, cache_i.buf, us, isl, r_dev[s], lr)
+            cache_u.note_updated(u_ids[s])
+            cache_i.note_updated(i_ids[s])
+            return loss
+        us = torch.from_numpy(u_ids[s]).to(dev)
+        isl = torch.from_numpy(i_ids[s]).to(dev)
+        return reco_step(u_tab, i_tab, us, isl, r_dev[s], lr)
+
+    losses = [step(0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_ms = None
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for s in range(1, RECO["steps"]):
+                losses.append(step(s))
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy <= 0:
+            raise RuntimeError("torch.profiler recorded no device time")
+        device_ms = busy / (RECO["steps"] - 1) / 1e3
+    else:
+        for s in range(1, RECO["steps"]):
+            losses.append(step(s))
+        torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / (RECO["steps"] - 1)
+    losses = [float(x) for x in losses]
+    if not cached:
+        return (u_tab.cpu().numpy(), i_tab.cpu().numpy(), None, None,
+                step_ms, device_ms, losses)
+    cache_u.flush()
+    cache_i.flush()
+    return (store_u.peek(np.arange(U)), store_i.peek(np.arange(I)),
+            (store_u, store_i), cache_u, step_ms, device_ms, losses)
+
+
+def sample_lengths(rng, n, mean, lo, hi):
+    """``tools/serve_loadgen.py`` ``_sample_lengths``'s longtail draw: a
+    geometric tail around ``mean``, clipped to [lo, hi]."""
+    mean = max(lo, min(mean, hi))
+    p_geo = min(0.95, 1.0 / max(1.0, mean - lo + 1))
+    vals = lo + rng.geometric(p=p_geo, size=n) - 1
+    return np.clip(vals, lo, hi).astype(int)
+
+
+def reco_requests():
+    """``measure_recommend``'s requests (tools/serve_loadgen.py:784-880):
+    RandomState(0), longtail lengths of mean 8 clipped to 1..64, Zipf
+    ids."""
+    rng = np.random.RandomState(0)
+    lens = sample_lengths(rng, RECO["requests"], RECO["mean_ids"], 1,
+                          RECO["max_ids"])
+    return [((rng.zipf(RECO["zipf"], size=int(lens[i])) - 1)
+             % RECO["users"]).astype("int64").tolist()
+            for i in range(RECO["requests"])]
+
+
+def closed_loop(srv, id_lists, concurrency):
+    """``concurrency`` client threads, each submitting its next request
+    when the last one returned. Returns the results, latencies (ms) and
+    wall seconds; any failure raises."""
+    lock = threading.Lock()
+    nxt = [0]
+    results = [None] * len(id_lists)
+    lat = [None] * len(id_lists)
+    errors = []
+
+    def worker():
+        while True:
+            with lock:
+                if nxt[0] >= len(id_lists):
+                    return
+                i = nxt[0]
+                nxt[0] += 1
+            t0 = time.monotonic()
+            try:
+                results[i] = srv.submit_recommend(id_lists[i]).result(
+                    timeout=60)
+            except Exception as e:     # reported below, with the index
+                errors.append((i, repr(e)))
+                return
+            lat[i] = (time.monotonic() - t0) * 1e3
+    threads = [threading.Thread(target=worker, daemon=True)
+               for _ in range(concurrency)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    if errors:
+        raise RuntimeError("recommend requests failed: %s" % errors[:4])
+    return results, lat, wall
+
+
+def reco_serve_run(srv, id_lists):
+    """The traffic once through ``srv`` in a closed loop, the counts
+    zeroed just before and read just after: one B2 launch and one
+    dispatch per executed batch, no fallback, one device-to-host copy
+    per batch, the cache buffer in place. Returns the results and the
+    run's numbers."""
+    from mxnet_tpu_torch import profiler
+    from mxnet_tpu_torch.kernels import take
+    ptr = srv.engine.cache.buf.data_ptr()
+    before = {b: v["batches"] for b, v in srv.metrics()["buckets"].items()}
+    reset_train_counts()
+    profiler.reset_sync_counters()
+    results, lat, wall = closed_loop(srv, id_lists, RECO["concurrency"])
+    launches, st = take.launches, tier.stats()
+    syncs = profiler.sync_counters()
+    by_bucket = {b: v["batches"] - before.get(b, 0)
+                 for b, v in srv.metrics()["buckets"].items()}
+    batches = sum(by_bucket.values())
+    if launches != batches or st["dispatch"].get("take_rows") != batches \
+            or st["fallback"]:
+        raise RuntimeError("recommend: %d B2 launches for %d batches, tier "
+                           "%s" % (launches, batches, st))
+    if syncs["d2h"] != batches:
+        raise RuntimeError("recommend: %d device-to-host copies for %d "
+                           "batches" % (syncs["d2h"], batches))
+    if srv.engine.cache.buf.data_ptr() != ptr:
+        raise RuntimeError("recommend: the cache buffer moved")
+    return results, {
+        "goodput_qps": len(results) / wall, "wall_s": wall,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)), "batches": batches,
+        "buckets": by_bucket, "take_rows_launches": launches,
+        "d2h": syncs["d2h"], "d2h_bytes": syncs["d2h_bytes"]}
+
+
+def reco_oracle_check(user, corpus, id_lists, results):
+    """Every response against a float64 numpy oracle on the exported
+    tables: the mean of the request's user rows (its first 64 ids), the
+    corpus scores, a stable descending top 10. The items must be the
+    oracle's, rank for rank, save near ties: a returned item whose
+    oracle score is within rtol 1e-5 of the oracle's at that rank (the
+    10th against the 11th, or two ranks inside the 10). The scores
+    within rtol 1e-5. Returns (worst relative score error, requests
+    with a near-tie swap)."""
+    k = RECO["k"]
+    c64 = corpus.astype(np.float64)
+    worst, swaps = 0.0, 0
+    for j, (ids, (scores, items)) in enumerate(zip(id_lists, results)):
+        vec = user[np.asarray(ids[:RECO["max_ids"]])].astype(
+            np.float64).mean(0)
+        s = c64 @ vec
+        want = np.argsort(-s, kind="stable")[:k]
+        items = np.asarray(items, np.int64)
+        if not np.array_equal(items, want):
+            if len(set(items.tolist())) != k or not np.allclose(
+                    s[items], s[want], rtol=1e-5, atol=0):
+                raise RuntimeError(
+                    "recommend request %d: items %s, oracle %s (scores %s "
+                    "against %s)" % (j, items.tolist(), want.tolist(),
+                                     s[items].tolist(), s[want].tolist()))
+            swaps += 1
+        err = float(np.max(np.abs(scores - s[want]) / np.abs(s[want])))
+        if err > 1e-5:
+            raise RuntimeError("recommend request %d: scores %.3g from the "
+                               "oracle's (rtol 1e-5)" % (j, err))
+        worst = max(worst, err)
+    return worst, swaps
+
+
+class MFBlock(mt.gluon.HybridBlock):
+    """examples/matrix_factorization.py's block: two embeddings with
+    row-sparse gradients, scored by a dot product."""
+
+    def __init__(self, num_users, num_items, factor, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.user = mt.gluon.nn.Embedding(num_users, factor,
+                                              sparse_grad=True)
+            self.item = mt.gluon.nn.Embedding(num_items, factor,
+                                              sparse_grad=True)
+
+    def hybrid_forward(self, F, users, items):
+        return (self.user(users) * self.item(items)).sum(axis=1)
+
+
+def mf_ratings(num_users=200, num_items=150, rank=6, n=20000, seed=0):
+    """examples/matrix_factorization.py's synthetic ratings."""
+    rng = np.random.RandomState(seed)
+    U = rng.randn(num_users, rank) / np.sqrt(rank)
+    V = rng.randn(num_items, rank) / np.sqrt(rank)
+    u = rng.randint(0, num_users, n)
+    i = rng.randint(0, num_items, n)
+    r = (U[u] * V[i]).sum(1) + 0.05 * rng.randn(n)
+    return u.astype("f4"), i.astype("f4"), r.astype("f4")
+
+
+def mf_net(ctx):
+    net = MFBlock(MF["users"], MF["items"], MF["factor"])
+    net.initialize(mt.init.Normal(0.1), ctx=ctx)
+    trainer = mt.gluon.Trainer(net.collect_params(), "groupadagrad",
+                               {"learning_rate": MF["lr"]})
+    return net, trainer
+
+
+def mf_step(net, trainer, loss_fn, ctx, u, i, r):
+    users, items = mt.nd.array(u, ctx=ctx), mt.nd.array(i, ctx=ctx)
+    score = mt.nd.array(r, ctx=ctx)
+    with mt.autograd.record():
+        pred = net(users, items)
+        loss = loss_fn(pred, score)
+    loss.backward()
+    grads = [p.grad().asnumpy() for p in (net.user.weight,
+                                           net.item.weight)]
+    trainer.step(len(u))
+    return pred, score, grads
+
+
+def mf_phase(dev, report):
+    """The matrix factorization example on the card: one step against
+    the same step on the CPU (within 1e-5), the rows of zero gradient
+    bitwise unchanged, then two epochs (batches of 256 in order) whose
+    RMSE must fall, with 2 B2 launches a forward."""
+    from mxnet_tpu_torch.kernels import take
+    u, i, r = mf_ratings()
+    B = MF["batch"]
+    loss_fn = mt.gluon.loss.L2Loss()
+    mt.random.seed(0)
+    net, trainer = mf_net(mt.gpu(0))
+    cpu_net, cpu_trainer = mf_net(mt.cpu())
+    weights = (net.user.weight, net.item.weight)
+    for p, q in zip(weights, (cpu_net.user.weight, cpu_net.item.weight)):
+        q.set_data(mt.nd.array(p.data().asnumpy(), ctx=mt.cpu()))
+    before = [p.data().asnumpy() for p in weights]
+    _, _, grads = mf_step(net, trainer, loss_fn, mt.gpu(0), u[:B], i[:B],
+                          r[:B])
+    with mt.cpu():
+        mf_step(cpu_net, cpu_trainer, loss_fn, mt.cpu(), u[:B], i[:B],
+                r[:B])
+    step_err = 0.0
+    for p, q, w0, g in zip(weights, (cpu_net.user.weight,
+                                     cpu_net.item.weight), before, grads):
+        w = p.data().asnumpy()
+        step_err = max(step_err, float(np.abs(w - q.data().asnumpy()).max()))
+        zero = ~g.any(axis=1)
+        if not np.array_equal(w[zero], w0[zero]):
+            raise RuntimeError("the lazy update moved a row of zero gradient")
+        if not (w[~zero] != w0[~zero]).any(axis=1).all():
+            raise RuntimeError("the lazy update left a touched row alone")
+    if step_err > 1e-5:
+        raise RuntimeError("matrix factorization step: card vs CPU %.3g "
+                           "(limit 1e-5)" % step_err)
+    n_batches = MF["ratings"] // B
+    reset_train_counts()
+    rmse, forwards = [], 0
+    t0 = time.perf_counter()
+    for _ in range(MF["epochs"]):
+        se = 0.0
+        for b in range(n_batches):
+            sl = slice(b * B, (b + 1) * B)
+            pred, score, _ = mf_step(net, trainer, loss_fn, mt.gpu(0),
+                                     u[sl], i[sl], r[sl])
+            se += float(((pred - score) ** 2).sum().asscalar())
+            forwards += 1
+        rmse.append(math.sqrt(se / (n_batches * B)))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / forwards
+    launches = take.launches
+    st = tier.stats()
+    if launches != 2 * forwards or st["dispatch"].get("take_rows") \
+            != 2 * forwards or st["fallback"]:
+        raise RuntimeError("matrix factorization: %d B2 launches for %d "
+                           "forwards (want 2 each), tier %s"
+                           % (launches, forwards, st))
+    if not rmse[1] < rmse[0]:
+        raise RuntimeError("matrix factorization: RMSE did not fall: %s"
+                           % rmse)
+    report["matrix_factorization"] = {
+        "rmse_by_epoch": rmse, "step_ms": step_ms, "forwards": forwards,
+        "take_rows_launches": launches, "card_vs_cpu_step": step_err}
+    log("matrix factorization (200 x 150, factor 16, groupadagrad, batch "
+        "256): one step card vs CPU %.3g; zero-gradient rows unchanged; "
+        "RMSE %s over 2 epochs; %.3f ms a step (the loop's host copy "
+        "included); B2 %d launches for %d forwards"
+        % (step_err, " -> ".join("%.4f" % x for x in rmse), step_ms,
+           launches, forwards))
+    return launches
+
+
+def recommend_path(dev, card, report):
+    """Phase 16: bench.py's recommend leg on the card (see the module
+    docstring); returns B2's rows and its launches on both paths."""
+    import tempfile
+    from mxnet_tpu_torch.embed.serve import export_recommend
+    log("phase 16: recommend (bench.py's reco leg at its chip sizes)")
+    rows = b2_recommend_phase(dev)
+    data = reco_train_data()
+    t0 = time.perf_counter()
+    u_c, i_c, stores, cache_u, step_ms, _, losses = reco_train(
+        dev, data, cached=True)
+    u_p, i_p, _, _, _, dev_ms, _ = reco_train(dev, data, cached=True,
+                                              profiled=True)
+    u_d, i_d, _, _, _, _, _ = reco_train(dev, data, cached=False)
+    train_s = time.perf_counter() - t0
+    if not (np.array_equal(u_c, u_p) and np.array_equal(i_c, i_p)):
+        raise RuntimeError("two runs of the cached training differ: the "
+                           "step is not deterministic")
+    if not (np.array_equal(u_c, u_d) and np.array_equal(i_c, i_d)):
+        raise RuntimeError("cached and dense training differ (max %.3g)"
+                           % max(np.abs(u_c - u_d).max(),
+                                 np.abs(i_c - i_d).max()))
+    cst = cache_u.stats()
+    if cst["spill_bytes"] <= 0:
+        raise RuntimeError("the training cache never spilled")
+    train = {"step_ms": step_ms, "device_ms": dev_ms, "losses": losses,
+             "cache": {k: cst[k] for k in ("hit_rate", "evictions",
+                                           "spill_bytes", "upload_bytes")},
+             "three_runs_s": train_s}
+    log("two-tower training (%d x %d users, %d items, cache %d, %d steps "
+        "of %d): %.3f ms a step (steps 2-%d), %.4f ms of device time; user "
+        "cache %s; loss %.4f -> %.4f; bitwise across two cached runs and "
+        "the dense tables  [%s]"
+        % (RECO["users"], RECO["dim"], RECO["items"], RECO["cache_rows"],
+           RECO["steps"], RECO["batch"], step_ms, RECO["steps"], dev_ms,
+           json.dumps(train["cache"]), losses[0], losses[-1], card))
+
+    art = os.path.join(tempfile.mkdtemp(prefix="reco_"), "twotower.mxtorch")
+    store_u, store_i = stores
+    export_recommend(store_u.peek(np.arange(RECO["users"])),
+                     store_i.peek(np.arange(RECO["items"])), art,
+                     max_ids=RECO["max_ids"], k=RECO["k"])
+    srv = mt.serve.Server(art, queue_depth=64)
+    eng = srv.engine
+    id_lists = reco_requests()
+    # as bench.py measures it, the first requests meet a cold server (the
+    # batcher thread's first products, sorts and pinned copies); then
+    # the same traffic again on the warm one
+    runs = {}
+    for name in ("cold", "warm"):
+        results, runs[name] = reco_serve_run(srv, id_lists)
+        worst, swaps = reco_oracle_check(eng.model.user_table,
+                                         eng.model.item_table, id_lists,
+                                         results)
+        runs[name].update(oracle_worst_rel_err=worst, near_tie_swaps=swaps,
+                          engine_stats=eng.stats())
+    srv.close(drain=True)
+    diags = eng.check_discipline()
+    if diags:
+        raise RuntimeError("recommend discipline: %s" % diags)
+    lists16 = id_lists[:16]
+    prof = profile_steps(lambda: eng.recommend_batch(lists16), 20, 5)
+    report["recommend"] = {"train": train, "serve": runs,
+                           "batch16_profile": prof}
+    for name, r in runs.items():
+        st = r["engine_stats"]
+        log("recommend serving, %s (Server, buckets %s, cache %d): %d "
+            "requests at concurrency %d: %.1f QPS, p50 %.3f ms, p99 %.3f "
+            "ms; %d batches %s, %d B2 launches, %d d2h (%d bytes); every "
+            "answer the oracle's (worst score rel err %.3g, %d near-tie "
+            "swaps); engine stats after: hit rate %.4f, evictions %d, "
+            "upload %d bytes; buffer in place  [%s]"
+            % (name, list(eng.buckets), eng.cache.capacity, len(id_lists),
+               RECO["concurrency"], r["goodput_qps"], r["p50_ms"],
+               r["p99_ms"], r["batches"], json.dumps(r["buckets"]),
+               r["take_rows_launches"], r["d2h"], r["d2h_bytes"],
+               r["oracle_worst_rel_err"], r["near_tie_swaps"],
+               st["hit_rate"], st["evictions"], st["upload_bytes"], card))
+    log("  discipline clean; a batch of 16 through the engine: %.3f ms "
+        "wall, %.4f ms device (busy %.1f %%); top kernels %s"
+        % (prof["step_ms"], prof["device_ms"],
+           100 * prof["device_busy_share"],
+           json.dumps([(k["name"][:40], round(k["ms_per_step"], 4))
+                       for k in prof["top_kernels"][:4]])))
+    mf_launches = mf_phase(dev, report)
+    return rows, {"recommend": sum(r["take_rows_launches"]
+                                   for r in runs.values()),
+                  "matrix_factorization": mf_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -5001,6 +5533,7 @@ def main():
     grouped_b1, grouped_census = grouped_resnet(dev, card, report)
     grouped_counts = grouped_gpt(dev, card, report)
     grouped_dropout(dev, report)
+    reco_rows, reco_launches = recommend_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -5068,6 +5601,15 @@ def main():
             paths["grouped"] = (grouped_counts[kname],
                                 train_err[kname + "@train/float32"],
                                 train_rows[kname + "@train"])
+        if kname == "take_rows":
+            # phase 16: the served lookup (a 1024-row cache by 16 x 64
+            # slots at most) and the matrix factorization's embeddings,
+            # each timed at its own shape; bitwise, so no error
+            paths["recommend"] = (reco_launches["recommend"], 0.0,
+                                  reco_rows["take_rows@serve"])
+            paths["matrix_factorization"] = (
+                reco_launches["matrix_factorization"], 0.0,
+                reco_rows["take_rows@mf"])
         by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
                            **{k: r[k] for k in NAMED_KEYS if k in r})
                    for p, (n, e, r) in paths.items()}

@@ -4,14 +4,17 @@ The port serves ResNet predict artifacts (the op registry, Symbol and
 its JSON, the graph evaluator, the micro-batching server), their int8
 post-training quantization beside the f32 model (``quant``), and GPT
 generate artifacts (the decoder programs, continuous batching over a
-paged KV cache, speculative decoding with an int8 draft), and trains symbolic models through ``Module.fit`` (the
+paged KV cache, speculative decoding with an int8 draft) and recommend
+artifacts (two-tower tables streamed through a hot-row cache on the
+card, ``embed``), and trains symbolic models through ``Module.fit`` (the
 executor's forward and backward, the fused train step with bf16
 compute over f32 master weights, SGD with ``multi_precision`` and Adam,
 learning-rate schedules), and trains eagerly through the NDArray,
 ``autograd`` and Gluon (``Block``, ``HybridBlock``, ``nn`` with the
 convolution layers, ``loss``, ``Trainer``, ``data``, ``model_zoo``)
-layers, with the JAX package's random key chain (``random``) and its
-``.params`` files.
+layers, with the JAX package's random key chain (``random``), its
+``.params`` files, row-sparse gradients (``nd.sparse``) and the
+optimizers' lazy row updates.
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 the legacy flash forward ``flash_fwd`` and the int8 epilogue
@@ -40,6 +43,8 @@ from . import module as mod  # noqa: F401
 from . import parallel  # noqa: F401
 from . import kernels  # noqa: F401
 from . import serving  # noqa: F401
+from . import embed  # noqa: F401
+from . import profiler  # noqa: F401
 from . import serve  # noqa: F401
 from . import quant  # noqa: F401
 from . import random  # noqa: F401

@@ -209,3 +209,21 @@ register_flag("serve_decode_window", "MXNET_SERVE_DECODE_WINDOW", int, 16,
 register_flag("serve_drain_timeout_s", "MXNET_SERVE_DRAIN_S", float, 30.0,
               "Graceful-shutdown budget: how long Server.close(drain=True) "
               "waits for queued requests to finish.")
+register_flag("embed_cache_rows", "MXNET_EMBED_CACHE_ROWS", int, 1024,
+              "Device-resident hot-row capacity of the embedding cache "
+              "(embed/cache.py): the served table keeps this many rows on "
+              "the card and spills the cold tail to the host store. Size "
+              "it above the per-step working set; the cache's hit rate "
+              "says when it is too small.")
+register_flag("embed_host_budget_mb", "MXNET_EMBED_HOST_BUDGET_MB",
+              float, 0.0,
+              "Host-memory budget (MiB) for the embedding spill store. "
+              "0 (default) = unbounded. When set, the store raises "
+              "instead of growing past it: the logical table may exceed "
+              "the budget only as long as the touched cold tail stays "
+              "inside it.")
+register_flag("serve_max_gathers", "MXNET_SERVE_MAX_GATHERS", int, 65536,
+              "Admission cap for the recommend queue in pending gather "
+              "units (one unit = one embedding row fetched). Recommend "
+              "requests are ragged, so the queue bills and rejects on "
+              "gather counts, not request counts.")

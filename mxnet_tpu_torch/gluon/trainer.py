@@ -16,8 +16,13 @@ optimizer's ``Updater`` runs once per parameter. Both use the same
 update functions and the same state. The fused pass rounds lr, wd and
 rescale to f32 and computes Adam's bias correction in f32, as the JAX
 package's fused program does, so its Adam steps differ from the
-per-parameter path's by that rounding (SGD's agree bit for bit). Only
-kvstores on one device are ported:
+per-parameter path's by that rounding (SGD's agree bit for bit). A
+parameter with ``grad_stype="row_sparse"`` (``Embedding(sparse_grad=
+True)``, ``contrib.nn.SparseEmbedding``) stays out of the fused pass:
+its gradient is cast to row_sparse, whose rows are those of nonzero
+gradient (a looked-up row whose gradient sums to exactly 0.0 is left
+alone, as in the JAX package), and the optimizer's lazy row update
+writes only those rows. Only kvstores on one device are ported:
 ``dist_*`` (ROADMAP A6) raises. ``save_checkpoint`` and
 ``restore_checkpoint`` need ``checkpoint.py`` (ROADMAP A6) and raise.
 """
@@ -145,6 +150,20 @@ class Trainer:
                 continue
             work.append((i, param))
             info.fresh = False
+        # a row_sparse parameter takes the optimizer's lazy row update:
+        # its gradient cast to row_sparse (the touched rows are the rows
+        # of nonzero gradient; one host copy of their occupancy), and it
+        # stays out of the fused dense pass
+        sparse_work = [(i, p) for i, p in work
+                       if p.grad_stype == "row_sparse"]
+        if sparse_work:
+            from ..ndarray.sparse import cast_storage
+            work = [(i, p) for i, p in work
+                    if p.grad_stype != "row_sparse"]
+            upd = self._updaters[0]
+            for i, param in sparse_work:
+                upd(i, cast_storage(param.grad(), "row_sparse"),
+                    param.data()._data)
         if work and not self._fused_update(work):
             upd = self._updaters[0]
             for i, param in work:

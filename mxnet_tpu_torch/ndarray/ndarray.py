@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from ..base import MXNetError, normalize_dtype
+from ..base import normalize_dtype
 from ..context import Context, current_context, resolve_device
 from .. import autograd as _autograd
 from ..ops import registry as _registry
@@ -391,7 +391,8 @@ class NDArray:
     def tostype(self, stype):
         if stype == "default":
             return self
-        raise MXNetError("sparse storage is not ported yet (ROADMAP A4)")
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
 
 def _binary(op_name, scalar_op, lhs, rhs):
@@ -548,9 +549,16 @@ def waitall():
 
 
 def _to_record(a):
-    """An NDArray as a host numpy array for the file; a dtype outside the
-    mshadow table (bfloat16, bool, ...) raises as the format does."""
+    """An NDArray as a record for the file: a host numpy array, or the
+    sparse tuple forms of ``serialization.save_array``; a dtype outside
+    the mshadow table (bfloat16, bool, ...) raises as the format does."""
     from .serialization import _to_flag
+    if a.stype == "row_sparse":
+        return ("row_sparse", a.data.asnumpy(), a.indices.asnumpy(),
+                a.shape)
+    if a.stype == "csr":
+        return ("csr", a.data.asnumpy(), a.indptr.asnumpy(),
+                a.indices.asnumpy(), a.shape)
     name = str(a.dtype).replace("torch.", "")
     if a.dtype in (torch.bfloat16, torch.bool):
         _to_flag(name)
@@ -560,7 +568,7 @@ def _to_record(a):
 def save(fname, data):
     """Write NDArrays (one, a list, or a name -> NDArray dict) in the
     ``.params`` format (``serialization.py``), the JAX package's and
-    MXNet's bytes."""
+    MXNet's bytes; row_sparse and csr arrays keep their storage."""
     from . import serialization as _ser
     if isinstance(data, NDArray):
         data = [data]
@@ -573,19 +581,25 @@ def save(fname, data):
     _ser.save_file(fname, [_to_record(a) for a in arrays], keys)
 
 
+def _from_record(rec, ctx):
+    if isinstance(rec, _np.ndarray):
+        return array(rec, ctx=ctx, dtype=_dtype_of(rec, None))
+    from . import sparse as _sp
+    if rec[0] == "row_sparse":
+        _, data, indices, shape = rec
+        return _sp.row_sparse_array((data, indices), shape=shape, ctx=ctx)
+    _, data, indptr, indices, shape = rec
+    return _sp.csr_matrix((data, indices, indptr), shape=shape, ctx=ctx)
+
+
 def load(fname, ctx=None):
     """Read a ``.params`` file: a list of NDArrays, or a name -> NDArray
-    dict when the file names its arrays. They land on ``ctx`` (default
-    ``current_context()``); 64-bit data narrows to 32 bits as
-    :func:`array` narrows it."""
+    dict when the file names its arrays. Dense, row_sparse and csr
+    records load. They land on ``ctx`` (default ``current_context()``);
+    64-bit data narrows to 32 bits as :func:`array` narrows it."""
     from . import serialization as _ser
     arrays, names = _ser.load_file(fname)
-    out = []
-    for rec in arrays:
-        if not isinstance(rec, _np.ndarray):
-            raise MXNetError("%s holds a %s array; sparse storage is not "
-                             "ported yet (ROADMAP A4)" % (fname, rec[0]))
-        out.append(array(rec, ctx=ctx, dtype=_dtype_of(rec, None)))
+    out = [_from_record(rec, ctx) for rec in arrays]
     if not names:
         return out
     return dict(zip(names, out))

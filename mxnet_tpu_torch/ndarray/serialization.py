@@ -18,8 +18,8 @@ legacy (V1/V0)  : magic 0xF993fac8 (shape follows) or a raw uint32 ndim
 A file written by either package loads in the other, and in MXNet.
 Arrays are written from and read to host numpy arrays whatever device
 they came from (every record says ``kCPU, 0``); the caller places them.
-Sparse records round-trip here as tuples; the port's NDArray layer has
-no sparse storage (ROADMAP A4) and refuses them.
+Sparse records round-trip here as tuples, which the NDArray layer turns
+into ``sparse.RowSparseNDArray`` and ``sparse.CSRNDArray``.
 """
 import struct
 

@@ -23,8 +23,9 @@ defaults:
   by the whole window, that extra padding included.
 * LayerNorm uses the biased variance and eps 1e-5; LeakyReLU's
   ``gelu`` is the exact (erf) GeLU.
-* Embedding clips out-of-range ids to ``[0, input_dim - 1]``; at a kernel
-  tier other than ``off`` it gathers through ``kernels.take.take_rows``.
+* Embedding and _contrib_SparseEmbedding clip out-of-range ids to
+  ``[0, input_dim - 1]``; at a kernel tier other than ``off`` they
+  gather through ``kernels.take.take_rows``.
 * SoftmaxOutput is a loss head: its backward is ``softmax - onehot``
   scaled by ``grad_scale`` and the normalization, and it ignores the
   incoming cotangent (``_SoftmaxOutputGrad``).
@@ -578,6 +579,17 @@ def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
     return _take._plain_take(weight, data)
 
 
+@register("_contrib_SparseEmbedding")
+def sparse_embedding(data, weight, *, input_dim=0, output_dim=0,
+                     dtype="float32", deterministic=False):
+    """Embedding whose weight gradient is row-sparse: the forward is the
+    same gather (B2 at a kernel tier other than off); the sparse
+    contract lives in the storage layer (a Parameter's
+    ``grad_stype="row_sparse"``), which the optimizers' lazy row updates
+    consume."""
+    return embedding(data, weight)
+
+
 # ---------------------------------------------------------------------------
 # Parameter-shape hooks and aux slots
 # ---------------------------------------------------------------------------
@@ -675,3 +687,4 @@ def _embedding_shapes(ins, p):
 set_op_meta("SoftmaxOutput", shape_hook=_softmax_out_shapes)
 set_op_meta("LayerNorm", shape_hook=_ln_shapes)
 set_op_meta("Embedding", shape_hook=_embedding_shapes)
+set_op_meta("_contrib_SparseEmbedding", shape_hook=_embedding_shapes)

@@ -1,4 +1,5 @@
-"""Optimizers: the ``Optimizer`` base, ``SGD`` (with momentum) and
-``Adam``, their registry, and the eager ``Updater``."""
-from .optimizer import (SGD, Adam, Optimizer, Updater, create,  # noqa: F401
-                        get_updater, register)
+"""Optimizers: the ``Optimizer`` base, ``SGD`` (with momentum),
+``Adam``, ``AdaGrad`` and ``GroupAdaGrad`` (with their lazy row updates
+for row-sparse gradients), their registry, and the eager ``Updater``."""
+from .optimizer import (SGD, AdaGrad, Adam, GroupAdaGrad,  # noqa: F401
+                        Optimizer, Updater, create, get_updater, register)

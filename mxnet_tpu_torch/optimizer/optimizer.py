@@ -30,7 +30,16 @@ update runs on the master and the weight is its rounding
 ``mp_sgd_mom_update_``). The ``Updater`` goes through both. On f32
 weights the flag changes nothing here; the fused train step reads it as
 bf16 compute over the f32 weights (``module.Module``).
-The other optimizers of the JAX package are not ported yet.
+
+``AdaGrad`` and ``GroupAdaGrad`` (one accumulator per row, no weight
+decay) come with the same two forms. A row-sparse gradient
+(``ndarray.sparse.RowSparseNDArray``, what the Gluon Trainer passes for
+a ``grad_stype="row_sparse"`` parameter) takes the lazy row update of
+each optimizer (SGD and Adam unless ``lazy_update=False``; AdaGrad and
+GroupAdaGrad always): only the rows the gradient holds are read,
+updated and written back in place; the others get no weight decay and
+no momentum tick. The other optimizers of the JAX package are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -40,8 +49,8 @@ import pickle
 import numpy as _np
 import torch
 
-__all__ = ["Optimizer", "SGD", "Adam", "create", "register", "Updater",
-           "get_updater"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "GroupAdaGrad", "create",
+           "register", "Updater", "get_updater"]
 
 _OPT_REGISTRY = {}
 
@@ -50,6 +59,55 @@ def _is_lowp_float(dtype):
     """True for the low-precision float dtypes that take an f32 master
     copy under ``multi_precision``."""
     return dtype in (torch.float16, torch.bfloat16)
+
+
+def _is_row_sparse(grad):
+    from ..ndarray.sparse import RowSparseNDArray
+    return isinstance(grad, RowSparseNDArray)
+
+
+def _dense(grad):
+    """A gradient as a dense tensor (a row-sparse one densified: the
+    reference's storage fallback, where an update is not lazy)."""
+    return grad._data if _is_row_sparse(grad) else grad
+
+
+def _f32(grad):
+    """A gradient in f32, a row-sparse one kept sparse (else the lazy
+    update would densify into non-lazy semantics)."""
+    if _is_row_sparse(grad):
+        from ..ndarray.sparse import RowSparseNDArray
+        return RowSparseNDArray(grad._values.float(), grad._indices,
+                                grad.shape, ctx=grad.context)
+    return grad.float()
+
+
+def _sparse_grad_rows(opt, grad):
+    """(rows, values) of a row-sparse gradient, rescaled and clipped
+    (on the stored values only)."""
+    g = grad._values * opt.rescale_grad
+    if opt.clip_gradient is not None and opt.clip_gradient > 0:
+        g = g.clamp(-opt.clip_gradient, opt.clip_gradient)
+    return grad._indices, g
+
+
+def _gather_rows(weight, rows):
+    """The weight's values at the gradient's rows; a row-sparse weight
+    stays sparse (rows it lacks read as zero)."""
+    if _is_row_sparse(weight):
+        from ..ndarray.sparse import retain
+        return retain(weight, rows)._values
+    return weight[rows]
+
+
+def _apply_rows(weight, rows, new_rows):
+    """Write updated rows back: in place into a dense weight, inserted
+    into a row-sparse one."""
+    if _is_row_sparse(weight):
+        from ..ndarray.sparse import write_rows
+        write_rows(weight, rows, new_rows)
+    else:
+        weight.index_copy_(0, rows, new_rows)
 
 
 def register(klass):
@@ -113,6 +171,33 @@ def mp_sgd_mom_update_(weight, grad, mom, weight32, *, lr, momentum=0.0,
     weight32.add_(mom)
     weight.copy_(weight32)
     return weight, mom, weight32
+
+
+@torch.no_grad()
+def adagrad_update_(weight, grad, history, *, lr, epsilon=1e-7, wd=0.0,
+                    rescale_grad=1.0, clip_gradient=-1.0):
+    """history += g^2; w -= lr * g / sqrt(history + eps), in place."""
+    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
+    history.add_(g.square())
+    weight.sub_(lr * g / (history + epsilon).sqrt())
+    return weight, history
+
+
+@torch.no_grad()
+def group_adagrad_update_(weight, grad, history, *, lr, epsilon=1e-5,
+                          rescale_grad=1.0, clip_gradient=-1.0):
+    """One accumulator per row: history += mean(g^2 over the row);
+    w -= lr * g / sqrt(history + eps), in place. ``history`` is (N,) or
+    (N, 1) and keeps its layout."""
+    g = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient > 0:
+        g = g.clamp(-clip_gradient, clip_gradient)
+    axes = tuple(range(1, g.dim()))
+    ssq = g.square().mean(dim=axes) if axes else g.square()
+    history.add_(ssq.reshape(history.shape))
+    bshape = tuple(weight.shape[:1]) + (1,) * len(axes)
+    weight.sub_(lr * g / (history.reshape(bshape) + epsilon).sqrt())
+    return weight, history
 
 
 @torch.no_grad()
@@ -232,7 +317,7 @@ class Optimizer:
         :meth:`update`."""
         if self.multi_precision and _is_lowp_float(weight.dtype):
             inner, w32 = state
-            self.update(index, w32, grad.float(), inner)
+            self.update(index, w32, _f32(grad), inner)
             with torch.no_grad():
                 weight.copy_(w32)
         else:
@@ -269,8 +354,21 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         self._update_count(index)
-        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
-                  rescale_grad=self.rescale_grad,
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if _is_row_sparse(grad) and self.lazy_update:
+            with torch.no_grad():
+                rows, g = _sparse_grad_rows(self, grad)
+                wr = _gather_rows(weight, rows)
+                g = g + wd * wr
+                if state is None:
+                    _apply_rows(weight, rows, wr - lr * g)
+                else:
+                    mr = self.momentum * state[rows] - lr * g
+                    state.index_copy_(0, rows, mr)
+                    _apply_rows(weight, rows, wr + mr)
+            return
+        grad = _dense(grad)
+        kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
                   clip_gradient=self._clip_const())
         if state is None:
             sgd_update_(weight, grad, **kw)
@@ -279,8 +377,9 @@ class SGD(Optimizer):
                             **kw)
 
     def update_multi_precision(self, index, weight, grad, state):
-        if not (self.multi_precision and _is_lowp_float(weight.dtype)):
-            self.update(index, weight, grad, state)
+        if _is_row_sparse(grad) or not (self.multi_precision
+                                        and _is_lowp_float(weight.dtype)):
+            super().update_multi_precision(index, weight, grad, state)
             return
         self._update_count(index)
         inner, w32 = state
@@ -327,7 +426,20 @@ class Adam(Optimizer):
         lr, wd = self._get_lr(index), self._get_wd(index)
         t = self._index_update_count[index]
         lr_t = lr * math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
-        adam_update_(weight, grad, state[0], state[1], lr=lr_t,
+        if _is_row_sparse(grad) and self.lazy_update:
+            mean, var = state
+            with torch.no_grad():
+                rows, g = _sparse_grad_rows(self, grad)
+                wr = _gather_rows(weight, rows)
+                g = g + wd * wr
+                mr = self.beta1 * mean[rows] + (1 - self.beta1) * g
+                vr = self.beta2 * var[rows] + (1 - self.beta2) * g.square()
+                mean.index_copy_(0, rows, mr)
+                var.index_copy_(0, rows, vr)
+                _apply_rows(weight, rows,
+                            wr - lr_t * mr / (vr.sqrt() + self.epsilon))
+            return
+        adam_update_(weight, _dense(grad), state[0], state[1], lr=lr_t,
                      beta1=self.beta1, beta2=self.beta2,
                      epsilon=self.epsilon, wd=wd,
                      rescale_grad=self.rescale_grad,
@@ -350,6 +462,93 @@ class Adam(Optimizer):
         return _np.asarray(lr, _np.float32) \
             * _np.sqrt(one - _np.float32(self.beta2) ** tf) \
             / (one - _np.float32(self.beta1) ** tf)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad; a row-sparse gradient always updates lazily."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        if _is_row_sparse(grad):
+            with torch.no_grad():
+                rows, g = _sparse_grad_rows(self, grad)
+                wr = _gather_rows(weight, rows)
+                g = g + wd * wr
+                hr = state[rows] + g.square()
+                state.index_copy_(0, rows, hr)
+                _apply_rows(weight, rows, wr - lr * g / (
+                    hr + self.float_stable_eps).sqrt())
+            return
+        adagrad_update_(weight, grad, state, lr=lr, wd=wd,
+                        epsilon=self.float_stable_eps,
+                        rescale_grad=self.rescale_grad,
+                        clip_gradient=self._clip_const())
+
+    def fused_ops(self):
+        eps, clip = self.float_stable_eps, self._clip_const()
+
+        def upd(w, g, s, lr, wd, rescale):
+            adagrad_update_(w, g, s[0], lr=lr, wd=wd, epsilon=eps,
+                            rescale_grad=rescale, clip_gradient=clip)
+            return w, s
+        return (lambda w: (torch.zeros_like(w),)), upd
+
+
+def _row_history(w):
+    """GroupAdaGrad's accumulator: (N, 1) for a matrix, else (N,)."""
+    shape = (w.shape[0], 1) if w.dim() == 2 else tuple(w.shape[:1])
+    return torch.zeros(shape, dtype=w.dtype, device=w.device)
+
+
+@register
+class GroupAdaGrad(Optimizer):
+    """Row-wise AdaGrad: one accumulator per row, no weight decay. A
+    row-sparse gradient always updates lazily."""
+
+    def __init__(self, eps=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        assert weight.dim() == 2, \
+            "GroupAdaGrad requires 2-d weights (rows x features)"
+        return _row_history(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        assert wd == 0, "Weight decay is not supported for GroupAdaGrad"
+        if _is_row_sparse(grad):
+            with torch.no_grad():
+                rows, g = _sparse_grad_rows(self, grad)
+                wr = _gather_rows(weight, rows)
+                hr = state[rows] + g.square().mean(dim=1, keepdim=True)
+                state.index_copy_(0, rows, hr)
+                _apply_rows(weight, rows, wr - lr * g / (
+                    hr + self.float_stable_eps).sqrt())
+            return
+        group_adagrad_update_(weight, grad, state, lr=lr,
+                              epsilon=self.float_stable_eps,
+                              rescale_grad=self.rescale_grad,
+                              clip_gradient=self._clip_const())
+
+    def fused_ops(self):
+        eps, clip = self.float_stable_eps, self._clip_const()
+
+        def upd(w, g, s, lr, wd, rescale):
+            group_adagrad_update_(w, g, s[0], lr=lr, epsilon=eps,
+                                  rescale_grad=rescale, clip_gradient=clip)
+            return w, s
+        return (lambda w: (_row_history(w),)), upd
 
 
 def _state_to(state, fn):

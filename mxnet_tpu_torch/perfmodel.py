@@ -1,15 +1,17 @@
 """Roofline cost model on the NVIDIA H100.
 
-Counterpart of ``roofline_seconds`` and ``speculation_depth`` in
-``mxnet_tpu/perfmodel.py``, with the H100's published rates in place of
-the TPU capability tables. The decode engine's admission retry-after and
-drain budgets, and the speculative depth an artifact is exported with,
-come from here.
+Counterpart of ``roofline_seconds``, ``speculation_depth`` and
+``recommend_request_seconds`` in ``mxnet_tpu/perfmodel.py``, with the
+H100's published rates in place of the TPU capability tables. The
+decode engine's admission retry-after and drain budgets, the speculative
+depth an artifact is exported with, and the recommend queue's gather
+unit come from here.
 """
 from __future__ import annotations
 
 __all__ = ["H100_HBM_BYTES_PER_S", "H100_F32_FLOPS_PER_S",
-           "roofline_seconds", "speculation_depth"]
+           "roofline_seconds", "speculation_depth",
+           "recommend_request_seconds"]
 
 # NVIDIA H100 SXM, published: HBM3 bandwidth and f32 rate outside the
 # tensor cores (the port's matmuls run in full f32, TF32 off)
@@ -46,3 +48,14 @@ def speculation_depth(t_draft, t_verify, max_k=8, acceptance=0.8):
         if rate > best_rate:
             best_k, best_rate = kk, rate
     return best_k
+
+
+def recommend_request_seconds(gathers, dim, corpus_rows, dtype_bytes=4):
+    """Roofline floor of one recommend request, charged by its gather
+    count (the unit the recommend admission queue bills in): the
+    lookup's bytes (``gathers`` rows of ``dim``) and the corpus scoring
+    product (``2 * corpus_rows * dim`` flops)."""
+    gathers = max(1, int(gathers))
+    lookup_bytes = gathers * int(dim) * int(dtype_bytes)
+    score_flops = 2.0 * int(corpus_rows) * int(dim)
+    return roofline_seconds(score_flops, lookup_bytes)

@@ -33,6 +33,16 @@ padded device batch per dtype::
     server = Server("model.mxtorch", quantized="model.int8.mxtorch")
     out = server.predict(data=x, dtype="int8")
 
+A recommend artifact (format_version 6, ``embed.serve.
+export_recommend``) serves ragged id lists: the micro-batcher's queue,
+window, drain and metrics as in predict, but each request is billed in
+gather units (its ids, up to the engine's ``max_ids``; the queue's cost
+cap is ``MXNET_SERVE_MAX_GATHERS``) and a batch runs the embed
+package's cache-backed ``RecommendEngine``::
+
+    server = Server("twotower.mxtorch")
+    scores, items = server.recommend([3, 17, 17, 4096])   # top k
+
 A failed batch fails its requests with the error (``Request.result``
 raises it, the cause chained); it does not stop the server.
 """
@@ -42,10 +52,12 @@ import threading
 import time
 from collections import OrderedDict
 
+import numpy as _np
 import torch
 
 from ..base import MXNetError
 from ..config import flags
+from ..embed.serve import RecommendEngine, RecommendModel
 from ..serving import CompiledModel, GenerateModel, load_artifact
 from .admission import AdmissionQueue, DeadlineExceeded, Request, \
     ServerClosed
@@ -78,8 +90,9 @@ class ServeConfig:
 
 
 class Server:
-    """Dynamic micro-batching server over a :class:`CompiledModel`, or
-    the continuous-batching decode engine over a :class:`GenerateModel`.
+    """Dynamic micro-batching server over a :class:`CompiledModel` or a
+    recommend engine, or the continuous-batching decode engine over a
+    :class:`GenerateModel`.
 
     ``model`` is a loaded model or an artifact path, loaded onto
     ``device`` (default cuda:0). ``auto_start=False`` leaves the batcher
@@ -91,13 +104,24 @@ class Server:
     (generate mode) switches speculative decoding: "auto" speculates iff
     the artifact bundles an int8 draft, "on" requires one (the session
     raises without it), "off" decodes one token a step; it sets the
-    config's ``speculative`` to None, True or False.
+    config's ``speculative`` to None, True or False. A
+    ``RecommendModel`` (or a ``RecommendEngine``) serves in recommend
+    mode, with the engine's defaults: buckets (1, 4, 16) and a cache of
+    ``MXNET_EMBED_CACHE_ROWS`` rows.
     """
 
     def __init__(self, model, config=None, auto_start=True, device=None,
                  draft=None, quantized=None, **overrides):
-        if not isinstance(model, (CompiledModel, GenerateModel)):
+        if not isinstance(model, (CompiledModel, GenerateModel,
+                                  RecommendModel, RecommendEngine)):
             model = load_artifact(model, device=device)
+        if isinstance(model, (RecommendModel, RecommendEngine)):
+            if quantized is not None or draft is not None:
+                raise MXNetError(
+                    "Server: quantized=/draft= do not apply to "
+                    "recommend artifacts")
+            self._init_recommend(model, config, auto_start, overrides)
+            return
         if isinstance(model, GenerateModel):
             if quantized is not None:
                 raise MXNetError("Server: quantized= is a predict-mode "
@@ -164,6 +188,36 @@ class Server:
             config.queue_depth,
             retry_after_fn=lambda q: self.metrics_.estimate_drain_s(
                 q.pending_rows()))
+        self._thread = None
+        self._closed = threading.Event()
+        if auto_start:
+            self.start()
+
+    def _init_recommend(self, model, config, auto_start, overrides):
+        """Recommend mode: predict's queue, window, drain and metrics,
+        with requests billed in gather units and batches run by the
+        cache-backed engine."""
+        self.mode = "recommend"
+        self.session = None
+        if config is None:
+            config = ServeConfig(**overrides)
+        elif overrides:
+            raise MXNetError("Server: pass either config or kwargs, "
+                             "not both")
+        if isinstance(model, RecommendModel):
+            model = model.engine()
+        self.engine = model
+        self.model = model.model
+        self.config = config
+        self.buckets = model.buckets
+        self.metrics_ = ServeMetrics()
+        # retry-after is the pending gather units times the per-gather
+        # roofline; the cost cap rejects on the same unit
+        self._queue = AdmissionQueue(
+            config.queue_depth,
+            retry_after_fn=lambda q: (q.pending_units()
+                                      * self.engine.gather_unit_s()),
+            max_units=flags.serve_max_gathers)
         self._thread = None
         self._closed = threading.Event()
         if auto_start:
@@ -237,8 +291,9 @@ class Server:
     # -- request path -------------------------------------------------------
     def _require_mode(self, mode, what):
         if self.mode != mode:
-            other = ("submit_generate()/generate()" if self.mode == "generate"
-                     else "submit()/predict()")
+            other = {"generate": "submit_generate()/generate()",
+                     "recommend": "submit_recommend()/recommend()",
+                     "predict": "submit()/predict()"}[self.mode]
             raise MXNetError("Server.%s: this server holds a %s artifact; "
                              "use %s" % (what, self.mode, other))
 
@@ -294,12 +349,18 @@ class Server:
                 "attach an int8 artifact)"
                 % (dtype, list(self._cache.dtypes)))
         arrs, rows = self._prepare(data, kwdata)
+        return self._admit(Request(tuple(arrs), rows,
+                                   self._deadline(timeout_ms),
+                                   dtype=dtype or self._cache.primary_dtype))
+
+    def _deadline(self, timeout_ms):
         if timeout_ms is None:
             timeout_ms = self.config.timeout_ms
-        deadline = (time.monotonic() + timeout_ms / 1e3
-                    if timeout_ms and timeout_ms > 0 else None)
-        req = Request(tuple(arrs), rows, deadline,
-                      dtype=dtype or self._cache.primary_dtype)
+        return (time.monotonic() + timeout_ms / 1e3
+                if timeout_ms and timeout_ms > 0 else None)
+
+    def _admit(self, req):
+        """Queue ``req`` (a rejection counted) and return it."""
         try:
             self._queue.submit(req)
         except ServerClosed:
@@ -307,7 +368,7 @@ class Server:
         except Exception:
             self.metrics_.note_reject()
             raise
-        self.metrics_.note_submit(rows)
+        self.metrics_.note_submit(req.rows)
         self.metrics_.set_queue_depth(self._queue.pending_count())
         return req
 
@@ -315,9 +376,23 @@ class Server:
         """Blocking convenience: submit + result."""
         req = self.submit(*data, timeout_ms=timeout_ms, dtype=dtype,
                           **kwdata)
-        budget = (None if req.deadline is None
-                  else max(0.001, req.deadline - time.monotonic()) + 1.0)
-        return req.result(timeout=budget)
+        return req.result(timeout=_budget(req))
+
+    def submit_recommend(self, ids, timeout_ms=None):
+        """Admit one recommend request (a ragged id list); never blocks.
+        It is billed in gather units, ``len(ids)`` up to the engine's
+        ``max_ids``, against the queue's cost cap."""
+        self._require_mode("recommend", "submit_recommend")
+        arr = _np.asarray(list(ids), dtype=_np.int64).reshape(-1)
+        gathers = max(1, min(arr.size, self.engine.max_ids))
+        return self._admit(Request((arr,), 1, self._deadline(timeout_ms),
+                                   units=gathers))
+
+    def recommend(self, ids, timeout_ms=None):
+        """Blocking convenience: submit_recommend + result, the
+        ``(scores, item_ids)`` host arrays of length ``k``."""
+        req = self.submit_recommend(ids, timeout_ms=timeout_ms)
+        return req.result(timeout=_budget(req))
 
     # -- batcher ------------------------------------------------------------
     def run_once(self, block=True):
@@ -340,6 +415,10 @@ class Server:
                     % ((now - r.deadline) * 1e3)))
             else:
                 live.append(r)
+        if self.mode == "recommend":
+            if live:
+                self._dispatch_recommend(live)
+            return len(reqs)
         # one padded device batch per dtype group (f32 and int8 requests
         # share a window but run on different engines)
         groups = OrderedDict()
@@ -386,6 +465,35 @@ class Server:
             self.metrics_.note_request_done(
                 bucket, (t_done - r.t_submit) * 1e3, dtype=dtype)
 
+    def _dispatch_recommend(self, live):
+        rows = len(live)
+        bucket = pick_bucket(self.buckets, rows)
+        try:
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                # the plan and upload, one scoring pass and one
+                # device-to-host copy for the whole batch
+                scores, items = self.engine.recommend_batch(
+                    [r.arrays[0] for r in live], bucket=bucket)
+                exec_ms = (time.perf_counter() - t0) * 1e3
+        except Exception as e:
+            self.metrics_.note_error(len(live))
+            if isinstance(e, MXNetError):
+                err = e
+            else:
+                err = MXNetError("%s: %s" % (type(e).__name__, e))
+                err.__cause__ = e
+            for r in live:
+                r._fail(err)
+            return
+        self.metrics_.note_batch(bucket, rows, bucket - rows, exec_ms)
+        t_done = time.monotonic()
+        for j, r in enumerate(live):
+            r.bucket = bucket
+            r._complete((scores[j], items[j]))
+            self.metrics_.note_request_done(
+                bucket, (t_done - r.t_submit) * 1e3)
+
     def _loop(self):
         with torch.inference_mode():
             while True:
@@ -411,9 +519,24 @@ class Server:
             snap = self.session.metrics()
             snap["mode"] = "generate"
             return snap
+        if self.mode == "recommend":
+            snap = self.metrics_.snapshot()
+            snap["mode"] = "recommend"
+            snap["embed"] = self.engine.stats()
+            snap["buckets_configured"] = list(self.buckets)
+            snap["status"] = ("closed" if self.closed
+                              else "draining" if self.draining else "ok")
+            return snap
         snap = self.metrics_.snapshot(engine_stats=self._cache.stats())
         snap["mode"] = "predict"
         snap["buckets_configured"] = list(self.buckets)
         snap["status"] = ("closed" if self.closed
                           else "draining" if self.draining else "ok")
         return snap
+
+
+def _budget(req):
+    """Seconds a blocking call waits for ``req``: its deadline plus a
+    second, or forever without one."""
+    return (None if req.deadline is None
+            else max(0.001, req.deadline - time.monotonic()) + 1.0)

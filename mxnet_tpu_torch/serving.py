@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/serving.py`` for predict artifacts
 (format_version 2, and 4 for int8-quantized graphs from
 :mod:`~mxnet_tpu_torch.quant`) and generate artifacts (format_version 3,
 and 5 with chunked prefill and, optionally, the int8 speculative
-draft). The JAX
+draft); recommend artifacts (format_version 6) are written and read by
+:mod:`~mxnet_tpu_torch.embed.serve`. The JAX
 package stages its programs out as StableHLO; the port's artifact
 carries what the port needs to rebuild them: the graph as symbol JSON
 (predict) or the decoder geometry (generate), and the weights as an npz.
@@ -26,7 +27,7 @@ Surface:
   * export_generate(params, spec, path, chunked=None, draft_params=None,
     speculate_k=None)
   * GenerateModel.load(path, device=None), load_bundled_params(path)
-  * load_artifact(path, device=None) - either kind, by format_version
+  * load_artifact(path, device=None) - any kind, by format_version
   * params_from_reference(arg_params, aux_params, symbol, device,
     data_shapes=...) - the JAX package's numpy parameters as tensors
     (for a decoder: ``serve.decode_model.params_from_reference``)
@@ -57,6 +58,7 @@ _FORMAT_VERSION = 2       # the JAX package's f32 predict version
 _QUANT_VERSION = 4        # an int8-quantized predict graph
 _PREDICT_VERSIONS = (_FORMAT_VERSION, _QUANT_VERSION)
 _GENERATE_VERSIONS = (3, 5)   # plain; with chunked prefill
+_RECOMMEND_VERSION = 6        # two tables as data (embed/serve.py)
 
 
 def _is_dynamic_dim(d):
@@ -632,9 +634,13 @@ def load_artifact(path, **kw):
     """Open any ``.mxtorch`` artifact through the format-version
     dispatch: :class:`CompiledModel` for predict artifacts
     (format_version 2, and 4 for int8-quantized), :class:`GenerateModel`
-    for generate artifacts (3 and 5)."""
+    for generate artifacts (3 and 5), and the embed package's
+    ``RecommendModel`` for recommend artifacts (6)."""
     with open(path, "rb") as f:
         version = int(_read_meta(f, path).get("format_version", 0))
     if version in _GENERATE_VERSIONS:
         return GenerateModel.load(path, **kw)
+    if version == _RECOMMEND_VERSION:
+        from .embed.serve import RecommendModel
+        return RecommendModel.load(path, **kw)
     return CompiledModel.load(path, **kw)

@@ -8,7 +8,8 @@ the CPU's, the card's ``torch._int_mm`` against the
 CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
 decoder in generate mode and its speculative step, a 2-layer GPT and a
 ResNet-20 in f32 and bf16 trained by ``Module.fit``, the example's GPT
-trained through Gluon) on the card against the CPU.
+trained through Gluon, a recommend batch through the cache-backed
+engine) on the card against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -996,3 +997,49 @@ def test_grouped_capture_failure_raises(cuda, monkeypatch):
         mod.fit(mt.io.NDArrayIter(X, Y, batch_size=32), num_epoch=1,
                 eval_metric=None, steps_per_dispatch=4)
     assert mod._fused.eager_steps == 2 and mod._fused.replays == 0
+
+
+# ------------------------------------------------- recommend (B2 on embed)
+@pytest.mark.parametrize("rows,n_ids", [(1024, 1024), (8192, 512)])
+def test_take_rows_at_the_recommend_shapes(cuda, rows, n_ids):
+    """B2 at 256-byte rows: the served lookup's (1024, 64) cache by a
+    (16 x 64) slot matrix, and the training cache's (8192, 64) by 512
+    ids; out-of-range ids included. Bitwise the plain gather."""
+    g = torch.Generator().manual_seed(rows)
+    table = torch.randn(rows, 64, generator=g).to(cuda)
+    ids = torch.randint(-40, rows + 40, (n_ids,), generator=g,
+                        dtype=torch.int32).to(cuda)
+    before = ttake.launches
+    got = ttake.take_rows(table, ids)
+    torch.cuda.synchronize()
+    assert ttake.launches == before + 1
+    assert torch.equal(got, ttake._plain_take(table, ids))
+
+
+def test_recommend_batch_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One recommend batch through the engine on the card and on the
+    CPU: the same items, scores within rtol 1e-5, one B2 launch, one
+    recorded d2h, the buffer in place and the discipline clean."""
+    from mxnet_tpu_torch import embed, profiler
+    from mxnet_tpu_torch.embed import serve as eserve
+    path = str(tmp_path / "reco.mxtorch")
+    eserve.export_recommend(embed.row_init(1, np.arange(4096), 64),
+                            embed.row_init(2, np.arange(512), 64), path,
+                            max_ids=64, k=10)
+    rng = np.random.RandomState(0)
+    lists = [((rng.zipf(1.3, size=n) - 1) % 4096).tolist()
+             for n in (1, 5, 64, 70, 8, 3)]
+    cpu = mt.serving.load_artifact(path, device="cpu").engine()
+    card = mt.serving.load_artifact(path, device=cuda).engine()
+    ptr = card.cache.buf.data_ptr()
+    want_s, want_i = cpu.recommend_batch(lists)
+    profiler.reset_sync_counters()
+    before = ttake.launches
+    got_s, got_i = card.recommend_batch(lists)
+    assert ttake.launches == before + 1
+    assert profiler.sync_counters()["d2h"] == 1
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5)
+    assert card.cache.buf.data_ptr() == ptr
+    assert card.stats() == cpu.stats()
+    assert card.check_discipline() == []
