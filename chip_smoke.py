@@ -351,10 +351,40 @@ Phases; any failure raises and the script exits non-zero:
    same step on the CPU within 1e-5, the rows of zero gradient bitwise
    unchanged and the others moved; then two epochs, whose RMSE must
    fall, with 2 B2 launches and dispatches a forward.
-17. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
+17. Recurrent networks: the fused RNN op, ``gluon.rnn``, ``mx.rnn`` and
+   ``BucketingModule``, nothing cut in width. B2 first, bitwise and
+   timed as in phase 16, at the recurrent encoders' shapes: (10000, 200)
+   and (10000, 650) tables by (32, 35) ids, char_lstm's (29, 32) by
+   (16, 25). (a) ``tools/bench_lstm.py``'s net and loop: Embedding(10000,
+   200) -> ``gluon.rnn.LSTM(200, num_layers=2, layout="NTC")`` ->
+   Dense(10000, flatten=False), Xavier, hybridized, SoftmaxCrossEntropy,
+   SGD lr 0.1, batch 32 x 35 ids from ``RandomState(0)``: one warm-up
+   step, then 10 steps with one sync at the end (bench_lstm.py's
+   tokens/s). (b) ``examples/word_language_model.py``'s RNNModel and loop
+   (``tests/gluon_lstm_lm.py``) at the upstream medium widths (emsize =
+   nhid = 650, 2 layers, dropout 0.5, tied, bptt 35, batch 32, vocab
+   10000, random ids from ``RandomState(0)``): first one step on the
+   card against the same step on the CPU (the weights carried across,
+   the key chain seeded alike, dropout on): the loss and every
+   parameter within 1e-4 of its largest magnitude. For both: 10 synced
+   steps (tokens/s, step p50), the forward/backward/update split by CUDA
+   events, torch.profiler's device ms, busy share and kernel launches a
+   step, the peak memory, and the model FLOPs over 67 TFLOP/s; B2's
+   counts zeroed before and read after the timed steps: one launch a
+   step (the encoder; the tied decoder reads the same weight through its
+   product), no tier fallback. ``begin_state`` shapes checked. Beside
+   each, a yardstick not on the path: cuDNN's ``torch.nn.LSTM`` loaded
+   with the same weights, its outputs within 1e-5 of the port's RNN op
+   (relative to the largest magnitude), forward + backward timed for
+   both. Last ``examples/char_lstm.py`` at its defaults (its corpus,
+   buckets (13, 25), ``mx.rnn.LSTMCell(64)``, ``BucketingModule``,
+   Xavier, Adam lr 3e-3, batch 16, ``Perplexity(ignore_label=0)``) for 3
+   epochs: the perplexity must fall, one B2 launch a step, no fallback.
+18. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
    and ``grouped`` among its paths, B2, B3 and B5 ``grouped``, B2
-   ``recommend`` and ``matrix_factorization``), the card's nvidia-smi
-   line, and last the result line ``{"ok": true, "device": {...}}``.
+   ``recommend``, ``matrix_factorization``, ``lstm_bench``, ``word_lm``
+   and ``char_lstm``), the card's nvidia-smi line, and last the result
+   line ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
 either it fails before printing a result.
@@ -1283,6 +1313,7 @@ def profile_steps(step, n_wall, steps=5, parts=()):
     out = {"step_ms": step_ms, "profiled_wall_ms": wall_us / steps / 1e3,
            "device_ms": busy / steps / 1e3,
            "device_busy_share": busy / wall_us,
+           "kernel_launches": sum(x[2] for x in kernels) / steps,
            "top_kernels": top(kernels, 8), "top_host_ops": top(host, 8)}
     for key, subs in parts:
         out[key] = sum(x[1] for x in kernels if any(
@@ -2445,17 +2476,7 @@ def gluon_step_profile(net, X, Y, ctx):
         trainer.step(1)
         if ev:
             ev[3].record()
-    parts = []
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(ev)
-        torch.cuda.synchronize()
-        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
-                      ev[2].elapsed_time(ev[3]),
-                      (time.perf_counter() - t0) * 1e3))
-    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    split = step_split(step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2472,8 +2493,7 @@ def gluon_step_profile(net, X, Y, ctx):
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     top = sorted(kernels, key=lambda k: -k[1])[:10]
-    return {"forward_ms": med[0], "backward_ms": med[1], "update_ms": med[2],
-            "wall_ms": med[3], "profiled_wall_ms": wall_us / 1e3,
+    return {**split, "profiled_wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
             "flash_attn_backward_ms": ranges.get("flash_attn.backward",
                                                  0.0) / 1e3,
@@ -3975,17 +3995,7 @@ def zoo_step_profile(net, x, y, trainer, loss_fn):
         trainer.step(x.shape[0])
         if ev:
             ev[3].record()
-    parts = []
-    for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(ev)
-        torch.cuda.synchronize()
-        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
-                      ev[2].elapsed_time(ev[3]),
-                      (time.perf_counter() - t0) * 1e3))
-    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    split = step_split(step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4004,8 +4014,7 @@ def zoo_step_profile(net, x, y, trainer, loss_fn):
         c = kernel_class(k[0])
         classes[c] = classes.get(c, 0.0) + k[1] / 1e3
     top = sorted(kernels, key=lambda k: -k[1])[:10]
-    return {"forward_ms": med[0], "backward_ms": med[1], "update_ms": med[2],
-            "wall_ms": med[3], "profiled_wall_ms": wall_us / 1e3,
+    return {**split, "profiled_wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3, "device_busy_share": busy / wall_us,
             "kernel_launches": sum(k[2] for k in kernels),
             "classes_ms": classes,
@@ -4989,42 +4998,49 @@ def b2_recommend_phase(dev):
     Then their times beside the plain gather, ``index_select`` of the
     clipped ids and the bound (the gathered rows read and written and
     the ids read, over the HBM rate)."""
-    from mxnet_tpu_torch.kernels import take
     g = torch.Generator(device=dev).manual_seed(16)
     rows = {}
-
-    def case(name, V, D, idx_shape):
-        table = torch.randn(V, D, generator=g, device=dev)
-        ids = torch.randint(-64, V + 64, idx_shape, generator=g,
-                            device=dev, dtype=torch.int32)
-        got = take.take_rows(table, ids)
-        torch.cuda.synchronize()
-        if not torch.equal(got, take._plain_take(table, ids)):
-            raise RuntimeError("take_rows is not bitwise the clipped gather "
-                               "at %s" % name)
-        flat = ids.reshape(-1).contiguous()
-        clipped = flat.long().clamp(0, V - 1)
-        n = flat.numel()
-        r = {"shape": "table (%d, %d) f32, ids %s" % (V, D, idx_shape),
-             "ms": time_ms(lambda: take._launch(table, flat,
-                                                take.DEFAULT_CONFIG), dev),
-             "plain_ms": time_ms(lambda: take._plain_take(table, ids), dev),
-             "library_ms": time_ms(
-                 lambda: torch.index_select(table, 0, clipped), dev),
-             "bytes_ms": (2 * n * D * 4 + n * 4) / HBM_BYTES_PER_S * 1e3,
-             "ops_ms": 0.0}
-        r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
-        rows[name] = r
-        log("  %-22s %-40s ms=%.5f plain_ms=%.5f index_select_ms=%.5f "
-            "bound_ms=%.6f (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
-                                    r["library_ms"], r["bound_ms"],
-                                    r["bound_by"]))
-
-    case("take_rows@serve", 1024, 64, (16, 64))
-    case("take_rows@train", 8192, 64, (512,))
-    case("take_rows@mf", MF["users"], MF["factor"], (MF["batch"],))
+    b2_row(rows, "take_rows@serve", 1024, 64, (16, 64), dev, g)
+    b2_row(rows, "take_rows@train", 8192, 64, (512,), dev, g)
+    b2_row(rows, "take_rows@mf", MF["users"], MF["factor"], (MF["batch"],),
+           dev, g)
     log("B2 at the recommend shapes: bitwise the plain gather")
     return rows
+
+
+def b2_row(rows, name, V, D, idx_shape, dev, g):
+    """B2 on a random (V, D) f32 table by int32 ids of ``idx_shape``
+    (out-of-range ones included), bitwise against its plain version,
+    then timed beside the plain gather, ``index_select`` of the clipped
+    ids and the bound (the gathered rows read and written and the ids
+    read, over the HBM rate) -> ``rows[name]``."""
+    from mxnet_tpu_torch.kernels import take
+    table = torch.randn(V, D, generator=g, device=dev)
+    ids = torch.randint(-64, V + 64, idx_shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    got = take.take_rows(table, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got, take._plain_take(table, ids)):
+        raise RuntimeError("take_rows is not bitwise the clipped gather at "
+                           "%s" % name)
+    flat = ids.reshape(-1).contiguous()
+    clipped = flat.long().clamp(0, V - 1)
+    n = flat.numel()
+    r = {"shape": "table (%d, %d) f32, ids %s" % (V, D, idx_shape),
+         "ms": time_ms(lambda: take._launch(table, flat,
+                                            take.DEFAULT_CONFIG), dev),
+         "plain_ms": time_ms(lambda: take._plain_take(table, ids), dev),
+         "library_ms": time_ms(
+             lambda: torch.index_select(table, 0, clipped), dev),
+         "bytes_ms": (2 * n * D * 4 + n * 4) / HBM_BYTES_PER_S * 1e3,
+         "ops_ms": 0.0}
+    r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
+    rows[name] = r
+    log("  %-22s %-40s ms=%.5f plain_ms=%.5f index_select_ms=%.5f "
+        "bound_ms=%.6f (%s)" % (name, r["shape"], r["ms"], r["plain_ms"],
+                                r["library_ms"], r["bound_ms"],
+                                r["bound_by"]))
+    return r
 
 
 def reco_train_data():
@@ -5464,6 +5480,517 @@ def recommend_path(dev, card, report):
                   "matrix_factorization": mf_launches}
 
 
+# ------------------------------------------- recurrent networks (phase 17)
+# (a) tools/bench_lstm.py's shape, the BASELINE metric's own
+LSTM_BENCH = {"vocab": 10000, "hidden": 200, "layers": 2, "batch": 32,
+              "seq_len": 35, "steps": 10, "lr": 0.1}
+# (b) the upstream word language model's "medium" widths (emsize = nhid
+# = 650, 2 layers, dropout 0.5, tied, bptt 35, batch 32, PTB's 10000
+# words) through examples/word_language_model.py's model and loop (its
+# lr and clip defaults)
+WORD_LM = {"vocab": 10000, "emsize": 650, "nhid": 650, "layers": 2,
+           "dropout": 0.5, "tied": True, "bptt": 35, "batch": 32,
+           "steps": 10, "lr": 2.0, "clip": 0.25}
+# examples/char_lstm.py at its defaults, its corpus copied from its source
+CHAR_CORPUS = ("the quick brown fox jumps over the lazy dog. "
+               "pack my box with five dozen liquor jugs. ") * 40
+CHAR_LSTM = {"batch": 16, "epochs": 3, "hidden": 64, "embed": 32,
+             "buckets": [13, 25], "lr": 3e-3}
+
+
+def lstm_flops(T, N, inp, hid, layers, vocab):
+    """Model FLOPs of one training step (forward x 3): the LSTM's input
+    and recurrent products and the decoder's product."""
+    fwd = 0
+    for layer in range(layers):
+        i = inp if layer == 0 else hid
+        fwd += 2 * T * N * 4 * hid * (i + hid)
+    fwd += 2 * T * N * hid * vocab
+    return 3 * fwd
+
+
+def b2_rnn_counts():
+    from mxnet_tpu_torch.kernels import take
+    take.reset_launches()
+    tier.reset_stats()
+
+
+def b2_rnn_read(what, steps, per_step=1):
+    """B2's launches since b2_rnn_counts: ``per_step`` a step, none
+    through a fallback."""
+    from mxnet_tpu_torch.kernels import take
+    st = tier.stats()
+    if st["fallback"]:
+        raise RuntimeError("%s: kernel-tier fallback %s" % (what,
+                                                            st["fallback"]))
+    if take.launches != per_step * steps:
+        raise RuntimeError("%s: %d B2 launches in %d steps, expected %d a "
+                           "step" % (what, take.launches, steps, per_step))
+    if st["dispatch"].get("take_rows", 0) != take.launches:
+        raise RuntimeError("%s: B2 dispatched %s times, launched %d"
+                           % (what, st["dispatch"].get("take_rows"),
+                              take.launches))
+    return take.launches
+
+
+def step_split(step):
+    """Forward, backward and update of ``step(ev)`` by CUDA events (the
+    step records ``ev[0..3]`` around them), the median of 3, with the
+    wall time."""
+    parts = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(ev)
+        torch.cuda.synchronize()
+        parts.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      ev[2].elapsed_time(ev[3]),
+                      (time.perf_counter() - t0) * 1e3))
+    med = [float(np.median([p[i] for p in parts])) for i in range(4)]
+    return {"forward_ms": med[0], "backward_ms": med[1],
+            "update_ms": med[2], "wall_ms": med[3]}
+
+
+def rnn_timed(step, steps, tokens):
+    """``steps`` synced steps (wall p50, tokens/s), after which the
+    split, torch.profiler's device ms, busy share and launches a step,
+    and the peak memory of the timed steps."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    r = {"step_ms_p50": float(np.median(walls)),
+         "tokens_per_s": tokens * steps / (sum(walls) / 1e3),
+         "peak_gb": peak, "walls_ms": walls}
+    r.update(step_split(step))
+    prof = profile_steps(step, 2, 3)
+    r.update({k: prof[k] for k in ("device_ms", "device_busy_share",
+                                   "kernel_launches", "top_kernels",
+                                   "top_host_ops")})
+    return r
+
+
+def log_rnn(what, r, flops, b2, card):
+    log("%s: %.0f tokens/s, step p50 %.2f ms (wall); device %.3f ms a step, "
+        "busy %.1f %%; %.0f kernel launches a step (torch.profiler), B2 %d "
+        "a step; forward %.2f / backward %.2f / update %.2f ms (CUDA "
+        "events); peak memory %.3f GB; model FLOPs %.3g a step = %.4f ms at "
+        "67 TFLOP/s f32 (%.2f %% of the step)  [%s]"
+        % (what, r["tokens_per_s"], r["step_ms_p50"], r["device_ms"],
+           100 * r["device_busy_share"], r["kernel_launches"], b2,
+           r["forward_ms"], r["backward_ms"], r["update_ms"], r["peak_gb"],
+           flops, flops / F32_FLOPS * 1e3,
+           100 * flops / F32_FLOPS * 1e3 / r["step_ms_p50"], card))
+    log("  top kernels %s" % json.dumps(
+        [(k["name"][:40], round(k["ms_per_step"], 4), k["calls"])
+         for k in r["top_kernels"][:5]]))
+
+
+def cudnn_yardstick(flat, mode_args, x, h0, c0, dev, what):
+    """cuDNN's LSTM (``torch.nn.LSTM``, not on the path) with the port's
+    weights: its outputs against the port's RNN op on the same input
+    (f32, TF32 off, within 1e-5 of the largest magnitude), and both
+    forward + backward timed (CUDA events, median of 5)."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    H, L = mode_args["state_size"], mode_args["num_layers"]
+    T, N, I = x.shape
+    lstm = torch.nn.LSTM(I, H, num_layers=L).to(dev)
+    pieces = dict(zip(tnn._rnn_param_names(L, False), tnn._unpack_rnn_params(
+        flat.detach(), "lstm", I, H, L, False)))
+    with torch.no_grad():
+        for layer in range(L):
+            for theirs, ours in (("weight_ih", "i2h_weight"),
+                                 ("weight_hh", "h2h_weight"),
+                                 ("bias_ih", "i2h_bias"),
+                                 ("bias_hh", "h2h_bias")):
+                getattr(lstm, "%s_l%d" % (theirs, layer)).copy_(
+                    pieces["l%d_%s" % (layer, ours)])
+    fl = flat.detach().clone().requires_grad_(True)
+    xs = x.detach().clone().requires_grad_(True)
+    ours = tnn.rnn(xs, fl, h0, c0, state_outputs=True, **mode_args)
+    theirs = lstm(xs, (h0, c0))
+    pairs = [(ours[0], theirs[0]), (ours[1], theirs[1][0]),
+             (ours[2], theirs[1][1])]
+    err = max(float((a - b).abs().max().detach()
+                    / b.abs().max().clamp_min(1e-30).detach())
+              for a, b in pairs)
+    if not err < 1e-5:
+        raise RuntimeError("%s: the port's LSTM and cuDNN's differ by %.3g "
+                           "of the largest magnitude" % (what, err))
+    cot = torch.randn_like(ours[0])
+
+    def port_fb():
+        out = tnn.rnn(xs, fl, h0, c0, **mode_args)
+        torch.autograd.grad(out, (xs, fl), cot)
+
+    def cudnn_fb():
+        out = lstm(xs, (h0, c0))[0]
+        torch.autograd.grad(out, [xs] + list(lstm.parameters()), cot)
+
+    def ev_ms(fn):
+        for _ in range(2):
+            fn()
+        ts = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b))
+        return float(np.median(ts))
+    r = {"shape": "T %d, N %d, I %d, H %d, %d layers" % (T, N, I, H, L),
+         "rel_err": err, "port_fwd_bwd_ms": ev_ms(port_fb),
+         "cudnn_fwd_bwd_ms": ev_ms(cudnn_fb)}
+    log("  yardstick, not on the path: cuDNN's torch.nn.LSTM with the same "
+        "weights at %s: outputs and states within %.2g of the port's "
+        "(relative to the largest); forward + backward %.3f ms, the port's "
+        "RNN op %.3f ms (%.1fx)" % (r["shape"], err, r["cudnn_fwd_bwd_ms"],
+                                    r["port_fwd_bwd_ms"],
+                                    r["port_fwd_bwd_ms"]
+                                    / r["cudnn_fwd_bwd_ms"]))
+    return r
+
+
+def lstm_flat(rnn, layers):
+    """A gluon.rnn.LSTM's parameters in the fused op's flat order."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    return torch.cat([getattr(rnn, n).data()._data.reshape(-1)
+                      for n in tnn._rnn_param_names(layers, False)])
+
+
+def lstm_bench_path(dev, card):
+    """(a): tools/bench_lstm.py's net and loop on the card."""
+    P = LSTM_BENCH
+    ctx = mt.gpu(0)
+    gluon = mt.gluon
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Embedding(P["vocab"], P["hidden"]))
+    rnn = gluon.rnn.LSTM(P["hidden"], num_layers=P["layers"], layout="NTC")
+    net.add(rnn)
+    net.add(gluon.nn.Dense(P["vocab"], flatten=False))
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    net.hybridize(static_alloc=True)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": P["lr"]})
+    rng = np.random.RandomState(0)
+    shape = (P["batch"], P["seq_len"])
+    data = mt.nd.array(rng.randint(0, P["vocab"], shape), ctx=ctx)
+    label = mt.nd.array(rng.randint(0, P["vocab"], shape), ctx=ctx)
+
+    def step(ev=None):
+        if ev:
+            ev[0].record()
+        with mt.autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        if ev:
+            ev[1].record()
+        loss.backward()
+        if ev:
+            ev[2].record()
+        trainer.step(P["batch"])
+        if ev:
+            ev[3].record()
+        return loss
+
+    loss0 = step()      # warm-up (and the deferred shapes)
+    states = rnn.begin_state(P["batch"], ctx=ctx)
+    want = [(P["layers"], P["batch"], P["hidden"])] * 2
+    if [tuple(x.shape) for x in states] != want:
+        raise RuntimeError("LSTM.begin_state shapes %s, expected %s"
+                           % ([tuple(x.shape) for x in states], want))
+    # tokens/s as bench_lstm.py measures it: 10 steps, one sync at the end
+    b2_rnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P["steps"]):
+        loss = step()
+    last = float(loss.asnumpy().mean())
+    dt = time.perf_counter() - t0
+    b2 = b2_rnn_read("(a) bench_lstm", P["steps"])
+    tokens = P["batch"] * P["seq_len"]
+    if not (np.isfinite(last) and np.isfinite(
+            float(loss0.asnumpy().mean()))):
+        raise RuntimeError("(a): loss not finite")
+    r = rnn_timed(step, P["steps"], tokens)
+    r.update(bench_tokens_per_s=tokens * P["steps"] / dt,
+             loss_first=float(loss0.asnumpy().mean()), loss_last=last,
+             b2_launches=b2)
+    flops = lstm_flops(P["seq_len"], P["batch"], P["hidden"], P["hidden"],
+                       P["layers"], P["vocab"])
+    log("(a) tools/bench_lstm.py's shape (Embedding(10000, 200) -> LSTM(200, "
+        "2 layers, NTC) -> Dense(10000), Xavier, hybridized, SGD lr 0.1, "
+        "batch 32 x 35): bench_lstm.py's way %.0f tokens/s (10 steps, one "
+        "sync); loss %.4f -> %.4f"
+        % (r["bench_tokens_per_s"], r["loss_first"], r["loss_last"]))
+    log_rnn("(a)", r, flops, b2 // P["steps"], card)
+    r["flops"] = flops
+    flat = lstm_flat(rnn, P["layers"])
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(P["seq_len"], P["batch"], P["hidden"], generator=g,
+                    device=dev)
+    h0 = torch.zeros(P["layers"], P["batch"], P["hidden"], device=dev)
+    r["cudnn"] = cudnn_yardstick(flat, dict(
+        state_size=P["hidden"], num_layers=P["layers"], mode="lstm"),
+        x, h0, h0.clone(), dev, "(a)")
+    return r
+
+
+def word_lm_model(ctx):
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from gluon_lstm_lm import rnn_model_class
+    P = WORD_LM
+    model = rnn_model_class(mt.gluon)(P["vocab"], P["emsize"], P["nhid"],
+                                      P["layers"], P["dropout"], P["tied"])
+    model.initialize(mt.init.Xavier(), ctx=ctx)
+    return model
+
+
+def word_lm_path(dev, card):
+    """(b): examples/word_language_model.py's RNNModel and loop at the
+    upstream medium widths; one step against the CPU first."""
+    P = WORD_LM
+    ctx = mt.gpu(0)
+    model = word_lm_model(ctx)
+    from gluon_lstm_lm import lm_step
+    B_, T = P["batch"], P["bptt"]
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, P["vocab"], (B_, T * (P["steps"] + 8) + 1)) \
+        .astype("f4")
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    hidden = model.begin_state(B_, ctx)
+    want = [(P["layers"], B_, P["nhid"])] * 2
+    if [tuple(x.shape) for x in hidden] != want:
+        raise RuntimeError("RNNModel.begin_state shapes %s, expected %s"
+                           % ([tuple(x.shape) for x in hidden], want))
+    if model.decoder.weight is not model.encoder.weight:
+        raise RuntimeError("(b): the decoder is not tied to the encoder")
+    with mt.autograd.predict_mode():
+        out, st = model(mt.nd.array(toks[:, :T], ctx=ctx), hidden)
+    if [tuple(x.shape) for x in st] != want or \
+            tuple(out.shape) != (B_, T, P["vocab"]):
+        raise RuntimeError("(b): forward shapes %s %s" % (
+            tuple(out.shape), [tuple(x.shape) for x in st]))
+    rel = {n[len(model.prefix):]: p
+           for n, p in model.collect_params().items()}
+    snap = {k: p.data()._data.detach().cpu().clone() for k, p in rel.items()}
+
+    # one step on the card against the same step on the CPU
+    cpu_model = word_lm_model(mt.cpu())
+    cpu_model.rnn._layer_infer_shape((B_, T, P["emsize"]))
+    cpu_model.decoder._layer_infer_shape((B_, T, P["nhid"]))
+    cpu_rel = {n[len(cpu_model.prefix):]: p
+               for n, p in cpu_model.collect_params().items()}
+    for k, p in cpu_rel.items():
+        p.set_data(mt.nd.NDArray(snap[k].clone()))
+    res = {}
+    for where, m, c, r_ in (("card", model, ctx, rel),
+                            ("cpu", cpu_model, mt.cpu(), cpu_rel)):
+        tr = mt.gluon.Trainer(m.collect_params(), "sgd",
+                              {"learning_rate": P["lr"]})
+        mt.random.seed(29)
+        h = m.begin_state(B_, c)
+        loss, _ = lm_step(mt.gluon, mt.autograd, m, tr, loss_fn,
+                          mt.nd.array(toks[:, :T], ctx=c),
+                          mt.nd.array(toks[:, 1:T + 1], ctx=c), h,
+                          P["clip"], B_, c)
+        res[where] = (loss.asnumpy().astype(np.float64),
+                      {k: p.data()._data.detach().cpu().double()
+                       for k, p in r_.items()})
+    lerr = float(np.abs(res["card"][0] - res["cpu"][0]).max()
+                 / np.abs(res["cpu"][0]).max())
+    perr = {k: float((res["card"][1][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30))
+            for k, v in res["cpu"][1].items()}
+    moved = {k: float((res["cpu"][1][k] - snap[k].double()).abs().max())
+             for k in snap}
+    worst = max(perr.values())
+    if not (lerr < 1e-4 and worst < 1e-4):
+        raise RuntimeError("(b): the card's step differs from the CPU's: "
+                           "loss %.3g, parameters %s" % (lerr, perr))
+    if min(moved.values()) <= 0:
+        raise RuntimeError("(b): a parameter did not move: %s" % moved)
+    log("(b) one step (dropout 0.5 on, the key chain seeded alike) on the "
+        "card against the CPU: loss within %.2g, every parameter within "
+        "%.2g relative to its largest magnitude" % (lerr, worst))
+    del cpu_model, cpu_rel, res
+    for k, p in rel.items():
+        p.set_data(mt.nd.NDArray(snap[k].to(dev)))
+
+    trainer = mt.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": P["lr"]})
+    state = {"hidden": model.begin_state(B_, ctx), "b": 0, "losses": []}
+
+    def step(ev=None):
+        b = state["b"] % (P["steps"] + 7)
+        state["b"] += 1
+        X = mt.nd.array(toks[:, b * T:(b + 1) * T], ctx=ctx)
+        Y = mt.nd.array(toks[:, b * T + 1:(b + 1) * T + 1], ctx=ctx)
+        hidden = [x.detach() for x in state["hidden"]]
+        if ev:
+            ev[0].record()
+        with mt.autograd.record():
+            out, hidden = model(X, hidden)
+            loss = loss_fn(out, Y)
+        if ev:
+            ev[1].record()
+        loss.backward()
+        if ev:
+            ev[2].record()
+        grads = [p.grad(ctx) for p in model.collect_params().values()
+                 if p.grad_req != "null"]
+        mt.gluon.utils.clip_global_norm(grads, P["clip"] * B_)
+        trainer.step(B_)
+        if ev:
+            ev[3].record()
+        state["hidden"] = hidden
+        # the example reads the loss every step
+        state["losses"].append(float(loss.sum().asscalar()))
+
+    step()              # warm-up
+    b2_rnn_counts()
+    n0 = state["b"]
+    r = rnn_timed(step, P["steps"], B_ * T)
+    calls = state["b"] - n0
+    b2 = b2_rnn_read("(b) word LM", calls)
+    r["b2_launches"] = b2
+    if not all(np.isfinite(state["losses"])):
+        raise RuntimeError("(b): loss not finite")
+    flops = lstm_flops(T, B_, P["emsize"], P["nhid"], P["layers"],
+                       P["vocab"])
+    r.update(flops=flops, card_vs_cpu={"loss": lerr, "params": worst},
+             losses=state["losses"])
+    log("(b) examples/word_language_model.py's RNNModel at the upstream "
+        "medium widths (emsize = nhid = 650, 2 layers, dropout 0.5, tied, "
+        "bptt 35, batch 32, vocab 10000; SGD lr %g, clip %g; eager, as the "
+        "example runs it): B2 launches only for the encoder (the tied "
+        "decoder reads the same weight through its product)"
+        % (P["lr"], P["clip"]))
+    log_rnn("(b)", r, flops, b2 // calls, card)
+    # the yardstick at (b)'s LSTM, without dropout (cuDNN draws its own)
+    rnn = model.rnn
+    flat = lstm_flat(rnn, P["layers"])
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(T, B_, P["emsize"], generator=g, device=dev)
+    h0 = torch.randn(P["layers"], B_, P["nhid"], generator=g, device=dev)
+    r["cudnn"] = cudnn_yardstick(flat, dict(
+        state_size=P["nhid"], num_layers=P["layers"], mode="lstm"),
+        x, h0, torch.randn_like(h0), dev, "(b)")
+    return r
+
+
+def char_lstm_path(dev, card):
+    """examples/char_lstm.py at its defaults on the card: its corpus and
+    buckets, mx.rnn.LSTMCell, BucketingModule, Xavier, Adam, Perplexity
+    (ignore_label 0), 3 epochs; the perplexity must fall."""
+    import logging
+    import random as pyrandom
+    P = CHAR_LSTM
+    vocab = {c: i + 1 for i, c in enumerate(sorted(set(CHAR_CORPUS)))}
+    ids = [vocab[c] for c in CHAR_CORPUS]
+    sentences, i = [], 0
+    for step in [24, 12] * (len(ids) // 36 + 1):
+        if i + step + 1 > len(ids):
+            break
+        sentences.append(ids[i:i + step + 1])
+        i += step
+    n_vocab = len(vocab) + 1
+    pyrandom.seed(0)
+    np.random.seed(0)
+    it = mt.rnn.BucketSentenceIter(sentences, P["batch"],
+                                   buckets=list(P["buckets"]),
+                                   invalid_label=0)
+
+    def sym_gen(seq_len):
+        data = mt.sym.Variable("data")
+        label = mt.sym.Variable("softmax_label")
+        embed = mt.sym.Embedding(data, input_dim=n_vocab,
+                                 output_dim=P["embed"], name="embed")
+        cell = mt.rnn.LSTMCell(P["hidden"], prefix="lstm_")
+        outs, _ = cell.unroll(seq_len, inputs=embed, layout="NTC",
+                              merge_outputs=True)
+        pred = mt.sym.Reshape(outs, shape=(-1, P["hidden"]))
+        pred = mt.sym.FullyConnected(pred, num_hidden=n_vocab, name="pred")
+        label = mt.sym.Reshape(label, shape=(-1,))
+        return (mt.sym.SoftmaxOutput(pred, label, name="softmax",
+                                     use_ignore=True, ignore_label=0),
+                ("data",), ("softmax_label",))
+
+    mod = mt.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mt.gpu(0))
+    metric = mt.metric.Perplexity(ignore_label=0)
+    ppl, steps = [], [0]
+
+    def batch_end(param):
+        steps[0] += 1
+
+    def epoch_end(epoch, sym, arg, aux):
+        ppl.append(metric.get()[1])
+    b2_rnn_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logging.disable(logging.INFO)
+    try:
+        mod.fit(it, num_epoch=P["epochs"], optimizer="adam",
+                optimizer_params={"learning_rate": P["lr"]},
+                initializer=mt.initializer.Xavier(), eval_metric=metric,
+                batch_end_callback=batch_end, epoch_end_callback=epoch_end)
+    finally:
+        logging.disable(logging.NOTSET)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    b2 = b2_rnn_read("char_lstm", steps[0])
+    it.reset()
+    final = mod.score(it, mt.metric.Perplexity(ignore_label=0))[0][1]
+    if not (len(ppl) == P["epochs"] and all(np.isfinite(ppl))
+            and ppl[-1] < ppl[0] and np.isfinite(final)):
+        raise RuntimeError("char_lstm: perplexity by epoch %s (final %s) "
+                           "does not fall" % (ppl, final))
+    buckets = sorted(mod._buckets)
+    log("examples/char_lstm.py (its corpus, buckets %s, mx.rnn.LSTMCell(%d),"
+        " BucketingModule, Adam lr %g, batch %d) on the card: %d steps in "
+        "%d epochs, %.2f s; perplexity by epoch %s, final score %.3f; "
+        "buckets bound %s; B2 %d launches (one a forward), no fallback  [%s]"
+        % (P["buckets"], P["hidden"], P["lr"], P["batch"], steps[0],
+           P["epochs"], fit_s, json.dumps([round(x, 3) for x in ppl]),
+           final, buckets, b2, card))
+    return {"perplexity": ppl, "final": final, "steps": steps[0],
+            "fit_s": fit_s, "b2_launches": b2, "buckets": buckets}
+
+
+def rnn_path(dev, card, report):
+    """Phase 17: recurrent networks on the card (see the module
+    docstring); returns B2's rows and its launches on each path."""
+    log("phase 17: recurrent networks (the fused RNN op, gluon.rnn, mx.rnn, "
+        "BucketingModule)")
+    g = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    b2_row(rows, "take_rows@lstm_bench", 10000, 200, (32, 35), dev, g)
+    b2_row(rows, "take_rows@word_lm", 10000, 650, (32, 35), dev, g)
+    b2_row(rows, "take_rows@char_lstm", len(set(CHAR_CORPUS)) + 1,
+           CHAR_LSTM["embed"], (CHAR_LSTM["batch"], 25), dev, g)
+    log("B2 at the recurrent paths' shapes: bitwise the plain gather")
+    a = lstm_bench_path(dev, card)
+    b = word_lm_path(dev, card)
+    c = char_lstm_path(dev, card)
+    report["rnn"] = {"lstm_bench": a, "word_lm": b, "char_lstm": c,
+                     "b2": rows}
+    return rows, {"lstm_bench": a["b2_launches"],
+                  "word_lm": b["b2_launches"],
+                  "char_lstm": c["b2_launches"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -5534,6 +6061,7 @@ def main():
     grouped_counts = grouped_gpt(dev, card, report)
     grouped_dropout(dev, report)
     reco_rows, reco_launches = recommend_path(dev, card, report)
+    rnn_rows, rnn_launches = rnn_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -5610,6 +6138,10 @@ def main():
             paths["matrix_factorization"] = (
                 reco_launches["matrix_factorization"], 0.0,
                 reco_rows["take_rows@mf"])
+            # phase 17: the encoders of the recurrent paths
+            for p_ in ("lstm_bench", "word_lm", "char_lstm"):
+                paths[p_] = (rnn_launches[p_], 0.0,
+                             rnn_rows["take_rows@" + p_])
         by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
                            **{k: r[k] for k in NAMED_KEYS if k in r})
                    for p, (n, e, r) in paths.items()}

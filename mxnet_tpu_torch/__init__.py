@@ -9,9 +9,11 @@ artifacts (two-tower tables streamed through a hot-row cache on the
 card, ``embed``), and trains symbolic models through ``Module.fit`` (the
 executor's forward and backward, the fused train step with bf16
 compute over f32 master weights, SGD with ``multi_precision`` and Adam,
-learning-rate schedules), and trains eagerly through the NDArray,
+learning-rate schedules, ``BucketingModule`` over the symbolic ``rnn``
+cells), and trains eagerly through the NDArray,
 ``autograd`` and Gluon (``Block``, ``HybridBlock``, ``nn`` with the
-convolution layers, ``loss``, ``Trainer``, ``data``, ``model_zoo``)
+convolution layers, ``rnn``, ``loss``, ``Trainer``, ``data``,
+``model_zoo``)
 layers, with the JAX package's random key chain (``random``), its
 ``.params`` files, row-sparse gradients (``nd.sparse``) and the
 optimizers' lazy row updates.
@@ -40,6 +42,7 @@ from . import io  # noqa: F401
 from . import metric  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import rnn  # noqa: F401
 from . import parallel  # noqa: F401
 from . import kernels  # noqa: F401
 from . import serving  # noqa: F401

@@ -253,6 +253,17 @@ class Parameter:
                              dtype=dtype_name(self.dtype))
 
 
+def _merge_shapes(existing, given):
+    """A shared parameter's shape from its existing one and a new
+    request, 0 unknown on either side (upstream MXNet's rule: a tied
+    ``Dense(params=embedding.params)`` asks for (vocab, 0) of a known
+    (vocab, dim) weight; the JAX package refuses that request)."""
+    if existing is None or len(existing) != len(given):
+        return given
+    # a clash of two known sizes is left for the shape setter to refuse
+    return tuple(s if n == 0 else n for s, n in zip(existing, given))
+
+
 class Constant(Parameter):
     """Non-differentiable parameter with a fixed value."""
 
@@ -328,7 +339,7 @@ class ParameterDict:
             if v is None:
                 continue
             if k == "shape":
-                param.shape = v
+                param.shape = _merge_shapes(param.shape, v)
             elif k == "dtype":
                 param.dtype = normalize_dtype(v)
             elif k == "init" and param.init is None:

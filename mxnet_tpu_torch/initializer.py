@@ -1,21 +1,28 @@
 """Weight initializers (counterpart of a subset of ``mxnet_tpu/initializer.py``):
 the name-suffix rules of ``Initializer`` and ``Uniform``, ``Normal``,
-``Zero``, ``One``, ``Constant`` and ``Xavier``.
+``Zero``, ``One``, ``Constant``, ``Xavier``, ``Orthogonal``, ``LSTMBias``,
+``FusedRNN`` and ``Mixed``.
 
-Each initializer draws from its own ``torch.Generator`` seeded by its
-``seed`` argument (the JAX package draws from numpy's global state), on
-the CPU in f32, and copies the values into the tensor it is given, in
-place. Two initializers with the same seed fill the same parameters in
-the same order with the same values.
+Each initializer draws from its own generator seeded by its ``seed``
+argument (the JAX package draws from numpy's global state), on the CPU,
+and copies the values into the tensor it is given, in place. Two
+initializers with the same seed fill the same parameters in the same
+order with the same values. ``Orthogonal`` draws from a
+``numpy.random.RandomState(seed)`` and factors in f64 with numpy, as
+the JAX package does from numpy's global state: after
+``numpy.random.seed(seed)`` there, both fill the same f32 values. The
+others draw from a ``torch.Generator``, on the CPU in f32.
 """
 from __future__ import annotations
 
 import json
+import re
 
+import numpy as _np
 import torch
 
 __all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
-           "Xavier",
+           "Xavier", "Orthogonal", "LSTMBias", "FusedRNN", "Mixed",
            "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
@@ -78,7 +85,9 @@ class Initializer:
         name = desc.lower()
         if name.endswith("weight"):
             self._init_weight(desc, arr)
-        elif name.endswith("bias") or name.endswith("beta"):
+        elif name.endswith("bias"):
+            self._init_bias(desc, arr)
+        elif name.endswith("beta"):
             self._init_zero(desc, arr)
         elif name.endswith("gamma"):
             self._init_one(desc, arr)
@@ -91,9 +100,7 @@ class Initializer:
         elif name.endswith("min") or name.endswith("max"):
             self._init_zero(desc, arr)
         else:
-            raise ValueError(
-                "Unknown initialization pattern for %s. Default init needs "
-                "a name ending in weight/bias/gamma/beta" % desc)
+            self._init_default(desc, arr)
 
     @staticmethod
     def _set(arr, values):
@@ -105,6 +112,14 @@ class Initializer:
 
     def _init_one(self, _, arr):
         self._set(arr, torch.ones(arr.shape))
+
+    def _init_bias(self, desc, arr):
+        self._init_zero(desc, arr)
+
+    def _init_default(self, desc, arr):
+        raise ValueError(
+            "Unknown initialization pattern for %s. Default init needs "
+            "a name ending in weight/bias/gamma/beta" % desc)
 
     def _uniform(self, arr, scale):
         u = torch.rand(tuple(arr.shape), generator=self._gen)
@@ -191,6 +206,105 @@ class Xavier(Initializer):
             self._uniform(arr, scale)
         else:
             self._normal(arr, scale)
+
+
+@register
+class Orthogonal(Initializer):
+    """The orthogonal factor of a uniform (``rand_type="uniform"``) or
+    normal matrix of shape (out, prod(in)), times ``scale``."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", seed=0):
+        super().__init__(seed=seed, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+        self._rs = _np.random.RandomState(int(seed))
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = 1
+        for d in arr.shape[1:]:
+            nin *= d
+        if self.rand_type == "uniform":
+            tmp = self._rs.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = self._rs.normal(0.0, 1.0, (nout, nin))
+        u, _s, v = _np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        self._set(arr, torch.from_numpy(
+            (self.scale * q).reshape(tuple(arr.shape)).astype(_np.float32)))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with the forget gate's quarter (gates i, f, g, o) set to
+    ``forget_bias``: whatever the name, weight or bias."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, _, arr):
+        b = torch.zeros(tuple(arr.shape))
+        num_hidden = arr.shape[0] // 4
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """A ``FusedRNNCell``'s packed parameter vector: unpacked into its
+    per-gate i2h/h2h weights and biases, each initialized by ``init``
+    (the run's global initializer when None), the LSTM forget-gate
+    biases (i2h and h2h both) set to ``forget_bias``, and packed
+    again."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            init = create(init)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(
+            self._num_hidden, self._num_layers, self._mode,
+            self._bidirectional, forget_bias=self._forget_bias, prefix="")
+        args = cell.unpack_weights({"parameters": arr.detach().cpu()})
+        inner = self._init or desc.global_init or Uniform()
+        for name, piece in args.items():
+            if self._mode == "lstm" and name.endswith("_f_bias"):
+                piece.fill_(self._forget_bias)
+            else:
+                inner(InitDesc(name, global_init=desc.global_init), piece)
+        self._set(arr, cell.pack_weights(args)["parameters"])
+
+
+class Mixed(Initializer):
+    """The first initializer whose pattern matches the name."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise ValueError("Parameter %s did not match Mixed patterns" % name)
 
 
 _INIT_REGISTRY["zeros"] = Zero

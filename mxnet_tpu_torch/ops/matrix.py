@@ -1,7 +1,9 @@
 """Shape operators (counterpart of a subset of ``mxnet_tpu/ops/matrix.py``):
 Flatten, MXNet's Reshape with its special codes, transpose, expand_dims,
 squeeze, slice_axis, split, batch_dot, Concat, stack, pad, swapaxes,
-dot, pick (clip mode) and reshape_like. Each is a plain function on
+dot, pick (clip mode), reshape_like and the sequence ops
+(SequenceMask, SequenceLast, SequenceReverse, with optional per-sample
+lengths). Each is a plain function on
 tensors that torch autograd differentiates."""
 from __future__ import annotations
 
@@ -209,3 +211,67 @@ def reshape_like(lhs, rhs, *, lhs_begin=None, lhs_end=None, rhs_begin=None,
     rb, re = rng(rhs_begin, rhs_end, rhs.dim(), "rhs")
     return lhs.reshape(tuple(lhs.shape[:lb]) + tuple(rhs.shape[rb:re])
                        + tuple(lhs.shape[le:]))
+
+
+# ---------------------------------------------------------------------------
+# sequence ops: (T, B, ...) along ``axis`` with per-sample lengths
+# ---------------------------------------------------------------------------
+
+@register("sequence_mask")
+def sequence_mask(data, sequence_length=None, *, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """Steps at or past each sample's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data * 1.0
+    maxlen = data.shape[axis]
+    steps = torch.arange(maxlen, device=data.device)
+    mask = steps[:, None] < sequence_length.long()[None, :]   # (T, B)
+    shape = [1] * data.dim()
+    shape[axis] = maxlen
+    batch_axis = 1 if axis == 0 else 0
+    shape[batch_axis] = data.shape[batch_axis]
+    mask = (mask if axis == 0 else mask.t()).reshape(shape)
+    fill = torch.full((), value, dtype=data.dtype, device=data.device)
+    return torch.where(mask, data, fill)
+
+
+alias("sequence_mask", "SequenceMask")
+
+
+def _step_index(idx, t):
+    """Indices as the JAX op's gather takes them: negative ones count
+    from the end, the rest clamp to the axis."""
+    return torch.where(idx < 0, idx + t, idx).clamp(0, t - 1)
+
+
+@register("sequence_last")
+def sequence_last(data, sequence_length=None, *, use_sequence_length=False,
+                  axis=0):
+    """Each sample's last valid step (the last step without lengths)."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    d = data.movedim(axis, 0)                             # (T, B, ...)
+    idx = _step_index(sequence_length.long() - 1, d.shape[0])
+    return d[idx, torch.arange(d.shape[1], device=d.device)]
+
+
+alias("sequence_last", "SequenceLast")
+
+
+@register("sequence_reverse")
+def sequence_reverse(data, sequence_length=None, *,
+                     use_sequence_length=False, axis=0):
+    """Each sample's valid prefix reversed in place; the padding after
+    it stays where it is."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    d = data.movedim(axis, 0)                             # (T, B, ...)
+    t = d.shape[0]
+    steps = torch.arange(t, device=d.device)[:, None]     # (T, 1)
+    lens = sequence_length.long()[None, :]             # (1, B)
+    idx = _step_index(torch.where(steps < lens, lens - 1 - steps, steps), t)
+    out = d[idx, torch.arange(d.shape[1], device=d.device)[None, :]]
+    return out.movedim(0, axis)
+
+
+alias("sequence_reverse", "SequenceReverse")

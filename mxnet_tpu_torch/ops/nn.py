@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution
 and Deconvolution (1-, 2- and 3-D, NC... data and O/I-major weights,
 through ``F.conv{n}d`` / ``F.conv_transpose{n}d``), Pooling (1-3 D),
 BatchNorm, LayerNorm, InstanceNorm, Activation, LeakyReLU, softmax,
-log_softmax, Embedding, Dropout (its mask from the random key chain)
-and SoftmaxOutput,
+log_softmax, Embedding, Dropout (its mask from the random key chain),
+SoftmaxOutput and the fused RNN,
 each with the JAX op's keyword names and contract rather than torch's
 defaults:
 
@@ -29,6 +29,13 @@ defaults:
 * SoftmaxOutput is a loss head: its backward is ``softmax - onehot``
   scaled by ``grad_scale`` and the normalization, and it ignores the
   incoming cotangent (``_SoftmaxOutputGrad``).
+* RNN (lstm, gru, rnn_tanh, rnn_relu; time major) takes one flat
+  parameter vector in the JAX op's order (:func:`_rnn_param_shapes`),
+  projects the input of all T steps in one product and then loops over
+  the steps in Python, one recurrent product and the gate math each.
+  Between layers it applies dropout whenever ``p > 0``, in training or
+  not, and it ignores ``projection_size`` and the ``lstm_state_clip_*``
+  arguments: both as the JAX op does.
 
 Every op is a function of tensors that torch autograd differentiates.
 """
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 
 from .. import random as _random
 from ..base import MXNetError
+from ..context import resolve_device
 from .registry import alias, register, set_op_meta
 
 
@@ -568,6 +576,225 @@ def _maybe_take_rows(data, weight):
     return _take.take_rows(weight, data, config=cfg)
 
 
+# ---------------------------------------------------------------------------
+# RNN (fused)
+# ---------------------------------------------------------------------------
+
+_GATES = {"lstm": 4, "gru": 3, "rnn_tanh": 1, "rnn_relu": 1}
+
+
+def _lstm_cell(xproj, h, c, wh_t):
+    """One LSTM step; ``xproj`` already holds ``x·wxᵀ + bx + bh``. Gates
+    (i, f, g, o)."""
+    gates = torch.addmm(xproj, h, wh_t)
+    s = torch.sigmoid(gates)
+    hs = h.shape[-1]
+    i, f, o = s[:, :hs], s[:, hs:2 * hs], s[:, 3 * hs:]
+    g = torch.tanh(gates[:, 2 * hs:3 * hs])
+    c2 = f * c + i * g
+    return o * torch.tanh(c2), c2
+
+
+def _gru_cell(xproj, h, wh_t, bh):
+    """One GRU step; ``xproj`` holds ``x·wxᵀ + bx``. Gates (r, z, n)."""
+    xr, xz, xn = torch.chunk(xproj, 3, dim=-1)
+    hr, hz, hn = torch.chunk(torch.addmm(bh, h, wh_t), 3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1 - z) * n + z * h
+
+
+def _rnn_cell(xproj, h, wh_t, act):
+    """One Elman step; ``xproj`` holds ``x·wxᵀ + bx + bh``."""
+    return act(torch.addmm(xproj, h, wh_t))
+
+
+def _rnn_param_order(num_layers, bidirectional):
+    """The flat vector's pieces in order, as (kind, layer, direction):
+    (wx, wh) for every layer and direction, then (bx, bh) for every
+    layer and direction. Every reader of the layout walks this."""
+    dirs = 2 if bidirectional else 1
+    pairs = [(layer, d) for layer in range(num_layers) for d in range(dirs)]
+    return ([(k, layer, d) for layer, d in pairs for k in ("wx", "wh")]
+            + [(k, layer, d) for layer, d in pairs for k in ("bx", "bh")])
+
+
+def _rnn_param_shapes(mode, input_size, state_size, num_layers,
+                      bidirectional):
+    """The flat vector's pieces in order, as (kind, shape)."""
+    gh = _GATES[mode] * state_size
+    dirs = 2 if bidirectional else 1
+    shapes = []
+    for kind, layer, _ in _rnn_param_order(num_layers, bidirectional):
+        if kind == "wx":
+            shape = (gh, input_size if layer == 0 else state_size * dirs)
+        elif kind == "wh":
+            shape = (gh, state_size)
+        else:
+            shape = (gh,)
+        shapes.append((kind, shape))
+    return shapes
+
+
+_RNN_PIECE_NAMES = {"wx": "i2h_weight", "wh": "h2h_weight",
+                    "bx": "i2h_bias", "bh": "h2h_bias"}
+
+
+def _rnn_param_names(num_layers, bidirectional):
+    """The Gluon layer's names of the flat vector's pieces, in order:
+    ``l0_i2h_weight``, ``l0_h2h_weight``, ... (``r`` for the backward
+    direction)."""
+    return ["%s%d_%s" % ("lr"[d], layer, _RNN_PIECE_NAMES[kind])
+            for kind, layer, d in _rnn_param_order(num_layers,
+                                                   bidirectional)]
+
+
+def _rnn_dropout_layers(p, num_layers):
+    """The layers whose output takes dropout, each drawing one key: all
+    but the last whenever ``p > 0``, training or not, as the JAX op."""
+    return range(num_layers - 1) if p > 0.0 else range(0)
+
+
+def rnn_param_size(mode, input_size, state_size, num_layers,
+                   bidirectional):
+    n = 0
+    for _, s in _rnn_param_shapes(mode, input_size, state_size, num_layers,
+                                  bidirectional):
+        k = 1
+        for d in s:
+            k *= d
+        n += k
+    return n
+
+
+def _unpack_rnn_params(params, mode, input_size, state_size, num_layers,
+                       bidirectional):
+    out, off = [], 0
+    for _, s in _rnn_param_shapes(mode, input_size, state_size, num_layers,
+                                  bidirectional):
+        n = 1
+        for d in s:
+            n *= d
+        out.append(params[off:off + n].reshape(s))
+        off += n
+    return out
+
+
+def rnn_params_from_reference(flat, mode, input_size, state_size,
+                              num_layers, bidirectional, device=None):
+    """The JAX package's flat RNN parameter vector (numpy, or anything
+    with ``asnumpy``) as an f32 tensor on ``device`` (default cuda:0),
+    after checking its length against :func:`rnn_param_size`: both
+    packages lay the vector out the same way, so the values cross
+    unchanged."""
+    import numpy as _np
+    dev = resolve_device(device)
+    if hasattr(flat, "asnumpy"):
+        flat = flat.asnumpy()
+    a = _np.ascontiguousarray(_np.asarray(flat, dtype=_np.float32)
+                              .reshape(-1))
+    want = rnn_param_size(mode, input_size, state_size, num_layers,
+                          bidirectional)
+    if a.size != want:
+        raise MXNetError("RNN parameters: %d values, but mode %s with input "
+                         "%d, state %d, %d layer(s)%s needs %d"
+                         % (a.size, mode, input_size, state_size,
+                            num_layers, ", bidirectional" if bidirectional
+                            else "", want))
+    return torch.from_numpy(a.copy()).to(dev)
+
+
+def _rnn_outputs(p):
+    if not p.get("state_outputs"):
+        return 1
+    return 3 if p.get("mode", "lstm") == "lstm" else 2
+
+
+@register("RNN", num_outputs=_rnn_outputs)
+def rnn(data, parameters, state, state_cell=None, *, state_size, num_layers,
+        mode="lstm", bidirectional=False, p=0.0, state_outputs=False,
+        projection_size=None, lstm_state_clip_min=None,
+        lstm_state_clip_max=None, lstm_state_clip_nan=False):
+    """Fused multi-layer RNN over time-major data (T, N, I).
+
+    Per layer and direction: one (T·N, I)×(I, G·H) product for the
+    input of every step, then a Python loop over the steps, each one
+    (N, H)×(H, G·H) product and the gate math; the backward direction
+    walks the steps from the last. States are (layers·dirs, N, H).
+    Returns the output (T, N, dirs·H), and with ``state_outputs`` the
+    final h (and c for lstm)."""
+    T, N, I = data.shape
+    H = int(state_size)
+    dirs = 2 if bidirectional else 1
+    if data.device.type == "meta":
+        # shape inference: the shapes without the loop, and the keys the
+        # dropout between layers draws, as a real call draws them
+        for _ in _rnn_dropout_layers(p, num_layers):
+            _random.next_key()
+        x = data.new_empty((T, N, dirs * H))
+        st = data.new_empty((num_layers * dirs, N, H))
+        if not state_outputs:
+            return x
+        return (x, st, st) if mode == "lstm" else (x, st)
+    flat = _unpack_rnn_params(parameters, mode, I, H, num_layers,
+                              bidirectional)
+    pairs = num_layers * dirs
+    wxs, whs = flat[0:2 * pairs:2], flat[1:2 * pairs:2]
+    bxs, bhs = flat[2 * pairs::2], flat[2 * pairs + 1::2]
+    act = torch.relu if mode == "rnn_relu" else torch.tanh
+    dropped = _rnn_dropout_layers(p, num_layers)
+    x = data
+    h_finals, c_finals = [], []
+    for layer in range(num_layers):
+        outs_dir = []
+        for d in range(dirs):
+            li = layer * dirs + d
+            wh_t = whs[li].t()
+            # the input projection of every step, one product; the
+            # recurrent bias joins it where the cell adds it unscaled
+            bias = bxs[li] if mode == "gru" else bxs[li] + bhs[li]
+            xp = F.linear(x.reshape(T * N, -1), wxs[li], bias)
+            xp = xp.reshape(T, N, -1)
+            h = state[li]
+            c = state_cell[li] if mode == "lstm" else None
+            ys = [None] * T
+            for t in (range(T) if d == 0 else range(T - 1, -1, -1)):
+                if mode == "lstm":
+                    h, c = _lstm_cell(xp[t], h, c, wh_t)
+                elif mode == "gru":
+                    h = _gru_cell(xp[t], h, wh_t, bhs[li])
+                else:
+                    h = _rnn_cell(xp[t], h, wh_t, act)
+                ys[t] = h
+            h_finals.append(h)
+            if mode == "lstm":
+                c_finals.append(c)
+            outs_dir.append(torch.stack(ys, 0))
+        x = torch.cat(outs_dir, -1) if dirs == 2 else outs_dir[0]
+        if layer in dropped:
+            keep = 1.0 - p
+            mask = _random.bernoulli(_random.next_key(), keep, x.shape,
+                                     x.device)
+            kt = torch.full((), keep, dtype=x.dtype, device=x.device)
+            x = torch.where(mask, x / kt, torch.zeros_like(x))
+    if not state_outputs:
+        return x
+    if mode == "lstm":
+        return x, torch.stack(h_finals, 0), torch.stack(c_finals, 0)
+    return x, torch.stack(h_finals, 0)
+
+
+@register("_rnn_begin_state")
+def _rnn_begin_state(ref, *, state_shape, batch_axis=0):
+    """Zero initial RNN state whose entries of 0 in ``state_shape`` take
+    ``ref``'s batch dim, so shape inference flows forward when cells
+    unroll with default states."""
+    shp = tuple(ref.shape[batch_axis] if int(s) == 0 else int(s)
+                for s in state_shape)
+    return torch.zeros(shp, dtype=ref.dtype, device=ref.device)
+
+
 @register("Embedding")
 def embedding(data, weight, *, input_dim=0, output_dim=0, dtype="float32",
               sparse_grad=False):
@@ -684,7 +911,24 @@ def _embedding_shapes(ins, p):
     return out
 
 
+def _rnn_shapes(ins, p):
+    data = ins[0]
+    out = list(ins)
+    if data is not None:
+        H = int(p["state_size"])
+        L = int(p["num_layers"])
+        bi = bool(p.get("bidirectional", False))
+        if len(ins) > 1 and out[1] is None:
+            out[1] = (rnn_param_size(p.get("mode", "lstm"), data[2], H, L,
+                                     bi),)
+        for i in (2, 3):
+            if len(ins) > i and out[i] is None:
+                out[i] = (L * (2 if bi else 1), data[1], H)
+    return out
+
+
 set_op_meta("SoftmaxOutput", shape_hook=_softmax_out_shapes)
+set_op_meta("RNN", shape_hook=_rnn_shapes)
 set_op_meta("LayerNorm", shape_hook=_ln_shapes)
 set_op_meta("Embedding", shape_hook=_embedding_shapes)
 set_op_meta("_contrib_SparseEmbedding", shape_hook=_embedding_shapes)

@@ -12,6 +12,14 @@ def _make_op_func(op):
     def fn(*args, name=None, **kwargs):
         node_name = _symbol._auto_name(
             op.name.lower().lstrip("_") + "_", name)
+        if op.has_var_inputs:
+            # ops over *data (Concat, stack): every Symbol given is an input
+            inputs = [a for a in args if isinstance(a, _symbol.Symbol)]
+            for k in [k for k, v in kwargs.items()
+                      if isinstance(v, _symbol.Symbol)]:
+                inputs.append(kwargs.pop(k))
+            return _symbol.invoke_sym(op.name, inputs, kwargs,
+                                      name=node_name)
         args, kwargs = op.bind_positional(args, kwargs)
         # named input slots: positionals, then keywords, then variables
         # created the reference way (Convolution(data) -> conv0_weight;
@@ -45,6 +53,8 @@ def _should_autocreate(slot_name, optional, params):
         return True   # required tensor input with no symbol -> variable
     if slot_name == "bias":
         return not params.get("no_bias", False)
+    if slot_name == "state_cell":
+        return params.get("mode") == "lstm"
     return slot_name == "label"   # loss heads create their label variable
 
 

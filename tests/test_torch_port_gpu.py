@@ -9,7 +9,8 @@ CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
 decoder in generate mode and its speculative step, a 2-layer GPT and a
 ResNet-20 in f32 and bf16 trained by ``Module.fit``, the example's GPT
 trained through Gluon, a recommend batch through the cache-backed
-engine) on the card against the CPU.
+engine, a fused gluon.rnn layer with dropout) on the card against the
+CPU, and B2's launches under gluon.rnn's word language model.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -1043,3 +1044,72 @@ def test_recommend_batch_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert card.cache.buf.data_ptr() == ptr
     assert card.stats() == cpu.stats()
     assert card.check_discipline() == []
+
+
+@pytest.mark.parametrize("mode,bi", [("lstm", False), ("lstm", True),
+                                     ("gru", True)])
+def test_fused_rnn_layer_on_the_card_matches_the_cpu(cuda, mode, bi):
+    """A gluon.rnn layer (2 layers, NTC, dropout 0.3 between them) on the
+    card against the CPU from the same weights and the same key chain:
+    outputs, states and every gradient within 1e-5 of each tensor's
+    largest magnitude (the dropout masks drawn on either device are the
+    same bits)."""
+    make = {"lstm": mt.gluon.rnn.LSTM, "gru": mt.gluon.rnn.GRU}[mode]
+    rng = np.random.RandomState(0)
+    x = rng.randn(3, 7, 5).astype("f4")
+    res, w = {}, None
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        layer = make(16, num_layers=2, layout="NTC", dropout=0.3,
+                     bidirectional=bi, input_size=5)
+        layer.initialize(mt.init.Xavier(seed=0), ctx=ctx)
+        rel = {n[len(layer.prefix):]: p
+               for n, p in layer.collect_params().items()}
+        if w is None:
+            w = {k: p.data()._data.detach().cpu() for k, p in rel.items()}
+        for k, p in rel.items():
+            p.set_data(mt.nd.NDArray(w[k].to(p.data()._data.device)))
+        states = layer.begin_state(3, ctx=ctx)
+        xs = mt.nd.array(x, ctx=ctx)
+        xs.attach_grad()
+        mt.random.seed(11)
+        with mt.autograd.record():
+            out, new = layer(xs, states)
+            loss = (out * out).sum() + sum(s.sum() for s in new)
+        loss.backward()
+        res[ctx.device_type] = [t.detach().cpu() for t in
+                                [out._data] + [s._data for s in new]
+                                + [xs.grad._data]
+                                + [p.grad()._data for p in rel.values()]]
+    for a, b in zip(res["gpu"], res["cpu"]):
+        scale = b.abs().max().clamp_min(1e-30)
+        assert float((a - b).abs().max() / scale) < 1e-5
+
+
+def test_word_language_model_launches_b2_once_a_step_on_the_card(cuda):
+    """examples/word_language_model.py's model (tests/gluon_lstm_lm.py),
+    tied, dropout 0.5, at vocab 1000, emsize = nhid = 64: every training
+    step launches B2 once (the encoder; the tied decoder's product reads
+    the same weight), with no kernel-tier fallback, and the losses stay
+    finite."""
+    from gluon_lstm_lm import lm_step, rnn_model_class
+    from mxnet_tpu_torch.kernels import tier
+    ctx = mt.gpu(0)
+    model = rnn_model_class(mt.gluon)(1000, 64, 64, 2, 0.5, True)
+    model.initialize(mt.init.Xavier(seed=0), ctx=ctx)
+    trainer = mt.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": 2.0})
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    toks = np.random.RandomState(0).randint(0, 1000, (8, 4 * 20 + 1))
+    hidden = model.begin_state(8, ctx)
+    tier.reset_stats()
+    for b in range(4):
+        before = ttake.launches
+        X = mt.nd.array(toks[:, b * 20:(b + 1) * 20], ctx=ctx)
+        Y = mt.nd.array(toks[:, b * 20 + 1:(b + 1) * 20 + 1], ctx=ctx)
+        loss, hidden = lm_step(mt.gluon, mt.autograd, model, trainer,
+                               loss_fn, X, Y, hidden, 0.25, 8)
+        assert np.isfinite(loss.asnumpy()).all()
+        assert ttake.launches == before + 1
+    st = tier.stats()
+    assert st["fallback"] == {}
+    assert st["dispatch"]["take_rows"] == 4
