@@ -146,9 +146,10 @@ Phases; any failure raises and the script exits non-zero:
    recomputed backward), the peak memory and model FLOPs over the f32
    peak. Last the model cut to 2 layers at T 128, batch 2, on the card
    against the CPU: each of two steps' gradients within 1e-3 of each
-   tensor's largest magnitude (at most 4 ReLU inputs of opposite sign
-   between the two, each within 1e-4 of its tensor's largest magnitude
-   from 0), and after 2 SGD-momentum steps by ``Module.fit``
+   tensor's largest magnitude of the CPU's taking the card's ReLU
+   decisions (at most 4 ReLU inputs of opposite sign between the two,
+   each within 1e-4 of its tensor's largest magnitude from 0; the plain
+   CPU's difference printed), and after 2 SGD-momentum steps by ``Module.fit``
    (lr 1e-4) losses within 1e-5 relative and parameters within 1e-4;
    the same steps at lr 0.01 are printed beside two CPU runs that
    differ only in thread count.
@@ -380,11 +381,58 @@ Phases; any failure raises and the script exits non-zero:
    buckets (13, 25), ``mx.rnn.LSTMCell(64)``, ``BucketingModule``,
    Xavier, Adam lr 3e-3, batch 16, ``Perplexity(ignore_label=0)``) for 3
    epochs: the perplexity must fall, one B2 launch a step, no fallback.
-18. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``
-   and ``grouped`` among its paths, B2, B3 and B5 ``grouped``, B2
-   ``recommend``, ``matrix_factorization``, ``lstm_bench``, ``word_lm``
-   and ``char_lstm``), the card's nvidia-smi line, and last the result
-   line ``{"ok": true, "device": {...}}``.
+18. The data pipeline (ROADMAP A5): ResNet-50 v1 trained from
+   ``.rec`` records as ``examples/train_imagenet.py`` trains it, at
+   ``bench.py``'s record count (768), batch 128 and chip K (30), bf16
+   over f32 masters. The records repeat the 16 JPEGs of
+   ``tests/data/jpeg_fixture`` (224-300 pixels a side, 4:2:0 and 4:4:4,
+   qualities 75-95) with labels i % 1000. Checks, each failing the run:
+   (1) every fixture image decoded on the card (nvJPEG's planes, then
+   the ``jpeg_color`` kernel) against cv2's stored pixels: per channel
+   mean |delta| at most 1.0 level and its 99.9th percentile at most 8
+   levels; the fixture's block JPEGs (constant 8 x 8 blocks, which any
+   inverse DCT gives back exactly) bitwise cv2's; (2) the ``image_aug``
+   kernel bitwise its plain version on the decoded images, the
+   ImageNet recipe (random 224 crops and mirrors) in f32, bf16 and f16
+   at batch 128 and the CIFAR recipe (pad 4, fill 255, mean/std, 32
+   crops), and ``jpeg_color`` bitwise its plain version on random
+   planes at the fixture's shapes; (3) an epoch of
+   ``ImageRecordIter(ctx=gpu(0), shuffle, rand_crop, rand_mirror, 8
+   threads)`` against the batches the plain augment builds from cv2's
+   pixels in the same order with the same draws (restated here from the
+   JAX package's rule): labels equal, pixels within (1)'s bound in the
+   epoch and in every image; (4) ``fit`` through the records staged
+   (``StagedKFeed``) and unstaged, K = 2 for 2 windows, cuDNN
+   deterministic: every parameter and moving statistic bitwise equal.
+   Then the main path, the counts of B1, ``image_aug``, ``jpeg_color``
+   and nvJPEG zeroed just before and read just after: ``fit(ResizeIter(
+   ImageRecordIter), steps_per_dispatch=30)`` for 30 batches (the
+   capture) and 150 more (timed, 5 windows): one graph, 178 replays,
+   49 x 3 B1 launches through the wrapper (2 warm-up steps and the
+   capture), one ``image_aug`` and one ``jpeg_color`` launch a batch
+   made. Printed: the fit leg's images/s over the 5 windows and after
+   window 1's data came (each ``fit`` call starts a new feed, which
+   fills during window 1), beside the replayed one-batch step's in the
+   same run; the input side alone (decode, augment, stage; no
+   training); the overlap ratio (achieved / min(input, compute), as
+   ``bench.py`` defines it); the data wait per window from ``fit``'s
+   own accumulator; the same legs over a file of 19200 records, whose
+   one epoch covers the timed leg (768 records end an epoch every 6
+   batches, and each end restarts the iterator's feeder), and from the
+   two the time a later window loses to epoch ends and to the input
+   side working beside the step; nvJPEG's and the kernels' ms per batch
+   (CUDA events, the kernels from descriptor tables already on the
+   card with the wrappers' time beside; cv2's host decode beside as a
+   yardstick where cv2 is installed); the bytes copied host to device
+   per batch (torch.profiler's memcpy records); the busy share of a
+   profiled window and the peak memory.
+19. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``,
+   ``grouped`` and ``records`` among its paths, B2, B3 and B5
+   ``grouped``, B2 ``recommend``, ``matrix_factorization``,
+   ``lstm_bench``, ``word_lm`` and ``char_lstm``; ``image_aug`` and
+   ``jpeg_color``, which no TPU kernel stands behind), the card's
+   nvidia-smi line, and last the result line ``{"ok": true, "device":
+   {...}}``.
 
 It needs one CUDA card and the repository checkout around it; without
 either it fails before printing a result.
@@ -2037,37 +2085,70 @@ def check_relu_flips(flips, worst, what):
                json.dumps(flips)))
 
 
-def mlp_preacts(net, params, X, dev, B_):
-    """Each block's MLP up-projection before its ReLU (the outputs of
-    the ``mlp1`` FullyConnected nodes) at ``params`` on ``X[:B_]``,
-    returned on the CPU."""
-    from mxnet_tpu_torch.symbol.symbol import Symbol
-    nodes = [n for n in net._topo()
-             if not n.is_variable and n.name.endswith("mlp1")]
-    ex = Symbol([(n, 0) for n in nodes]).simple_bind(
-        dev, grad_req="null", data=tuple(X[:B_].shape))
-    ex.copy_params_from(params, allow_extra_params=True)
-    outs = ex.forward(is_train=False, data=X[:B_])
-    return {n.name: o.cpu() for n, o in zip(nodes, outs)}
+def card_relu_grads(net, params, X, Y, dev, B_):
+    """Gradients of ``X[:B_]`` at ``params`` on ``dev`` at tier auto,
+    beside each block's MLP ReLU as that forward took it: its input
+    (the up-projection with its bias) and its decision (the fused
+    ``fc_act`` output above 0), both on the CPU."""
+    from mxnet_tpu_torch.kernels import mlp
+    fn, taps = mlp.fused_scale_bias_act, []
+
+    def tap(y, scale=None, bias=None, **kw):
+        out = fn(y, scale, bias, **kw)
+        if kw.get("act") == "relu":
+            taps.append(((y + bias).detach().float().cpu(),
+                         (out > 0).detach().float().cpu()))
+        return out
+    mlp.fused_scale_bias_act = tap
+    try:
+        grads = step_grads(net, params, X, Y, dev, "auto", B_=B_)
+    finally:
+        mlp.fused_scale_bias_act = fn
+    return grads, taps
+
+
+def masked_cpu_grads(net, params, X, Y, masks, B_):
+    """Gradients of ``X[:B_]`` at ``params`` on the CPU at tier off with
+    each MLP ReLU replaced by ``x * mask`` (``masks`` in block order):
+    the same forward up to the sign decisions, with the decisions given.
+    Returns them beside the ReLU inputs the CPU saw."""
+    T_ = X.shape[1]
+    with mt.config.override(kernel_tier="off"):
+        ex = net.simple_bind("cpu", data=(B_, T_), softmax_label=(B_, T_))
+        ex.copy_params_from(params)
+        with ReluTape() as tape:     # bound first: shape inference runs ops
+            tape.masks = list(masks)
+            ex.forward(is_train=True, data=X[:B_], softmax_label=Y[:B_])
+            ex.backward()
+    grads = dict(ex.grad_dict)
+    if len(tape.seen) != len(masks) or tape.masks:
+        raise RuntimeError("cut depth: the CPU's forward took %d ReLUs, "
+                           "%d decisions given"
+                           % (len(tape.seen), len(masks)))
+    return grads, tape.seen
 
 
 def cut_depth_check(dev, report):
     """The GPT cut to 2 layers at T 128, batch 2, on the card against
     the CPU (plain versions). First each step's gradients, at Xavier's
-    weights on batch 1 and at the CPU's weights after step 1 on batch 2:
-    within 1e-3 of each tensor's largest magnitude, the limit the tiers
-    are held to. The card's GEMMs sum in another order than the CPU's,
-    so a ReLU input within f32 noise of 0 may open on one side only; it
-    moves that unit's row of the up-projection's gradient. The sign
-    flips are held to ``check_relu_flips`` (at most 4, each within f32
-    noise of 0) and the worst difference is placed. Then 2
-    SGD-momentum steps by ``Module.fit`` on each: losses within 1e-5
-    relative and every parameter within 1e-4. The lr is 1e-4 (largest
-    update about 0.014). At lr 0.01 the first step moves elements by up
-    to about 3, and summation-order noise is then amplified to 1e-3 in
-    the parameters after step 2: the line printed after the check sets
-    the card and the CPU there beside two CPU runs which differ only in
-    their thread count."""
+    weights on batch 1 and at the CPU's weights after step 1 on batch 2.
+    The card's GEMMs sum in another order than the CPU's, so a ReLU
+    input within f32 noise of 0 may open on one side only; that moves
+    the unit's row of the up-projection's gradient by a whole token's
+    share, and every gradient upstream of it. So the card's gradients
+    are held against the CPU's taking the card's ReLU decisions
+    (``masked_cpu_grads`` with the masks of the card's own fused
+    ``fc_act`` outputs), within 1e-3 of each tensor's largest magnitude,
+    the limit the tiers are held to; the plain CPU's difference and
+    the row where it is largest are printed beside. The sign flips are
+    held to ``check_relu_flips`` (at most 4, each within f32 noise of
+    0). Then 2 SGD-momentum steps by ``Module.fit`` on each: losses
+    within 1e-5 relative and every parameter within 1e-4. The lr is
+    1e-4 (largest update about 0.014). At lr 0.01 the first step moves
+    elements by up to about 3, and summation-order noise is then
+    amplified to 1e-3 in the parameters after step 2: the line printed
+    after the check sets the card and the CPU there beside two CPU runs
+    which differ only in their thread count."""
     P = GPT_TRAIN
     small = mt.models.gpt_lm(P["vocab"], P["dim"], P["heads"], 2, 128)
     Xs, Ys = train_batches(2, 2, 128, P["vocab"], P["lag"], seed=1)
@@ -2085,29 +2166,39 @@ def cut_depth_check(dev, report):
                                   opt=sgd(lr))
         return {k: v.cpu() for k, v in m.get_params()[0].items()}, losses
 
-    # -- each step's gradients, card vs CPU, at the same weights, and
-    # the sign flips of the ReLU inputs between them
+    # -- each step's gradients: the card's against the CPU's through the
+    # card's ReLU decisions, the plain CPU's beside, and the sign flips
+    # of the ReLU inputs between the card and the CPU
+    mlps = [n.name for n in small._topo()
+            if not n.is_variable and n.name.endswith("mlp1")]
     p1, _l = fit_params("cpu", Xs[:2], Ys[:2], 1e-4)
-    grad_err, pairs, where = {}, {}, {}
+    grad_err, plain_err, pairs, where = {}, {}, {}, {}
     for step, (params, X, Y) in enumerate(((p0, Xs[:2], Ys[:2]),
                                            (p1, Xs[2:], Ys[2:])), 1):
-        want = step_grads(small, params, X, Y, "cpu", "auto", B_=2)
-        got = step_grads(small, params, X, Y, dev, "auto", B_=2)
+        got, taps = card_relu_grads(small, params, X, Y, dev, 2)
+        if len(taps) != len(mlps):
+            raise RuntimeError("cut depth: the card's forward fused %d MLP "
+                               "ReLUs, expected %d" % (len(taps), len(mlps)))
+        want, seen = masked_cpu_grads(small, params, X, Y,
+                                      [m for _a, m in taps], 2)
+        plain = step_grads(small, params, X, Y, "cpu", "auto", B_=2)
         for k, e in rel_grad_err(got, want).items():
             grad_err["step%d/%s" % (step, k)] = e
-        pre = [mlp_preacts(small, params, X, d, 2) for d in ("cpu", dev)]
-        for name, a in pre[0].items():
-            pairs["step%d/%s" % (step, name)] = (a, pre[1][name])
-            flip = ((a > 0) != (pre[1][name] > 0)).reshape(-1, a.shape[-1])
-            # the up-projection's gradient row that differs most, and
-            # whether that unit's ReLU input flipped at any token
+        for k, e in rel_grad_err(got, plain).items():
+            plain_err["step%d/%s" % (step, k)] = e
+        for name, a, (b, _m) in zip(mlps, seen, taps):
+            pairs["step%d/%s" % (step, name)] = (a, b)
+            flip = ((a > 0) != (b > 0)).reshape(-1, a.shape[-1])
+            # the up-projection's plain gradient row that differs most,
+            # and whether that unit's ReLU input flipped at any token
             w = name + "_weight"
-            row = int((got[w].cpu() - want[w]).abs().amax(1).argmax())
+            row = int((got[w].cpu() - plain[w]).abs().amax(1).argmax())
             where["step%d/%s" % (step, w)] = {
                 "row": row, "row_flipped": bool(flip[:, row].any())}
     flips, flip_far = relu_flips(pairs)
     del pairs
     worst_g = max(grad_err, key=grad_err.get)
+    worst_pl = max(plain_err, key=plain_err.get)
     # -- 2 steps by Module.fit on each
     cut, cut_loss = {}, {}
     for d in (dev, "cpu"):
@@ -2121,14 +2212,17 @@ def cut_depth_check(dev, report):
     worst = max(cut_err, key=cut_err.get)
     log("cut depth (2 layers, T 128, batch 2), card vs CPU: each step's "
         "gradients within %.3g of the tensor's largest magnitude (worst "
-        "%s); ReLU inputs of opposite sign %s, the farthest %.3g of its "
-        "tensor's largest magnitude from 0; the up-projections' most "
-        "different gradient rows %s; 2 SGD-momentum steps at lr 1e-4: "
-        "losses within %.3g relative, parameters within %.3g (worst %s; "
-        "largest update %.3g)"
+        "%s) of the CPU's taking the card's ReLU decisions; ReLU inputs "
+        "of opposite sign %s, the farthest %.3g of its tensor's largest "
+        "magnitude from 0; the plain CPU's within %.3g (worst %s), the "
+        "up-projections' most different gradient rows %s; 2 SGD-momentum "
+        "steps at lr 1e-4: losses within %.3g relative, parameters within "
+        "%.3g (worst %s; largest update %.3g)"
         % (grad_err[worst_g], worst_g, json.dumps(flips), flip_far,
-           json.dumps(where), loss_err, cut_err[worst], worst, max_update))
+           plain_err[worst_pl], worst_pl, json.dumps(where), loss_err,
+           cut_err[worst], worst, max_update))
     report["train"].update(cut_depth_grad_err=grad_err,
+                           cut_depth_plain_grad_err=plain_err,
                            cut_depth_relu_flips=flips,
                            cut_depth_relu_flip_far=flip_far,
                            cut_depth_worst_rows=where,
@@ -4632,8 +4726,8 @@ def window_recorder(mod):
     seen = []
     real = mod._fit_step_k
 
-    def record(batches):
-        outs = real(batches)
+    def record(batches, **kw):
+        outs = real(batches, **kw)
         seen.append([o.detach() for o in outs])
         return outs
     mod._fit_step_k = record
@@ -5991,6 +6085,673 @@ def rnn_path(dev, card, report):
                   "char_lstm": c["b2_launches"]}
 
 
+# ---------------------------------------------- the data pipeline (phase 18)
+# bench.py's records (_make_rec(768, 256)), batch and chip K; the
+# iterator as bench.py's BENCH_RECORDIO leg builds it (preprocess_threads
+# = the host's cores, prefetch_buffer 4, seed 1)
+# fit_batches: 5 windows, so that 4 follow the one that fills the feed;
+# the long file holds as many records as the timed leg takes, so that no
+# epoch ends inside it
+DATA = dict(records=768, batch=128, k=30, threads=8, prefetch=4, seed=1,
+            warm_batches=30, fit_batches=150, input_batches=150, det_k=2,
+            h2d_batches=4)
+DATA["long_records"] = DATA["fit_batches"] * DATA["batch"]
+CIFAR = dict(shape=(3, 32, 32), pad=4, fill=255, mean=(125.3, 123.0, 113.9),
+             std=(63.0, 62.1, 66.7))
+PIXEL_BOUND = {"mean": 1.0, "p99.9": 8.0}
+AUG_SOURCES = {k: "mxnet_tpu_torch/csrc/%s.cu" % k
+               for k in ("image_aug", "jpeg_color")}
+AUG_REPLACES = {
+    "image_aug": "mxnet_tpu/io/image_record_iter.py:40 (_build_augmenter, "
+                 "host numpy: no pallas_call)",
+    "jpeg_color": "mxnet_tpu/io/image_record_iter.py:309 (_decode_part's "
+                  "cv2.imdecode on the host: no pallas_call)"}
+
+
+def load_fixture():
+    """The committed JPEG fixture -> (images, block images), each a list
+    of (jpeg bytes, cv2's pixels (H, W, 3) B, G, R, entry)."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "data", "jpeg_fixture"))
+    try:
+        import fixture
+    finally:
+        sys.path.pop(0)
+    return fixture.load(), fixture.load_blocks()
+
+
+REPEATS = 5
+
+
+def repeat_ms(fn, dev):
+    """:func:`time_ms` REPEATS times -> (the median, (min, max))."""
+    t = [time_ms(fn, dev) for _ in range(REPEATS)]
+    return float(np.median(t)), (min(t), max(t))
+
+
+def decode_on_card(jpegs, dev):
+    """``BatchDecoder.decode`` of ``jpegs`` on the card -> (h, w, 3)
+    uint8 tensors of their pixels."""
+    from mxnet_tpu_torch.kernels import nvjpeg
+    infos = [nvjpeg.image_info(j, record=i) for i, j in enumerate(jpegs)]
+    dec = nvjpeg.BatchDecoder()
+    try:
+        buf, boff = dec.decode(jpegs, infos, dev,
+                               records=list(range(len(jpegs))))
+        outs = [buf[o:o + 3 * h * w].view(h, w, 3).clone()
+                for o, (_ss, h, w) in zip(boff.tolist(), infos)]
+    finally:
+        torch.cuda.synchronize()
+        dec.close()
+    return outs
+
+
+def pixel_stats(diffs):
+    """Per channel max, mean and 99.9th percentile of |delta| over
+    arrays of shape (..., 3)."""
+    a = np.concatenate([np.abs(d).reshape(-1, 3) for d in diffs])
+    return {"max": a.max(0).tolist(), "mean": a.mean(0).tolist(),
+            "p99.9": np.percentile(a, 99.9, axis=0).tolist()}
+
+
+def check_pixels(stats, what):
+    if max(stats["mean"]) > PIXEL_BOUND["mean"] \
+            or max(stats["p99.9"]) > PIXEL_BOUND["p99.9"]:
+        raise RuntimeError("%s: |delta| per channel %s above the bound "
+                           "(mean %.1f, p99.9 %.0f levels)"
+                           % (what, json.dumps(stats), PIXEL_BOUND["mean"],
+                              PIXEL_BOUND["p99.9"]))
+
+
+def decode_check(fx, blocks, dev, report):
+    """Check 1: every fixture image decoded on the card against cv2's
+    stored pixels (within the bound), and the block images, whose
+    blocks are constant, bit for bit."""
+    outs = decode_on_card([j for j, _, _ in fx], dev)
+    diffs = [o.cpu().numpy().astype(np.int16) - px.astype(np.int16)
+             for o, (_j, px, _e) in zip(outs, fx)]
+    stats = pixel_stats(diffs)
+    per = {e["file"]: [int(np.abs(d).max()), e["subsampling"]]
+           for d, (_j, _p, e) in zip(diffs, fx)}
+    log("nvJPEG + jpeg_color against cv2 on the fixture's %d JPEGs (%s): "
+        "|delta| per channel B, G, R: max %s, mean %s, p99.9 %s; per image "
+        "max %s" % (len(fx), ", ".join(sorted({e["subsampling"]
+                                               for _j, _p, e in fx})),
+                    stats["max"], ["%.4f" % m for m in stats["mean"]],
+                    stats["p99.9"], json.dumps(per)))
+    check_pixels(stats, "the decode")
+    bouts = decode_on_card([j for j, _, _ in blocks], dev)
+    exact = [bool(torch.equal(o.cpu(), torch.from_numpy(px)))
+             for o, (_j, px, _e) in zip(bouts, blocks)]
+    log("  block JPEGs (%s) bitwise cv2's: %s"
+        % (", ".join("%s %dx%d" % (e["subsampling"], e["height"],
+                                   e["width"]) for _j, _p, e in blocks),
+           exact))
+    if not all(exact):
+        raise RuntimeError("the block JPEGs decode off cv2's bytes: %s"
+                           % exact)
+    report["decode"] = {"stats": stats, "per_image_max": per,
+                        "blocks_bitwise": exact, "bound": PIXEL_BOUND}
+    return outs
+
+
+def draw_crops(rng, sizes, shape, pad=0, rand_crop=True, rand_mirror=True):
+    """The JAX augmenter's draws, restated: per image (y0, x0) then the
+    mirror, from one generator, for images of ``sizes`` (h, w)."""
+    _, th, tw = shape
+    out = []
+    for h, w in sizes:
+        h, w = h + 2 * pad, w + 2 * pad
+        if rand_crop:
+            y0, x0 = rng.randint(0, h - th + 1), rng.randint(0, w - tw + 1)
+        else:
+            y0, x0 = (h - th) // 2, (w - tw) // 2
+        out.append((y0, x0, bool(rand_mirror and rng.rand() < 0.5)))
+    return out
+
+
+def aug_bound(sizes, crops, shape, pad, dtype, n_out):
+    """Least time of the augment: the cropped bytes inside each image
+    read once, the output written once, the descriptor table read; 4 f32
+    operations an output element."""
+    _, th, tw = shape
+    read = 0
+    for (h, w), (y0, x0, _f) in zip(sizes, crops):
+        rows = max(0, min(y0 + th, h + pad) - max(y0, pad))
+        cols = max(0, min(x0 + tw, w + pad) - max(x0, pad))
+        read += rows * cols * 3
+    out = n_out * 3 * th * tw * torch.tensor([], dtype=dtype).element_size()
+    return bound_of((read + out + 48 * n_out) / HBM_BYTES_PER_S * 1e3,
+                    4 * n_out * 3 * th * tw / F32_FLOPS * 1e3)
+
+
+def color_bound(sizes_modes):
+    """Least time of jpeg_color: the planes read once, B, G, R written."""
+    from mxnet_tpu_torch.kernels import jpeg_color
+    nbytes = 0
+    for h, w, mode in sizes_modes:
+        ch, cw = jpeg_color.chroma_shape(h, w, mode)
+        nbytes += h * w * 4 + 2 * ch * cw + 80
+    return bound_of(nbytes / HBM_BYTES_PER_S * 1e3,
+                    12 * sum(h * w for h, w, _m in sizes_modes)
+                    / F32_FLOPS * 1e3)
+
+
+def aug_kernel_check(imgs, dev, report):
+    """Check 2: the augment kernel against its plain version on the same
+    decoded buffers, bitwise: the ImageNet recipe (rand_crop, rand_mirror,
+    224 x 224) at batch 128 in f32, bf16 and f16, and the CIFAR recipe
+    (pad 4, fill 255, mean/std, 32 x 32); timed at the main path's shape
+    beside the plain version and its bound. Then jpeg_color against its
+    plain version on random planes at the fixture's shapes in 4:4:4 and
+    4:2:0, bitwise, timed over a batch of 128."""
+    from mxnet_tpu_torch.kernels import image_aug, jpeg_color
+    B = DATA["batch"]
+    srcs = [imgs[i % len(imgs)] for i in range(B)]
+    sizes = [tuple(s.shape[:2]) for s in srcs]
+    rows = {}
+    for name, shape, dt, kw in (
+            ("imagenet/float32", (3, 224, 224), torch.float32, {}),
+            ("imagenet/bfloat16", (3, 224, 224), torch.bfloat16, {}),
+            ("imagenet/float16", (3, 224, 224), torch.float16, {}),
+            ("cifar/float32", CIFAR["shape"], torch.float32,
+             dict(pad=CIFAR["pad"], fill=CIFAR["fill"], mean=CIFAR["mean"],
+                  std=CIFAR["std"]))):
+        crops = draw_crops(np.random.RandomState(len(rows)), sizes, shape,
+                           pad=kw.get("pad", 0))
+        out = torch.empty((B,) + shape, dtype=dt, device=dev)
+        image_aug.augment(srcs, crops, out, **kw)
+        cpu = torch.empty((B,) + shape, dtype=dt)
+        image_aug.augment([s.cpu() for s in srcs], crops, cpu, **kw)
+        iv = torch.int32 if dt == torch.float32 else torch.int16
+        if not torch.equal(out.cpu().view(iv), cpu.view(iv)):
+            raise RuntimeError("image_aug %s: the kernel is not bitwise its "
+                               "plain version" % name)
+        if name == "imagenet/float32":
+            full = dict(pad=0, fill=255, mean=(0.0,) * 3, std=(1.0,) * 3,
+                        scale=1.0, normalize=False)
+            # the kernel timed from a descriptor table already on the
+            # card; the wrapper (the table pinned and copied, then the
+            # launch, as the pipeline calls it) beside it
+            table = np.array([(im.data_ptr(), im.shape[0], im.shape[1], y0,
+                               x0, int(f)) for im, (y0, x0, f)
+                              in zip(srcs, crops)], np.int64)
+            dev_table = torch.from_numpy(table).to(dev)
+            norm = image_aug._norm_args(full["mean"], full["std"],
+                                        full["scale"], full["normalize"])
+            ms, spread = repeat_ms(lambda: image_aug._launch(
+                dev_table, out, 0, 255, *norm), dev)
+            wrapper, wspread = repeat_ms(
+                lambda: image_aug.launch_table(table, out), dev)
+            plain = time_ms(lambda: image_aug._plain_augment(
+                srcs, crops, out, **full), dev, iters=3, warmup=1)
+            bound, by = aug_bound(sizes, crops, shape, 0, dt, B)
+            rows["image_aug"] = {"shape": [B] + list(shape), "ms": ms,
+                                 "ms_spread": spread, "wrapper_ms": wrapper,
+                                 "wrapper_ms_spread": wspread,
+                                 "plain_ms": plain, "bound_ms": bound,
+                                 "bound_by": by, "library_ms": None}
+    # jpeg_color on random planes, the fixture's image shapes repeated
+    rng = np.random.RandomState(7)
+    items = []
+    for i in range(B):
+        h, w = sizes[i]
+        mode = 3 if i % 2 == 0 else 1
+        ch, cw = jpeg_color.chroma_shape(h, w, mode)
+        planes = [torch.from_numpy(rng.randint(0, 256, s).astype(np.uint8))
+                  .to(dev) for s in ((h, w), (ch, cw), (ch, cw))]
+        items.append(planes + [torch.empty((h, w, 3), dtype=torch.uint8,
+                                           device=dev), mode])
+    jpeg_color.ycc_to_bgr([tuple(t) for t in items])
+    for y, cb, cr, out, mode in items:
+        want = torch.empty((out.shape[0], out.shape[1], 3),
+                           dtype=torch.uint8)
+        jpeg_color._plain_image(y.cpu(), cb.cpu(), cr.cpu(), want, mode)
+        if not torch.equal(out.cpu(), want):
+            raise RuntimeError("jpeg_color: the kernel is not bitwise its "
+                               "plain version (mode %d)" % mode)
+    cols = list(zip(*items))
+    table = jpeg_color.descriptors(
+        *[[t.data_ptr() for t in c] for c in cols[:4]],
+        [y.shape[0] for y in cols[0]], [y.shape[1] for y in cols[0]],
+        cols[4])
+    dev_table = torch.from_numpy(table).to(dev)
+    maxpix = max(int(t[0].numel()) for t in items)
+    ms, spread = repeat_ms(lambda: jpeg_color._launch(
+        dev_table, len(table), maxpix, dev), dev)
+    wrapper, wspread = repeat_ms(
+        lambda: jpeg_color._launch_table(table, dev), dev)
+    plain = time_ms(lambda: [jpeg_color._plain_image(*t) for t in items],
+                    dev, iters=3, warmup=1)
+    bound, by = color_bound([(t[0].shape[0], t[0].shape[1], t[4])
+                             for t in items])
+    rows["jpeg_color"] = {"shape": "%d images, 4:2:0 and 4:4:4, %dx%d mean"
+                          % (B, np.mean([s[0] for s in sizes]),
+                             np.mean([s[1] for s in sizes])),
+                          "ms": ms, "ms_spread": spread,
+                          "wrapper_ms": wrapper, "wrapper_ms_spread": wspread,
+                          "plain_ms": plain, "bound_ms": bound,
+                          "bound_by": by, "library_ms": None}
+    for k, r in rows.items():
+        log("%s kernel, bitwise its plain version; at %s: %.4f ms from a "
+            "table on the card (%.4f-%.4f over %d timings), %.4f ms through "
+            "the wrapper with its table upload (%.4f-%.4f), plain %.4f ms, "
+            "bound %.4f ms (%s, %.0f%%)  [%s]"
+            % (k, r["shape"], r["ms"], r["ms_spread"][0], r["ms_spread"][1],
+               REPEATS, r["wrapper_ms"], r["wrapper_ms_spread"][0],
+               r["wrapper_ms_spread"][1], r["plain_ms"], r["bound_ms"],
+               r["bound_by"], 100 * r["bound_ms"] / r["ms"], card_line()))
+    report["aug_kernels"] = rows
+    return rows
+
+
+def decode_timing(fx, dev, report):
+    """nvJPEG per batch of 128 record images (CUDA events around one
+    ``BatchDecoder.decode``: the batched nvJPEG call and the jpeg_color
+    launch), jpeg_color's share,
+    and cv2's host decode of the same JPEGs beside it where cv2 is
+    installed (a yardstick; the port never calls it)."""
+    from mxnet_tpu_torch.kernels import jpeg_color, nvjpeg
+    B = DATA["batch"]
+    jpegs = [fx[i % len(fx)][0] for i in range(B)]
+    infos = [nvjpeg.image_info(j) for j in jpegs]
+    dec = nvjpeg.BatchDecoder()
+    times = []
+    for _ in range(5):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        dec.decode(jpegs, infos, dev)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    dec.close()
+    dec_ms = float(np.median(times[1:]))
+    nbytes = sum(len(j) for j in jpegs)
+    planes = sum(h * w * (3 if ss == "444" else 1.5) for ss, h, w in infos)
+    bgr = sum(h * w * 3 for _ss, h, w in infos)
+    bound, by = bound_of((nbytes + planes + bgr) / HBM_BYTES_PER_S * 1e3, 0.0)
+    cv2_ms = None
+    try:
+        import cv2
+        t0 = time.perf_counter()
+        for j in jpegs:
+            cv2.imdecode(np.frombuffer(j, np.uint8), cv2.IMREAD_COLOR)
+        cv2_ms = (time.perf_counter() - t0) * 1e3
+    except ImportError:
+        pass
+    color_ms = report["aug_kernels"]["jpeg_color"]["ms"]
+    row = {"shape": "%d JPEGs, %.1f KB mean" % (B, nbytes / B / 1e3),
+           "ms": dec_ms, "nvjpeg_ms": dec_ms - color_ms,
+           "jpeg_color_ms": color_ms, "plain_ms": cv2_ms,
+           "bound_ms": bound, "bound_by": by, "jpeg_bytes": nbytes}
+    log("decode of %d record JPEGs, one batched call: %.3f ms (nvJPEG %.3f + "
+        "jpeg_color %.4f); cv2.imdecode on the host %s; bound %.4f ms "
+        "(%s)  [%s]" % (B, dec_ms, dec_ms - color_ms, color_ms,
+                        "%.3f ms" % cv2_ms if cv2_ms is not None
+                        else "not measured (no cv2)", bound, by,
+                        card_line()))
+    report["decode_timing"] = row
+    return row
+
+
+def write_records(fx, path, n=DATA["records"]):
+    """bench.py's record count (or ``n``) from the fixture: record i
+    holds fixture image i % 16's JPEG bytes and label i % 1000."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    w = mt.recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                      path, "w")
+    for i in range(n):
+        w.write_idx(i, mt.recordio.pack(
+            mt.recordio.IRHeader(0, float(i % 1000), i, 0),
+            fx[i % len(fx)][0]))
+    w.close()
+    return path
+
+
+def record_iter(path, **kw):
+    """The card iterator as bench.py's BENCH_RECORDIO leg builds it."""
+    args = dict(rand_crop=True, rand_mirror=True, shuffle=True,
+                preprocess_threads=DATA["threads"],
+                prefetch_buffer=DATA["prefetch"], seed=DATA["seed"],
+                ctx=mt.gpu(0))
+    args.update(kw)
+    return mt.io.ImageRecordIter(path, (3, 224, 224), DATA["batch"], **args)
+
+
+def epoch_check(path, fx, report):
+    """Check 3: one epoch of ImageRecordIter on the card against the
+    batches the plain augment builds from the fixture's cv2 pixels in the
+    same order with the same draws (restated here from the JAX
+    package's rule): labels equal, pixels within check 1's bound over the
+    epoch and in every image (a wrong draw moves an image's mean by tens
+    of levels)."""
+    from mxnet_tpu_torch.kernels import image_aug
+    B, P, S = DATA["batch"], DATA["threads"], DATA["seed"]
+    it = record_iter(path)
+    got = [(b.data[0].data.cpu(), b.label[0].data.cpu()) for b in it]
+    it.close()
+    order = np.arange(DATA["records"])
+    np.random.RandomState(S).shuffle(order)
+    diffs, worst = [], 0.0
+    if len(got) != DATA["records"] // B:
+        raise RuntimeError("an epoch of %d batches, expected %d"
+                           % (len(got), DATA["records"] // B))
+    for b, (data, label) in enumerate(got):
+        idxs = order[b * B:(b + 1) * B]
+        crops = []
+        for p in range(P):
+            rng = np.random.RandomState(S + b * 1009 + p)
+            part = idxs[p * B // P:(p + 1) * B // P]
+            crops += draw_crops(rng, [fx[i % len(fx)][1].shape[:2]
+                                      for i in part], (3, 224, 224))
+        want = torch.empty((B, 3, 224, 224))
+        image_aug.augment([torch.from_numpy(fx[i % len(fx)][1])
+                           for i in idxs], crops, want)
+        if not torch.equal(label, torch.from_numpy(
+                (idxs % 1000).astype(np.float32))):
+            raise RuntimeError("batch %d: labels differ" % b)
+        d = (data - want).numpy().transpose(0, 2, 3, 1)
+        diffs.append(d)
+        worst = max(worst, float(np.abs(d).mean(axis=(1, 2, 3)).max()))
+    stats = pixel_stats(diffs)
+    log("an epoch of ImageRecordIter on the card (%d batches of %d, %d "
+        "threads) against the plain augment of cv2's pixels, same order "
+        "and draws: labels equal; |delta| max %s, mean %s, p99.9 %s; worst "
+        "image mean %.4f" % (len(got), B, P, stats["max"],
+                             ["%.4f" % m for m in stats["mean"]],
+                             stats["p99.9"], worst))
+    check_pixels(stats, "the card iterator")
+    if worst > PIXEL_BOUND["mean"]:
+        raise RuntimeError("an image's mean |delta| %.3f: its draw differs"
+                           % worst)
+    report["epoch_check"] = {"stats": stats, "worst_image_mean": worst}
+
+
+def records_module(sym, p0, aux0, dev):
+    mod = mt.mod.Module(sym, context=dev)
+    mod.bind([("data", (DATA["batch"], 3, 224, 224))],
+             [("softmax_label", (DATA["batch"],))])
+    mod.init_params(arg_params=p0, aux_params=aux0)
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                       optimizer_params=dict(RESNET_SGD,
+                                             multi_precision=True))
+    return mod
+
+
+def fit_leg(mod, it, batches):
+    """A timed ``fit`` over ``batches`` batches of ``it`` at DATA's K (a
+    new StagedKFeed, so the first window's wait is the feed filling) ->
+    its rate over all windows and after the first window's data came,
+    and the data wait of each window from ``fit``'s accumulator."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records_fit(mod, it, batches, DATA["k"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stall = list(mod.data_stats["input_stall_ms"])
+    n = batches * DATA["batch"]
+    return {"img_per_s": n / wall, "wall_s": wall, "stall_ms": stall,
+            "fill_ms": stall[0],
+            "steady_wait_ms": float(np.mean(stall[1:])),
+            "steady_img_per_s": n / (wall - stall[0] / 1e3)}
+
+
+def input_leg(mod, it, batches):
+    """Decode, augment and stage ``batches`` batches of ``it`` through a
+    StagedKFeed, no training -> images/s."""
+    from mxnet_tpu_torch.data import StagedKFeed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feed = StagedKFeed(iter(mt.io.ResizeIter(it, batches,
+                                             reset_internal=False)),
+                       DATA["k"], mod._stage_group, depth=2,
+                       stream=mod._staging_stream())
+    try:
+        while True:
+            win = feed.next_window()
+            win.staged["ready"].synchronize()
+            del win
+    except StopIteration:
+        pass
+    feed.close()
+    return batches * DATA["batch"] / (time.perf_counter() - t0)
+
+
+def records_fit(mod, path_or_iter, batches, k):
+    """``fit`` over ``batches`` batches of the card iterator (an epoch of
+    a ResizeIter around it) -> the iterator it made, if any."""
+    it = record_iter(path_or_iter) if isinstance(path_or_iter, str) \
+        else path_or_iter
+    mod.fit(mt.io.ResizeIter(it, batches, reset_internal=False),
+            num_epoch=1, eval_metric=None, kvstore="tpu_sync",
+            steps_per_dispatch=k)
+    return it
+
+
+def staged_check(sym, p0, aux0, path, dev, report):
+    """Check 4: fit through the records, staged against unstaged, K = 2
+    for 2 windows, cuDNN held to deterministic algorithms in both runs:
+    every parameter and moving statistic bitwise equal."""
+    K = DATA["det_k"]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    states = {}
+    try:
+        for staged in (True, False):
+            mod = records_module(sym, p0, aux0, dev)
+            with mt.config.override(data_staged_feed=staged):
+                it = records_fit(mod, path, 2 * K, K)
+            it.close()
+            if mod.data_stats["staged"] != staged \
+                    or mod._fused.captures != 1:
+                raise RuntimeError("staged=%s: the fit ran %s, %d captures"
+                                   % (staged, mod.data_stats,
+                                      mod._fused.captures))
+            args, aux = mod.get_params()
+            states[staged] = {k: v.detach().cpu().clone()
+                              for k, v in {**args, **aux}.items()}
+            mod._fused.release_graphs()
+            del mod
+            released(dev)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    diff = [k for k in states[True]
+            if not torch.equal(states[True][k], states[False][k])]
+    moved = not torch.equal(states[True]["fc1_weight"], p0["fc1_weight"])
+    log("staged against unstaged fit on the card (ResNet-50 bf16, batch %d, "
+        "K %d, 2 windows through the records): %d of %d tensors differ; "
+        "weights moved %s" % (DATA["batch"], K, len(diff), len(states[True]),
+                              moved))
+    if diff or not moved:
+        raise RuntimeError("staged and unstaged fits part: %s" % diff[:5])
+    report["staged_check"] = {"tensors": len(states[True]), "differ": diff}
+
+
+def h2d_profile(path, dev):
+    """Bytes copied host to device per batch made by the card iterator,
+    from torch.profiler's memcpy records (nvJPEG's own copies included),
+    over DATA["h2d_batches"] batches -> (bytes a batch or None, JPEG
+    bytes a batch)."""
+    from torch.profiler import ProfilerActivity, profile
+    it = record_iter(path)
+    next(it)
+    torch.cuda.synchronize()
+    trace = os.path.join(REPO, "build", "chip_smoke", "h2d_trace.json")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(DATA["h2d_batches"]):
+            next(it)
+        torch.cuda.synchronize()
+    it.close()
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(trace)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    n = sum(int(e.get("args", {}).get("bytes", 0)) for e in copies)
+    return (n / DATA["h2d_batches"] if copies and n else None), len(copies)
+
+
+def records_path(dev, card, report):
+    """Phase 18: ResNet-50 v1 trained from .rec records (see the module
+    docstring) -> (B1 launches by form through the wrapper, the augment
+    kernels' rows, their launches)."""
+    from mxnet_tpu_torch.kernels import image_aug, jpeg_color, nvjpeg
+    log("phase 18: the data pipeline (records -> ImageRecordIter on the "
+        "card -> StagedKFeed -> Module.fit, ResNet-50 bf16, batch %d, K %d)"
+        % (DATA["batch"], DATA["k"]))
+    fx, blocks = load_fixture()
+    imgs = decode_check(fx, blocks, dev, report)
+    rows = aug_kernel_check(imgs, dev, report)
+    del imgs
+    decode_timing(fx, dev, report)
+    path = write_records(fx, os.path.join(REPO, "build", "chip_smoke",
+                                          "records.rec"))
+    jpeg_per_batch = DATA["batch"] * np.mean([len(j) for j, _, _ in fx])
+    epoch_check(path, fx, report)
+    sym = resnet50()
+    p0, aux0 = resnet_init(sym, dev)
+    staged_check(sym, p0, aux0, path, dev, report)
+    # -- the main path: counts zeroed just before, read just after
+    K, B = DATA["k"], DATA["batch"]
+    mod = records_module(sym, p0, aux0, dev)
+    fused = mod._fused
+    rit = record_iter(path)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tier.reset_stats()
+    for m in (bn_act, image_aug, jpeg_color):
+        m.reset_launches()
+    nvjpeg.reset_decodes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records_fit(mod, rit, DATA["warm_batches"], K)
+    alloc0 = nvjpeg.allocations()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    leg = fit_leg(mod, rit, DATA["fit_batches"])
+    alloc = [b - a for a, b in zip(alloc0, nvjpeg.allocations())]
+    b1 = dict(bn_act.launches_by_kernel)
+    counts = {"image_aug": image_aug.launches,
+              "jpeg_color": jpeg_color.launches,
+              "nvjpeg_decodes": nvjpeg.decodes}
+    stats = tier.stats()
+    mem = torch.cuda.max_memory_allocated(dev)
+    made = DATA["warm_batches"] + DATA["fit_batches"]
+    if fused.captures != 1 or fused.replays != made - 2 \
+            or not mod.data_stats["staged"]:
+        raise RuntimeError("records fit: %d captures, %d replays, staged "
+                           "%s; expected 1, %d, True"
+                           % (fused.captures, fused.replays,
+                              mod.data_stats["staged"], made - 2))
+    if b1 != {"bn_act": 33 * 3, "bn_act_res": 16 * 3} or stats["fallback"]:
+        raise RuntimeError("B1 launches through the wrapper (2 warm-up "
+                           "steps and the capture): %s, fallback %s"
+                           % (b1, stats["fallback"]))
+    if counts["image_aug"] < made or counts["jpeg_color"] < made \
+            or counts["nvjpeg_decodes"] < made * B:
+        raise RuntimeError("the records fit made %d batches, but the "
+                           "kernels ran %s" % (made, counts))
+    # -- the replayed step on one batch already on the card, same module
+    X, Y = image_batch(B)
+    t0 = time.perf_counter()
+    grouped_fit(mod, OneBatchIter(X, Y, DATA["fit_batches"], dev), K)
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    compute_rate = DATA["fit_batches"] * B / compute_s
+    window_ms = compute_s / DATA["fit_batches"] * K * 1e3
+    if fused.captures != 1:
+        raise RuntimeError("the replayed step recaptured")
+    # -- input only: decode, augment and stage, no training
+    input_rate = input_leg(mod, rit, DATA["input_batches"])
+    overlap = leg["img_per_s"] / min(input_rate, compute_rate)
+    # -- the fit leg's busy share, one profiled window
+    cen = graph_census(lambda: records_fit(mod, rit, K, K))
+    rit.close()
+    h2d, n_copies = h2d_profile(path, dev)
+    # -- the same legs over a file as long as the timed leg: no epoch
+    #    ends (each end restarts the iterator's feeder) inside them
+    lpath = write_records(fx, os.path.join(REPO, "build", "chip_smoke",
+                                           "records_long.rec"),
+                          DATA["long_records"])
+    lit = record_iter(lpath)
+    long_input = input_leg(mod, lit, DATA["input_batches"])
+    lit.close()
+    lit = record_iter(lpath)
+    long_leg = fit_leg(mod, lit, DATA["fit_batches"])
+    lit.close()
+    os.remove(lpath)
+    os.remove(os.path.splitext(lpath)[0] + ".idx")
+    # a window after the first, beyond the replayed step's: the epoch
+    # ends (the 768-record window against the long file's) and the input
+    # side beside the step (the long file's window against the replayed
+    # one); the feed's fill, once a fit call, is window 1's wait. The
+    # host's data wait overlaps the card's work on the window before, so
+    # it stands beside these and is not summed with them
+    per = K / DATA["fit_batches"]
+    steady_ms = (leg["wall_s"] * 1e3 - leg["fill_ms"]) * per
+    long_ms = (long_leg["wall_s"] * 1e3 - long_leg["fill_ms"]) * per
+    split = {"fill_ms": leg["fill_ms"], "window_ms": steady_ms,
+             "long_window_ms": long_ms, "replayed_window_ms": window_ms,
+             "epoch_ends_ms": steady_ms - long_ms,
+             "beside_step_ms": long_ms - window_ms,
+             "wait_ms": leg["steady_wait_ms"],
+             "long_wait_ms": long_leg["steady_wait_ms"]}
+    log("records fit (%d records, an epoch every %d batches): %.1f images/s "
+        "over %d windows of K %d (wall %.2f s), %.1f after window 1's data "
+        "came; the replayed one-batch step %.1f images/s (%.2f ms a "
+        "window) in this run; input only (decode, augment, stage) %.1f "
+        "images/s; overlap %.3f (achieved / min(input, compute)); data "
+        "wait per window %s ms; first fit call (capture) %.1f ms; busy "
+        "%.1f%% (profiled window, %.2f of %.2f ms); peak memory %.2f GB  "
+        "[%s]" % (DATA["records"], DATA["records"] // B, leg["img_per_s"],
+                  len(leg["stall_ms"]), K, leg["wall_s"],
+                  leg["steady_img_per_s"], compute_rate, window_ms,
+                  input_rate, overlap, ["%.2f" % s for s in leg["stall_ms"]],
+                  first_ms, 100 * cen["busy_share"], cen["device_ms"],
+                  cen["wall_ms"], mem / 1e9, card))
+    log("  the same over %d records (no epoch end inside): fit %.1f images/s"
+        ", %.1f after window 1; input only %.1f images/s; data wait per "
+        "window %s ms" % (DATA["long_records"], long_leg["img_per_s"],
+                          long_leg["steady_img_per_s"], long_input,
+                          ["%.2f" % s for s in long_leg["stall_ms"]]))
+    log("  a window after the first takes %.1f ms against the replayed "
+        "step's %.1f: epoch ends %.1f ms (against the long file's %.1f), "
+        "the input side beside the step %.1f ms; the feed's fill %.1f ms "
+        "once a fit call (window 1's wait); the host's data wait after "
+        "window 1 %.1f ms a window (long file %.1f), overlapping the "
+        "card's work on the window before  [%s]"
+        % (steady_ms, window_ms, split["epoch_ends_ms"], long_ms,
+           split["beside_step_ms"], split["fill_ms"], split["wait_ms"],
+           split["long_wait_ms"], card))
+    log("  host to device per batch: %s by torch.profiler (%d copies over "
+        "%d batches); the JPEG bytes alone %.0f; the f32 batch the JAX "
+        "package copies %d; launches in the main path %s, B1 %s; nvJPEG's "
+        "allocator over the timed fit (device allocations, frees, pinned "
+        "made, pinned reused) %s"
+        % ("%.0f bytes" % h2d if h2d is not None else "not measured",
+           n_copies, DATA["h2d_batches"], jpeg_per_batch,
+           B * 3 * 224 * 224 * 4, json.dumps(counts), json.dumps(b1),
+           alloc))
+    report["records"] = {
+        "fit_img_per_s": leg["img_per_s"],
+        "fit_steady_img_per_s": leg["steady_img_per_s"],
+        "compute_img_per_s": compute_rate, "input_img_per_s": input_rate,
+        "overlap": overlap, "stall_ms": leg["stall_ms"],
+        "long": {"records": DATA["long_records"], "fit": long_leg,
+                 "input_img_per_s": long_input},
+        "wait_split": split, "first_fit_ms": first_ms,
+        "busy_share": cen["busy_share"], "census": cen,
+        "peak_memory_bytes": mem, "h2d_bytes_per_batch": h2d,
+        "jpeg_bytes_per_batch": jpeg_per_batch, "launches": counts,
+        "b1_launches": b1, "nvjpeg_allocations": alloc}
+    fused.release_graphs()
+    del mod, fused
+    released(dev)
+    return b1, rows, counts
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -6062,6 +6823,7 @@ def main():
     grouped_dropout(dev, report)
     reco_rows, reco_launches = recommend_path(dev, card, report)
     rnn_rows, rnn_launches = rnn_path(dev, card, report)
+    rec_b1, aug_rows, aug_counts = records_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -6079,6 +6841,9 @@ def main():
                  # phase 15: the same shapes inside the captured graph
                  "grouped": (grouped_b1[form], b1t_err[form],
                              b1t_tot[form],
+                             [RESNET_TRAIN["bf16_batch"], "bfloat16"]),
+                 # phase 18: the same, fed from the records
+                 "records": (rec_b1[form], b1t_err[form], b1t_tot[form],
                              [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
@@ -6184,6 +6949,16 @@ def main():
                     "plain_ms": int8_tot["plain_ms"],
                     "bound_ms": int8_tot["bound_ms"],
                     "bound_by": int8_tot["bound_by"], "library_ms": None})
+    for kname in ("image_aug", "jpeg_color"):
+        # phase 18's kernels (no TPU counterpart: the JAX package decodes
+        # and augments on the host); bitwise their plain versions
+        r = aug_rows[kname]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": AUG_SOURCES[kname],
+                        "replaces": AUG_REPLACES[kname],
+                        "launches": aug_counts[kname], "max_abs_err": 0.0,
+                        "shape": r["shape"],
+                        **{k: r[k] for k in TIME_KEYS}})
     report["kernels"] = kernels
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),

@@ -16,11 +16,14 @@ convolution layers, ``rnn``, ``loss``, ``Trainer``, ``data``,
 ``model_zoo``)
 layers, with the JAX package's random key chain (``random``), its
 ``.params`` files, row-sparse gradients (``nd.sparse``) and the
-optimizers' lazy row updates.
+optimizers' lazy row updates. Its data pipeline reads RecordIO files
+(``recordio``, ``io.ImageRecordIter``, the streaming tier ``data``):
+JPEG records decoded by nvJPEG and augmented on the card, and staged K
+steps ahead of ``Module.fit``.
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
-the legacy flash forward ``flash_fwd`` and the int8 epilogue
-``int8_dequant``.
+the legacy flash forward ``flash_fwd``, the int8 epilogue
+``int8_dequant`` and the image record augment ``image_aug``.
 
 Importing does no device work and builds nothing. Entry points run on
 ``cuda:0`` unless the caller asks for the CPU (``device="cpu"`` or
@@ -38,7 +41,9 @@ from . import initializer  # noqa: F401
 from . import initializer as init  # noqa: F401
 from . import lr_scheduler  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import recordio  # noqa: F401
 from . import io  # noqa: F401
+from . import data  # noqa: F401
 from . import metric  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401

@@ -227,3 +227,22 @@ register_flag("serve_max_gathers", "MXNET_SERVE_MAX_GATHERS", int, 65536,
               "units (one unit = one embedding row fetched). Recommend "
               "requests are ragged, so the queue bills and rejects on "
               "gather counts, not request counts.")
+register_flag("cpu_worker_nthreads", "MXNET_CPU_WORKER_NTHREADS", int, 4,
+              "Host thread-pool width for IO decode/augment work "
+              "(parity: MXNET_CPU_WORKER_NTHREADS).")
+register_flag("data_staged_feed", "MXNET_DATA_STAGED_FEED", _parse_bool,
+              True,
+              "Let Module.fit stage each K-step window's stacked device "
+              "feed on a feeder thread (data/feed.py), double-buffered on "
+              "a side stream of its own so it overlaps the windows in "
+              "flight. Only data is staged: keys and hyperparameters stay "
+              "on the main thread, so the staged path is bitwise the "
+              "unstaged one. Off: the grouped step stacks its own feed.")
+register_flag("data_feed_depth", "MXNET_DATA_FEED_DEPTH", int, 2,
+              "Staged windows in flight for the K-step device feed "
+              "(2 = double buffering). Each staged window holds K stacked "
+              "batches of device memory, so keep this small.")
+register_flag("data_decode_threads", "MXNET_DATA_DECODE_THREADS", int, 0,
+              "Decode/augment worker threads for StreamingDataIter "
+              "(data/record_stream.py). 0 (default): cpu_worker_nthreads, "
+              "the same pool width ImageRecordIter uses.")

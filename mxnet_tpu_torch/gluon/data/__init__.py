@@ -1,7 +1,5 @@
 """Gluon data API (counterpart of ``mxnet_tpu/gluon/data/``): datasets,
-samplers, the DataLoader and the vision transforms. The vision datasets
-(``vision/datasets.py``) need ``recordio`` or files the repo lacks and
-are not ported yet (ROADMAP A5)."""
+samplers, the DataLoader, and the vision datasets and transforms."""
 from .dataset import *  # noqa: F401,F403
 from .sampler import *  # noqa: F401,F403
 from .dataloader import *  # noqa: F401,F403

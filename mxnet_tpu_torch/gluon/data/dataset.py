@@ -1,13 +1,15 @@
 """Datasets (counterpart of ``mxnet_tpu/gluon/data/dataset.py``):
 Dataset with its lazy ``transform``/``transform_first``, ``filter``,
-``take`` and ``sample``, SimpleDataset and ArrayDataset.
-``RecordFileDataset`` needs ``recordio``, which is not ported yet
-(ROADMAP A5)."""
+``take`` and ``sample``, SimpleDataset, ArrayDataset and
+RecordFileDataset (records through the ``.idx``; the JAX package's
+native scanner waits for ROADMAP A5b)."""
 from __future__ import annotations
+
+import os
 
 from ...ndarray import ndarray as _nd
 
-__all__ = ["Dataset", "SimpleDataset", "ArrayDataset"]
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset"]
 
 
 class Dataset:
@@ -129,3 +131,22 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The raw records of a RecordIO (.rec) file with its .idx, in the
+    index's order."""
+
+    def __init__(self, filename):
+        from ... import recordio
+        self._filename = filename
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        if idx < 0:
+            idx += len(self)
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -1,3 +1,5 @@
-"""Vision transforms (counterpart of ``mxnet_tpu/gluon/data/vision/``);
-the datasets wait for ``recordio`` (ROADMAP A5)."""
+"""Vision datasets and transforms (counterpart of
+``mxnet_tpu/gluon/data/vision/``)."""
+from .datasets import *  # noqa: F401,F403
 from . import transforms  # noqa: F401
+from . import datasets  # noqa: F401

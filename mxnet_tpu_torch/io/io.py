@@ -1,4 +1,5 @@
-"""Data iterators (counterpart of a subset of ``mxnet_tpu/io/io.py``).
+"""Data iterators (counterpart of ``mxnet_tpu/io/io.py`` but
+``LibSVMIter``, which waits for ROADMAP A5b).
 
 ``NDArrayIter`` batches in-memory arrays (numpy arrays, tensors, or
 dicts of them) in order, into CPU tensors; the executor copies each
@@ -7,15 +8,21 @@ batch to its device. The last partial batch is padded from the start
 With ``shuffle=True`` every ``reset`` (the constructor's included)
 shuffles the order with ``numpy.random.shuffle``, as the JAX package
 does, so under one ``numpy.random.seed`` both give the same batches.
+``ResizeIter`` gives a fixed number of batches an epoch from another
+iterator, resetting it when it runs out; ``PrefetchingIter`` pulls
+batches on a thread of its own through a
+:class:`~mxnet_tpu_torch.data.pipeline.PrefetchQueue`.
 """
 from __future__ import annotations
 
 import collections
+import threading
 
 import numpy as _np
 import torch
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter"]
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape", "dtype",
@@ -174,3 +181,151 @@ class NDArrayIter(DataIter):
     def getindex(self):
         start = self.cursor * self.batch_size
         return self.idx[start:min(start + self.batch_size, self.num_data)]
+
+
+class ResizeIter(DataIter):
+    """``size`` batches an epoch from ``data_iter``, which is reset and
+    read again when it runs out first."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__(data_iter.batch_size)
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+
+    @property
+    def provide_data(self):
+        return self.data_iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self.data_iter.provide_label
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """Batches of one or more iterators pulled ahead on a thread; with
+    several, each batch joins their data and labels."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None,
+                 prefetch_depth=2):
+        if not isinstance(iters, list):
+            iters = [iters]
+        super().__init__(iters[0].batch_size)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self._depth = prefetch_depth
+        self._queue = None
+        self._thread = None
+        self._start()
+
+    def _start(self):
+        # the worker holds THIS generation's queue, so a worker left over
+        # from before a reset can never feed the new one
+        from ..data.pipeline import PrefetchQueue
+        pq = self._queue = PrefetchQueue(self._depth)
+
+        def worker():
+            while not pq.stopped:
+                try:
+                    batches = [i.next() for i in self.iters]
+                except StopIteration:
+                    pq.put_sentinel()
+                    return
+                except Exception as e:
+                    pq.put(e)
+                    return
+                if not pq.put(batches):
+                    return
+
+        self._thread = threading.Thread(target=worker, daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _renamed(renames, iters, attr):
+        if renames is None:
+            return sum([getattr(i, attr) for i in iters], [])
+        return sum([[DataDesc(r.get(d.name, d.name), d.shape, d.dtype)
+                     if isinstance(r, dict) else d
+                     for d in getattr(i, attr)]
+                    for r, i in zip(renames, iters)], [])
+
+    @property
+    def provide_data(self):
+        return self._renamed(self.rename_data, self.iters, "provide_data")
+
+    @property
+    def provide_label(self):
+        return self._renamed(self.rename_label, self.iters, "provide_label")
+
+    def reset(self):
+        # the inner iterators are reset only once the worker is gone
+        self._queue.shutdown(self._thread, timeout=5.0)
+        for i in self.iters:
+            i.reset()
+        self._start()
+
+    def next(self):
+        batches = self._queue.get()
+        if len(batches) == 1:
+            return batches[0]
+        return DataBatch(
+            data=sum([b.data for b in batches], []),
+            label=sum([(b.label or []) for b in batches], []),
+            pad=max(b.pad or 0 for b in batches))
+
+    def iter_next(self):
+        try:
+            self._peek = self.next()
+            return True
+        except StopIteration:
+            return False
+
+    def queue_depth(self):
+        return self._queue.qsize()
+
+    def close(self):
+        """Stop the worker (``reset()`` starts a new one)."""
+        if self._queue is not None:
+            self._queue.shutdown(self._thread, timeout=5.0)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/mxnet_tpu_torch/`` at the repository root. The library's file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is reused. Building happens at first use
+``build/mxnet_tpu_torch/`` at the repository root, with ``NVCC_FLAGS``
+and the source's own flags and libraries from ``EXTRA_FLAGS``. The
+library's file name carries a hash of the sources and of every flag, so
+an edited source or flag builds anew and an unchanged one is reused. Building happens at first use
 (:func:`load`) or all at once (:func:`build`, one ``nvcc`` per source,
 all started together). A failed build raises; nothing falls back.
 Nothing here runs at import.
@@ -21,14 +22,19 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "sources", "build", "load",
-           "build_log"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "EXTRA_FLAGS", "sources",
+           "command", "build", "load", "build_log"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's own flags, after NVCC_FLAGS: the nvJPEG binding links the
+# toolkit's libnvjpeg; the image augment kernel keeps every multiply and
+# add rounded on its own, as its plain torch version does
+EXTRA_FLAGS = {"nvjpeg_decode": ("-lnvjpeg",),
+               "image_aug": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs = {}
@@ -50,8 +56,28 @@ def _nvcc():
                      "the port's CUDA kernels are built from source")
 
 
+def _flags(name, nvcc):
+    """NVCC_FLAGS and ``name``'s own; a source that links a library of
+    the toolkit finds it at run time through an rpath to the toolkit's
+    library directory beside ``nvcc``."""
+    extra = list(EXTRA_FLAGS.get(name, ()))
+    if any(f.startswith("-l") for f in extra):
+        lib = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64")
+        extra += ["-Xlinker", "-rpath", "-Xlinker", lib]
+    return list(NVCC_FLAGS) + extra
+
+
+def command(name, output):
+    """The nvcc command line that builds ``csrc/<name>.cu`` into
+    ``output``."""
+    nvcc = _nvcc()
+    return [nvcc, *_flags(name, nvcc), "-o", output,
+            os.path.join(CSRC_DIR, name + ".cu")]
+
+
 def _target(name):
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(EXTRA_FLAGS.get(name, ())).encode())
     for p in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))) + [
             os.path.join(CSRC_DIR, name + ".cu")]:
         with open(p, "rb") as f:
@@ -80,11 +106,9 @@ def build(names=None):
         if os.path.exists(target):
             continue
         tmp = "%s.%d.tmp" % (target, os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, name + ".cu")]
         procs.append((name, target, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+            command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, target, tmp, proc in procs:
         out, _ = proc.communicate()

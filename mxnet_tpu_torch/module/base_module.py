@@ -8,8 +8,11 @@ update and the batch-end callbacks; per epoch the metric log, the
 epoch-end callbacks and an optional evaluation pass (``score``).
 ``eval_metric=None`` updates no metric, so the loop reads nothing back
 from the device. Grouped dispatch (``steps_per_dispatch``, and the
-automatic K), the device-resident metric and the bounded in-flight
-queue are the JAX package's. Not ported: checkpointing and resume,
+automatic K), the staged K-step feed (``data.StagedKFeed``), the
+device-resident metric and the bounded in-flight queue are the JAX
+package's. ``fit`` keeps its input-side numbers in ``data_stats``: for
+each dispatch, the ms the loop waited for its batches and the bytes
+they brought from the host. Not ported: checkpointing and resume,
 monitors. The session dtype policy (``MXNET_COMPUTE_DTYPE``) is obeyed
 by the Module's fused step.
 """
@@ -19,6 +22,9 @@ import logging
 import os
 import time
 from typing import NamedTuple
+
+import numpy as _np
+import torch
 
 from .. import metric as _metric
 from ..base import MXNetError
@@ -37,6 +43,19 @@ def _as_list(obj):
     return obj if isinstance(obj, (list, tuple)) else [obj]
 
 
+def _host_bytes(batch):
+    """Bytes of a batch's arrays that lie on the host (what a step on a
+    card copies over); metadata only, nothing read from a device."""
+    n = 0
+    for arr in list(batch.data or []) + list(batch.label or []):
+        t = getattr(arr, "_data", arr)
+        if isinstance(t, torch.Tensor):
+            n += t.numel() * t.element_size() if t.device.type == "cpu" else 0
+        else:
+            n += _np.asarray(t).nbytes
+    return n
+
+
 class BaseModule:
     def __init__(self, logger=logging):
         self.logger = logger
@@ -46,6 +65,7 @@ class BaseModule:
         self.params_initialized = False
         self.optimizer_initialized = False
         self._symbol = None
+        self.data_stats = None
 
     @property
     def symbol(self):
@@ -107,7 +127,11 @@ class BaseModule:
         updates stay per batch; ``batch_end_callback`` fires per batch
         but only after its group completes; a short tail runs per step;
         lr/wd schedules advance in steps of K. Needs a module with a
-        grouped fused step (plain :class:`Module`) and no monitor.
+        grouped fused step (plain :class:`Module`) and no monitor. With
+        ``MXNET_DATA_STAGED_FEED`` (on by default) a
+        :class:`~mxnet_tpu_torch.data.StagedKFeed` stacks each window's
+        feed on a feeder thread (``Module._stage_group``) while the
+        previous window runs; the steps are bitwise the unstaged ones.
 
         ``steps_per_dispatch=None`` (default) picks K automatically:
         ``flags.steps_per_dispatch`` (MXNET_STEPS_PER_DISPATCH, default
@@ -199,6 +223,28 @@ class BaseModule:
         grouped = steps_per_dispatch > 1
         # 3. dispatch without waiting; bound the in-flight queue
         depth_ctl = DepthController()
+        # 4. the input side, per dispatch: the ms the loop waited for its
+        #    batches (the input stall) and the bytes they brought from the
+        #    host; host-held values only, no device read
+        staging = grouped and bool(_flags.data_staged_feed) \
+            and getattr(self, "_fused", None) is not None \
+            and self.optimizer_initialized and hasattr(self, "_stage_group")
+        self.data_stats = stats = {"staged": staging, "input_stall_ms": [],
+                                   "h2d_bytes": [], "steps": []}
+
+        def note(stall_ms, nbytes, steps):
+            stats["input_stall_ms"].append(stall_ms)
+            stats["h2d_bytes"].append(nbytes)
+            stats["steps"].append(steps)
+
+        def timed_next(it):
+            t0 = time.perf_counter()
+            try:
+                return next(it)
+            finally:
+                acc[0] += (time.perf_counter() - t0) * 1e3
+
+        acc = [0.0, 0]     # stall ms and host bytes since the last note
 
         def batch_end(epoch, nbatch, frame):
             for cb in _as_list(batch_end_callback or []):
@@ -214,29 +260,62 @@ class BaseModule:
             if grouped:
                 # one dispatch per K batches; callbacks fire per batch,
                 # from this frame, after the group's dispatch
-                group = []
-                while not end_of_batch:
-                    try:
-                        group.append(next(data_iter))
-                    except StopIteration:
-                        end_of_batch = True
-                    if len(group) == steps_per_dispatch or \
-                            (end_of_batch and group):
-                        if len(group) == steps_per_dispatch:
-                            self._fit_group(group, eval_metric)
-                            depth_ctl.admit(self._dispatch_handles())
+                feed = None
+                if staging:
+                    from ..data.feed import StagedKFeed
+                    feed = StagedKFeed(data_iter, steps_per_dispatch,
+                                       self._stage_group,
+                                       depth=max(2, int(
+                                           _flags.data_feed_depth)),
+                                       stream=self._staging_stream())
+                try:
+                    group, staged = [], None
+                    while not end_of_batch:
+                        if feed is not None:
+                            t0 = time.perf_counter()
+                            try:
+                                win = feed.next_window()
+                            except StopIteration:
+                                win = None
+                                end_of_batch = True
+                            acc[0] += (time.perf_counter() - t0) * 1e3
+                            if win is not None:
+                                group, staged = list(win.batches), win.staged
+                                acc[1] += win.h2d_bytes
+                                if len(group) < steps_per_dispatch:
+                                    end_of_batch = True   # the tail
                         else:
-                            # tail: the per-step path
-                            for b in group:
-                                self._fit_group([b], eval_metric)
+                            try:
+                                b = timed_next(data_iter)
+                                group.append(b)
+                                acc[1] += _host_bytes(b)
+                            except StopIteration:
+                                end_of_batch = True
+                        if len(group) == steps_per_dispatch or \
+                                (end_of_batch and group):
+                            if len(group) == steps_per_dispatch:
+                                self._fit_group(group, eval_metric,
+                                                staged=staged)
                                 depth_ctl.admit(self._dispatch_handles())
-                        for data_batch in group:
-                            batch_end(epoch, nbatch, locals())
-                            nbatch += 1
-                        group = []
+                            else:
+                                # tail: the per-step path
+                                for b in group:
+                                    self._fit_group([b], eval_metric)
+                                    depth_ctl.admit(
+                                        self._dispatch_handles())
+                            note(acc[0], acc[1], len(group))
+                            acc[0], acc[1] = 0.0, 0
+                            for data_batch in group:
+                                batch_end(epoch, nbatch, locals())
+                                nbatch += 1
+                            group, staged = [], None
+                finally:
+                    if feed is not None:
+                        feed.close()
             else:
                 try:
-                    next_batch = next(data_iter)
+                    next_batch = timed_next(data_iter)
+                    acc[1] += _host_bytes(next_batch)
                 except StopIteration:
                     end_of_batch = True
                 while not end_of_batch:
@@ -245,8 +324,11 @@ class BaseModule:
                     depth_ctl.admit(self._dispatch_handles())
                     if eval_metric is not None:
                         self.update_metric(eval_metric, data_batch.label)
+                    note(acc[0], acc[1], 1)
+                    acc[0], acc[1] = 0.0, 0
                     try:
-                        next_batch = next(data_iter)
+                        next_batch = timed_next(data_iter)
+                        acc[1] += _host_bytes(next_batch)
                         self.prepare(next_batch)
                     except StopIteration:
                         end_of_batch = True

@@ -41,8 +41,20 @@ output's dtype, and the aux updates go back to the aux dtype. A grouped
 window casts its data before stacking (half the stacked bytes; the same
 bits as the cast inside the step).
 
-Not ported: data-parallel buckets (ROADMAP A6) and the staged K-step
-feed (A5).
+A window's feed may come staged (``run_k(staged=)``, the feed
+``Module._stage_group`` stacked ahead on the feeder thread's stream):
+the step's stream waits for the staged window's event, marks the staged
+tensors as read on it (so the allocator reuses none of them while a
+replay reads them), and copies slice i into the graph's static buffers
+before replay i, as for an unstaged window. One set of static buffers
+and a copy a step (a batch, ~38 MB in bf16 at ResNet-50's batch 128,
+some 25 us at the card's bandwidth) was chosen over two captured
+buffer sets alternating, which would hold a second graph and its memory
+pool for a saving too small to see. The capture runs in the
+thread-local capture mode: the input pipeline's threads keep decoding
+and staging, on streams of their own, while the step is captured.
+
+Not ported: data-parallel buckets (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -295,13 +307,16 @@ class FusedStep:
                                                          for v in vals]))
         return stacked
 
-    def run_k(self, stacked, keys, opt_state, met_state=None):
-        """K fused steps: ``stacked`` the window from :meth:`stack_feeds`,
-        ``keys`` K PRNG keys (a ``(K, 2)`` array). Weights, ``opt_state``,
-        the moving statistics and ``met_state`` are updated and the
-        optimizer's counts advanced K times. Returns each output stacked
-        ``(K, ...)``, so the caller can update a host metric per
-        sub-batch."""
+    def run_k(self, stacked, keys, opt_state, met_state=None, staged=None):
+        """K fused steps: ``stacked`` the window from :meth:`stack_feeds`
+        (or ``staged``, a window stacked ahead: ``{"stacked", "last",
+        "ready"}`` from ``Module._stage_group``), ``keys`` K PRNG keys (a
+        ``(K, 2)`` array). Weights, ``opt_state``, the moving statistics
+        and ``met_state`` are updated and the optimizer's counts advanced
+        K times. Returns each output stacked ``(K, ...)``, so the caller
+        can update a host metric per sub-batch."""
+        if staged is not None:
+            stacked = self._await_staged(staged)
         keys = _np.asarray(keys, _np.int64).reshape(-1, 2)
         K = keys.shape[0]
         hyp = self._stage(self.hyper_rows(K))
@@ -317,6 +332,20 @@ class FusedStep:
         for _ in range(K):
             self.commit_counts()
         return outs
+
+    def _await_staged(self, staged):
+        """Order the current stream after a staged window's making, and
+        keep the allocator from reusing its tensors (the stacked feed,
+        the last batch's values) before this stream has read them."""
+        ready = staged.get("ready")
+        if ready is not None:
+            cur = torch.cuda.current_stream(self._device)
+            cur.wait_event(ready)
+            for v in list(staged["stacked"].values()) + [
+                    _tensor(v) for v in staged["last"].values()]:
+                if v.device.type == "cuda":
+                    v.record_stream(cur)
+        return staged["stacked"]
 
     def _run_graph(self, stacked, keys, hyp, opt_state, met_state):
         K = keys.shape[0]
@@ -425,7 +454,10 @@ class _StepGraph:
     def capture(self, fused):
         """Record one step; nothing runs, so no state moves."""
         try:
-            with torch.cuda.graph(self.graph):
+            # thread-local: the input pipeline's threads may allocate or
+            # synchronize their own streams while this one captures
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
                 self.outs = self.body(fused)
         except Exception as e:
             raise MXNetError(

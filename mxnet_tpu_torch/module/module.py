@@ -95,6 +95,7 @@ class Module(BaseModule):
         self._device_proxy = None
         self._device_met_version = 0
         self._warned_group_fallback = False
+        self._stage_stream = None   # the staged feed's stream on a card
 
     # ------------------------------------------------------------ properties
     @property
@@ -327,13 +328,14 @@ class Module(BaseModule):
         if self._fused_met_state is not None:
             self._device_met_version += 1
 
-    def _fit_group(self, data_batches, eval_metric=None):
+    def _fit_group(self, data_batches, eval_metric=None, staged=None):
         """fit's grouped entry (``steps_per_dispatch``): the batches
         through :meth:`_fit_step_k`, then ``eval_metric`` updated once
         per sub-batch from the stacked per-step outputs (the per-step
         loop's metric semantics), or nothing to replay when the metric
         is device-resident. One batch, or no fused step, takes the
-        per-step path."""
+        per-step path. ``staged`` is the window's feed from
+        :meth:`_stage_group`, made ahead on the feeder thread."""
         if self._fused is None or not self.optimizer_initialized \
                 or len(data_batches) == 1:
             if len(data_batches) > 1 and not self._warned_group_fallback:
@@ -347,7 +349,7 @@ class Module(BaseModule):
                 if eval_metric is not None:
                     self.update_metric(eval_metric, b.label)
             return
-        outs = self._fit_step_k(data_batches)
+        outs = self._fit_step_k(data_batches, staged=staged)
         if getattr(eval_metric, "_device_resident", False):
             return  # accumulated inside the step; nothing to replay
         if eval_metric is not None:
@@ -358,26 +360,79 @@ class Module(BaseModule):
                 self.update_metric(eval_metric, b.label)
             ex.outputs = last
 
-    def _fit_step_k(self, data_batches):
+    def _stage_group(self, data_batches):
+        """One K-step window's feed, stacked ahead of its dispatch: the
+        ``stage_fn`` of :class:`~mxnet_tpu_torch.data.StagedKFeed`, run
+        on the feeder thread while earlier windows run. The same
+        ``stack_feeds`` the unstaged window runs, so the staged feed is
+        bitwise the unstaged one; on a card on :meth:`_staging_stream`
+        (fit makes it the feeder thread's current stream, so a card
+        iterator's batches are ordered on it), after whatever the
+        calling thread's stream was told to wait for, and ending in an
+        event that ``run_k`` waits for. Reads only the executor's metadata. Returns
+        ``({"stacked", "last", "ready"}, bytes copied from the
+        host)``."""
+        from .base_module import _host_bytes
+        fused, dev = self._fused, self._device
+        feeds = [self._feed(b) for b in data_batches]
+        nbytes = sum(_host_bytes(b) for b in data_batches) \
+            if dev.type == "cuda" else 0
+        if dev.type != "cuda":
+            return {"stacked": fused.stack_feeds(feeds), "last": feeds[-1],
+                    "ready": None}, nbytes
+        side = self._staging_stream()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for f in feeds:
+                for v in f.values():
+                    t = _tensor(v)
+                    if t.device.type == "cuda":
+                        t.record_stream(side)   # read on this stream
+            stacked = fused.stack_feeds(feeds)
+            ready = torch.cuda.Event()
+            ready.record(side)
+        return {"stacked": stacked, "last": feeds[-1], "ready": ready}, \
+            nbytes
+
+    def _staging_stream(self):
+        """The stream the staged feed runs on (a card's only), made once,
+        at high priority as the input pipeline's streams."""
+        if self._device.type != "cuda":
+            return None
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(device=self._device,
+                                                   priority=-1)
+        return self._stage_stream
+
+    def _fit_step_k(self, data_batches, staged=None):
         """K fit steps in one dispatch (``FusedStep.run_k``). The caller
         (:meth:`_fit_group`) guarantees the fused step is engaged and
-        K > 1. The executor's inputs take the last feed (shape checks,
-        later forward() calls), K keys are drawn from the chain, one an
-        inner step as the per-step path draws them. Returns the stacked
-        per-step outputs (a list of ``(K, ...)`` tensors)."""
+        K > 1. K keys are drawn from the chain, one an inner step as the
+        per-step path draws them (never staged). The window's feed is
+        ``staged`` when given, else stacked here; after the window the
+        executor's inputs take the last feed (shape checks, later
+        forward() calls). Returns the stacked per-step outputs (a list
+        of ``(K, ...)`` tensors)."""
         from .. import random as _random
         ex, fused = self._exec, self._fused
-        feeds = [self._feed(b) for b in data_batches]
-        stacked = fused.stack_feeds(feeds)
+        keys = _np.stack([_random.next_key() for _ in data_batches])
+        if staged is None:
+            feeds = [self._feed(b) for b in data_batches]
+            last = feeds[-1]
+            outs = fused.run_k(fused.stack_feeds(feeds), keys,
+                               self._fused_opt_state,
+                               met_state=self._fused_met_state)
+        else:
+            last = staged["last"]
+            outs = fused.run_k(None, keys, self._fused_opt_state,
+                               met_state=self._fused_met_state,
+                               staged=staged)
         with torch.no_grad():
-            for name, val in feeds[-1].items():
+            for name, val in last.items():
                 dst = ex.arg_dict.get(name)
                 if dst is not None:
                     dst.copy_(fused._stage(_tensor(val).to(dtype=dst.dtype)
                                            .reshape(dst.shape)))
-        keys = _np.stack([_random.next_key() for _ in data_batches])
-        outs = fused.run_k(stacked, keys, self._fused_opt_state,
-                           met_state=self._fused_met_state)
         ex.outputs = [o[-1] for o in outs]
         ex._pending = None
         if self._fused_met_state is not None:

@@ -1113,3 +1113,272 @@ def test_word_language_model_launches_b2_once_a_step_on_the_card(cuda):
     st = tier.stats()
     assert st["fallback"] == {}
     assert st["dispatch"]["take_rows"] == 4
+
+
+# ------------------------------------------------ the record pipeline (A5)
+def _fixture():
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "data", "jpeg_fixture"))
+    try:
+        import fixture
+    finally:
+        sys.path.pop(0)
+    return fixture.load(), fixture.load_blocks()
+
+
+def _decode(jpegs, dev):
+    """``BatchDecoder.decode`` of ``jpegs`` on the card -> (h, w, 3)
+    uint8 tensors of their pixels."""
+    from mxnet_tpu_torch.kernels import nvjpeg
+    infos = [nvjpeg.image_info(j, record=i) for i, j in enumerate(jpegs)]
+    dec = nvjpeg.BatchDecoder()
+    try:
+        buf, boff = dec.decode(jpegs, infos, dev,
+                               records=list(range(len(jpegs))))
+        outs = [buf[o:o + 3 * h * w].view(h, w, 3).clone()
+                for o, (_ss, h, w) in zip(boff.tolist(), infos)]
+    finally:
+        torch.cuda.synchronize()
+        dec.close()
+    return outs
+
+
+def test_nvjpeg_decodes_the_fixture_within_the_bound_of_cv2s_pixels(cuda):
+    """Over the 16 fixture JPEGs (4:2:0 and 4:4:4, qualities 75-95) the
+    card's decode (nvJPEG's planes, then jpeg_color) is within a mean of
+    1.0 and a 99.9th percentile of 8 levels of cv2's pixels in every
+    channel; the block JPEGs, which decode exactly, are bitwise cv2's."""
+    from mxnet_tpu_torch.kernels import nvjpeg
+    fx, blocks = _fixture()
+    before = nvjpeg.decodes
+    outs = _decode([j for j, _, _ in fx], cuda)
+    assert nvjpeg.decodes == before + len(fx)
+    d = np.concatenate([np.abs(o.cpu().numpy().astype(np.int16)
+                               - px.astype(np.int16)).reshape(-1, 3)
+                        for o, (_j, px, _e) in zip(outs, fx)])
+    assert d.mean(0).max() <= 1.0
+    assert np.percentile(d, 99.9, axis=0).max() <= 8
+    for o, (_j, px, _e) in zip(_decode([j for j, _, _ in blocks], cuda),
+                               blocks):
+        assert torch.equal(o.cpu(), torch.from_numpy(px))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_image_aug_kernel_is_bitwise_its_plain_version(cuda, dtype):
+    """The ImageNet recipe (224 crops, mirrors) and the CIFAR recipe (pad
+    4, fill 255, mean/std, 32 crops) on the decoded fixture; one launch
+    a call."""
+    from mxnet_tpu_torch.kernels import image_aug
+    imgs = _decode([j for j, _, _ in _fixture()[0]], cuda)
+    rng = np.random.RandomState(0)
+    for shape, kw in (((3, 224, 224), {}),
+                      ((3, 32, 32), dict(pad=4, fill=255,
+                                         mean=(125.3, 123.0, 113.9),
+                                         std=(63.0, 62.1, 66.7)))):
+        pad = kw.get("pad", 0)
+        crops = [(rng.randint(0, im.shape[0] + 2 * pad - shape[1] + 1),
+                  rng.randint(0, im.shape[1] + 2 * pad - shape[2] + 1),
+                  rng.rand() < 0.5) for im in imgs]
+        out = torch.empty((len(imgs),) + shape, dtype=dtype, device=cuda)
+        before = image_aug.launches
+        image_aug.augment(imgs, crops, out, **kw)
+        assert image_aug.launches == before + 1
+        want = torch.empty((len(imgs),) + shape, dtype=dtype)
+        image_aug.augment([im.cpu() for im in imgs], crops, want, **kw)
+        iv = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(out.cpu().view(iv), want.view(iv))
+    with pytest.raises(mt.MXNetError, match="does not fit"):
+        image_aug.augment(imgs[:1], [(999, 0, False)],
+                          torch.empty((1, 3, 8, 8), device=cuda))
+
+
+def test_jpeg_color_kernel_is_bitwise_its_plain_version(cuda):
+    from mxnet_tpu_torch.kernels import jpeg_color
+    rng = np.random.RandomState(1)
+    items = []
+    for (h, w), mode in (((41, 57), 3), ((41, 57), 2), ((9, 3), 3),
+                         ((30, 31), 1), ((17, 16), 2)):
+        ch, cw = jpeg_color.chroma_shape(h, w, mode)
+        planes = [torch.from_numpy(rng.randint(0, 256, s).astype(np.uint8))
+                  for s in ((h, w), (ch, cw), (ch, cw))]
+        items.append((planes, mode))
+    outs = [torch.empty(p[0].shape + (3,), dtype=torch.uint8, device=cuda)
+            for p, _m in items]
+    before = jpeg_color.launches
+    jpeg_color.ycc_to_bgr([(p[0].to(cuda), p[1].to(cuda), p[2].to(cuda),
+                            o, m) for (p, m), o in zip(items, outs)])
+    assert jpeg_color.launches == before + 1
+    for (p, m), o in zip(items, outs):
+        want = torch.empty_like(o, device="cpu")
+        jpeg_color.ycc_to_bgr([(p[0], p[1], p[2], want, m)])
+        assert torch.equal(o.cpu(), want)
+
+
+def _records(tmp_path, fx, n):
+    path = str(tmp_path / "r.rec")
+    w = mt.recordio.MXIndexedRecordIO(str(tmp_path / "r.idx"), path, "w")
+    for i in range(n):
+        w.write_idx(i, mt.recordio.pack(
+            mt.recordio.IRHeader(0, float(i % 10), i, 0), fx[i % len(fx)][0]))
+    w.close()
+    return path
+
+
+def _draws(order, sizes, B, P, seed, epoch, shape, pad=0):
+    crops = []
+    for b in range(len(order) // B):
+        idxs = order[b * B:(b + 1) * B]
+        for p in range(P):
+            rng = np.random.RandomState(seed + epoch * 1000003 + b * 1009 + p)
+            for i in idxs[p * B // P:(p + 1) * B // P]:
+                h, w = sizes[i]
+                h, w = h + 2 * pad, w + 2 * pad
+                crops.append((rng.randint(0, h - shape[1] + 1),
+                              rng.randint(0, w - shape[2] + 1),
+                              rng.rand() < 0.5))
+    return crops
+
+
+def test_card_record_iter_matches_the_plain_augment_of_cv2s_pixels(
+        cuda, tmp_path):
+    """Two epochs of the card iterator (shuffled, 3 threads, random crops
+    and mirrors, mean/std) against the plain augment of the fixture's cv2
+    pixels under the JAX package's order and draws: labels equal, every
+    image within the decode bound (a wrong draw is far outside it)."""
+    from mxnet_tpu_torch.kernels import image_aug
+    fx, _ = _fixture()
+    n, B, P, seed = 40, 8, 3, 2
+    path = _records(tmp_path, fx, n)
+    kw = dict(mean_r=120.0, mean_g=110.0, mean_b=100.0, std_r=50.0,
+              std_g=55.0, std_b=60.0)
+    it = mt.io.ImageRecordIter(path, (3, 200, 200), B, shuffle=True,
+                               rand_crop=True, rand_mirror=True,
+                               preprocess_threads=P, seed=seed,
+                               ctx=mt.gpu(0), **kw)
+    sizes = [fx[i % len(fx)][1].shape[:2] for i in range(n)]
+    for epoch in range(2):
+        got = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in it]
+        order = np.arange(n)
+        np.random.RandomState(seed + epoch).shuffle(order)
+        crops = _draws(order, sizes, B, P, seed, epoch, (3, 200, 200))
+        want = torch.empty((n, 3, 200, 200))
+        image_aug.augment([torch.from_numpy(fx[i % len(fx)][1])
+                           for i in order], crops, want,
+                          mean=(120.0, 110.0, 100.0), std=(50.0, 55.0, 60.0))
+        data = np.concatenate([g[0] for g in got])
+        np.testing.assert_array_equal(np.concatenate([g[1] for g in got]),
+                                      (order % 10).astype(np.float32))
+        d = np.abs(data - want.numpy()) * np.array([50.0, 55.0, 60.0]
+                                                   ).reshape(1, 3, 1, 1)
+        assert d.mean(axis=(1, 2, 3)).max() <= 1.0
+        it.reset()
+    it.close()
+
+
+def test_card_record_iter_matches_the_cpu_iterator(cuda, tmp_path):
+    """Where cv2 is installed: the card iterator against the CPU
+    iterator (cv2's decode and the JAX package's augmenter) on the same
+    records, draws and order, within the decode bound; the CIFAR
+    recipe."""
+    pytest.importorskip("cv2")
+    fx, _ = _fixture()
+    path = _records(tmp_path, fx, 24)
+    kw = dict(shuffle=True, rand_crop=True, rand_mirror=True, pad=4,
+              fill_value=255, preprocess_threads=2, seed=3)
+    out = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        it = mt.io.ImageRecordIter(path, (3, 32, 32), 6, ctx=ctx, **kw)
+        out[ctx.device_type] = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                                for b in it]
+        it.close()
+    for (gd, gl), (cd, cl) in zip(out["gpu"], out["cpu"]):
+        np.testing.assert_array_equal(gl, cl)
+        assert np.abs(gd - cd).mean(axis=(1, 2, 3)).max() <= 1.0
+
+
+def test_a_png_record_raises_on_the_card_and_cv2_is_not_tried(
+        cuda, tmp_path, monkeypatch):
+    import struct
+    import sys
+    import zlib
+
+    def chunk(kind, data):
+        body = kind + data
+        return struct.pack(">I", len(data)) + body + struct.pack(
+            ">I", zlib.crc32(body) & 0xffffffff)
+    rows = b"".join(b"\x00" + bytes(range(30)) * 3 for _ in range(40))
+    png = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(
+        ">IIBBBBB", 30, 40, 8, 2, 0, 0, 0)) + chunk(
+        b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b"")
+    fx, _ = _fixture()
+    path = str(tmp_path / "p.rec")
+    w = mt.recordio.MXIndexedRecordIO(str(tmp_path / "p.idx"), path, "w")
+    for i, payload in enumerate([fx[0][0], png]):
+        w.write_idx(i, mt.recordio.pack(mt.recordio.IRHeader(0, 1.0, i, 0),
+                                        payload))
+    w.close()
+    monkeypatch.setitem(sys.modules, "cv2", None)   # import cv2 fails
+    it = mt.io.ImageRecordIter(path, (3, 16, 16), 2, ctx=mt.gpu(0))
+    with pytest.raises(mt.MXNetError, match=r"record 1.*A5b"):
+        next(it)
+    it.close()
+    with pytest.raises(mt.MXNetError, match="A5b"):
+        mt.io.ImageRecordIter(path, (3, 16, 16), 2, ctx=mt.gpu(0), resize=20)
+
+
+def test_staged_fit_is_bitwise_the_unstaged_fit_on_the_card(cuda, tmp_path):
+    """A two-convolution BatchNorm net fed by the card iterator (the
+    CIFAR recipe, batch 8), K = 2 for 3 windows, cuDNN deterministic:
+    staged and unstaged fits end with every tensor bitwise equal, and
+    the staged one ran through the staged feed."""
+    fx, _ = _fixture()
+    path = _records(tmp_path, fx, 48)
+    sym = mt.sym
+    net = sym.Variable("data")
+    for i in (1, 2):
+        net = sym.Activation(sym.BatchNorm(sym.Convolution(
+            net, num_filter=8, kernel=(3, 3), pad=(1, 1), stride=(2, 2),
+            name="conv%d" % i), fix_gamma=False, name="bn%d" % i),
+            act_type="relu")
+    net = sym.FullyConnected(sym.Flatten(sym.Pooling(
+        net, global_pool=True, pool_type="avg", kernel=(1, 1))),
+        num_hidden=10, name="fc")
+    net = sym.SoftmaxOutput(net, name="softmax")
+    rng = np.random.RandomState(0)
+    shapes, _, _ = net.infer_shape(data=(8, 3, 32, 32))
+    p0 = {n: rng.uniform(-0.3, 0.3, s).astype(np.float32)
+          for n, s in zip(net.list_arguments(), shapes)
+          if n not in ("data", "softmax_label")}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    states = []
+    try:
+        for staged in (True, False):
+            it = mt.io.ImageRecordIter(
+                path, (3, 32, 32), 8, shuffle=True, rand_crop=True,
+                rand_mirror=True, pad=4, fill_value=255,
+                mean_r=125.3, mean_g=123.0, mean_b=113.9, std_r=63.0,
+                std_g=62.1, std_b=66.7, preprocess_threads=3, seed=4,
+                ctx=mt.gpu(0))
+            mod = mt.mod.Module(net, context=mt.gpu(0))
+            with mt.config.override(data_staged_feed=staged):
+                mod.fit(it, num_epoch=1, kvstore="tpu_sync",
+                        optimizer="sgd",
+                        optimizer_params={"learning_rate": 0.1,
+                                          "momentum": 0.9,
+                                          "multi_precision": True},
+                        arg_params=p0, eval_metric=None,
+                        steps_per_dispatch=2)
+            it.close()
+            assert mod.data_stats["staged"] == staged
+            assert mod._fused.captures == 1
+            args, aux = mod.get_params()
+            states.append({k: v.cpu() for k, v in {**args, **aux}.items()})
+    finally:
+        torch.backends.cudnn.deterministic = det
+    for k in states[0]:
+        assert torch.equal(states[0][k], states[1][k]), k
+    assert not np.array_equal(states[0]["fc_weight"].numpy(), p0["fc_weight"])

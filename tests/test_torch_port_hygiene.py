@@ -1,7 +1,8 @@
 """Port hygiene: ``mxnet_tpu_torch`` stands alone.
 
 Importing it pulls in neither ``jax`` nor ``mxnet_tpu``, initializes no
-CUDA context and builds nothing; no module of the package, nor
+CUDA context and builds nothing, and reading records through it maps
+nothing of the JAX package's native library; no module of the package, nor
 ``chip_smoke.py``, imports either; entry points default to ``cuda:0``
 and raise without a card unless the CPU was asked for.
 """
@@ -20,7 +21,7 @@ from mxnet_tpu_torch.context import resolve_device
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_import_pulls_in_no_jax_and_does_no_device_work():
+def test_import_pulls_in_no_jax_and_does_no_device_work(tmp_path):
     code = (
         "import os, sys\n"
         "import mxnet_tpu_torch\n"
@@ -30,11 +31,28 @@ def test_import_pulls_in_no_jax_and_does_no_device_work():
         " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
+        # records read through the port's pipeline map nothing of the
+        # JAX package's native library
+        "import numpy as np\n"
+        "p = sys.argv[1]\n"
+        "w = mxnet_tpu_torch.recordio.MXIndexedRecordIO(p[:-4] + '.idx', p,"
+        " 'w')\n"
+        "w.write_idx(0, mxnet_tpu_torch.recordio.pack(mxnet_tpu_torch."
+        "recordio.IRHeader(0, 1.0, 0, 0), np.arange(6, dtype=np.float32)"
+        ".tobytes()))\n"
+        "w.close()\n"
+        "it = mxnet_tpu_torch.data.StreamingDataIter(mxnet_tpu_torch.data."
+        "ShardedRecordStream(p), mxnet_tpu_torch.data.RawTensorDecoder("
+        "(2, 3)), 1, ctx=mxnet_tpu_torch.cpu())\n"
+        "assert next(it).data[0].asnumpy().sum() == 15\n"
+        "it.close()\n"
+        "assert 'libmxtpu' not in open('/proc/self/maps').read()\n"
         "print('CLEAN', os.path.isdir(_build.BUILD_DIR))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     before = os.path.isdir(os.path.join(REPO, "build", "mxnet_tpu_torch"))
-    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=120)
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path / "r.rec")],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["CLEAN", str(before)]
 
@@ -78,3 +96,12 @@ def test_entry_points_default_to_cuda0_and_refuse_a_missing_card():
         resolve_device(mt.gpu(0))
     with pytest.raises(mt.MXNetError, match="no CUDA device"):
         mt.serving.CompiledModel.load(os.path.join(REPO, "missing.mxtorch"))
+
+
+def test_no_port_source_names_the_jax_packages_native_library():
+    """``mxnet_tpu/libmxtpu.so`` (engine, record scanner, storage pool)
+    belongs to the JAX package: no port source names it (the import
+    test above also reads records and finds it unmapped)."""
+    for path in _port_sources():
+        with open(path) as f:
+            assert "libmxtpu" not in f.read(), path

@@ -291,16 +291,27 @@ def _char_init():
     return {k: (rng.randn(*s) * 0.3).astype("f4") for k, s in shapes.items()}
 
 
-def test_bucketing_module_fits_like_the_jax_package_step_by_step():
-    """Every step: the running perplexity (the loss) and every
-    parameter."""
-    init = _char_init()
+def _quiet_fit_char(pkg, kvstore="local"):
     logging.disable(logging.WARNING)
     try:
-        jlog, _ = _fit_char(mx, init)
-        tlog, tmod = _fit_char(mt, init)
+        return _fit_char(pkg, _char_init(), kvstore=kvstore)
     finally:
         logging.disable(logging.NOTSET)
+
+
+@pytest.fixture(scope="module")
+def port_char_eager():
+    """The port's eager BucketingModule fit, once for the module: the
+    JAX package's and the fused fit are each held against it."""
+    return _quiet_fit_char(mt)
+
+
+def test_bucketing_module_fits_like_the_jax_package_step_by_step(
+        port_char_eager):
+    """Every step: the running perplexity (the loss) and every
+    parameter."""
+    jlog, _ = _quiet_fit_char(mx)
+    tlog, tmod = port_char_eager
     assert len(tlog) == len(jlog) >= 8
     assert len(tmod._buckets) == 2
     for step, ((jm, jp), (tm, tp)) in enumerate(zip(jlog, tlog)):
@@ -314,19 +325,15 @@ def test_bucketing_module_fits_like_the_jax_package_step_by_step():
     assert a is b
 
 
-def test_bucketing_module_fused_step_matches_its_eager_step():
+def test_bucketing_module_fused_step_matches_its_eager_step(
+        port_char_eager):
     """With ``kvstore="tpu_sync"`` every bucket runs the fused step over
     the shared weights, one Adam state and one update count a weight:
     step by step as the eager path, within 1e-5 (the fused update rounds
     its Adam scalars to f32, as the JAX package's fused program does;
     the eager updater keeps them in double)."""
-    init = _char_init()
-    logging.disable(logging.WARNING)
-    try:
-        elog, _ = _fit_char(mt, init)
-        flog, fmod = _fit_char(mt, init, kvstore="tpu_sync")
-    finally:
-        logging.disable(logging.NOTSET)
+    elog, _ = port_char_eager
+    flog, fmod = _quiet_fit_char(mt, kvstore="tpu_sync")
     mods = list(fmod._buckets.values())
     assert all(m._fused is not None for m in mods)
     assert mods[0]._fused_opt_state is mods[1]._fused_opt_state

@@ -474,6 +474,18 @@ def _train_jax(opt, tier_val, kvstore):
     return seen
 
 
+_JAX_RUNS = {}
+
+
+def _jax_run(opt, tier_val, kvstore):
+    """``_train_jax``, once per (optimizer, tier, kvstore) in this module:
+    the cases that differ only on the port's side share it."""
+    key = (opt, tier_val, kvstore)
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _train_jax(*key)
+    return _JAX_RUNS[key]
+
+
 def _train_port(opt, tier_val, kvstore, loop=False):
     X, Y = _batches()
     net = _gpt(mt.sym)
@@ -507,14 +519,21 @@ def _train_port(opt, tier_val, kvstore, loop=False):
     return seen, st, mod
 
 
+_JAX_EXECUTORS = {}
+
+
 def _grads_at(params_seq, tier_val):
     """Each step's gradients, by each package's executor, at that
-    package's parameters before the step."""
+    package's parameters before the step. The JAX executor is bound once
+    per tier in this module (every call overwrites its parameters and
+    data)."""
     X, Y = _batches()
     out = []
-    with jconfig.override(kernel_tier=tier_val):
-        jex = _gpt(mx.sym).simple_bind(mx.cpu(), data=(B, T),
-                                       softmax_label=(B, T))
+    if tier_val not in _JAX_EXECUTORS:
+        with jconfig.override(kernel_tier=tier_val):
+            _JAX_EXECUTORS[tier_val] = _gpt(mx.sym).simple_bind(
+                mx.cpu(), data=(B, T), softmax_label=(B, T))
+    jex = _JAX_EXECUTORS[tier_val]
     with mt.config.override(kernel_tier=tier_val):
         tex = _gpt(mt.sym).simple_bind(mt.cpu(), data=(B, T),
                                        softmax_label=(B, T))
@@ -546,7 +565,7 @@ CONFIGS = [("adam", "auto", "tpu_sync", False),
                          ids=["-".join(map(str, c)) for c in CONFIGS])
 def test_module_fit_matches_the_jax_package_step_by_step(cfg):
     opt, tier_val, kvstore, loop = cfg
-    want = _train_jax(opt, tier_val, kvstore)
+    want = _jax_run(opt, tier_val, kvstore)
     got, st, mod = _train_port(opt, tier_val, kvstore, loop=loop)
     assert (mod._fused is not None) == (kvstore == "tpu_sync")
     if tier_val == "auto":
