@@ -426,8 +426,58 @@ Phases; any failure raises and the script exits non-zero:
    yardstick where cv2 is installed); the bytes copied host to device
    per batch (torch.profiler's memcpy records); the busy share of a
    profiled window and the peak memory.
-19. The ``kernels`` JSON line (B1's entry has ``_contrib_FusedBNAct``,
-   ``grouped`` and ``records`` among its paths, B2, B3 and B5
+19. The one-process kvstore, checkpoints and resume, and
+   ``examples/train_imagenet.py``'s own loop (ROADMAP A6a, A6b, A3b.8),
+   over phase 18's records and phase 13's ResNet-50 symbol, cuDNN held
+   to deterministic algorithms wherever runs are compared bitwise.
+   (a) ``tools/bandwidth.py``'s ``measure`` leg through ``mt.kv``: 1 MB
+   of f32 from RandomState(0), one warm-up and 20 synchronized push +
+   pull repetitions, ``local`` and ``device``, one value and two card
+   values summed, compression none and 2-bit (threshold 0.5): the pull
+   bitwise the pushed sum; over 3 pushes with the residual carried the
+   2-bit pull bitwise a numpy copy of ``_compress``; ``_pack_2bit`` on
+   the card bitwise numpy's and ``_dequantize_2bit`` giving it back.
+   Printed per case: us a push + pull, GB/s by ``measure``'s byte
+   formula, the bound (bytes read and written over 3.35 TB/s) and
+   ``_last_wire_bytes``. Then every ResNet-50 parameter array as one list
+   of keys, pushed and pulled through ``local`` (bitwise) and through
+   ``dist_sync`` in one process with an SGD momentum updater (bitwise the
+   Module's Updater on the same gradients). (b) The loop's calls through
+   ``mt``: ``Module(sym, context=gpu(0)).fit`` over
+   ``ResizeIter(ImageRecordIter, 30)`` epochs (2), batch 128 in bf16
+   over f32 masters, SGD lr 0.05 momentum 0.9 wd 1e-4, metric acc,
+   ``Speedometer(128, 20)`` and ``do_checkpoint(prefix)`` (each save
+   timed), with ``kvstore="tpu_sync"`` and with a ``mt.kv.create("local")``
+   object, per step (the automatic K with a callback) and at
+   ``steps_per_dispatch=30``: B1's counts zeroed before and read after
+   each per-step run, 49 launches a forward and no fallback, the losses
+   falling; the K = 30 runs one capture each; every epoch's checkpoint
+   read back by ``load_checkpoint`` bitwise ``get_params()`` at the save.
+   Printed: images/s per run (and without the epoch-end saves), the save
+   times, Speedometer's own lines. Then the ``--load-epoch 1`` restart:
+   ``load_checkpoint`` and a new Module's ``fit(arg_params=,
+   aux_params=, begin_epoch=1)``. (c) Resume: ``fit(checkpoint=
+   CheckpointManager(dir, save_every=30, keep_n=2),
+   steps_per_dispatch=30)`` for 60 steps, a new Module resumed under
+   ``MXNET_RESUME_DIR`` to 120, against an uninterrupted 120: the
+   parameters, moving statistics, momentum and the next batch's labels
+   bitwise (or, if a second uninterrupted run is not bitwise the first,
+   within the two runs' spread); a blocking and an async save of the
+   snapshot timed, its bytes printed. (d) ``predict``, ``iter_predict``
+   and ``score`` over 2 batches of unaugmented records bitwise
+   ``forward`` on the same batches; then ``fit(monitor=Monitor(...))``
+   for 3 steps: the fused step dropped, its momentum kept in the
+   Updater and moving, the Monitor's statistics equal to those of the
+   arrays it names. (e) Gluon ``resnet50_v1`` (batch 32, 3 steps):
+   ``Trainer(kvstore=mt.kv.create("device"))`` bitwise
+   ``kvstore="device"``; ``compression_params={"type": "2bit",
+   "threshold": 0.5}``, the pulled gradients bitwise a numpy copy of the
+   quantize of the card's gradients; ``save_checkpoint``, then
+   ``restore_checkpoint`` into a new net, whose next step is bitwise.
+   The phase's wall time is printed.
+20. The whole run's wall time, then the ``kernels`` JSON line (B1's
+   entry has ``_contrib_FusedBNAct``, ``grouped``, ``records`` and
+   ``imagenet_loop`` among its paths, B2, B3 and B5
    ``grouped``, B2 ``recommend``, ``matrix_factorization``,
    ``lstm_bench``, ``word_lm`` and ``char_lstm``; ``image_aug`` and
    ``jpeg_color``, which no TPU kernel stands behind), the card's
@@ -440,6 +490,7 @@ either it fails before printing a result.
 import argparse
 import gc
 import json
+import logging
 import math
 import os
 import subprocess
@@ -4652,6 +4703,8 @@ CENSUS_KERNELS = (("bn_act_kernel", "bn_act"), ("take_rows_kernel",
                                                 "take_rows"),
                   ("flash_attn_kernel", "flash_attn"),
                   ("scale_bias_act_kernel", "scale_bias_act"))
+# the host's wait at each edge of a census's active profiler cycle
+CENSUS_GAP_S = 0.5
 
 
 def census_name(name):
@@ -4678,11 +4731,18 @@ def graph_census(fn):
     wall time and the busy share. The Python launch counters count where
     a wrapper launches, which under a graph is the capture only, so a
     replay's census comes from the device. ``fn`` runs twice, the first
-    time in the profiler's warm-up cycle, whose records are dropped: in
-    full runs of this script (the profiler started and stopped many
-    times before) the first cycle lost the record of the first kernel of
-    the window's first replay (B2, the GPT's first kernel); runs of the
-    phase alone lost none."""
+    time in the profiler's warm-up cycle, whose records are dropped.
+
+    The profiler splits its cycles on the host's clock, and a kernel's
+    record carries the card's clock converted to the host's, which
+    may drift over a long process: in full runs of this script the
+    active cycle once lost the first kernel of the window's first replay
+    and once held 30 B1 kernels more than the window launches. So the
+    host waits ``CENSUS_GAP_S`` at each boundary, and the census
+    counts only the kernels that ran between two marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``), each launched with the
+    card idle just before and just after the profiled call: the order
+    of records on one clock is exact whatever that clock's offset."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
@@ -4690,20 +4750,45 @@ def graph_census(fn):
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
         fn()
         torch.cuda.synchronize()
+        time.sleep(CENSUS_GAP_S)
         prof.step()
+        time.sleep(CENSUS_GAP_S)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(CENSUS_GAP_S)
     # the schedule's "ProfilerStep#" range is a device-side annotation
     # spanning the cycle, not a kernel
-    kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")]
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("ProfilerStep")]
+    marks = sorted((e for e in device if "spin_kernel" in e.name),
+                   key=lambda e: e.time_range.start)
+    if len(marks) != 2:
+        raise RuntimeError("census: %d marker kernels recorded, expected 2"
+                           % len(marks))
+    lo, hi = marks[0].time_range.end, marks[1].time_range.start
+    inside = [e for e in device if "spin_kernel" not in e.name
+              and lo <= e.time_range.start and e.time_range.end <= hi]
+    outside = sum(1 for e in device if "spin_kernel" not in e.name
+                  and census_name(e.name) is not None) \
+        - sum(1 for e in inside if census_name(e.name) is not None)
+    by_key = {}
+    for e in inside:
+        us, n = by_key.get(e.name, (0.0, 0))
+        by_key[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    kernels = [(k, us, n) for k, (us, n) in by_key.items()]
     busy = sum(k[1] for k in kernels) / 1e3
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
+    if outside:
+        log("  census: %d records of the port's kernels lay outside the "
+            "markers and are not counted" % outside)
     counts, kms, names = {}, {}, {}
     for key, us, n in kernels:
         c = census_name(key)
@@ -4714,7 +4799,7 @@ def graph_census(fn):
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     return {"counts": counts, "kernel_ms": kms, "device_ms": busy,
             "wall_ms": wall_ms, "busy_share": busy / wall_ms,
-            "names": names,
+            "names": names, "outside_markers": outside,
             "top_kernels": ["%s %.2f ms x%d" % (k[0][:70], k[1] / 1e3, k[2])
                             for k in top]}
 
@@ -6752,6 +6837,753 @@ def records_path(dev, card, report):
     return b1, rows, counts
 
 
+
+# ------------------------------- kvstore, checkpoints, the loop (phase 19)
+KV = dict(values=262144, reps=20, threshold=0.5, list_reps=5)
+LOOP = dict(batches=30, epochs=2, k=30, disp=20, resume_every=30,
+            resume_steps=60, total_steps=120, predict_batches=2,
+            monitor_steps=3, gluon_batch=32, gluon_steps=3)
+IMAGENET_SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
+                "multi_precision": True}
+MONITOR_PATTERN = "fc1_weight|bn0_gamma|softmax_output"
+
+
+def np_quantize(acc, thr):
+    """The JAX package's ``_compress`` in numpy f32: acc to {-t, 0, t}."""
+    t = np.float32(thr)
+    return np.where(acc >= t, t, np.where(acc <= -t, -t,
+                                          np.float32(0))).astype(np.float32)
+
+
+def np_pack_2bit(g, res, thr):
+    """The JAX package's ``_pack_2bit`` in numpy -> (packed, residual)."""
+    acc = g + res
+    t = np.float32(thr)
+    plus, minus = acc >= t, acc <= -t
+    codes = (plus.astype(np.uint8) + 2 * minus.astype(np.uint8)).ravel()
+    codes = np.concatenate([codes, np.zeros((-codes.size) % 4, np.uint8)])
+    c = codes.reshape(-1, 4)
+    packed = (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4)
+              | (c[:, 3] << 6)).astype(np.uint8)
+    return packed, acc - np_quantize(acc, thr)
+
+
+def kv_case(dev, kind, two, compress, card):
+    """One case of ``tools/bandwidth.py``'s ``measure`` on the card: 1 MB
+    of f32 from RandomState(0), one warm-up, 20 synchronized push + pull
+    repetitions -> the row. Checks, each raising: the pull bitwise the
+    pushed value (or sum); with 2-bit, 3 pushes from a fresh store with
+    the residual carried bitwise a numpy copy of ``_compress``."""
+    n, reps, thr = KV["values"], KV["reps"], KV["threshold"]
+    rng = np.random.RandomState(0)
+    val = rng.randn(n).astype(np.float32)
+    grads = [rng.randn(n).astype(np.float32) for _ in range(2 if two else 1)]
+    g_dev = [torch.from_numpy(g).to(dev) for g in grads]
+    push = g_dev if two else g_dev[0]
+
+    def store():
+        kv = mt.kv.create(kind)
+        if compress:
+            kv.set_gradient_compression({"type": "2bit", "threshold": thr})
+        kv.init("k", torch.from_numpy(val).to(dev))
+        return kv
+
+    # the check, from a fresh store
+    kv = store()
+    out = torch.zeros(n, device=dev)
+    total = grads[0] + grads[1] if two else grads[0].copy()
+    res = np.zeros(n, np.float32)
+    for i in range(3 if compress else 1):
+        kv.push("k", push)
+        kv.pull("k", out=out, ignore_sparse=False)
+        got = out.cpu().numpy()
+        if compress:
+            acc = total + res
+            want = np_quantize(acc, thr)
+            res = acc - want
+            if not np.array_equal(kv._residuals["k"].cpu().numpy(), res):
+                raise RuntimeError("kvstore %s 2bit: residual %d not numpy's"
+                                   % (kind, i))
+        else:
+            want = total
+        if not np.array_equal(got, want):
+            raise RuntimeError("kvstore %s (%s, %s): pull %d not bitwise the "
+                               "pushed value" % (kind, "two" if two else
+                                                 "one", compress, i))
+        if kv._store["k"].device != dev:
+            raise RuntimeError("kvstore: the stored value left the card")
+    # the timing, as measure() runs it
+    kv = store()
+
+    def once():
+        kv.push("k", push)
+        kv.pull("k", out=out, ignore_sparse=False)
+        torch.cuda.synchronize()
+
+    once()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        once()
+    dt = (time.perf_counter() - t0) / reps
+    size = n * 4
+    ndev = len(grads)
+    wire = kv._last_wire_bytes
+    moved = (wire or size) * ndev + size          # measure()'s formula
+    # read each pushed value once, write the stored value and the pulled
+    # copy once, and with 2-bit read and write the residual once more
+    bound_bytes = size * (ndev + 2) + (2 * size if compress else 0)
+    row = {"kind": kind, "values": ndev,
+           "compression": "2bit" if compress else "none",
+           "us": dt * 1e6, "gb_per_s": moved / dt / 1e9,
+           "gbit_per_s": moved * 8 / dt / 1e9,
+           "bound_us": bound_bytes / HBM_BYTES_PER_S * 1e6,
+           "wire_bytes": wire}
+    log("  kvstore %-6s %s value%s, compression %-4s: %.1f us a push + pull"
+        " (%.2f GB/s, %.2f Gbit/s by measure's formula); bound %.2f us "
+        "(%d bytes over 3.35 TB/s); _last_wire_bytes %s  [%s]"
+        % (kind, ndev, "s" if ndev > 1 else " ", row["compression"],
+           row["us"], row["gb_per_s"], row["gbit_per_s"], row["bound_us"],
+           bound_bytes, wire, card))
+    return row
+
+
+def kv_pack_check(dev):
+    """``_pack_2bit`` on the card bitwise numpy's, ``_dequantize_2bit``
+    giving back the quantized values, on the card and on the host."""
+    from mxnet_tpu_torch import kvstore as tkv
+    rng = np.random.RandomState(1)
+    for n in (KV["values"], 1001):
+        g, res = (rng.randn(n).astype(np.float32) for _ in range(2))
+        packed, new_res = tkv._pack_2bit(torch.from_numpy(g).to(dev),
+                                         torch.from_numpy(res).to(dev),
+                                         KV["threshold"])
+        want_p, want_r = np_pack_2bit(g, res, KV["threshold"])
+        q = np_quantize(g + res, KV["threshold"])
+        back = tkv._dequantize_2bit(packed, (n,), KV["threshold"])
+        if not (np.array_equal(packed.cpu().numpy(), want_p)
+                and np.array_equal(new_res.cpu().numpy(), want_r)
+                and np.array_equal(back.cpu().numpy(), q)
+                and np.array_equal(tkv._dequantize_2bit(
+                    want_p, (n,), KV["threshold"]), q)):
+            raise RuntimeError("_pack_2bit/_dequantize_2bit on the card are "
+                               "not numpy's at %d values" % n)
+    return packed.numel()
+
+
+def kv_resnet_lists(dev, card, sym, p0):
+    """Every ResNet-50 parameter as a list of keys: one push + pull
+    through ``local`` (the pull bitwise the push) and through
+    ``dist_sync`` in one process with an SGD momentum updater (the
+    stored weights bitwise the Module's Updater on the same gradients) ->
+    rows."""
+    names = sorted(p0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    weights = [p0[k].to(dev) for k in names]
+    grads = [torch.randn(w.shape, generator=gen, device=dev)
+             for w in weights]
+    nbytes = sum(w.numel() * 4 for w in weights)
+    rows = {}
+    for kind in ("local", "dist_sync"):
+        kv = mt.kv.create(kind)
+        if kind == "dist_sync":
+            kv.set_optimizer(mt.optimizer.create("sgd", **RESNET_SGD))
+        kv.init(names, weights)
+        outs = [torch.empty_like(w) for w in weights]
+        kv.push(names, grads)
+        kv.pull(names, out=outs)
+        if kind == "local":
+            bad = [n for n, o, g in zip(names, outs, grads)
+                   if not torch.equal(o, g)]
+        else:
+            upd = mt.optimizer.get_updater(
+                mt.optimizer.create("sgd", **RESNET_SGD))
+            ref = [w.clone() for w in weights]
+            for n, g, w in zip(names, grads, ref):
+                upd(n, g, w)
+            bad = [n for n, o, w in zip(names, outs, ref)
+                   if not torch.equal(o, w)]
+        if bad:
+            raise RuntimeError("kvstore %s over ResNet-50's %d arrays: %s "
+                               "not bitwise" % (kind, len(names), bad[:3]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(KV["list_reps"]):
+            kv.push(names, grads)
+            kv.pull(names, out=outs)
+        torch.cuda.synchronize()
+        us = (time.perf_counter() - t0) / KV["list_reps"] * 1e6
+        # push: read the gradient, write the store (and for the update,
+        # read and write weight and momentum); pull: read, write
+        bound = nbytes * (4 if kind == "local" else 7)
+        rows[kind] = {"arrays": len(names), "bytes": nbytes, "us": us,
+                      "gb_per_s": 2 * nbytes / (us / 1e6) / 1e9,
+                      "bound_us": bound / HBM_BYTES_PER_S * 1e6}
+        log("  kvstore %s, ResNet-50's %d parameter arrays (%.1f MB) as one "
+            "list of keys%s: %.1f us a push + pull, bound %.1f us; bitwise "
+            "%s  [%s]" % (kind, len(names), nbytes / 1e6,
+                          " with an SGD momentum updater"
+                          if kind == "dist_sync" else "", us,
+                          rows[kind]["bound_us"],
+                          "the pushed values" if kind == "local"
+                          else "the Module's Updater", card))
+    return rows
+
+
+class LineCatcher(logging.Handler):
+    """The root logger's INFO lines (the callbacks' own), kept."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def card_labels(batch):
+    lab = batch.label[0]
+    return getattr(lab, "_data", lab)
+
+
+def imagenet_fit(sym, path, dev, kvstore, k, p0, aux0, prefix,
+                 begin_epoch=0, num_epoch=LOOP["epochs"]):
+    """``examples/train_imagenet.py``'s ``fit`` call through ``mt``: a
+    Module on gpu(0), ``Speedometer(128, 20)``, ``do_checkpoint(prefix)``
+    (timed), SGD lr 0.05 momentum 0.9 wd 1e-4 in bf16 over f32 masters,
+    metric acc, over ``ResizeIter(ImageRecordIter, 30)`` epochs. Each
+    step's loss is computed on the card (no wait) -> (module, result)."""
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    it = record_iter(path)
+    saves, losses, params = [], [], {}
+    ckpt = mt.callback.do_checkpoint(prefix)
+
+    def timed_ckpt(epoch, s, arg, aux):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt(epoch, s, arg, aux)
+        saves.append((time.perf_counter() - t0) * 1e3)
+        params[epoch + 1] = {k_: v.detach().cpu().clone()
+                             for k_, v in list(arg.items())
+                             + list(aux.items())}
+
+    def loss_cb(param):
+        if k == 1:
+            out = mod.get_outputs()[0].float()
+            lab = card_labels(param.locals["data_batch"]).long()
+            losses.append(-out.gather(1, lab.unsqueeze(1)).clamp_min(
+                1e-30).log().mean())
+
+    catcher = LineCatcher()
+    logging.getLogger().addHandler(catcher)
+    level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(mt.io.ResizeIter(it, LOOP["batches"], reset_internal=False),
+                num_epoch=num_epoch, eval_metric="acc", kvstore=kvstore,
+                optimizer="sgd", optimizer_params=dict(IMAGENET_SGD),
+                arg_params=p0, aux_params=aux0, begin_epoch=begin_epoch,
+                batch_end_callback=[mt.callback.Speedometer(
+                    DATA["batch"], LOOP["disp"]), loss_cb],
+                epoch_end_callback=[timed_ckpt],
+                steps_per_dispatch=None if k == 1 else k)
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeHandler(catcher)
+        logging.getLogger().setLevel(level)
+        it.close()
+    wall = time.perf_counter() - t0
+    steps = LOOP["batches"] * (num_epoch - begin_epoch)
+    n = steps * DATA["batch"]
+    return mod, {"img_per_s": n / wall,
+                 "img_per_s_without_saves": n / (wall - sum(saves) / 1e3),
+                 "wall_s": wall, "save_ms": saves,
+                 "losses": [float(x) for x in losses],
+                 "lines": [ln for ln in catcher.lines if "Speed" in ln
+                           or "Epoch[" in ln],
+                 "params": params, "steps": steps}
+
+
+def imagenet_loop(sym, path, dev, card, p0, aux0, report):
+    """Part b: train_imagenet.py's own loop, tpu_sync and a ``KVStore``
+    object, per step (the automatic K with a callback) and K = 30; then
+    the ``--load-epoch`` restart. -> B1 launches by form at K = 1."""
+    out_dir = os.path.join(REPO, "build", "chip_smoke", "imagenet")
+    os.makedirs(out_dir, exist_ok=True)
+    runs, b1_k1 = {}, {"bn_act": 0, "bn_act_res": 0}
+    for kv_name in ("tpu_sync", "local"):
+        for k in (1, LOOP["k"]):
+            kvstore = kv_name if kv_name == "tpu_sync" \
+                else mt.kv.create(kv_name)
+            prefix = os.path.join(out_dir, "%s-k%d" % (kv_name, k))
+            tier.reset_stats()
+            bn_act.reset_launches()
+            mod, r = imagenet_fit(sym, path, dev, kvstore, k, p0, aux0,
+                                  prefix)
+            b1 = dict(bn_act.launches_by_kernel)
+            fallback = tier.stats()["fallback"]
+            fused = mod._fused
+            name = "%s/K%d" % (kv_name, k)
+            if fused is None or fused.compute_dtype != torch.bfloat16 \
+                    or fallback:
+                raise RuntimeError("imagenet loop %s: fused %s, fallback %s"
+                                   % (name, fused, fallback))
+            if k == 1:
+                want = {"bn_act": 33 * r["steps"],
+                        "bn_act_res": 16 * r["steps"]}
+                if b1 != want:
+                    raise RuntimeError("imagenet loop %s: B1 launches %s, "
+                                       "want 49 a forward %s"
+                                       % (name, b1, want))
+                for f in b1:
+                    b1_k1[f] += b1[f]
+                if not falling(r["losses"]):
+                    raise RuntimeError("imagenet loop %s: the losses do not "
+                                       "fall: %s" % (name, r["losses"]))
+            elif fused.captures != 1 or \
+                    fused.replays != LOOP["epochs"] * k - 2:
+                raise RuntimeError("imagenet loop %s: %d captures, %d "
+                                   "replays" % (name, fused.captures,
+                                                fused.replays))
+            # the files the epoch-end callback wrote, read back bitwise
+            for ep, saved in r["params"].items():
+                _, arg, aux = mt.model.load_checkpoint(prefix, ep,
+                                                       ctx=mt.cpu())
+                loaded = {**arg, **aux}
+                bad = [n for n, v in saved.items()
+                       if not torch.equal(loaded[n].data, v)]
+                if bad or sorted(loaded) != sorted(saved):
+                    raise RuntimeError("imagenet loop %s: epoch %d's "
+                                       "checkpoint differs: %s"
+                                       % (name, ep, bad[:3]))
+            log("  train_imagenet.py's loop, kvstore %s, %s: %.1f images/s "
+                "over %d steps (%.1f without the epoch-end saves), saves %s "
+                "ms; losses %s; B1 through the wrapper %s; captures %d  [%s]"
+                % (kv_name if kv_name == "tpu_sync"
+                   else "mt.kv.create('local')",
+                   "per step" if k == 1 else "K %d" % k, r["img_per_s"],
+                   r["steps"], r["img_per_s_without_saves"],
+                   ["%.0f" % s for s in r["save_ms"]],
+                   "%.3f -> %.3f" % (r["losses"][0], r["losses"][-1])
+                   if r["losses"] else "not read (K 30)", b1,
+                   fused.captures, card))
+            for ln in r["lines"]:
+                log("    " + ln)
+            r.pop("params")
+            runs[name] = r
+            fused.release_graphs()
+            del mod, fused
+            released(dev)
+    # the same per-step loop over one batch already on the card: the
+    # records' share of the per-step wall
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    X, Y = image_batch(DATA["batch"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(OneBatchIter(X, Y, LOOP["batches"], dev), num_epoch=1,
+            eval_metric="acc", kvstore="tpu_sync", optimizer="sgd",
+            optimizer_params=dict(IMAGENET_SGD), arg_params=p0,
+            aux_params=aux0, batch_end_callback=[mt.callback.Speedometer(
+                DATA["batch"], LOOP["disp"])])
+    torch.cuda.synchronize()
+    one = LOOP["batches"] * DATA["batch"] / (time.perf_counter() - t0)
+    runs["one_batch"] = {"img_per_s": one}
+    log("  the same per-step loop (tpu_sync, acc, Speedometer) over one "
+        "batch already on the card: %.1f images/s over %d steps  [%s]"
+        % (one, LOOP["batches"], card))
+    del mod
+    released(dev)
+    # --load-epoch 1: load_checkpoint and a new Module's fit from epoch 1
+    prefix = os.path.join(out_dir, "tpu_sync-k1")
+    _, arg, aux = mt.model.load_checkpoint(prefix, 1)
+    mod, r = imagenet_fit(sym, path, dev, "tpu_sync", 1, arg, aux,
+                          prefix + "-restart", begin_epoch=1)
+    if r["steps"] != LOOP["batches"] or not np.isfinite(r["losses"]).all():
+        raise RuntimeError("the --load-epoch restart ran %d steps, losses %s"
+                           % (r["steps"], r["losses"]))
+    log("  --load-epoch 1 restart (load_checkpoint, fit(arg_params, "
+        "aux_params, begin_epoch=1)): %d steps, %.1f images/s, losses "
+        "%.3f -> %.3f  [%s]" % (r["steps"], r["img_per_s"], r["losses"][0],
+                                r["losses"][-1], card))
+    r.pop("params")
+    runs["restart"] = r
+    mod._fused.release_graphs()
+    del mod
+    released(dev)
+    report["imagenet_loop"]["runs"] = runs
+    return b1_k1
+
+
+def resume_fit(sym, path, dev, p0, aux0, steps, ckpt=None):
+    """``fit`` at K 30 over ``steps`` batches of the records (one epoch)
+    -> (module, the labels of the iterator's next batch)."""
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    it = record_iter(path)
+    try:
+        mod.fit(mt.io.ResizeIter(it, steps, reset_internal=False),
+                num_epoch=1, eval_metric=None, kvstore="tpu_sync",
+                optimizer="sgd", optimizer_params=dict(IMAGENET_SGD),
+                arg_params=p0, aux_params=aux0, checkpoint=ckpt,
+                steps_per_dispatch=LOOP["k"])
+        try:
+            nxt = next(it)
+        except StopIteration:   # the records' epoch ended with the leg
+            it.reset()
+            nxt = next(it)
+        nxt = card_labels(nxt).cpu().clone()
+    finally:
+        it.close()
+    return mod, nxt
+
+
+def module_trajectory(mod):
+    """Parameters, moving statistics and momentum on the host."""
+    args, aux = mod.get_params()
+    out = {k: v.cpu() for k, v in {**args, **aux}.items()}
+    for k, st in mod._fused_opt_state.items():
+        out["mom:" + k] = st[0].cpu().clone()
+    return out
+
+
+def resume_check(sym, path, dev, card, p0, aux0, report):
+    """Part c: 60 steps with a snapshot every 30, a new Module resumed
+    under MXNET_RESUME_DIR to 120, against an uninterrupted 120; cuDNN
+    held to deterministic algorithms. Then a blocking and an async save
+    timed."""
+    root = os.path.join(REPO, "build", "chip_smoke", "resume")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    prev = os.environ.pop("MXNET_RESUME_DIR", None)
+    try:
+        cm = mt.checkpoint.CheckpointManager(
+            root, save_every=LOOP["resume_every"], keep_n=2)
+        mod, _ = resume_fit(sym, path, dev, p0, aux0, LOOP["resume_steps"],
+                            ckpt=cm)
+        steps = cm.steps()
+        mod._fused.release_graphs()
+        del mod
+        released(dev)
+        if steps[0] != LOOP["resume_steps"]:
+            raise RuntimeError("the interrupted run saved steps %s" % steps)
+        os.environ["MXNET_RESUME_DIR"] = root
+        t0 = time.perf_counter()
+        mod, next_r = resume_fit(sym, path, dev, p0, aux0,
+                                 LOOP["total_steps"],
+                                 ckpt=mt.checkpoint.CheckpointManager(
+                                     root, save_every=LOOP["resume_every"],
+                                     keep_n=2))
+        resumed_s = time.perf_counter() - t0
+        del os.environ["MXNET_RESUME_DIR"]
+        resumed = module_trajectory(mod)
+        if mod._optimizer.num_update != LOOP["total_steps"]:
+            raise RuntimeError("the resumed run ended at update %d"
+                               % mod._optimizer.num_update)
+        # a blocking and an async save of this state, timed
+        blocking = mt.checkpoint.CheckpointManager(
+            os.path.join(root, "timed"), async_save=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = mt.checkpoint.module_state(mod)
+        state_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        blocking.save(state, 1)
+        block_ms = (time.perf_counter() - t0) * 1e3
+        asyn = mt.checkpoint.CheckpointManager(os.path.join(root, "async"),
+                                               async_save=True)
+        t0 = time.perf_counter()
+        asyn.save(state, 1)
+        async_ret_ms = (time.perf_counter() - t0) * 1e3
+        asyn.wait()
+        async_ms = (time.perf_counter() - t0) * 1e3
+        _, man = blocking.restore()
+        mod._fused.release_graphs()
+        del mod, state
+        released(dev)
+        mod, next_u = resume_fit(sym, path, dev, p0, aux0,
+                                 LOOP["total_steps"])
+        full = module_trajectory(mod)
+        mod._fused.release_graphs()
+        del mod
+        released(dev)
+        diff = {k: float((resumed[k].float() - full[k].float()).abs().max())
+                for k in full if not torch.equal(resumed[k], full[k])}
+        labels_equal = torch.equal(next_r, next_u)
+        spread = None
+        if diff:
+            # two uninterrupted runs: is the card's own run bitwise?
+            mod, _ = resume_fit(sym, path, dev, p0, aux0,
+                                LOOP["total_steps"])
+            again = module_trajectory(mod)
+            mod._fused.release_graphs()
+            del mod
+            released(dev)
+            spread = {k: float((again[k].float() - full[k].float()).abs()
+                               .max()) for k in full}
+            over = [k for k, d in diff.items() if d > spread[k]]
+            if not any(spread.values()) or over:
+                raise RuntimeError("the resumed run is off the uninterrupted"
+                                   " one beyond two runs' spread: %s"
+                                   % {k: (diff[k], spread[k])
+                                      for k in over[:5]})
+        if not labels_equal:
+            raise RuntimeError("the resumed run's next batch has other "
+                               "labels")
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if prev is not None:
+            os.environ["MXNET_RESUME_DIR"] = prev
+    log("  resume (cuDNN deterministic, K %d): %d steps snapshotted every %d"
+        " (kept %s), a new Module resumed under MXNET_RESUME_DIR to %d in "
+        "%.1f s; against the uninterrupted %d: %d of %d tensors (parameters,"
+        " moving statistics, momentum) differ%s, the next batch's labels "
+        "equal %s; a snapshot of %.1f MB: module_state %.0f ms, blocking "
+        "save %.0f ms, async save returns in %.1f ms and is written in %.0f"
+        " ms  [%s]" % (LOOP["k"], LOOP["resume_steps"], LOOP["resume_every"],
+                       steps, LOOP["total_steps"], resumed_s,
+                       LOOP["total_steps"], len(diff), len(full),
+                       "" if not diff else " (within two uninterrupted "
+                       "runs' spread %s)" % max(spread.values()),
+                       labels_equal, man["size"] / 1e6, state_ms, block_ms,
+                       async_ret_ms, async_ms, card))
+    report["imagenet_loop"]["resume"] = {
+        "differ": diff, "spread": spread, "labels_equal": labels_equal,
+        "snapshot_bytes": man["size"], "module_state_ms": state_ms,
+        "blocking_save_ms": block_ms, "async_return_ms": async_ret_ms,
+        "async_save_ms": async_ms, "resumed_s": resumed_s}
+
+
+def predict_monitor_check(sym, path, dev, card, p0, aux0, report):
+    """Part d: ``predict``, ``iter_predict`` and ``score`` over 2 batches
+    against ``forward``; then ``install_monitor`` for 3 steps."""
+    mod, _ = resume_fit(sym, path, dev, p0, aux0, LOOP["k"])
+    plain = dict(rand_crop=False, rand_mirror=False, shuffle=False)
+    it = record_iter(path, **plain)
+    want, labels = [], []
+    for _ in range(LOOP["predict_batches"]):
+        b = next(it)
+        mod.forward(b, is_train=False)
+        want.append(mod.get_outputs()[0].clone())
+        labels.append(card_labels(b).clone())
+    it.close()
+    want = torch.cat(want)
+    it = record_iter(path, **plain)
+    got = mod.predict(it, num_batch=LOOP["predict_batches"])._data
+    per = torch.cat([o[0] for o, _, _ in mod.iter_predict(
+        it, num_batch=LOOP["predict_batches"])])
+    score = mod.score(it, "acc", num_batch=LOOP["predict_batches"])[0][1]
+    it.close()
+    acc = float((want.argmax(1).float() == torch.cat(labels).float())
+                .float().mean())
+    if not (torch.equal(got, want) and torch.equal(per, want)) \
+            or abs(score - acc) > 1e-12:
+        raise RuntimeError("predict/iter_predict/score against forward: "
+                           "max diff %g, %g; score %r, forward's %r"
+                           % (float((got - want).abs().max()),
+                              float((per - want).abs().max()), score, acc))
+    # install_monitor: the fused step dropped, its momentum kept
+    mom = {n: mod._fused_opt_state[n][0] for n in mod._fused.param_names}
+    mom0 = {n: t.clone() for n, t in mom.items()}
+    mon = mt.monitor.Monitor(1, pattern=MONITOR_PATTERN, sort=True)
+    seen = []
+    mon.toc_print = lambda: seen.append(mon.toc())
+    it = record_iter(path)
+    t0 = time.perf_counter()
+    try:
+        mod.fit(mt.io.ResizeIter(it, LOOP["monitor_steps"],
+                                 reset_internal=False),
+                num_epoch=1, eval_metric=None, monitor=mon)
+        torch.cuda.synchronize()
+    finally:
+        it.close()
+    mon_s = time.perf_counter() - t0
+    idx = {n: i for i, n in enumerate(mod._param_names)}
+    kept = all(mod._updater.states[idx[n]] is t for n, t in mom.items())
+    moved = not torch.equal(mom["fc1_weight"], mom0["fc1_weight"])
+    last = {name: stat for _, name, stat in seen[-1]}
+    ex = mod._exec
+    arrays = dict(zip(ex._symbol.list_outputs(), ex.outputs))
+    arrays.update(ex.arg_dict)
+    bad = [n for n, s in last.items()
+           if s != np.abs(arrays[n].detach().float().cpu().numpy()).mean()]
+    if mod._fused is not None or not kept or not moved or bad \
+            or len(seen) != LOOP["monitor_steps"] or len(last) != 3:
+        raise RuntimeError("install_monitor: fused %s, momentum kept %s "
+                           "moved %s, stats off %s, %d tocs of %s"
+                           % (mod._fused, kept, moved, bad, len(seen),
+                              sorted(last)))
+    log("  predict/iter_predict over %d record batches bitwise forward; "
+        "score acc %.4f; install_monitor: fused step dropped, momentum kept "
+        "in the Updater and moved, %d eager steps in %.1f s, the Monitor's "
+        "statistics %s equal asnumpy of the arrays  [%s]"
+        % (LOOP["predict_batches"], score, LOOP["monitor_steps"], mon_s,
+           {k: "%.4g" % v for k, v in last.items()}, card))
+    report["imagenet_loop"]["predict_monitor"] = {
+        "score": score, "monitor_s": mon_s,
+        "stats": {k: float(v) for k, v in last.items()}}
+    del mod
+    released(dev)
+
+
+def gluon_resnet(ctx, p0=None):
+    mt.random.seed(0)
+    net = mt.gluon.model_zoo.vision.resnet50_v1(classes=1000)
+    net.initialize(mt.init.Xavier(factor_type="in", magnitude=2, seed=0),
+                   ctx=ctx)
+    with mt.autograd.predict_mode():
+        net(mt.nd.zeros((1, 3, 224, 224), ctx=ctx))
+    if p0 is not None:
+        for p, v in zip(net.collect_params().values(), p0):
+            p.set_data(mt.nd.NDArray(v))
+    net.hybridize()
+    return net
+
+
+def gluon_kv_check(dev, card, report):
+    """Part e: phase 11's Gluon ResNet-50, 3 steps with a ``KVStore``
+    object against ``kvstore="device"`` (bitwise); with 2-bit compression
+    against numpy's quantize of the card's gradients; then
+    ``save_checkpoint``/``restore_checkpoint`` into a new net, whose next
+    step is bitwise."""
+    ctx = mt.gpu(0)
+    B = LOOP["gluon_batch"]
+    rng = np.random.RandomState(0)
+    xs = [mt.nd.array(rng.randn(B, 3, 224, 224).astype(np.float32), ctx=ctx)
+          for _ in range(LOOP["gluon_steps"] + 1)]
+    ys = [mt.nd.array(rng.randint(0, 1000, (B,)).astype(np.float32),
+                      ctx=ctx) for _ in range(LOOP["gluon_steps"] + 1)]
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    net = gluon_resnet(ctx)
+    p0 = [p.data()._data.detach().clone()
+          for p in net.collect_params().values()]
+
+    def step(net, tr, i, before=None):
+        with mt.autograd.record():
+            loss = loss_fn(net(xs[i]), ys[i])
+        loss.backward()
+        if before is not None:
+            before.append([p.grad()._data.detach().cpu().numpy().copy()
+                           for p in tr._params if p.grad_req != "null"])
+        tr.step(B)
+
+    def run(kvstore, compression=None):
+        for p, v in zip(net.collect_params().values(), p0):
+            p.set_data(mt.nd.NDArray(v))
+        tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                              dict(RESNET_SGD, wd=1e-4), kvstore=kvstore,
+                              compression_params=compression)
+        grads, pulled = [], []
+        for i in range(LOOP["gluon_steps"]):
+            step(net, tr, i, grads if compression else None)
+            if compression:
+                pulled.append([p.grad()._data.detach().cpu().numpy()
+                               for p in tr._params if p.grad_req != "null"])
+        torch.cuda.synchronize()
+        return tr, [p.data()._data.detach().clone()
+                    for p in net.collect_params().values()], grads, pulled
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, by_name, _, _ = run("device")
+        tr, by_obj, _, _ = run(mt.kv.create("device"))
+        differ = sum(not torch.equal(a, b) for a, b in zip(by_name, by_obj))
+        if differ:
+            raise RuntimeError("Gluon: a KVStore object against "
+                               "kvstore='device': %d tensors differ" % differ)
+        thr = KV["threshold"]
+        ctr, _, grads, pulled = run("device", {"type": "2bit",
+                                               "threshold": thr})
+        res = [np.zeros_like(g) for g in grads[0]]
+        bad, nonzero = 0, 0
+        for g_step, p_step in zip(grads, pulled):
+            for j, (g, got) in enumerate(zip(g_step, p_step)):
+                acc = g + res[j]
+                q = np_quantize(acc, thr)
+                res[j] = acc - q
+                bad += not np.array_equal(got, q)
+                nonzero += int(np.count_nonzero(q))
+        if bad:
+            raise RuntimeError("Gluon 2bit: %d pulled gradients are not "
+                               "numpy's quantize" % bad)
+        # save_checkpoint, then restore_checkpoint into a new net
+        root = os.path.join(REPO, "build", "chip_smoke", "gluon_ckpt")
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+        tr._checkpoint = mt.checkpoint.CheckpointManager(root,
+                                                         async_save=False)
+        t0 = time.perf_counter()
+        tr.save_checkpoint()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        net2 = gluon_resnet(ctx)
+        tr2 = mt.gluon.Trainer(net2.collect_params(), "sgd",
+                               dict(RESNET_SGD, wd=1e-4), kvstore="device",
+                               checkpoint=mt.checkpoint.CheckpointManager(
+                                   root))
+        logging.disable(logging.WARNING)   # names matched by position
+        try:
+            restored = tr2.restore_checkpoint()
+        finally:
+            logging.disable(logging.NOTSET)
+        i = LOOP["gluon_steps"]
+        step(net, tr, i)
+        step(net2, tr2, i)
+        torch.cuda.synchronize()
+        after = [p.data()._data for p in net.collect_params().values()]
+        after2 = [p.data()._data for p in net2.collect_params().values()]
+        differ2 = sum(not torch.equal(a, b) for a, b in zip(after, after2))
+        if restored != LOOP["gluon_steps"] or differ2:
+            raise RuntimeError("Gluon restore_checkpoint: step %s, %d "
+                               "tensors differ after the next step"
+                               % (restored, differ2))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    log("  Gluon resnet50_v1, batch %d, %d steps: Trainer(kvstore="
+        "mt.kv.create('device')) bitwise kvstore='device'; 2-bit "
+        "(threshold %.1f) pulled gradients bitwise numpy's quantize of the "
+        "card's gradients over %d steps (%d nonzero codes); save_checkpoint "
+        "%.0f ms, restore_checkpoint into a new net at step %d, the next "
+        "step bitwise  [%s]" % (B, LOOP["gluon_steps"], thr,
+                                LOOP["gluon_steps"], nonzero, save_ms,
+                                restored, card))
+    report["imagenet_loop"]["gluon"] = {"save_ms": save_ms,
+                                        "nonzero_codes": nonzero}
+    del net, net2, tr, tr2, ctr
+    released(dev)
+
+
+def imagenet_path(dev, card, report):
+    """Phase 19 (see the module docstring) -> B1 launches by form on the
+    loop at K = 1."""
+    t_phase = time.perf_counter()
+    log("phase 19: kvstore, checkpoints and resume, and train_imagenet.py's "
+        "own loop (ResNet-50 bf16, batch %d, records of phase 18)"
+        % DATA["batch"])
+    report["imagenet_loop"] = {}
+    rows = [kv_case(dev, kind, two, compress, card)
+            for kind in ("local", "device") for two in (False, True)
+            for compress in (False, True)]
+    packed = kv_pack_check(dev)
+    log("  _pack_2bit on the card bitwise numpy's (%d bytes for 1001 "
+        "values), _dequantize_2bit gives the quantized values back"
+        % packed)
+    sym = resnet50()
+    p0, aux0 = resnet_init(sym, dev)
+    lists = kv_resnet_lists(dev, card, sym, p0)
+    report["imagenet_loop"]["kvstore"] = {"cases": rows, "resnet50": lists}
+    path = os.path.join(REPO, "build", "chip_smoke", "records.rec")
+    b1 = imagenet_loop(sym, path, dev, card, p0, aux0, report)
+    resume_check(sym, path, dev, card, p0, aux0, report)
+    predict_monitor_check(sym, path, dev, card, p0, aux0, report)
+    gluon_kv_check(dev, card, report)
+    wall = time.perf_counter() - t_phase
+    report["imagenet_loop"]["wall_s"] = wall
+    log("phase 19 wall: %.1f s" % wall)
+    return b1
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -6759,6 +7591,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6824,6 +7657,7 @@ def main():
     reco_rows, reco_launches = recommend_path(dev, card, report)
     rnn_rows, rnn_launches = rnn_path(dev, card, report)
     rec_b1, aug_rows, aug_counts = records_path(dev, card, report)
+    loop_b1 = imagenet_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -6844,7 +7678,11 @@ def main():
                              [RESNET_TRAIN["bf16_batch"], "bfloat16"]),
                  # phase 18: the same, fed from the records
                  "records": (rec_b1[form], b1t_err[form], b1t_tot[form],
-                             [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
+                             [RESNET_TRAIN["bf16_batch"], "bfloat16"]),
+                 # phase 19: train_imagenet.py's loop at K = 1
+                 "imagenet_loop": (loop_b1[form], b1t_err[form],
+                                   b1t_tot[form],
+                                   [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -6960,6 +7798,9 @@ def main():
                         "shape": r["shape"],
                         **{k: r[k] for k in TIME_KEYS}})
     report["kernels"] = kernels
+    report["wall_s"] = time.perf_counter() - t_run
+    log("whole run: %.1f s of wall time, the kernels' build included"
+        % report["wall_s"])
     if opts.report:
         os.makedirs(os.path.dirname(os.path.abspath(opts.report)),
                     exist_ok=True)

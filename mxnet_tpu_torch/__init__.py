@@ -19,7 +19,10 @@ layers, with the JAX package's random key chain (``random``), its
 optimizers' lazy row updates. Its data pipeline reads RecordIO files
 (``recordio``, ``io.ImageRecordIter``, the streaming tier ``data``):
 JPEG records decoded by nvJPEG and augmented on the card, and staged K
-steps ahead of ``Module.fit``.
+steps ahead of ``Module.fit``. Training keeps the JAX package's loop
+surface in one process: the key-value store (``kv``), atomic
+checkpoints and resume (``checkpoint``, ``model.save_checkpoint``),
+callbacks (``callback``), ``monitor`` and ``model.FeedForward``.
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 the legacy flash forward ``flash_fwd``, the int8 epilogue
@@ -49,6 +52,12 @@ from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import rnn  # noqa: F401
 from . import parallel  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import checkpoint  # noqa: F401
+from . import callback  # noqa: F401
+from . import model  # noqa: F401
+from . import monitor  # noqa: F401
 from . import kernels  # noqa: F401
 from . import serving  # noqa: F401
 from . import embed  # noqa: F401

@@ -22,16 +22,31 @@ True)``, ``contrib.nn.SparseEmbedding``) stays out of the fused pass:
 its gradient is cast to row_sparse, whose rows are those of nonzero
 gradient (a looked-up row whose gradient sums to exactly 0.0 is left
 alone, as in the JAX package), and the optimizer's lazy row update
-writes only those rows. Only kvstores on one device are ported:
-``dist_*`` (ROADMAP A6) raises. ``save_checkpoint`` and
-``restore_checkpoint`` need ``checkpoint.py`` (ROADMAP A6) and raise.
+writes only those rows.
+
+``kvstore`` is a name or a ``KVStore`` object, made at the first step
+as the JAX package's ``_init_kvstore`` makes it: ``compression_params``
+set on it, every updated parameter ``init``'ed, and
+``update_on_kvstore`` (default: a ``dist_*`` store) pushing each
+gradient for the store's optimizer and pulling the weights back.
+Otherwise the step pushes each gradient to the store and pulls the
+reduced (with ``compression_params``, the 2-bit quantized) gradient
+back into the parameter's gradient before the update; ``device`` and
+``local`` stores do the same. ``checkpoint=`` (or
+``MXNET_CHECKPOINT_DIR``) snapshots the parameters, the optimizer state
+and the key chain every ``save_every`` steps, and with
+``MXNET_RESUME_DIR`` the first step restores the newest snapshot;
+``save_checkpoint``/``restore_checkpoint`` do it on demand.
 """
 from __future__ import annotations
+
+import pickle as _pickle
 
 import numpy as _np
 import torch
 
 from ..base import MXNetError
+from .. import kvstore as _kv
 from .. import optimizer as _opt
 from ..optimizer.optimizer import _is_lowp_float
 from .parameter import Parameter, ParameterDict
@@ -67,12 +82,7 @@ class Trainer:
             self._param2idx[param.name] = i
             self._params.append(param)
             param._trainer = self
-        if isinstance(kvstore, str) and kvstore.startswith("dist") \
-                or update_on_kvstore or checkpoint is not None \
-                or compression_params:
-            raise MXNetError("Trainer: distributed kvstores, update on the "
-                             "kvstore, gradient compression and "
-                             "checkpointing are not ported yet (ROADMAP A6)")
+        self._compression_params = compression_params
         optimizer_params = optimizer_params or {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         param_dict = dict(enumerate(self._params))
@@ -87,6 +97,42 @@ class Trainer:
         self._updaters = [_opt.get_updater(self._optimizer)]
         self._fused_ops_cache = False
         self._depth_ctl = None
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = None
+        if checkpoint is None:
+            from ..checkpoint import CheckpointManager
+            checkpoint = CheckpointManager.from_env()
+        self._checkpoint = checkpoint
+        self._global_step = 0
+        self._resumed = False
+
+    def _init_kvstore(self):
+        config = self._kvstore_params
+        kvstore = config["kvstore"]
+        update_on_kvstore = config["update_on_kvstore"]
+        if kvstore is None:
+            self._kvstore = None
+            self._update_on_kvstore = False
+        else:
+            kv = kvstore if isinstance(kvstore, _kv.KVStore) \
+                else _kv.create(kvstore)
+            self._kvstore = kv
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            if update_on_kvstore is None:
+                # dist_*: the optimizer runs in the store
+                update_on_kvstore = kv.type.startswith("dist")
+            self._update_on_kvstore = bool(update_on_kvstore)
+            for i, param in enumerate(self._params):
+                if param.grad_req == "null":
+                    continue
+                kv.init(i, param.data())
+            if self._update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -102,15 +148,32 @@ class Trainer:
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce, then the update, the gradients scaled by
         ``1 / batch_size``."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._checkpoint is not None and not self._resumed:
+            self._resumed = True
+            from ..checkpoint import CheckpointManager
+            if CheckpointManager.should_resume():
+                self.restore_checkpoint()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
+        self._allreduce_grads()
         self._update(ignore_stale_grad)
+        self._global_step += 1
         # enqueue, don't wait: one updated parameter stands for the
         # step; the controller waits only past flags.engine_depth
         if self._depth_ctl is None:
             from ..engine import DepthController
             self._depth_ctl = DepthController()
         self._depth_ctl.admit(self._step_handles())
+        if self._checkpoint is not None:
+            from ..checkpoint import trainer_state
+
+            def _state():
+                # settle the steps in flight before the snapshot
+                self.quiesce()
+                return trainer_state(self)
+
+            self._checkpoint.maybe_save(_state, self._global_step)
 
     def _step_handles(self):
         for param in self._params:
@@ -124,10 +187,31 @@ class Trainer:
             self._depth_ctl.quiesce()
 
     def allreduce_grads(self):
-        """Reduce the gradients across devices: one device, nothing to
-        do."""
+        """Reduce the gradients through the kvstore (push, then pull back
+        into each parameter's gradient)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            raise AssertionError(
+                "allreduce_grads() when parameters are updated on kvstore "
+                "is not supported. Try setting `update_on_kvstore` to False.")
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        if self._kvstore is None or self._update_on_kvstore:
+            return  # on the kvstore, push and pull happen in _update
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null":
+                continue
+            self._kvstore.push(i, param.grad())
+            self._kvstore.pull(i, param.grad(), ignore_sparse=False)
 
     def update(self, batch_size, ignore_stale_grad=False):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        assert not self._update_on_kvstore, \
+            "update() when parameters are updated on kvstore is not " \
+            "supported. Try setting `update_on_kvstore` to False."
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
@@ -148,7 +232,17 @@ class Trainer:
                         "ignore_stale_grad=True to suppress this warning"
                         % param.name)
                 continue
-            work.append((i, param))
+            if self._update_on_kvstore:
+                g = param.grad()
+                if param.grad_stype == "row_sparse":
+                    # the store's updater takes the lazy row update too
+                    from ..ndarray.sparse import cast_storage
+                    g = cast_storage(g, "row_sparse")
+                self._kvstore.push(i, g)
+                # the weights always come back, even from a sparse store
+                self._kvstore.pull(i, param.data(), ignore_sparse=False)
+            else:
+                work.append((i, param))
             info.fresh = False
         # a row_sparse parameter takes the optimizer's lazy row update:
         # its gradient cast to row_sparse (the touched rows are the rows
@@ -212,22 +306,102 @@ class Trainer:
         return True
 
     def save_states(self, fname):
+        self.quiesce()
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         with open(fname, "wb") as f:
             f.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+            self._fused_ops_cache = False
+            return
         with open(fname, "rb") as f:
             blob = f.read()
-        self._updaters[0].set_states(
-            blob, device=lambda i: self._params[i].data()._data.device)
-        # the trainer's optimizer stays (it holds the Parameters)
-        self._updaters[0].optimizer = self._optimizer
+        self._set_states(self._updaters[0], blob)
+        self._fused_ops_cache = False
+
+    def _set_states(self, upd, blob):
+        """An Updater's pickled states, each on its parameter's device;
+        the trainer's optimizer stays (it holds the Parameters)."""
+        upd.set_states(blob, device=self._state_device)
+        upd.optimizer = self._optimizer
+
+    def _state_device(self, i):
+        if isinstance(i, int) and i < len(self._params):
+            return self._params[i].data()._data.device
+        return "cpu"
+
+    # -- checkpoints --------------------------------------------------------
+    def _live_updater(self):
+        if self._update_on_kvstore:
+            return getattr(self._kvstore, "_updater", None)
+        return self._updaters[0]
+
+    def _updater_state_bytes(self):
+        """The optimizer's trajectory (the Updater's states and the update
+        counts) for a checkpoint, in the JAX package's pickle."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        upd = self._live_updater()
+        opt = self._optimizer
+        return _pickle.dumps({
+            "states": upd.get_states(dump_optimizer=False)
+            if upd is not None else None,
+            "num_update": opt.num_update,
+            "index_counts": dict(opt._index_update_count),
+        }, protocol=2)
+
+    def _set_updater_state_bytes(self, blob):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        obj = _pickle.loads(bytes(blob))
+        upd = self._live_updater()
+        if upd is not None and obj.get("states") is not None:
+            self._set_states(upd, obj["states"])
+        opt = self._optimizer
+        opt.num_update = obj["num_update"]
+        opt._index_update_count.clear()
+        opt._index_update_count.update(obj["index_counts"])
         self._fused_ops_cache = False
 
     def save_checkpoint(self, step=None, blocking=True):
-        raise MXNetError("Trainer checkpoints need checkpoint.py, which is "
-                         "not ported yet (ROADMAP A6)")
+        """Snapshot the parameters, the optimizer state and the key chain
+        through the trainer's CheckpointManager; False without one."""
+        if self._checkpoint is None:
+            return False
+        self.quiesce()
+        from ..checkpoint import trainer_state
+        step = self._global_step if step is None else step
+        self._checkpoint.save(trainer_state(self), step, blocking=blocking)
+        return True
 
     def restore_checkpoint(self, step=None):
-        raise MXNetError("Trainer checkpoints need checkpoint.py, which is "
-                         "not ported yet (ROADMAP A6)")
+        """Restore the newest valid snapshot (at or before ``step``) ->
+        the restored step, or None."""
+        if self._checkpoint is None:
+            return None
+        self.quiesce()
+        if not self._kv_initialized:
+            self._init_kvstore()
+        state, manifest = self._checkpoint.restore(step=step)
+        if state is None:
+            return None
+        from ..checkpoint import restore_trainer
+        restore_trainer(self, state)
+        # the kvstore's copy of the weights too: under dist_* it is the
+        # one updated on push and pulled back
+        if self._kvstore is not None:
+            for i, param in enumerate(self._params):
+                if i in self._kvstore._store:
+                    self._kvstore._store[i] = \
+                        param.data()._data.detach().clone()
+        self._global_step = manifest["step"]
+        return self._global_step

@@ -116,15 +116,18 @@ def _init_data(data, allow_empty, default_name):
 
 
 class NDArrayIter(DataIter):
-    """Iterate over in-memory arrays, in order or shuffled."""
+    """Iterate over in-memory arrays, in order or shuffled.
+
+    ``last_batch_handle`` takes any value, as the JAX package's: with
+    ``"discard"`` an epoch is ``n // batch_size`` batches; with any other
+    (``"pad"``, ``"roll_over"``, ...) it is ``ceil(n / batch_size)``
+    batches and the tail batch is filled from the start of the epoch's
+    order, and only ``"pad"`` reports that fill as the batch's pad."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
                  label_name="softmax_label"):
         super().__init__(batch_size)
-        if last_batch_handle not in ("pad", "discard"):
-            raise ValueError("last_batch_handle must be 'pad' or 'discard', "
-                             "got %r" % (last_batch_handle,))
         self.data = _init_data(data, False, data_name)
         self.label = _init_data(label, True, label_name)
         self.num_data = next(iter(self.data.values())).shape[0]

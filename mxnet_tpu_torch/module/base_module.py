@@ -12,9 +12,17 @@ automatic K), the staged K-step feed (``data.StagedKFeed``), the
 device-resident metric and the bounded in-flight queue are the JAX
 package's. ``fit`` keeps its input-side numbers in ``data_stats``: for
 each dispatch, the ms the loop waited for its batches and the bytes
-they brought from the host. Not ported: checkpointing and resume,
-monitors. The session dtype policy (``MXNET_COMPUTE_DTYPE``) is obeyed
-by the Module's fused step.
+they brought from the host. Checkpoints and resume are the JAX
+package's, in one process: ``fit(checkpoint=CheckpointManager(...))``
+or ``MXNET_CHECKPOINT_DIR`` snapshots the whole training state every
+``save_every`` steps (at window ends under grouped dispatch, with the
+data cursor of an iterator that has one), and ``MXNET_RESUME_DIR``
+restores the newest snapshot and goes on from its step. A monitor
+(``fit(monitor=)``) runs the per-step eager path. ``predict``,
+``iter_predict`` and ``score`` run the inference forward. Fault
+injection (``MXNET_FAULT_INJECT``) belongs to the multi-process launcher
+(ROADMAP A6c) and raises. The session dtype policy
+(``MXNET_COMPUTE_DTYPE``) is obeyed by the Module's fused step.
 """
 from __future__ import annotations
 
@@ -109,6 +117,59 @@ class BaseModule:
             cb(BatchEndParam(epoch, num_batch or 0, eval_metric, locals()))
         return eval_metric.get_name_value()
 
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Per batch: (outputs trimmed by the batch's pad, nbatch,
+        batch)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("iter_predict needs a bound, initialized "
+                             "module")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False,
+                sparse_row_id_fn=None):
+        """The outputs over ``eval_data`` as NDArrays where the module
+        runs: merged across batches (one array per output, one array
+        alone unless ``always_output_list``), or a list per batch."""
+        from ..ndarray.ndarray import NDArray
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("predict needs a bound, initialized module")
+        if reset:
+            eval_data.reset()
+        output_list = []
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            output_list.append([out[0:out.shape[0] - pad].detach().clone()
+                                for out in self.get_outputs()])
+        if not output_list:
+            return output_list
+        if merge_batches:
+            num_outputs = len(output_list[0])
+            if any(len(out) != num_outputs for out in output_list):
+                raise MXNetError("Cannot merge batches: different number "
+                                 "of outputs per batch")
+            merged = [NDArray(torch.cat([out[i] for out in output_list]))
+                      for i in range(num_outputs)]
+            if num_outputs == 1 and not always_output_list:
+                return merged[0]
+            return merged
+        return [[NDArray(o) for o in out] for out in output_list]
+
+    def install_monitor(self, mon):
+        raise NotImplementedError
+
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,
             kvstore="local", optimizer="sgd",
@@ -144,16 +205,23 @@ class BaseModule:
         Dispatches are not waited for one by one: a
         :class:`~mxnet_tpu_torch.engine.DepthController`
         (``flags.engine_depth``, default 2) bounds the in-flight queue,
-        and the loop waits for all of it at epoch ends, before the
-        metric, the parameters and the scoring are read.
+        and the loop waits for all of it at epoch ends, at checkpoint
+        snapshots, and before the metric, the parameters and the scoring
+        are read.
 
-        ``monitor``, ``sparse_row_id_fn`` and ``checkpoint`` are not
-        ported and raise; so do the settings the JAX package's fit obeys
-        and the port does not: ``MXNET_CHECKPOINT_DIR`` or
-        ``MXNET_RESUME_DIR`` set (elastic checkpointing and resume)."""
+        ``checkpoint``: a :class:`~mxnet_tpu_torch.checkpoint.
+        CheckpointManager` (default: one from ``MXNET_CHECKPOINT_DIR`` or
+        ``MXNET_RESUME_DIR`` when set). The whole training state is
+        snapshotted every ``save_every`` steps; with ``MXNET_RESUME_DIR``
+        set, fit first restores the newest valid snapshot and goes on
+        from its step, bitwise as an uninterrupted run. A checkpoint
+        makes the automatic K 1; an explicit K saves at window ends.
+        ``sparse_row_id_fn`` is not ported and raises."""
+        from .. import checkpoint as _ckpt
         from .. import initializer as _init
         from ..config import flags as _flags
         from ..engine import DepthController
+        from ..parallel import dist as _dist
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         # validate an EXPLICIT steps_per_dispatch BEFORE any side effect;
@@ -173,19 +241,18 @@ class BaseModule:
                     raise ValueError(
                         "steps_per_dispatch > 1 is incompatible with "
                         "monitor / sparse_row_id_fn")
-        if monitor is not None or sparse_row_id_fn is not None or \
-                checkpoint is not None:
-            raise MXNetError("fit: monitor, sparse_row_id_fn and checkpoint "
-                             "are not ported")
-        for env in ("MXNET_CHECKPOINT_DIR", "MXNET_RESUME_DIR"):
-            if os.environ.get(env):
-                raise MXNetError("fit: %s is set, but checkpointing and "
-                                 "resume are not ported" % env)
+        if sparse_row_id_fn is not None:
+            raise MXNetError("fit: sparse_row_id_fn is not ported")
+        if os.environ.get("MXNET_FAULT_INJECT"):
+            raise _dist.multi_process_error(
+                "fit: MXNET_FAULT_INJECT is set, but fault injection")
         if initializer is None:
             initializer = _init.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -199,11 +266,49 @@ class BaseModule:
             validation_metric = eval_metric
         if eval_metric is not None:
             eval_metric = _metric.create(eval_metric)
+
+        # checkpoints: restore the newest snapshot when resuming
+        ckpt = checkpoint if checkpoint is not None \
+            else _ckpt.CheckpointManager.from_env()
+        global_step = 0
+        resume_epoch, resume_nbatch, resume_cursor = begin_epoch, 0, None
+        if ckpt is not None and _ckpt.CheckpointManager.should_resume():
+            state, manifest = ckpt.restore_latest()
+            if state is not None:
+                resume_cursor = _ckpt.cursor_from_state(state)
+                _ckpt.restore_module(self, state)
+                global_step = manifest["step"]
+                resume_epoch = manifest["epoch"]
+                resume_nbatch = manifest["nbatch"]
+                self.logger.info(
+                    "resumed from checkpoint step %d (epoch %d, batch %d) "
+                    "in %s", global_step, resume_epoch, resume_nbatch,
+                    ckpt.directory)
+            else:
+                self.logger.warning(
+                    "MXNET_RESUME_DIR set but no valid checkpoint in %s; "
+                    "starting from scratch", ckpt.directory)
+        meta = {"kvstore": kvstore if isinstance(kvstore, str)
+                else getattr(kvstore, "type", None)}
+        has_cursor = hasattr(train_data, "get_cursor") \
+            and hasattr(train_data, "seek")
+        data_cursor = [None]     # the cursor of the last consumed batch
+
+        def snap_state():
+            # a snapshot reads a settled trajectory: wait for the steps
+            # in flight first
+            depth_ctl.quiesce()
+            state = _ckpt.module_state(self)
+            if data_cursor[0] is not None:
+                state[_ckpt.DATA_CURSOR_KEY] = \
+                    _ckpt.encode_cursor(data_cursor[0])
+            return state
+
         # 1. fold the metric into the device step when its math allows:
         #    per-batch update_metric becomes a no-op on the proxy and the
         #    (sum, count) carry moves to the host only when read
         if hasattr(self, "_engage_device_metric"):
-            if eval_metric is not None:
+            if eval_metric is not None and monitor is None:
                 proxy = self._engage_device_metric(eval_metric)
                 if proxy is not None:
                     eval_metric = proxy
@@ -211,7 +316,8 @@ class BaseModule:
                 self._detach_device_metric()
         # 2. with no per-step host observer left, run K steps a dispatch
         if not explicit_k:
-            auto_k = (batch_end_callback is None
+            auto_k = (batch_end_callback is None and monitor is None
+                      and ckpt is None
                       and hasattr(self, "_fit_group")
                       and getattr(self, "_fused", None) is not None
                       and (eval_metric is None or
@@ -250,13 +356,28 @@ class BaseModule:
             for cb in _as_list(batch_end_callback or []):
                 cb(BatchEndParam(epoch, nbatch, eval_metric, frame))
 
-        for epoch in range(begin_epoch, num_epoch):
+        for epoch in range(max(begin_epoch, resume_epoch), num_epoch):
             tic = time.time()
             if eval_metric is not None:
                 eval_metric.reset()
             nbatch = 0
             data_iter = iter(train_data)
             end_of_batch = False
+            if ckpt is not None and epoch == resume_epoch and resume_nbatch:
+                if resume_cursor is not None and has_cursor:
+                    # seek to the position the snapshot had consumed
+                    train_data.seek(resume_cursor)
+                    data_iter = iter(train_data)
+                    data_cursor[0] = dict(resume_cursor)
+                else:
+                    # replay the (deterministic) iterator past the
+                    # batches consumed before the snapshot
+                    for _ in range(resume_nbatch):
+                        try:
+                            next(data_iter)
+                        except StopIteration:
+                            break
+                nbatch = resume_nbatch
             if grouped:
                 # one dispatch per K batches; callbacks fire per batch,
                 # from this frame, after the group's dispatch
@@ -267,9 +388,11 @@ class BaseModule:
                                        self._stage_group,
                                        depth=max(2, int(
                                            _flags.data_feed_depth)),
+                                       cursor_fn=(train_data.get_cursor
+                                                  if has_cursor else None),
                                        stream=self._staging_stream())
                 try:
-                    group, staged = [], None
+                    group, staged, win_cursor = [], None, None
                     while not end_of_batch:
                         if feed is not None:
                             t0 = time.perf_counter()
@@ -281,6 +404,7 @@ class BaseModule:
                             acc[0] += (time.perf_counter() - t0) * 1e3
                             if win is not None:
                                 group, staged = list(win.batches), win.staged
+                                win_cursor = win.cursor
                                 acc[1] += win.h2d_bytes
                                 if len(group) < steps_per_dispatch:
                                     end_of_batch = True   # the tail
@@ -308,7 +432,18 @@ class BaseModule:
                             for data_batch in group:
                                 batch_end(epoch, nbatch, locals())
                                 nbatch += 1
-                            group, staged = [], None
+                            global_step += len(group)
+                            if win_cursor is not None:
+                                data_cursor[0] = win_cursor
+                            elif has_cursor and feed is None:
+                                # fit is the only reader: the iterator's
+                                # cursor is the consumed position
+                                data_cursor[0] = train_data.get_cursor()
+                            if ckpt is not None:
+                                ckpt.maybe_save(snap_state, global_step,
+                                                epoch=epoch, nbatch=nbatch,
+                                                meta=meta)
+                            group, staged, win_cursor = [], None, None
                 finally:
                     if feed is not None:
                         feed.close()
@@ -320,10 +455,16 @@ class BaseModule:
                     end_of_batch = True
                 while not end_of_batch:
                     data_batch = next_batch
+                    if monitor is not None:
+                        monitor.tic()
                     self._fit_step(data_batch)
                     depth_ctl.admit(self._dispatch_handles())
                     if eval_metric is not None:
                         self.update_metric(eval_metric, data_batch.label)
+                    if has_cursor:
+                        # before the next batch is read: the cursor of
+                        # the batches consumed, not of the read-ahead
+                        data_cursor[0] = train_data.get_cursor()
                     note(acc[0], acc[1], 1)
                     acc[0], acc[1] = 0.0, 0
                     try:
@@ -332,8 +473,15 @@ class BaseModule:
                         self.prepare(next_batch)
                     except StopIteration:
                         end_of_batch = True
+                    if monitor is not None:
+                        monitor.toc_print()
                     batch_end(epoch, nbatch, locals())
                     nbatch += 1
+                    global_step += 1
+                    if ckpt is not None:
+                        ckpt.maybe_save(snap_state, global_step,
+                                        epoch=epoch, nbatch=nbatch,
+                                        meta=meta)
             # epoch boundary: drain the in-flight dispatches before the
             # host reads the metric and the parameters
             depth_ctl.quiesce()
@@ -354,6 +502,8 @@ class BaseModule:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
                                      name, val)
             train_data.reset()
+        if ckpt is not None:
+            ckpt.wait()  # join a save in flight; raise its error
 
     def _dispatch_handles(self):
         """Tensors standing for the most recent dispatch, for the

@@ -54,7 +54,12 @@ pool for a saving too small to see. The capture runs in the
 thread-local capture mode: the input pipeline's threads keep decoding
 and staging, on streams of their own, while the step is captured.
 
-Not ported: data-parallel buckets (ROADMAP A6).
+``state_to_updater`` and ``state_from_updater`` carry the optimizer
+state between this layout ({name: tuple of tensors}) and the eager
+``Updater``'s, for ``save_optimizer_states``, checkpoints and a
+monitor's eager steps.
+
+Not ported: data-parallel buckets (ROADMAP A6c).
 """
 from __future__ import annotations
 
@@ -144,6 +149,36 @@ class FusedStep:
         """Zero optimizer state for every updated parameter."""
         return {k: self._state_init(self._exec.arg_dict[k])
                 for k in self.param_names}
+
+    def state_to_updater(self, opt_state):
+        """The fused state in the eager ``Updater``'s layout ({index:
+        None, a tensor, or a tuple}), sharing its tensors, so that
+        ``save_optimizer_states`` writes the same file whichever path
+        trained."""
+        out = {}
+        for k, st in opt_state.items():
+            st = tuple(st)
+            out[self._name2idx[k]] = (None if not st else
+                                      st[0] if len(st) == 1 else st)
+        return out
+
+    @torch.no_grad()
+    def state_from_updater(self, updater_states, opt_state):
+        """Eager ``Updater`` states (after ``load_optimizer_states`` or a
+        restore) copied into the fused state ``opt_state`` in place (a
+        captured graph reads its tensors); an index without a state
+        starts at zero. -> ``opt_state``."""
+        for k in self.param_names:
+            idx = self._name2idx[k]
+            st = updater_states.get(idx)
+            if st is None and idx not in updater_states:
+                src = self._state_init(self._exec.arg_dict[k])
+            else:
+                src = () if st is None else \
+                    st if isinstance(st, tuple) else (st,)
+            for dst, s in zip(opt_state[k], src):
+                dst.copy_(s)
+        return opt_state
 
     # ---------------------------------------------------------- metric
     def attach_metric(self, met_fn):

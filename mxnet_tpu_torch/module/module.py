@@ -2,11 +2,16 @@
 ``mxnet_tpu/module/module.py``, single device).
 
 ``bind`` -> ``init_params`` -> ``init_optimizer`` -> ``fit`` (or the
-per-batch ``forward``/``backward``/``update``). With
-``kvstore="tpu_sync"`` the Module drives every step through
-:class:`~.fused.FusedStep`; with ``local``/``device`` (or None) it runs
-the eager path, the executor's forward and backward and then one
-optimizer update per parameter. The default ``rescale_grad`` is
+per-batch ``forward``/``backward``/``update``). ``init_optimizer`` takes
+a kvstore by name or as a ``KVStore`` object, with the JAX package's
+rule for ``update_on_kvstore``: a ``dist_*`` store applies the update on
+push (the step pushes each gradient and pulls the weights back; in one
+process no cross-process reduce runs), any other store leaves the
+update to the Module. With ``kvstore="tpu_sync"``, and on a card with
+``local``/``device`` (or None), the Module drives every step through
+:class:`~.fused.FusedStep`; otherwise (and once a monitor is installed)
+it runs the eager path, the executor's forward and backward and then
+one optimizer update per parameter. The default ``rescale_grad`` is
 ``1 / batch_size``. The fused step computes in bf16 over the f32 master
 weights when the optimizer has ``multi_precision`` (the JAX package's
 choice), and ``MXNET_COMPUTE_DTYPE`` (``config.compute_dtype``) can
@@ -14,17 +19,23 @@ force bf16 or f16 or veto the downcast; BatchNorm's gamma and beta stay
 f32 (:meth:`Module._norm_stat_params`). ``fit`` groups K steps into
 one dispatch (:meth:`Module._fit_group`, ``FusedStep.run_k``) and folds
 a supported metric into the step (:meth:`Module._engage_device_metric`).
-Other kvstores, several devices and checkpoints are not ported and
-raise.
+The state surface is the JAX package's: ``get_states``/``set_states``,
+``reshape``, ``install_monitor`` (drops the fused step, keeping its
+optimizer state), ``save_checkpoint``/``load``,
+``save_optimizer_states``/``load_optimizer_states`` (the Updater's
+file, whichever path trained) and the hooks ``checkpoint.py`` uses.
+Several devices (data parallelism, ROADMAP A6c) raise.
 """
 from __future__ import annotations
 
 import logging
+import pickle
 
 import numpy as _np
 import torch
 
 from .. import config as _config
+from .. import kvstore as _kvstore
 from .. import optimizer as _opt
 from ..base import MXNetError
 from ..context import Context, current_context, resolve_device
@@ -34,8 +45,6 @@ from .base_module import BaseModule
 from .fused import FusedStep, _tensor
 
 __all__ = ["Module"]
-
-_KVSTORES = (None, "local", "device", "tpu_sync")
 
 
 def _normalize_shapes(shapes):
@@ -56,7 +65,8 @@ def _normalize_shapes(shapes):
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, fixed_param_names=None, state_names=None):
+                 context=None, fixed_param_names=None, state_names=None,
+                 compression_params=None):
         super().__init__(logger=logger)
         if context is None:
             context = current_context()
@@ -78,9 +88,15 @@ class Module(BaseModule):
                              if n not in inputs]
         self._aux_names = symbol.list_auxiliary_states()
         self._output_names = symbol.list_outputs()
+        self._compression_params = compression_params
         self._arg_params = None
+        self._aux_params = None
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._monitor_installed = False
+        self._preload_opt_states = None
         self._exec = None
         self._data_shapes = None
         self._label_shapes = None
@@ -154,10 +170,14 @@ class Module(BaseModule):
                                  **shapes)
         self.binded = True
         if self._arg_params is not None:
-            # the moving statistics from the executor: a training forward
-            # rebinds its aux entries
-            self._exec.copy_params_from(self._arg_params, prev.aux_dict,
-                                        allow_extra_params=True)
+            # the moving statistics from the executor (a training forward
+            # rebinds its aux entries), or those Module.load read
+            self._exec.copy_params_from(
+                self._arg_params,
+                prev.aux_dict if prev is not None else self._aux_params,
+                allow_extra_params=True)
+            self._arg_params = {n: self._exec.arg_dict[n]
+                                for n in self._param_names}
 
     # ------------------------------------------------------------ parameters
     def _var_attrs(self, name):
@@ -210,9 +230,6 @@ class Module(BaseModule):
                              "module")
         if self.optimizer_initialized and not force_init:
             return
-        if kvstore not in _KVSTORES:
-            raise MXNetError("kvstore %r is not ported (the port has %s)"
-                             % (kvstore, [k for k in _KVSTORES if k]))
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             # default rescale_grad = 1/batch_size, so sum-style loss heads
@@ -225,13 +242,49 @@ class Module(BaseModule):
                 param_idx2name=dict(enumerate(self._param_names)),
                 **optimizer_params)
         self._optimizer = optimizer
-        self._updater = _opt.get_updater(optimizer)
+        kv = None
+        update_on_kvstore = False
+        if kvstore:
+            kv = _kvstore.create(kvstore) if isinstance(kvstore, str) \
+                else kvstore
+            if self._compression_params:
+                kv.set_gradient_compression(self._compression_params)
+            # a dist_* store applies the update on push (the reference's
+            # server); tpu_sync, local and device leave it to the Module
+            update_on_kvstore = kv.type.startswith("dist")
+        self._kvstore = kv
+        self._update_on_kvstore = update_on_kvstore
+        ex = self._exec
+        if kv is not None:
+            for name in self._param_names:
+                kv.init(name, ex.arg_dict[name])
+            if update_on_kvstore:
+                kv.set_optimizer(optimizer)
+        if not update_on_kvstore:
+            self._updater = _opt.get_updater(optimizer)
+        self._init_fused_step(kv)
+        self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def _init_fused_step(self, kv):
+        """The fused step (``FusedStep``) where it can stand in for the
+        eager forward, backward and update: with ``tpu_sync`` always, with
+        ``local``/``device``/no store on a card; never with the update on
+        the kvstore or a monitor installed."""
         self._detach_device_metric()
         self._fused = None
         self._fused_opt_state = None
         self._fused_grads = None
-        ex = self._exec
-        if (kvstore == "tpu_sync" and self.for_training
+        ex, optimizer = self._exec, self._optimizer
+        kv_type = kv.type if kv is not None else None
+        on_card = self._device.type == "cuda"
+        if ((kv_type == "tpu_sync"
+             or (on_card and kv_type in (None, "local", "device")))
+                and not self._update_on_kvstore
+                and not self._monitor_installed
+                and self.for_training
                 and not self.inputs_need_grad
                 and optimizer.fused_ops() is not None
                 and not any(ex._grad_req.get(n) == "add"
@@ -249,7 +302,20 @@ class Module(BaseModule):
                 data_names=self._data_names,
                 keep_f32=self._norm_stat_params())
             self._fused_opt_state = self._fused.init_state()
-        self.optimizer_initialized = True
+
+    def _drop_fused(self):
+        """Leave the fused step (a monitor watches the eager one), its
+        optimizer state carried into the eager Updater first."""
+        if self._fused is None:
+            return
+        if self._fused_opt_state is not None and self._updater is not None:
+            self._updater.states = self._fused.state_to_updater(
+                self._fused_opt_state)
+        self._detach_device_metric()
+        self._fused.release_graphs()
+        self._fused = None
+        self._fused_opt_state = None
+        self._fused_grads = None
 
     def _norm_stat_params(self):
         """Names of the parameters that stay f32 under a low-precision
@@ -311,6 +377,16 @@ class Module(BaseModule):
             self._fused_grads = None
             return
         ex = self._exec
+        if self._update_on_kvstore and self._kvstore is not None:
+            for name in self._param_names:
+                grad = ex.grad_dict.get(name)
+                if grad is None:
+                    continue
+                self._kvstore.push(name, grad)
+                # the weights always come back, even from a sparse store
+                self._kvstore.pull(name, ex.arg_dict[name],
+                                   ignore_sparse=False)
+            return
         for i, name in enumerate(self._param_names):
             grad = ex.grad_dict.get(name)
             if grad is not None:
@@ -518,3 +594,155 @@ class Module(BaseModule):
         eval_metric.update_dict(
             dict(zip(self._label_names, labels or [])),
             dict(zip(self._output_names, self._exec.outputs)))
+
+    def get_states(self, merge_multi_context=True):
+        return [self._exec.arg_dict[n] for n in self._state_names]
+
+    def set_states(self, states=None, value=None):
+        """The state inputs from ``states`` (arrays, in ``state_names``
+        order), or every one filled with ``value``."""
+        ex = self._exec
+        with torch.no_grad():
+            if states is not None:
+                for name, v in zip(self._state_names, states):
+                    dst = ex.arg_dict[name]
+                    dst.copy_(_as_tensor(v, dst.device, dst.dtype))
+            elif value is not None:
+                for name in self._state_names:
+                    ex.arg_dict[name].fill_(value)
+
+    def install_monitor(self, mon):
+        """Watch the executor with ``mon``. A monitor reads the values of
+        the eager step, so the fused step is dropped (its optimizer state
+        goes on in the Updater) and not built again."""
+        self._monitor_installed = True
+        self._drop_fused()
+        mon.install(self._exec)
+
+    # ------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        from ..model import save_checkpoint
+        arg_params, aux_params = self.get_params()
+        save_checkpoint(prefix, epoch, self.symbol, arg_params, aux_params)
+        if save_optimizer_states:
+            self.save_optimizer_states("%s-%04d.states" % (prefix, epoch))
+
+    def save_optimizer_states(self, fname):
+        """The Updater's pickled states, in its layout whichever path
+        trained (the fused state is mirrored into it first)."""
+        if not self.optimizer_initialized:
+            raise MXNetError("save_optimizer_states needs init_optimizer")
+        if self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.save_optimizer_states(fname)
+            return
+        self._mirror_fused_state()
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        if not self.optimizer_initialized:
+            raise MXNetError("load_optimizer_states needs init_optimizer")
+        if self._update_on_kvstore and self._kvstore is not None:
+            self._kvstore.load_optimizer_states(fname)
+            return
+        with open(fname, "rb") as f:
+            self._set_updater_states(self._updater, f.read())
+
+    def _mirror_fused_state(self):
+        """The fused state into the Updater's layout (shared tensors)."""
+        if self._fused is not None and self._fused_opt_state is not None \
+                and self._updater is not None:
+            self._updater.states = self._fused.state_to_updater(
+                self._fused_opt_state)
+
+    def _set_updater_states(self, updater, blob):
+        """Load an Updater's pickled states, each on its weight's device,
+        and carry them into the fused state's tensors."""
+        ex = self._exec
+
+        def device(k):
+            # the Module's Updater keys by index, a dist_* store's by name
+            name = self._param_names[k] if isinstance(k, int) else k
+            return ex.arg_dict[name].device
+        updater.set_states(blob, device=device)
+        if self._fused is not None and updater is self._updater:
+            self._fused.state_from_updater(updater.states,
+                                           self._fused_opt_state)
+
+    # ------------------------------------------------- elastic checkpoints
+    def _live_updater(self):
+        """The Updater applying the updates: the kvstore's when it
+        updates on push, the Module's otherwise."""
+        if self._update_on_kvstore and self._kvstore is not None:
+            return getattr(self._kvstore, "_updater", None)
+        return self._updater
+
+    def _optimizer_state_bytes(self):
+        """The optimizer's trajectory for a checkpoint: the Updater's
+        states and the update counts (schedules, Adam's bias
+        correction), in the JAX package's pickle."""
+        if not self.optimizer_initialized:
+            return None
+        updater = self._live_updater()
+        states_blob = None
+        if updater is not None:
+            self._mirror_fused_state()
+            states_blob = updater.get_states(dump_optimizer=False)
+        opt = self._optimizer
+        return pickle.dumps({
+            "states": states_blob,
+            "num_update": opt.num_update,
+            "index_counts": dict(opt._index_update_count),
+        }, protocol=2)
+
+    def _set_optimizer_state_bytes(self, blob):
+        if not self.optimizer_initialized or blob is None:
+            return
+        obj = pickle.loads(bytes(blob))
+        updater = self._live_updater()
+        if updater is not None and obj.get("states") is not None:
+            self._set_updater_states(updater, obj["states"])
+        # the counts go INTO the live optimizer: the kvstore's updater and
+        # the fused step hold this object
+        opt = self._optimizer
+        opt.num_update = obj["num_update"]
+        opt._index_update_count.clear()
+        opt._index_update_count.update(obj["index_counts"])
+
+    def _sync_params_to_kvstore(self):
+        """The kvstore's copy of the weights from the executor's: under
+        dist_* that copy is the one updated on push and pulled back."""
+        kv = self._kvstore
+        if kv is None or not self.binded:
+            return
+        for name in self._param_names:
+            if name in kv._store:
+                kv._store[name] = self._exec.arg_dict[name].detach().clone()
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over a checkpoint's symbol and parameters (read onto
+        the Module's context); ``load_optimizer_states`` loads
+        ``prefix-NNNN.states`` at ``init_optimizer``."""
+        from ..model import load_checkpoint
+        ctx = kwargs.get("context")
+        if isinstance(ctx, (list, tuple)):
+            ctx = ctx[0] if ctx else None
+        sym, args, auxs = load_checkpoint(prefix, epoch, ctx=ctx)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Bind again for new input shapes, the parameters kept."""
+        if not self.binded:
+            raise MXNetError("reshape needs a bound module")
+        arg_params, aux_params = self.get_params()
+        self.bind(data_shapes, label_shapes, self.for_training,
+                  self.inputs_need_grad, force_rebind=True)
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, force_init=True)

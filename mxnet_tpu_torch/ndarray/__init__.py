@@ -5,9 +5,9 @@ namespace (``nd.contrib.FlashAttention(...)``), the samplers
 (``nd.random.uniform(...)``) and the sparse storage types
 (``nd.sparse.cast_storage(...)``)."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
-from .ndarray import (NDArray, arange, array, concat, empty,  # noqa: F401
-                      full, invoke, load, ones, save, waitall, zeros,
-                      zeros_like)
+from .ndarray import (NDArray, arange, array, asnumpy_all,  # noqa: F401
+                      concat, empty, full, invoke, load, ones, save,
+                      waitall, zeros, zeros_like)
 from . import register as _register
 
 _register.populate(__name__)

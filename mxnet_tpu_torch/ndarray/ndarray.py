@@ -548,6 +548,26 @@ def waitall():
         torch.cuda.synchronize()
 
 
+def asnumpy_all(*arrays):
+    """Several arrays (NDArrays, tensors) to the host in one wait: the
+    card's queue is drained once, then each is copied. Values already on
+    the host (numpy, scalars) pass through."""
+    ts = [a._data if isinstance(a, NDArray) else a for a in arrays]
+    if any(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+           for t in ts):
+        torch.cuda.synchronize()
+    out = []
+    for t in ts:
+        if isinstance(t, torch.Tensor):
+            t = t.detach()
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            t = t.cpu().numpy().copy() if t.device.type == "cpu" \
+                else t.cpu().numpy()
+        out.append(_np.asarray(t))
+    return tuple(out)
+
+
 def _to_record(a):
     """An NDArray as a record for the file: a host numpy array, or the
     sparse tuple forms of ``serialization.save_array``; a dtype outside

@@ -1,3 +1,5 @@
-"""Sequence-parallel attention helpers. Only the single-device
-:func:`~.ring_attention.blockwise_attention` is ported so far."""
+"""The process group (one process, ``dist``) and sequence-parallel
+attention helpers (the single-device
+:func:`~.ring_attention.blockwise_attention` only)."""
+from . import dist  # noqa: F401
 from .ring_attention import blockwise_attention  # noqa: F401

@@ -23,7 +23,7 @@ from ..config import override
 from ..name import current as _name_current
 from ..ops import registry as _registry
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load_json", "load"]
 
 
 def _auto_name(prefix, name=None):
@@ -237,6 +237,11 @@ class Symbol:
                            "node_row_ptr": row_ptr, "heads": heads,
                            "attrs": {"mxnet_version": ["int", 10400]}},
                           indent=2)
+
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname``."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
 
 
 def invoke_sym(op_name, inputs, params, name=None):
@@ -460,3 +465,10 @@ def load_json(json_str):
     entries = [(nodes[jh[0]], jh[1] if len(jh) > 1 else 0)
                for jh in data["heads"]]
     return Symbol(entries)
+
+
+def load(fname):
+    """A Symbol from a JSON file written by :meth:`Symbol.save` (or by
+    the JAX package)."""
+    with open(fname) as f:
+        return load_json(f.read())

@@ -355,8 +355,15 @@ def test_wd_mult_and_rescale_rules_match_the_jax_package():
     mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd")
     assert mod._optimizer.rescale_grad == 1.0 / B
     assert mod._fused is not None
-    with pytest.raises(mt.MXNetError, match="not ported"):
-        mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    # dist_sync in one process updates on the kvstore (no fused step);
+    # across processes it waits for ROADMAP A6c
+    mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    assert mod._update_on_kvstore and mod._fused is None
+    import os
+    from unittest import mock
+    with mock.patch.dict(os.environ, {"MXNET_NUM_WORKERS": "2"}):
+        with pytest.raises(mt.MXNetError, match="A6c"):
+            mod.init_optimizer(kvstore="dist_sync", force_init=True)
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adam"])
@@ -629,14 +636,23 @@ def test_fit_takes_the_jax_packages_keywords():
 
 @pytest.mark.parametrize("env,value", [
     ("MXNET_CHECKPOINT_DIR", "ckpt"), ("MXNET_RESUME_DIR", "ckpt")])
-def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch):
-    """The JAX package's fit checkpoints and resumes under these
-    variables; the port does not, so it raises instead of training
-    silently."""
-    monkeypatch.setenv(env, value)
+def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch,
+                                              tmp_path):
+    """fit obeys the checkpoint settings as the JAX package's does (a
+    snapshot a step in the directory; under MXNET_RESUME_DIR a run over
+    an empty directory starts from scratch), and refuses the one it does
+    not obey: MXNET_FAULT_INJECT (the multi-process launcher's, ROADMAP
+    A6c) raises instead of training silently."""
+    monkeypatch.setenv(env, str(tmp_path / value))
     X, Y = _batches()
     mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
-    with pytest.raises(mt.base.MXNetError, match=env):
+    mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+            eval_metric=None)
+    steps = mt.checkpoint.CheckpointManager(tmp_path / value).steps()
+    assert steps[0] == len(X) // B and len(steps) >= 2
+    monkeypatch.setenv("MXNET_FAULT_INJECT", "kill@step=1")
+    mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
+    with pytest.raises(mt.base.MXNetError, match="A6c"):
         mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1)
 
 
