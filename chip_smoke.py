@@ -475,10 +475,64 @@ Phases; any failure raises and the script exits non-zero:
    quantize of the card's gradients; ``save_checkpoint``, then
    ``restore_checkpoint`` into a new net, whose next step is bitwise.
    The phase's wall time is printed.
-20. The whole run's wall time, then the ``kernels`` JSON line (B1's
-   entry has ``_contrib_FusedBNAct``, ``grouped``, ``records`` and
-   ``imagenet_loop`` among its paths, B2, B3 and B5
-   ``grouped``, B2 ``recommend``, ``matrix_factorization``,
+20. The other ImageNet networks (ROADMAP A3b.5b): Inception-v3
+   (3x299x299, 1000 classes, 94 conv -> BatchNorm(fix_gamma, eps 1e-3)
+   -> ReLU sites, each fused into one B1 launch), AlexNet with LRN, and
+   the Gluon zoo. (a) B1 against its plain version at each of the 18
+   distinct site shapes, bf16 at batch 128 and f32 at batch 32 (phase
+   3's tolerances), each timed as in phase 3 beside its bound, and the
+   sums over the 94 sites beside theirs. (b) Inception-v3 with
+   uniform(-0.05, 0.05) weights from RandomState(0) exported with a
+   dynamic batch and served with buckets (1, 8, 32) as phase 4 serves
+   ResNet-50: counts zeroed just before and read just after, 94
+   ``bn_act`` launches each executed forward and no fallback; answers
+   against the same artifact at kernel_tier=off on the card (1e-5 abs)
+   and one image against the CPU (1e-5 abs); p50/p99 and images/s per
+   bucket, closed loop. (c) ``examples/train_imagenet.py --benchmark 1
+   --network inception-v3 --image-shape 3,299,299``'s ``fit`` through
+   ``mt``: one synthetic batch of 128 on the card, train_imagenet.py's
+   Xavier(gaussian, in, 2) drawn once from seed 0, SGD lr 0.05 momentum
+   0.9 wd 1e-4 in bf16 over f32 masters, ``tpu_sync``, the key chain
+   seeded 0 before each run (Dropout 0.5 draws its masks from it).
+   10 steps per step (K 1): 94 launches a forward, no fallback, losses
+   finite and falling, the moving statistics f32 and moved; the step p50
+   and images/s, the model FLOPs counted from the symbol (2 x the
+   multiply-adds of every convolution and FullyConnected, 3 x the forward
+   for a step) over the bf16 peak, the peak memory, and one profiled
+   step (busy share, B1's device time, the top kernels). Tier off's first
+   step from the same start within 5e-3 relative of auto's loss. Then 3
+   epochs of 30 steps at ``steps_per_dispatch=30``: one capture, the
+   wrapper counting the 2 warm-up steps and the capture only, the first
+   loss within 5e-3 of K 1's, the step time over windows 2-3; and a
+   profiled replayed window whose census (``graph_census``) counts 94 x
+   30 B1 kernels. Card against CPU at batch 2 and 139x139 (the smallest
+   input the symbol takes), f32 and bf16, with ``resnet_card_vs_cpu``'s
+   bounds (the f32 outputs within 1e-4 relative L2, or twice the CPU's
+   own change under a 1e-7 relative noise on the images where that is
+   more), the ReLU inputs of opposite sign counted. Every count is of
+   every kernel: the others stay 0. (d) AlexNet: the LRN op at both its
+   sites (batch 2, f32) on the card against the CPU, forward and
+   gradient within 1e-5 of the largest magnitude; B5 at fc6 and fc7's
+   shape, (128, 4096) + bias -> ReLU (the fusion pass's ``fc_act``
+   plan), f32 and bf16, against its plain version and its gradients as
+   phase 7 holds them, timed beside its bound; then the loop of (c) at
+   3x224x224, batch 128, f32 and bf16, 5 steps each, counts zeroed just
+   before and read just after: 2 B5 launches a forward, nothing else, no
+   fallback (losses finite; step p50 and images/s). (e) Every
+   ``get_model`` name on the card (Xavier, the key chain seeded 0): a
+   hybridized forward at batch 32 (299 for ``inceptionv3``, 224 for the
+   rest) against the eager one (1e-5 of the largest magnitude) and at
+   batch 2 against the CPU with the card's weights (1e-4); images/s of
+   the hybridized forward; then 3 ``Trainer`` steps (SGD, f32, batch 32)
+   of ``mobilenetv2_1.0`` and ``densenet121`` with finite losses. Gluon
+   fuses nothing, so no kernel launches in (e). The phase's wall time
+   is printed.
+21. The whole run's wall time, then the ``kernels`` JSON line (B1's
+   entry has ``_contrib_FusedBNAct``, ``grouped``, ``records``,
+   ``imagenet_loop``, ``inception_v3_serve`` and ``inception_v3_train``
+   among its paths, B2, B3 and B5 ``grouped``, B5
+   ``alexnet_train/float32`` and ``alexnet_train/bfloat16``, B2
+   ``recommend``, ``matrix_factorization``,
    ``lstm_bench``, ``word_lm`` and ``char_lstm``; ``image_aug`` and
    ``jpeg_color``, which no TPU kernel stands behind), the card's
    nvidia-smi line, and last the result line ``{"ok": true, "device":
@@ -534,17 +588,25 @@ def resnet50():
                             image_shape=(3, 224, 224))
 
 
-def fused_sites(sym):
-    """[(form, (C, H, W))] for every planned bn_act site, from the port's
-    own fusion plan and shape inference."""
+def planned_sites(sym, chw):
+    """[(form, (C, H, W))] for every planned bn_act site of ``sym`` at an
+    input of ``chw``, from the port's own fusion plan and shape
+    inference."""
     with mt.config.override(kernel_tier="auto"):
         plans, _ = graph_fuse.plan(sym._topo(), list(sym._entries))
-    shapes = _infer_shapes(sym, {"data": (1, 3, 224, 224)})
+    shapes = _infer_shapes(sym, {"data": (1,) + tuple(chw)})
     sites = []
     for p in plans.values():
         src, oi = p.base.inputs[0]
-        form = "bn_act" if p.res_entry is None else "bn_act_res"
-        sites.append((form, tuple(shapes[(id(src), oi)][1:])))
+        sites.append(("bn_act" if p.res_entry is None else "bn_act_res",
+                      tuple(shapes[(id(src), oi)][1:])))
+    return sites
+
+
+def fused_sites(sym):
+    """ResNet-50's planned bn_act sites (``planned_sites`` at 224x224),
+    the census held at 33 + 16."""
+    sites = planned_sites(sym, (3, 224, 224))
     n_plain = sum(1 for f, _ in sites if f == "bn_act")
     if (n_plain, len(sites) - n_plain) != (33, 16):
         raise RuntimeError("ResNet-50 fusion census is %d + %d, not 33 + 16"
@@ -768,10 +830,10 @@ def kernel_phase(sites, dev):
 
 
 # --------------------------------------------------------------- main path
-def draw_params(sym):
+def draw_params(sym, chw=(3, 224, 224)):
     """bench.py's serving-leg draw: uniform(-0.05, 0.05) arguments, unit
     variances, zero means, from numpy RandomState(0)."""
-    shapes, _, aux_shapes = sym.infer_shape(data=(2, 3, 224, 224))
+    shapes, _, aux_shapes = sym.infer_shape(data=(2,) + tuple(chw))
     rng = np.random.RandomState(0)
     args = {n: rng.uniform(-0.05, 0.05, s).astype("f4")
             for n, s in zip(sym.list_arguments(), shapes)
@@ -1848,6 +1910,23 @@ def grad_check(got, want, what):
     return float(diff.max())
 
 
+def b5_check(x, scale, b, act, cot, what):
+    """B5 against its plain version (``attn_check``) and its gradients
+    under ``cot`` against autograd through the reference in x's dtype
+    (in f32 the plain version itself; ``grad_check``) -> (max abs err,
+    the gradients' max abs err)."""
+    from mxnet_tpu_torch.kernels import mlp
+    err = attn_check(mlp._launch(x, scale, b, act, mlp.DEFAULT_CONFIG),
+                     mlp._plain_scale_bias_act(x, scale, b, act), what)
+    ref = mlp._plain_scale_bias_act if x.dtype == torch.float32 \
+        else mlp._reference
+    _o, gk = grads_of(lambda a, s, c: mlp.fused_scale_bias_act(
+        a, s, c, act=act), (x, scale, b), cot)
+    _o, gp = grads_of(lambda a, s, c: ref(a, s, c, act), (x, scale, b), cot)
+    return err, max(grad_check(a_, w_, what)
+                    for a_, w_ in zip(gk, gp) if w_ is not None)
+
+
 def train_kernel_phase(dev):
     """B5 and B7 against their plain versions at the training path's
     shapes, forward and gradients, f32 and bf16; the new backwards of
@@ -1880,22 +1959,9 @@ def train_kernel_phase(dev):
                 for scale in (None, sc):
                     what = "scale_bias_act %s %s %s scale=%s" % (
                         shape, dt, act, scale is not None)
-                    got = mlp._launch(x, scale, b, act, mlp.DEFAULT_CONFIG)
-                    note("scale_bias_act/" + dt, attn_check(
-                        got, mlp._plain_scale_bias_act(x, scale, b, act),
-                        what))
-                    # the backward differentiates the reference in x's
-                    # dtype: in f32 that is the plain version itself
-                    ref = mlp._plain_scale_bias_act \
-                        if dtype == torch.float32 else mlp._reference
-                    _o, gk = grads_of(lambda a, s, c: mlp.fused_scale_bias_act(
-                        a, s, c, act=act), (x, scale, b), cot)
-                    _o, gp = grads_of(lambda a, s, c: ref(a, s, c, act),
-                                      (x, scale, b), cot)
-                    for a_, w_ in zip(gk, gp):
-                        if w_ is not None:
-                            note("scale_bias_act_grad/" + dt,
-                                 grad_check(a_, w_, what))
+                    err_, gerr = b5_check(x, scale, b, act, cot, what)
+                    note("scale_bias_act/" + dt, err_)
+                    note("scale_bias_act_grad/" + dt, gerr)
     # -- B7 flash_fwd: the training shape, causal and not; causal
     # cross-length with fully masked rows; a ragged T
     for qshape, tk, causal in B7_CASES:
@@ -3446,34 +3512,43 @@ class OneBatchIter(mt.io.DataIter):
         return self.batch
 
 
-def image_batch(batch, seed=0):
+def image_batch(batch, seed=0, chw=(3, 224, 224)):
     """bench.py's fit batch: randn images and randint(0, 1000) labels
     from RandomState(seed)."""
     rng = np.random.RandomState(seed)
-    X = rng.randn(batch, 3, 224, 224).astype(np.float32)
+    X = rng.randn(batch, *chw).astype(np.float32)
     Y = rng.randint(0, 1000, (batch,)).astype(np.float32)
     return X, Y
 
 
-def resnet_init(sym, dev):
+def resnet_init(sym, dev, chw=(3, 224, 224), rnd_type="uniform"):
     """bench.py's initializer, Xavier(factor_type="in", magnitude=2),
-    drawn once on ``dev`` (seed 0) -> (args, aux) on the CPU."""
+    drawn once on ``dev`` (seed 0) -> (args, aux) on the CPU;
+    train_imagenet.py's draws it ``rnd_type="gaussian"``."""
     init = mt.mod.Module(sym, context=dev)
-    init.bind([("data", (2, 3, 224, 224))], [("softmax_label", (2,))])
-    init.init_params(mt.init.Xavier(factor_type="in", magnitude=2.0,
-                                    seed=0))
+    init.bind([("data", (2,) + tuple(chw))], [("softmax_label", (2,))])
+    init.init_params(mt.init.Xavier(rnd_type=rnd_type, factor_type="in",
+                                    magnitude=2.0, seed=0))
     args, aux = init.get_params()
     return ({k: v.cpu() for k, v in args.items()},
             {k: v.cpu() for k, v in aux.items()})
 
 
-def resnet_fit(sym, X, Y, dev, steps, p0, aux0, mp):
+def resnet_fit(sym, X, Y, dev, steps, p0, aux0, mp, k=1, epochs=1,
+               sgd=RESNET_SGD, seed=None):
     """``Module.fit`` as bench.py's fit leg calls it (SGD lr 0.05,
     momentum 0.9, ``multi_precision`` when ``mp``, kvstore tpu_sync,
     ``steps_per_dispatch=1``, no metric) over one batch repeated
     ``steps`` times -> (module, losses, host stamps). After every step
     the loss (mean cross-entropy of the outputs at the labels, read on
-    the card) is recorded and every master weight must be f32."""
+    the card) is recorded and every master weight must be f32.
+
+    ``examples/train_imagenet.py --benchmark 1`` is the same call with
+    ``sgd=IMAGENET_SGD`` (wd 1e-4), ``epochs`` epochs and
+    ``steps_per_dispatch=k``; ``seed`` seeds the key chain first (the
+    dropout masks). At K > 1 no step's loss is read: the losses are the
+    windows' stacked outputs and the stamps are the start and each
+    epoch's end, the card synchronized."""
     mod = mt.mod.Module(sym, context=dev)
     losses, stamps = [], []
     it = OneBatchIter(X, Y, steps, dev)
@@ -3484,17 +3559,26 @@ def resnet_fit(sym, X, Y, dev, steps, p0, aux0, mp):
         pick = out.gather(1, lab.unsqueeze(1)).clamp_min(1e-30)
         losses.append(float(-pick.log().mean()))   # syncs the card
         stamps.append(time.perf_counter())
-        bad = [k for k, v in mod._exec.arg_dict.items()
-               if k not in ("data", "softmax_label")
+        bad = [k_ for k_, v in mod._exec.arg_dict.items()
+               if k_ not in ("data", "softmax_label")
                and v.dtype != torch.float32]
         if bad:
             raise RuntimeError("master weights left f32: %s" % bad[:3])
+
+    def epoch_end(_epoch, _sym, _arg, _aux):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    if seed is not None:
+        mt.random.seed(seed)
+    if k > 1:
+        losses = window_recorder(mod)
     stamps.append(time.perf_counter())
-    mod.fit(it, num_epoch=1, eval_metric=None, kvstore="tpu_sync",
+    mod.fit(it, num_epoch=epochs, eval_metric=None, kvstore="tpu_sync",
             optimizer="sgd",
-            optimizer_params=dict(RESNET_SGD, multi_precision=mp),
-            arg_params=p0, aux_params=aux0, steps_per_dispatch=1,
-            batch_end_callback=record)
+            optimizer_params=dict(sgd, multi_precision=mp),
+            arg_params=p0, aux_params=aux0, steps_per_dispatch=k,
+            batch_end_callback=record if k == 1 else None,
+            epoch_end_callback=epoch_end if k > 1 else None)
     want = torch.bfloat16 if mp else None
     if mod._fused is None or mod._fused.compute_dtype != want:
         raise RuntimeError("fit did not take the fused step in %s"
@@ -3595,14 +3679,21 @@ def relu_inputs(sym, params, aux, X, dev):
     return {r.name: o.cpu() for r, o in zip(relus, outs)}, near
 
 
-def resnet_card_vs_cpu(sym, p0, aux0, dev, report):
+def resnet_card_vs_cpu(sym, p0, aux0, dev, report, what="ResNet-50",
+                       key="resnet_train", chw=(3, 224, 224),
+                       batch=RESNET_TRAIN["cut_batch"], seed=None):
     """ResNet-50 at batch 2 (224x224), one step on the card against the
-    CPU (the kernels' plain versions), tier auto, f32 and bf16.
+    CPU (the kernels' plain versions), tier auto, f32 and bf16; any other
+    model ``what`` of the same head at ``chw`` and ``batch`` (results
+    under ``report[key]``), with the key chain seeded ``seed`` before
+    each step where it has dropout.
 
     The forward is well conditioned: f32 softmax outputs within a
     relative L2 error of 1e-4 (the CPU against itself at another thread
-    count: 2.4e-6); bf16 outputs within twice the CPU's own bf16-vs-f32
-    error. The backward is not. At these Xavier weights the gradient
+    count: 2.4e-6), or of twice what the perturbation below does to the
+    CPU's own outputs where that is more (Inception-v3 at 139 px and
+    batch 2 leaves ReLU inputs within rounding of 0 that may flip); bf16
+    outputs within twice the CPU's own bf16-vs-f32 error. The backward is not. At these Xavier weights the gradient
     norms grow from 1.4 (``fc1_bias``) to 518 (``conv0_weight``) going
     back through the 53 BatchNorms, and so does rounding: a relative
     change of 1e-7 in the images moves the CPU's own f32 gradients by
@@ -3623,22 +3714,26 @@ def resnet_card_vs_cpu(sym, p0, aux0, dev, report):
       BatchNorm between them and the loss) within twice the CPU's own
       bf16-vs-f32 error; below the head the medians are printed, not
       held (bf16 rounding alone makes them unrelated draws)."""
-    B_ = RESNET_TRAIN["cut_batch"]
-    X, Y = image_batch(B_, seed=3)
+    B_ = batch
+    X, Y = image_batch(B_, seed=3, chw=chw)
     Xp = perturbed(X, 1e-7)
+
+    def grads(x, d, mp):
+        if seed is not None:
+            mt.random.seed(seed)
+        return resnet_grads(sym, p0, aux0, x, Y, d, "auto", mp)
     run = {}
     for d in (dev, "cpu"):
         for mp in (False, True):
-            run[(str(d), mp)] = resnet_grads(sym, p0, aux0, X, Y, d, "auto",
-                                             mp)
-    run["cpu_perturbed"] = resnet_grads(sym, p0, aux0, Xp, Y, "cpu", "auto",
-                                        False)
+            run[(str(d), mp)] = grads(X, d, mp)
+    run["cpu_perturbed"] = grads(Xp, "cpu", False)
     card, cpu = str(dev), "cpu"
 
     def out_err(a, b):
         return float((run[a][0].cpu() - run[b][0]).norm()
                      / run[b][0].norm())
     o32 = out_err((card, False), (cpu, False))
+    o32_own = out_err("cpu_perturbed", (cpu, False))
     o16 = out_err((card, True), (cpu, True))
     o16_own = out_err((cpu, True), (cpu, False))
     g = {k: v[1] for k, v in run.items()}
@@ -3662,7 +3757,8 @@ def resnet_card_vs_cpu(sym, p0, aux0, dev, report):
                  for n, a in pre_cpu.items()}
     near_worst = {k: {r: flips[r] for r in near.get(k, [])}
                   for k in worst}
-    log("ResNet-50 at batch %d, one step, card vs CPU: outputs f32 %.3g, "
+    log("%s at batch %d and %dx%d, one step, card vs CPU: outputs f32 %.3g "
+        "(the CPU against itself at images x (1 + 1e-7 noise): %.3g), "
         "bf16 %.3g (CPU bf16 vs f32 %.3g) relative L2; head gradients f32 "
         "%s, bf16 %s (CPU bf16 vs f32 %s); gradients, median "
         "relative L2 over tensors: f32 %.4g (the CPU against itself at "
@@ -3670,7 +3766,7 @@ def resnet_card_vs_cpu(sym, p0, aux0, dev, report):
         "%.4g); f32 largest error over largest magnitude %s; ReLU inputs "
         "of opposite sign, card vs CPU %d elements at %d of %d sites "
         "(CPU vs perturbed CPU %d at %d), near the worst tensors %s"
-        % (B_, o32, o16, o16_own,
+        % (what, B_, chw[1], chw[2], o32, o32_own, o16, o16_own,
            json.dumps({k: float("%.3g" % e32[k]) for k in HEAD}),
            json.dumps({k: float("%.3g" % e16[k]) for k in HEAD}),
            json.dumps({k: float("%.3g" % e16_own[k]) for k in HEAD}),
@@ -3681,24 +3777,26 @@ def resnet_card_vs_cpu(sym, p0, aux0, dev, report):
            len(flips), sum(flips_own.values()),
            sum(1 for v in flips_own.values() if v),
            json.dumps(near_worst)))
-    report["resnet_train"].update(
-        card_vs_cpu={"outputs_rel_l2": {"f32": o32, "bf16": o16,
+    report[key].update(
+        card_vs_cpu={"outputs_rel_l2": {"f32": o32, "f32_own": o32_own,
+                                        "bf16": o16,
                                         "cpu_bf16_vs_f32": o16_own},
                      "grad_median_rel_l2": med,
                      "grad_rel_l2_f32": e32, "grad_rel_l2_bf16": e16,
                      "grad_maxrel_f32": maxrel, "relu_flips": flips,
                      "relu_flips_cpu_perturbed": flips_own})
-    if o32 > 1e-4 or o16 > 2 * o16_own:
-        raise RuntimeError("card and CPU outputs disagree: f32 %g, bf16 %g "
-                           "(CPU bf16 vs f32 %g)" % (o32, o16, o16_own))
+    if o32 > max(1e-4, 2 * o32_own) or o16 > 2 * o16_own:
+        raise RuntimeError("%s card and CPU outputs disagree: f32 %g (own "
+                           "%g), bf16 %g (CPU bf16 vs f32 %g)"
+                           % (what, o32, o32_own, o16, o16_own))
     bad = {"f32 head": {k: e32[k] for k in HEAD if e32[k] > 1e-4},
            "bf16 head": {k: e16[k] for k in HEAD
                          if e16[k] > 2 * e16_own[k]}}
     if med["f32"] > 2 * med["f32_own"] or bad["f32 head"] \
             or bad["bf16 head"]:
-        raise RuntimeError("card and CPU gradients disagree past the "
+        raise RuntimeError("%s card and CPU gradients disagree past the "
                            "model's own rounding sensitivity: medians %s, "
-                           "%s" % (json.dumps(med), json.dumps(bad)))
+                           "%s" % (what, json.dumps(med), json.dumps(bad)))
 
 
 def kernel_class(name):
@@ -3779,9 +3877,10 @@ def resnet_step_profile(mod, steps=3):
                              "calls": k[2]} for k in top]}
 
 
-def log_step(what, steps_ms, batch, flops_peak, prof, mem, card):
+def log_step(what, steps_ms, batch, flops_peak, prof, mem, card,
+             flops_per_img=RESNET50_TRAIN_FLOPS_PER_IMG):
     p50 = float(np.median(steps_ms))
-    flops = RESNET50_TRAIN_FLOPS_PER_IMG * batch
+    flops = flops_per_img * batch
     share = flops / (p50 / 1e3) / flops_peak[1]
     log("%s: step p50 %.2f ms over steps 2-%d, %.1f images/s, %.3f TFLOP "
         "model FLOPs a step = %.1f%% of the %s peak; peak memory %.2f GB  "
@@ -7584,6 +7683,537 @@ def imagenet_path(dev, card, report):
     return b1
 
 
+# ---------------------------------- the other ImageNet networks (phase 20)
+INCEPTION = dict(chw=(3, 299, 299), sites=94, distinct=18, bf16_batch=128,
+                 f32_batch=32, k1_steps=10, k=30, windows=3,
+                 cut_chw=(3, 139, 139), cut_batch=2, loss_rel=5e-3)
+ALEXNET = dict(chw=(3, 224, 224), batch=128, steps=5, cut_batch=2,
+               # fc6 and fc7: FullyConnected(+bias) -> ReLU, each one B5
+               # launch a forward (kernels/graph_fuse.py's fc_act plan)
+               b5_shape=(128, 4096), b5_sites=2)
+# train_imagenet.py --benchmark 1's fit: wd 1e-4, the key chain seeded 0
+BENCH = dict(sgd=IMAGENET_SGD, seed=0)
+ZOO = dict(batch=32, cut_batch=2, reps=3, train_steps=3,
+           train=("mobilenetv2_1.0", "densenet121"))
+
+
+def inception_v3():
+    return mt.models.inception_v3_symbol(num_classes=1000)
+
+
+def held_counts(what, want):
+    """Every kernel's launch count since ``reset_all_counts``, held to
+    ``want`` (the kernels it names; every other kernel 0), and no tier
+    fallback -> the counts."""
+    got = all_counts()
+    full = dict.fromkeys(got, 0)
+    full.update(want)
+    fallback = tier.stats()["fallback"]
+    if got != full or fallback:
+        raise RuntimeError("%s: kernel launches %s, want %s; tier fallback "
+                           "%s" % (what, got, want, fallback))
+    return got
+
+
+def symbol_flops(sym, chw):
+    """Forward FLOPs of one image: 2 x the multiply-adds of every
+    Convolution and FullyConnected, from the port's shape inference."""
+    shapes = _infer_shapes(sym, {"data": (1,) + tuple(chw)})
+    flops = 0
+    for n in sym._topo():
+        if not n.is_variable and n.op.name in ("Convolution",
+                                               "FullyConnected"):
+            w = shapes[("var", n.inputs[1][0].name)]
+            flops += 2 * int(np.prod(shapes[(id(n), 0)])) \
+                * int(np.prod(w[1:]))
+    return flops
+
+
+def inception_b1_phase(sites, dev):
+    """Part a: B1 against its plain version at each distinct site shape of
+    Inception-v3, bf16 at batch 128 and f32 at batch 32 (phase 3's
+    tolerances), each timed as in phase 3 beside its bound; the sums over
+    the 94 sites -> (max abs err by dtype, rows, totals by dtype)."""
+    distinct = sorted({chw for _, chw in sites})
+    forms = {f for f, _ in sites}
+    if len(sites) != INCEPTION["sites"] or forms != {"bn_act"} \
+            or len(distinct) != INCEPTION["distinct"]:
+        raise RuntimeError("Inception-v3 fusion census: %d sites of %s, %d "
+                           "distinct shapes; expected 94 bn_act, 18"
+                           % (len(sites), sorted(forms), len(distinct)))
+    elems = sum(int(np.prod(chw)) for _, chw in sites)
+    max_err, rows, totals = {}, [], {}
+    for dtype, batch in ((torch.bfloat16, INCEPTION["bf16_batch"]),
+                         (torch.float32, INCEPTION["f32_batch"])):
+        dt = str(dtype).replace("torch.", "")
+        tot = dict.fromkeys(("kernel_ms", "plain_ms", "bytes_ms", "ops_ms"),
+                            0.0)
+        for i, chw in enumerate(distinct):
+            shape = (batch,) + chw
+            x, sc, sh, _r = make_case(shape, dtype, False, dev, 300 + i)
+            err = check_kernel(x, sc, sh, None)
+            max_err[dt] = max(max_err.get(dt, 0.0), err)
+            k = time_ms(lambda: bn_act._launch(x, sc, sh, None, "relu",
+                                               bn_act.DEFAULT_CONFIG), dev)
+            p = time_ms(lambda: bn_act._plain_epilogue(x, sc, sh, None,
+                                                       "relu"), dev)
+            bytes_ms, ops_ms = bound_parts(shape, dtype, False)
+            b, by = bound_of(bytes_ms, ops_ms)
+            n = sum(1 for _f, c in sites if c == chw)
+            rows.append({"shape": list(shape), "dtype": dt, "sites": n,
+                         "kernel_ms": k, "plain_ms": p, "bytes_ms": bytes_ms,
+                         "ops_ms": ops_ms, "bound_ms": b, "bound_by": by,
+                         "roofline_share": b / k, "max_abs_err": err})
+            for key, v in (("kernel_ms", k), ("plain_ms", p),
+                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                tot[key] += v * n
+            log("  inception %-20s %-8s sites=%-2d kernel_ms=%.5f "
+                "plain_ms=%.5f bound_ms=%.5f (%s) share=%.3f err=%.3g"
+                % (shape, dt, n, k, p, b, by, b / k, err))
+            del x
+        tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
+                                                    tot["ops_ms"])
+        totals[dt] = tot
+        log("  Inception-v3 %s forward at batch %d, 94 sites: kernel_ms=%.4f "
+            "plain_ms=%.4f bound_ms=%.4f (%s), share %.3f"
+            % (dt, batch, tot["kernel_ms"], tot["plain_ms"], tot["bound_ms"],
+               tot["bound_by"], tot["bound_ms"] / tot["kernel_ms"]))
+    log("B1 vs plain at Inception-v3's 18 site shapes (%.3f M elements an "
+        "image over the 94 sites), bf16 batch %d and f32 batch %d, agree; "
+        "max abs err %s" % (elems / 1e6, INCEPTION["bf16_batch"],
+                            INCEPTION["f32_batch"], json.dumps(max_err)))
+    return max_err, rows, totals
+
+
+def inception_serve(sym, dev, card, report):
+    """Part b: Inception-v3 exported with a dynamic batch and served at
+    buckets (1, 8, 32) as phase 4 serves ResNet-50 -> B1 launches."""
+    chw = INCEPTION["chw"]
+    args, aux = draw_params(sym, chw)
+    os.makedirs(os.path.join(REPO, "build", "chip_smoke"), exist_ok=True)
+    path = os.path.join(REPO, "build", "chip_smoke", "inception_v3.mxtorch")
+    t0 = time.perf_counter()
+    meta = mt.serving.export_compiled(sym, args, aux,
+                                      {"data": (None,) + chw}, path,
+                                      device=dev)
+    log("  export: %.2fs, %.1f MB, kernel_tier %s"
+        % (time.perf_counter() - t0, os.path.getsize(path) / 1e6,
+           json.dumps(meta["kernel_tier"])))
+    rng = np.random.RandomState(1)
+    inputs = ([rng.randn(1, *chw).astype("f4") for _ in range(8)]
+              + [rng.randn(8, *chw).astype("f4"),
+                 rng.randn(32, *chw).astype("f4")])
+    # -- the main path, every count zeroed just before it
+    reset_all_counts()
+    srv = mt.serve.Server(path, buckets=BUCKETS, batch_timeout_ms=2)
+    outs = serve_burst(srv, inputs)
+    inputs += [inputs[0], inputs[8]]
+    for x in inputs[-2:]:
+        outs.append(srv.predict(data=x, timeout_ms=300000)[0])
+        check_answer(outs[-1], x.shape[0])
+    torch.cuda.synchronize()
+    est = srv.model.engine_cache.stats()
+    forwards = est["builds"] + sum(e["calls"] for e in est["engines"].values())
+    log("  served: %d requests, %d forwards (engines %s), launches %s, "
+        "tier %s" % (len(outs), forwards, sorted(est["engines"]),
+                     all_counts(), json.dumps(tier.stats()["dispatch"])))
+    launches = held_counts("Inception-v3 served (94 B1 launches a forward)",
+                           {"bn_act": 94 * forwards})
+    if sorted(est["engines"], key=int) != [str(b) for b in BUCKETS]:
+        raise RuntimeError("buckets served: %s" % sorted(est["engines"]))
+    with mt.config.override(kernel_tier="off"):
+        srv_off = mt.serve.Server(path, buckets=BUCKETS, batch_timeout_ms=2)
+    off = [srv_off.predict(data=x, timeout_ms=300000)[0] for x in inputs]
+    srv_off.close()
+    err_off = max(float(np.abs(a - b).max()) for a, b in zip(outs, off))
+    log("  tier auto vs off on the card: max abs err %g" % err_off)
+    if err_off > 1e-5 or bn_act.launches != 94 * forwards:
+        raise RuntimeError("Inception-v3 served outputs disagree with tier "
+                           "off (%g), or tier off launched B1" % err_off)
+    lat = {}
+    for b in BUCKETS:
+        srv.model.engine_cache.engine(b)
+        x = np.random.RandomState(b).randn(b, *chw).astype("f4")
+        samples = []
+        t_all = time.perf_counter()
+        for _ in range(20):
+            t1 = time.perf_counter()
+            check_answer(srv.predict(data=x, timeout_ms=300000)[0], b)
+            samples.append((time.perf_counter() - t1) * 1e3)
+        wall = time.perf_counter() - t_all
+        lat[str(b)] = {"p50_ms": float(np.percentile(samples, 50)),
+                       "p99_ms": float(np.percentile(samples, 99)),
+                       "img_per_s": 20 * b / wall}
+        log("  bucket %2d: p50 %.3f ms  p99 %.3f ms  %.1f img/s  [%s]"
+            % (b, lat[str(b)]["p50_ms"], lat[str(b)]["p99_ms"],
+               lat[str(b)]["img_per_s"], card))
+    srv.close()
+    cpu = mt.serving.CompiledModel.load(path, device="cpu")
+    ref = cpu.predict(data=inputs[0])[0].numpy()
+    err_cpu = float(np.abs(outs[0] - ref).max())
+    log("  served on the card vs the CPU (one image): max abs err %g"
+        % err_cpu)
+    if err_cpu > 1e-5:
+        raise RuntimeError("Inception-v3 served outputs disagree with the "
+                           "CPU: %g" % err_cpu)
+    report["inception_v3"]["serve"] = {
+        "launches": launches, "forwards": forwards, "err_vs_off": err_off,
+        "err_vs_cpu": err_cpu, "latency": lat, "engines": est}
+    return launches
+
+
+def inception_train(sym, dev, card, report, b1_totals):
+    """Part c: train_imagenet.py's benchmark loop on Inception-v3, bf16 at
+    batch 128: 10 steps per step, tier off's first step, then 3 windows
+    at K 30 and a profiled one -> (B1 launches at K 1, the window's
+    census)."""
+    I = INCEPTION
+    chw, B_, K, W = I["chw"], I["bf16_batch"], I["k"], I["windows"]
+    p0, aux0 = resnet_init(sym, dev, chw, "gaussian")
+    X, Y = image_batch(B_, chw=chw)
+    flops = 3 * symbol_flops(sym, chw)
+    # -- per step: every count zeroed just before, read just after
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_counts()
+    mod, losses, st = resnet_fit(sym, X, Y, dev, I["k1_steps"], p0, aux0,
+                                 True, **BENCH)
+    mem = torch.cuda.max_memory_allocated(dev)
+    launches = held_counts("Inception-v3 per-step fit (94 B1 launches a "
+                           "forward)", {"bn_act": 94 * I["k1_steps"]})
+    if not falling(losses):
+        raise RuntimeError("Inception-v3 losses do not fall: %s" % losses)
+    n_aux = check_moving_stats(mod, aux0)
+    steps_ms = list(np.diff(st)[1:] * 1e3)
+    prof = resnet_step_profile(mod)
+    k1 = log_step("Inception-v3 bf16 per step (train_imagenet.py "
+                  "--benchmark 1, K 1), batch %d" % B_, steps_ms, B_,
+                  ("989 TFLOP/s bf16", BF16_FLOPS), prof, mem, card,
+                  flops_per_img=flops)
+    log("  losses %s; %d moving statistics f32 and moved; B1 in the "
+        "profiled step %.3f ms for 94 forward launches (the kernel alone "
+        "at these shapes: %.3f ms, bound %.3f ms)"
+        % (["%.4f" % x for x in losses], n_aux, prof["b1_ms"],
+           b1_totals["bfloat16"]["kernel_ms"],
+           b1_totals["bfloat16"]["bound_ms"]))
+    del mod
+    released(dev)
+    # -- tier off, the first step from the same start
+    before = bn_act.launches
+    with mt.config.override(kernel_tier="off"):
+        mod_off, loss_off, _st = resnet_fit(sym, X, Y, dev, 1, p0, aux0,
+                                            True, **BENCH)
+    rel_off = abs(loss_off[0] - losses[0]) / abs(losses[0])
+    log("  tier off, step 1 from the same start: loss %.5f against %.5f at "
+        "auto (relative %.3g)" % (loss_off[0], losses[0], rel_off))
+    if rel_off > I["loss_rel"] or bn_act.launches != before:
+        raise RuntimeError("tier off's first loss is %.3g from auto's, or "
+                           "tier off launched B1" % rel_off)
+    del mod_off
+    released(dev)
+    # -- K 30: train_imagenet.py --steps-per-dispatch 30, 3 epochs
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_counts()
+    mod, windows, stamps = resnet_fit(sym, X, Y, dev, K, p0, aux0, True,
+                                      k=K, epochs=W, **BENCH)
+    fused = mod._fused
+    mem_k = torch.cuda.max_memory_allocated(dev)
+    # through the wrapper: two warm-up steps and the capture
+    wrapper_k = held_counts("Inception-v3 K %d" % K, {"bn_act": 94 * 3})
+    if fused.captures != 1 or fused.replays != W * K - 2:
+        raise RuntimeError("Inception-v3 K %d: %d captures, %d replays"
+                           % (K, fused.captures, fused.replays))
+    lab = torch.from_numpy(Y).to(dev).long()
+    loss_k = window_losses(windows, lab)
+    if not falling(loss_k) \
+            or abs(loss_k[0] - losses[0]) / losses[0] > I["loss_rel"]:
+        raise RuntimeError("K %d losses %s against K 1's first %.5f"
+                           % (K, loss_k[:3], losses[0]))
+    step_k = (stamps[-1] - stamps[1]) / ((W - 1) * K) * 1e3
+    cen = graph_census(lambda: grouped_fit(mod, OneBatchIter(X, Y, K, dev),
+                                           K))
+    got = {f: cen["counts"].get(f, 0) for f in ("bn_act", "bn_act_res")}
+    log("Inception-v3 bf16 K %d (%d epochs of %d steps, one captured "
+        "graph): step %.2f ms over windows 2-%d, %.1f images/s, %.1f%% of "
+        "the bf16 "
+        "peak; losses %.4f -> %.4f; peak memory %.2f GB; profiled window: "
+        "B1 %s (%.1f a step), %.3f ms of B1 a step, %.2f ms device of %.2f "
+        "ms wall (busy %.1f%%); top %s  [%s]"
+        % (K, W, K, step_k, W, B_ / (step_k / 1e3),
+           100 * flops * B_ / (step_k / 1e3) / BF16_FLOPS, loss_k[0],
+           loss_k[-1], mem_k / 1e9, json.dumps(got), got["bn_act"] / K,
+           cen["kernel_ms"].get("bn_act", 0.0) / K, cen["device_ms"],
+           cen["wall_ms"], 100 * cen["busy_share"],
+           "; ".join(cen["top_kernels"][:5]), card))
+    if got != {"bn_act": 94 * K, "bn_act_res": 0}:
+        raise RuntimeError("replayed window census %s, want 94 x %d"
+                           % (cen["counts"], K))
+    fused.release_graphs()
+    del mod, fused, windows
+    released(dev)
+    report["inception_v3"]["train"] = {
+        "k1": k1, "losses": losses, "tier_off_step1_rel": rel_off,
+        "launches_k1": launches, "model_flops_per_img": flops,
+        "k30": {"step_ms": step_k, "img_per_s": B_ / (step_k / 1e3),
+                "losses": loss_k, "peak_memory_bytes": mem_k,
+                "wrapper_launches": wrapper_k, "census": cen}}
+    return launches, got
+
+
+def lrn_card_vs_cpu(dev):
+    """Part d: the LRN op of AlexNet at its two sites (batch 2, f32),
+    forward and input gradient on the card against the CPU, within 1e-5
+    of each tensor's largest magnitude -> the worst error."""
+    from mxnet_tpu_torch.ops import nn as tnn
+    worst = 0.0
+    for i, shape in enumerate(((2, 96, 54, 54), (2, 256, 26, 26))):
+        rng = np.random.RandomState(40 + i)
+        x = np.maximum(rng.randn(*shape) * 20, 0).astype(np.float32)
+        cot = rng.randn(*shape).astype(np.float32)
+        res = []
+        for d in (dev, "cpu"):
+            xt = torch.from_numpy(x).to(d).requires_grad_(True)
+            y = tnn.lrn(xt, nsize=5, alpha=1e-4, beta=0.75, knorm=2)
+            (y * torch.from_numpy(cot).to(d)).sum().backward()
+            res.append((y.detach().cpu(), xt.grad.cpu()))
+        for a, b in zip(*res):
+            err = float((a - b).abs().max() / b.abs().max())
+            worst = max(worst, err)
+            if err > 1e-5:
+                raise RuntimeError("LRN at %s: card vs CPU %g of the largest "
+                                   "magnitude" % (shape, err))
+    return worst
+
+
+def alexnet_b5_check(dev):
+    """Part d: B5 at AlexNet's fc6 and fc7 shape, (128, 4096) + bias ->
+    ReLU, f32 and bf16, held by ``b5_check`` as phase 7 holds it, each
+    timed beside its bound -> {dtype: row}."""
+    from mxnet_tpu_torch.kernels import mlp
+    shape = ALEXNET["b5_shape"]
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        b = torch.randn(shape[1], generator=g, device=dev)
+        cot = torch.randn(shape, generator=g, device=dev)
+        what = "scale_bias_act %s %s, bias, ReLU (AlexNet fc6/fc7)" % (
+            shape, dt)
+        err, gerr = b5_check(x, None, b, "relu", cot, what)
+        ms = time_ms(lambda: mlp._launch(x, None, b, "relu",
+                                         mlp.DEFAULT_CONFIG), dev)
+        plain = time_ms(lambda: mlp._plain_scale_bias_act(x, None, b,
+                                                          "relu"), dev)
+        bytes_ms = (2 * x.numel() * x.element_size() + b.numel() * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * x.numel() / F32_FLOPS * 1e3
+        bound, by = bound_of(bytes_ms, ops_ms)
+        rows[dt] = {"shape": "%s %s, bias, ReLU" % (shape, dt), "ms": ms,
+                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None, "max_abs_err": err,
+                    "grad_max_abs_err": gerr}
+        log("  B5 at AlexNet's fc6/fc7 %s %s: agrees (max abs err %.3g, "
+            "gradients %.3g); kernel_ms=%.5f plain_ms=%.5f bound_ms=%.5f "
+            "(%s), share %.3f" % (shape, dt, err, gerr, ms, plain, bound, by,
+                                  bound / ms))
+        del x
+    return rows
+
+
+def alexnet_path(dev, card, report):
+    """Part d: AlexNet through train_imagenet.py's loop (3x224x224, batch
+    128), f32 and bf16, 5 steps each, its fc6 and fc7 each one B5 launch
+    a forward; B5 at that shape against its plain version; LRN card
+    against CPU -> {dtype: B5 row with the run's launches}."""
+    sym = mt.models.alexnet_symbol(num_classes=1000)
+    chw, B_, steps = ALEXNET["chw"], ALEXNET["batch"], ALEXNET["steps"]
+    lrn_err = lrn_card_vs_cpu(dev)
+    log("  AlexNet's LRN (batch 2, f32, both sites) on the card vs the CPU: "
+        "forward and gradient within %.3g of the largest magnitude"
+        % lrn_err)
+    b5 = alexnet_b5_check(dev)
+    p0, aux0 = resnet_init(sym, dev, chw, "gaussian")
+    X, Y = image_batch(B_, chw=chw)
+    flops = 3 * symbol_flops(sym, chw)
+    runs = {}
+    for mp in (False, True):
+        what = "bf16" if mp else "f32"
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the main path: every count zeroed just before, read just after
+        reset_all_counts()
+        mod, losses, st = resnet_fit(sym, X, Y, dev, steps, p0, aux0, mp,
+                                     **BENCH)
+        counts = held_counts(
+            "AlexNet %s (B5 at fc6 and fc7 each forward)" % what,
+            {"scale_bias_act": ALEXNET["b5_sites"] * steps})
+        b5["bfloat16" if mp else "float32"]["launches"] = \
+            counts["scale_bias_act"]
+        mem = torch.cuda.max_memory_allocated(dev)
+        steps_ms = list(np.diff(st)[1:] * 1e3)
+        p50 = float(np.median(steps_ms))
+        log("AlexNet %s, batch %d, per step: step p50 %.2f ms over steps "
+            "2-%d, %.1f images/s, %.1f%% of the %s peak; losses %s; B5 "
+            "launches %d (2 a forward); peak memory %.2f GB  [%s]"
+            % (what, B_, p50, steps, B_ / (p50 / 1e3),
+               100 * flops * B_ / (p50 / 1e3)
+               / (BF16_FLOPS if mp else F32_FLOPS),
+               "989 TFLOP/s bf16" if mp else "67 TFLOP/s f32",
+               ["%.4f" % x for x in losses], counts["scale_bias_act"],
+               mem / 1e9, card))
+        if not np.isfinite(losses).all():
+            raise RuntimeError("AlexNet %s losses %s" % (what, losses))
+        runs[what] = {"step_ms": steps_ms, "step_ms_p50": p50,
+                      "img_per_s": B_ / (p50 / 1e3), "losses": losses,
+                      "peak_memory_bytes": mem, "launches": counts}
+        del mod
+        released(dev)
+    report["alexnet"] = {"lrn_card_vs_cpu": lrn_err, "runs": runs,
+                         "model_flops_per_img": flops, "b5": b5}
+    return b5
+
+
+def zoo_net(name, ctx, x):
+    """A zoo net on ``ctx``, Xavier from the key chain seeded 0, its
+    deferred shapes completed by an eager forward of ``x`` -> (net, that
+    forward's output)."""
+    net = mt.gluon.model_zoo.get_model(name)
+    mt.random.seed(0)
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    with mt.autograd.predict_mode():
+        out = net(x)
+    return net, out
+
+
+def zoo_path(dev, card, report):
+    """Part e: every ``get_model`` name on the card: a hybridized forward
+    at batch 32 (299 for inceptionv3, 224 for the rest) against the eager
+    one, and at batch 2 against the CPU with the card's weights; images/s
+    of the hybridized forward; then 3 Trainer steps of two families.
+    Gluon fuses nothing (as in the JAX package), so no hand-written
+    kernel runs here: every count stays 0."""
+    gpu, cpu = mt.gpu(0), mt.cpu()
+    rows = {}
+    reset_all_counts()
+    for name in sorted(mt.gluon.model_zoo.vision._MODELS):
+        side = 299 if name == "inceptionv3" else 224
+        x_np = np.random.RandomState(0).randn(ZOO["batch"], 3, side,
+                                              side).astype(np.float32)
+        x = mt.nd.array(x_np, ctx=gpu)
+        net, eager = zoo_net(name, gpu, x)
+        eager = eager.asnumpy()
+        with mt.autograd.predict_mode():
+            net.hybridize()
+            hyb = net(x).asnumpy()
+            small = net(x[:ZOO["cut_batch"]]).asnumpy()
+            samples = []
+            for _ in range(ZOO["reps"]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net(x)
+                torch.cuda.synchronize()
+                samples.append(time.perf_counter() - t0)
+        weights = {n[len(net.prefix):]: p.data().asnumpy()
+                   for n, p in net.collect_params().items()}
+        with cpu:
+            # a net never initialized takes the card's weights
+            cnet = mt.gluon.model_zoo.get_model(name)
+            mt.gluon.utils.params_from_reference(cnet, weights, ctx=cpu)
+            with mt.autograd.predict_mode():
+                ref = cnet(mt.nd.array(x_np[:ZOO["cut_batch"]],
+                                       ctx=cpu)).asnumpy()
+        del cnet, weights
+        e_cpu = float(np.abs(small - ref).max()) / max(
+            float(np.abs(ref).max()), 1e-30)
+        del net
+        scale = max(float(np.abs(hyb).max()), 1e-30)
+        e_eager = float(np.abs(hyb - eager).max()) / scale
+        ips = ZOO["batch"] / float(np.median(samples))
+        rows[name] = {"side": side, "img_per_s": ips,
+                      "err_vs_eager": e_eager, "err_vs_cpu": e_cpu}
+        log("  zoo %-17s %d: hybridized forward at batch %d %.1f images/s; "
+            "vs eager %.3g, batch %d vs the CPU %.3g of the largest "
+            "magnitude  [%s]" % (name, side, ZOO["batch"], ips, e_eager,
+                                 ZOO["cut_batch"], e_cpu, card))
+        if hyb.shape != (ZOO["batch"], 1000) or not np.isfinite(hyb).all() \
+                or e_eager > 1e-5 or e_cpu > 1e-4:
+            raise RuntimeError("zoo %s on the card: shape %s, vs eager %g, "
+                               "vs the CPU %g" % (name, hyb.shape, e_eager,
+                                                  e_cpu))
+        released(dev)
+    train = {}
+    rng = np.random.RandomState(5)
+    for name in ZOO["train"]:
+        x = mt.nd.array(rng.randn(ZOO["batch"], 3, 224, 224)
+                        .astype(np.float32), ctx=gpu)
+        y = mt.nd.array(rng.randint(0, 1000, ZOO["batch"])
+                        .astype(np.float32), ctx=gpu)
+        net, _ = zoo_net(name, gpu, x)
+        net.hybridize()
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   {"learning_rate": 0.05, "momentum": 0.9})
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, steps_ms = [], []
+        for _ in range(ZOO["train_steps"]):
+            t0 = time.perf_counter()
+            with mt.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(ZOO["batch"])
+            losses.append(float(loss.mean().asscalar()))
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+        train[name] = {"losses": losses, "step_ms": steps_ms}
+        log("  zoo %s: %d Trainer steps (SGD, f32, batch %d): losses %s, "
+            "step ms %s  [%s]" % (name, ZOO["train_steps"], ZOO["batch"],
+                                  ["%.4f" % v for v in losses],
+                                  ["%.1f" % v for v in steps_ms], card))
+        if not np.isfinite(losses).all():
+            raise RuntimeError("zoo %s losses %s" % (name, losses))
+        del net, trainer
+        released(dev)
+    counts = held_counts("the Gluon zoo (no fused kernel)", {})
+    log("  the zoo's forwards and Trainer steps: kernel launches %s"
+        % json.dumps(counts))
+    report["zoo"] = {"forward": rows, "train": train, "launches": counts}
+
+
+def vision_path(dev, card, report):
+    """Phase 20 (see the module docstring) -> (B1 max abs err by dtype,
+    B1 totals by dtype, launches served, launches trained at K 1, the
+    replayed window's census, B5's rows at AlexNet's fc6/fc7 by dtype)."""
+    t_phase = time.perf_counter()
+    log("phase 20: the other ImageNet networks (Inception-v3 served and "
+        "trained with B1 at its 94 sites, AlexNet with LRN, the Gluon zoo)")
+    report["inception_v3"] = {}
+    parts = {}
+
+    def timed(part, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        parts[part] = time.perf_counter() - t0
+        log("  part %s: %.1f s" % (part, parts[part]))
+        return out
+    sym = inception_v3()
+    sites = planned_sites(sym, INCEPTION["chw"])
+    err, rows, totals = timed("a", inception_b1_phase, sites, dev)
+    report["inception_v3"]["b1"] = {"max_abs_err": err, "rows": rows,
+                                    "totals": totals}
+    serve = timed("b", inception_serve, sym, dev, card, report)
+    train, census = timed("c", inception_train, sym, dev, card, report,
+                          totals)
+    I = INCEPTION
+    p0, aux0 = resnet_init(sym, dev, I["cut_chw"], "gaussian")
+    timed("c, card vs CPU", resnet_card_vs_cpu, sym, p0, aux0, dev, report,
+          "Inception-v3", "inception_v3", I["cut_chw"], I["cut_batch"], 0)
+    del p0, aux0
+    b5 = timed("d", alexnet_path, dev, card, report)
+    timed("e", zoo_path, dev, card, report)
+    report["vision_parts_s"] = parts
+    wall = time.perf_counter() - t_phase
+    report["vision_wall_s"] = wall
+    log("phase 20 wall: %.1f s" % wall)
+    return err, totals, serve, train, census, b5
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -7658,6 +8288,8 @@ def main():
     rnn_rows, rnn_launches = rnn_path(dev, card, report)
     rec_b1, aug_rows, aug_counts = records_path(dev, card, report)
     loop_b1 = imagenet_path(dev, card, report)
+    inc_err, inc_tot, inc_serve, inc_train, inc_census, alex_b5 = \
+        vision_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -7683,6 +8315,15 @@ def main():
                  "imagenet_loop": (loop_b1[form], b1t_err[form],
                                    b1t_tot[form],
                                    [RESNET_TRAIN["bf16_batch"], "bfloat16"])}
+        if form == "bn_act":
+            # phase 20: Inception-v3's 94 sites (no residual form), served
+            # in f32 and trained in bf16, each timed at its own shapes
+            paths["inception_v3_serve"] = (
+                inc_serve[form], inc_err["float32"], inc_tot["float32"],
+                [INCEPTION["f32_batch"], "float32"])
+            paths["inception_v3_train"] = (
+                inc_train[form], inc_err["bfloat16"], inc_tot["bfloat16"],
+                [INCEPTION["bf16_batch"], "bfloat16"])
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -7693,6 +8334,9 @@ def main():
         # replayed window's device census beside it
         by_path["grouped"]["replayed_window_launches"] = \
             grouped_census.get(form, 0)
+        if form == "bn_act":
+            by_path["inception_v3_train"]["replayed_window_launches"] = \
+                inc_census[form]
         main_ = max(by_path.values(), key=lambda b: b["launches"])
         kernels.append({"name": form, "route": "cuda", "source": SOURCE,
                         "replaces": REPLACES[form],
@@ -7760,24 +8404,30 @@ def main():
                         "by_path": by_path})
     for kname in ("scale_bias_act", "flash_fwd"):
         r = train_rows[kname]
+        err = train_err[kname + "/float32"]
         entry = {"name": kname, "route": "cuda",
                  "source": TRAIN_SOURCES[kname],
                  "replaces": TRAIN_REPLACES[kname],
-                 "launches": train_launches[kname],
-                 "max_abs_err": train_err[kname + "/float32"],
+                 "launches": train_launches[kname], "max_abs_err": err,
                  **{k: r[k] for k in NAMED_KEYS if k in r}}
         # B7 on both training paths (tier off), B5 on Module.fit's and
-        # phase 15's grouped GPT, at the same shape
-        more = [(p, n[kname]) for p, n in (("gluon", gluon_launches),
-                                           ("grouped", grouped_counts))
-                if n.get(kname)]
+        # phase 15's grouped GPT, at the same shape; B5 also at AlexNet's
+        # fc6 and fc7 (phase 20), f32 and bf16, each timed at its shape
+        more = [(p, n[kname], err, r) for p, n in (
+            ("gluon", gluon_launches), ("grouped", grouped_counts))
+            if n.get(kname)]
+        if kname == "scale_bias_act":
+            more += [("alexnet_train/" + dt, row["launches"],
+                      row["max_abs_err"], row)
+                     for dt, row in sorted(alex_b5.items())]
         if more:
             entry["by_path"] = {
-                p: dict(launches=n, max_abs_err=entry["max_abs_err"],
-                        shape=r["shape"],
-                        **{k: r[k] for k in NAMED_KEYS if k in r})
-                for p, n in [("train", train_launches[kname])] + more}
-            entry["launches"] += sum(n for _p, n in more)
+                p: dict(launches=n, max_abs_err=e, shape=row["shape"],
+                        **{k: row[k] for k in NAMED_KEYS if k in row})
+                for p, n, e, row in [("train", train_launches[kname], err,
+                                      r)] + more}
+            entry["launches"] += sum(m[1] for m in more)
+            entry["max_abs_err"] = max([err] + [m[2] for m in more])
         kernels.append(entry)
     kernels.append({"name": "int8_dequant", "route": "cuda",
                     "source": INT8_SOURCE, "replaces": INT8_REPLACES,

@@ -122,11 +122,25 @@ class AGInfo:
 
 _marked = {}                          # id(NDArray) -> weakref
 _marked_lock = threading.Lock()
+# keys of marked variables that died: a weakref callback may run inside
+# any allocation, the garbage collector's included, so also on a thread
+# that holds ``_marked_lock``; it only appends (atomic), and the lock's
+# holders purge the dead entries
+_dead = []
 
 
 def _forget(key):
-    with _marked_lock:
-        _marked.pop(key, None)
+    _dead.append(key)
+
+
+def _purge():
+    """Drop the entries of dead variables; the caller holds the lock. A
+    key may have been reused by a live variable since: its entry stays."""
+    while _dead:
+        key = _dead.pop()
+        ref = _marked.get(key)
+        if ref is not None and ref() is None:
+            del _marked[key]
 
 
 def _as_leaf(t):
@@ -146,12 +160,15 @@ def mark_variables(variables, gradients, grad_reqs="write"):
             v._data = _as_leaf(v._data)
         v._ag = AGInfo(grad=g, grad_req=req)
         key = id(v)
+        ref = weakref.ref(v, lambda _r, key=key: _forget(key))
         with _marked_lock:
-            _marked[key] = weakref.ref(v, lambda _r, key=key: _forget(key))
+            _purge()
+            _marked[key] = ref
 
 
 def _live_variables():
     with _marked_lock:
+        _purge()
         refs = list(_marked.values())
     out = []
     for r in refs:

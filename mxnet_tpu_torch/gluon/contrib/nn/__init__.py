@@ -1,14 +1,48 @@
 """gluon.contrib.nn (counterpart of ``mxnet_tpu/gluon/contrib/nn/``):
-``SparseEmbedding``. Its siblings (``Concurrent``, ``HybridConcurrent``,
-``Identity``, ``SyncBatchNorm``) are not ported yet (ROADMAP A3b) and
-raise."""
+the tower containers ``Concurrent`` and ``HybridConcurrent``,
+``Identity`` and ``SparseEmbedding``. ``SyncBatchNorm`` is not ported
+yet (ROADMAP A3b) and raises."""
 from __future__ import annotations
 
 from ....base import MXNetError
-from ...nn.basic_layers import Embedding
+from ...block import HybridBlock
+from ...nn.basic_layers import Embedding, HybridSequential, Sequential
 
 __all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
            "SyncBatchNorm"]
+
+
+class Concurrent(Sequential):
+    """Feeds one input to every child and concatenates their outputs
+    along ``axis`` (the Inception-tower container)."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def forward(self, x):
+        from .... import ndarray as nd
+        return nd.concat(*[block(x) for block in self._children.values()],
+                         dim=self.axis)
+
+
+class HybridConcurrent(HybridSequential):
+    """Hybridizable ``Concurrent``."""
+
+    def __init__(self, axis=-1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.axis = axis
+
+    def hybrid_forward(self, F, x):
+        return F.concat(*[block(x) for block in self._children.values()],
+                        dim=self.axis)
+
+
+class Identity(HybridBlock):
+    """Pass-through block: the skip branch of a ``Concurrent`` tower."""
+
+    def hybrid_forward(self, F, x):
+        return x
 
 
 class SparseEmbedding(Embedding):
@@ -27,15 +61,9 @@ class SparseEmbedding(Embedding):
                                               self._kwargs["output_dim"])
 
 
-def _not_ported(name):
+class SyncBatchNorm:
+    """Not ported yet (ROADMAP A3b)."""
+
     def __init__(self, *args, **kwargs):
-        raise MXNetError("gluon.contrib.nn.%s is not ported yet "
-                         "(ROADMAP A3b)" % name)
-    return type(name, (), {"__init__": __init__,
-                           "__doc__": "Not ported yet (ROADMAP A3b)."})
-
-
-Concurrent = _not_ported("Concurrent")
-HybridConcurrent = _not_ported("HybridConcurrent")
-Identity = _not_ported("Identity")
-SyncBatchNorm = _not_ported("SyncBatchNorm")
+        raise MXNetError("gluon.contrib.nn.SyncBatchNorm is not ported yet "
+                         "(ROADMAP A3b)")

@@ -6,9 +6,9 @@ the published weights are files the repo does not hold.
 """
 from __future__ import annotations
 
-from ....base import MXNetError
 from ...block import HybridBlock
 from ... import nn
+from ...utils import refuse_pretrained
 
 __all__ = ["ResNetV1", "ResNetV2", "BasicBlockV1", "BasicBlockV2",
            "BottleneckV1", "BottleneckV2", "resnet18_v1", "resnet34_v1",
@@ -251,9 +251,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
     if pretrained:
-        raise MXNetError("pretrained resnet%d_v%d: the weights are files "
-                         "the repo does not hold; load a .params file with "
-                         "load_parameters instead" % (num_layers, version))
+        refuse_pretrained("resnet%d_v%d" % (num_layers, version))
     return resnet_class(block_class, layers, channels, **kwargs)
 
 

@@ -1,6 +1,7 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
 ``split_data``, ``split_and_load``, ``clip_global_norm`` and
-``download``, which raises (no network); and
+``download``, which raises (no network), as ``refuse_pretrained``
+does for the model zoo's ``pretrained=True``; and
 ``params_from_reference``, which carries another package's weights into
 a block by their names relative to the root block's prefix."""
 from __future__ import annotations
@@ -75,6 +76,14 @@ def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
              verify_ssl=True):
     raise MXNetError("download(%s): the port fetches nothing over the "
                      "network" % (url,))
+
+
+def refuse_pretrained(name):
+    """What the zoo's constructors do with ``pretrained=True``: the
+    published weights are files the repo does not hold."""
+    raise MXNetError("pretrained %s: the weights are files the repo does "
+                     "not hold; load a .params file with load_parameters "
+                     "instead" % name)
 
 
 def params_from_reference(block, arrays, ctx=None):

@@ -3,9 +3,9 @@
 Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution
 and Deconvolution (1-, 2- and 3-D, NC... data and O/I-major weights,
 through ``F.conv{n}d`` / ``F.conv_transpose{n}d``), Pooling (1-3 D),
-BatchNorm, LayerNorm, InstanceNorm, Activation, LeakyReLU, softmax,
-log_softmax, Embedding, Dropout (its mask from the random key chain),
-SoftmaxOutput and the fused RNN,
+BatchNorm, LayerNorm, InstanceNorm, LRN, Activation, LeakyReLU,
+softmax, log_softmax, Embedding, Dropout (its mask from the random key
+chain), SoftmaxOutput and the fused RNN,
 each with the JAX op's keyword names and contract rather than torch's
 defaults:
 
@@ -373,6 +373,24 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, *, eps=1e-3,
                    + b32.reshape(shape))
     return (out.to(data.dtype), mean.detach(), var.detach(),
             new_mean.detach(), new_var.detach())
+
+
+@register("LRN")
+def lrn(data, *, nsize, alpha=1e-4, beta=0.75, knorm=2.0):
+    """Local response normalization across channels of NCHW data, the
+    JAX op's formula: ``data / (knorm + alpha * window / nsize) ** beta``,
+    ``window`` the sum of ``data ** 2`` over ``nsize`` neighbouring
+    channels of the zero-padded channel axis (``nsize // 2`` each side),
+    summed slice by slice in channel order. Autograd differentiates it."""
+    if data.dim() != 4:
+        raise MXNetError("LRN: NCHW data expected, got %d-D" % data.dim())
+    half = int(nsize) // 2
+    c = data.shape[1]
+    padded = F.pad(data * data, (0, 0, 0, 0, half, half))
+    window = padded[:, 0:c]
+    for i in range(1, int(nsize)):
+        window = window + padded[:, i:i + c]
+    return data / torch.pow(knorm + alpha * window / nsize, beta)
 
 
 # ---------------------------------------------------------------------------

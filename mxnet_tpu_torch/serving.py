@@ -122,11 +122,14 @@ def params_from_reference(arg_params, aux_params, symbol, device=None, *,
     in both packages, so values move across unchanged; every name and
     shape is checked against ``symbol.infer_shape`` at ``data_shapes``.
     The int8 ``*_weight_q`` arrays of a quantized graph cross unchanged.
+    Labels are inputs, not parameters: none is returned, so the result
+    exports at any batch.
     """
     dev = resolve_device(device)
     args, aux = _checked_params(symbol, dict(arg_params), dict(aux_params),
                                 data_shapes)
-    return ({k: v.to(dev) for k, v in args.items()},
+    labels = set(_label_names(symbol, arg_params, data_shapes))
+    return ({k: v.to(dev) for k, v in args.items() if k not in labels},
             {k: v.to(dev) for k, v in aux.items()})
 
 

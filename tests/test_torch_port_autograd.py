@@ -268,3 +268,37 @@ def test_recording_leaves_torch_grad_mode_alone():
     assert not (x * 2).data.requires_grad
     with mt.autograd.record():
         assert (x * 2).data.requires_grad
+
+
+_GC_UNDER_THE_LOCK = """
+import gc, sys
+sys.path.insert(0, %r)
+import numpy as np
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch import autograd
+x = mt.nd.array(np.ones((2, 2), np.float32), ctx=mt.cpu())
+x.attach_grad()
+box = [x]
+box.append(box)             # only the garbage collector frees x
+del x, box
+with autograd._marked_lock:  # a collection inside an allocation there
+    gc.collect()
+y = mt.nd.array(np.ones(2, np.float32), ctx=mt.cpu())
+y.attach_grad()
+assert len(autograd._live_variables()) == 1
+print("ok")
+"""
+
+
+def test_a_marked_variable_collected_under_the_registry_lock_does_not_hang():
+    """A marked NDArray freed by the garbage collector while its thread
+    holds the marked-variable registry's lock (a collection can run in
+    any allocation there) must not wait on that lock: in a process of
+    its own, so that a hang fails this test alone."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _GC_UNDER_THE_LOCK % repo],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -9,8 +9,10 @@ CPU's, and small models (a ResNet-20 predictor in f32 and int8, a GPT
 decoder in generate mode and its speculative step, a 2-layer GPT and a
 ResNet-20 in f32 and bf16 trained by ``Module.fit``, the example's GPT
 trained through Gluon, a recommend batch through the cache-backed
-engine, a fused gluon.rnn layer with dropout) on the card against the
-CPU, and B2's launches under gluon.rnn's word language model.
+engine, a fused gluon.rnn layer with dropout, Inception-v3 at 139 x 139
+with its 94 B1 launches, the LRN op) on the card against the CPU, B1 at
+Inception-v3's odd and small site shapes, and B2's launches under
+gluon.rnn's word language model.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -1480,3 +1482,57 @@ def test_resumed_fit_on_the_card_is_bitwise(cuda, tmp_path, monkeypatch, k):
     resumed = fit(8)
     for name in full:
         assert torch.equal(resumed[name], full[name]), name
+
+
+@pytest.mark.parametrize("chw", [(32, 147, 147), (64, 35, 35),
+                                 (192, 17, 17), (448, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_at_inception_v3_shapes(cuda, chw, dtype):
+    # odd rows (147 x 147) and the small 8 x 8 grids of Inception-v3
+    x, sc, sh, _r = _case((4,) + chw, dtype, False, cuda, seed=7)
+    y = tbn._launch(x, sc, sh, None, "relu", tbn.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    _assert_kernel_matches_plain(y, tbn._plain_epilogue(x, sc, sh, None,
+                                                        "relu"))
+
+
+def test_inception_v3_forward_on_the_card_launches_94_and_matches_cpu(cuda):
+    """Inception-v3 at its smallest input (2 x 3 x 139 x 139), inference at
+    tier auto: 94 B1 launches, the softmax within 1e-5 of the CPU's."""
+    sym = mt.models.inception_v3_symbol(num_classes=10)
+    shapes, _, aux_shapes = sym.infer_shape(data=(2, 3, 139, 139))
+    rng = np.random.RandomState(0)
+    args = {n: rng.uniform(-0.05, 0.05, s).astype(np.float32)
+            for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")}
+    aux = {n: (np.ones(s) if n.endswith("var") else np.zeros(s))
+           .astype(np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    x = rng.rand(2, 3, 139, 139).astype(np.float32)
+    outs = {}
+    for dev in (cuda, "cpu"):
+        ex = sym.simple_bind(dev, grad_req="null", data=x.shape)
+        ex.copy_params_from(args, aux)
+        tbn.reset_launches()
+        outs[str(dev)] = ex.forward(data=x)[0].cpu().numpy()
+        launches = dict(tbn.launches_by_kernel)
+        assert launches == ({"bn_act": 94, "bn_act_res": 0}
+                            if dev is cuda else
+                            {"bn_act": 0, "bn_act_res": 0})
+    np.testing.assert_allclose(outs[str(cuda)], outs["cpu"], rtol=0,
+                               atol=1e-5)
+
+
+def test_lrn_on_the_card_matches_the_cpu(cuda):
+    from mxnet_tpu_torch.ops import nn as tnn
+    rng = np.random.RandomState(1)
+    x = np.maximum(rng.randn(2, 96, 27, 27) * 20, 0).astype(np.float32)
+    cot = rng.randn(*x.shape).astype(np.float32)
+    res = []
+    for dev in (cuda, "cpu"):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        y = tnn.lrn(xt, nsize=5, alpha=1e-4, beta=0.75, knorm=2)
+        (y * torch.from_numpy(cot).to(dev)).sum().backward()
+        res.append((y.detach().cpu(), xt.grad.cpu()))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

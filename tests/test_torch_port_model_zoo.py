@@ -23,8 +23,8 @@ other orders, amplified by batch-2 BatchNorm: gradients are held within
 and parameters after two steps within ``PARAM_TOL`` = 3e-5 (measured
 1.5e-5); a moving mean of zero-mean activations is rounding around 0
 and is held within 1e-6 absolute. ``get_model`` knows every name of
-the JAX package's zoo: the ResNets build, the others raise naming
-ROADMAP A3b.5b, and ``pretrained=True`` raises.
+the JAX package's zoo: each builds the JAX package's class, and
+``pretrained=True`` raises.
 """
 import numpy as np
 import pytest
@@ -188,18 +188,13 @@ def test_resnet18_thumbnail_loads_jax_params_forwards_and_trains(
 
 def test_get_model_covers_every_name():
     from mxnet_tpu.gluon.model_zoo import vision as jvision
-    names = ("resnet18_v1 resnet34_v1 resnet50_v1 resnet101_v1 "
-             "resnet152_v1 resnet18_v2 resnet34_v2 resnet50_v2 "
-             "resnet101_v2 resnet152_v2").split()
+    names = sorted(mt.gluon.model_zoo.vision._MODELS)
+    assert len(names) == 34
     for n in names:
         net = mt.gluon.model_zoo.get_model(n, classes=7)
         assert type(net).__name__ == type(jvision.get_model(
             n, classes=7)).__name__
         with pytest.raises(mt.MXNetError, match="pretrained"):
             mt.gluon.model_zoo.get_model(n, pretrained=True)
-    for n in mt.gluon.model_zoo.vision._NOT_PORTED:
-        jvision.get_model(n) if n != "inceptionv3" else None
-        with pytest.raises(mt.MXNetError, match="A3b.5b"):
-            mt.gluon.model_zoo.get_model(n)
     with pytest.raises(ValueError, match="not supported"):
         mt.gluon.model_zoo.get_model("resnet19_v1")

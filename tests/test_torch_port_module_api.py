@@ -363,3 +363,43 @@ def test_checkpoint_callbacks_write_the_files(tmp_path):
     _, jarg, _ = mx.model.load_checkpoint(str(tmp_path / "a"), 2)
     for k in arg:
         np.testing.assert_array_equal(jarg[k].asnumpy(), _host(arg[k]))
+
+
+def _fit_lines(pkg, monkeypatch, caplog, k):
+    """``fit`` for 2 epochs of 16 samples (4 batches) with
+    ``Speedometer(4, 2)`` (auto_reset) and metric acc at
+    ``steps_per_dispatch=k`` -> the Speedometer's and the epochs' metric
+    lines, speeds cut out."""
+    monkeypatch.setattr(pkg.callback.time, "time", _Clock())
+    X, Y = _data(16)
+    mod = pkg.mod.Module(_mlp(pkg.sym), context=_ctx(pkg))
+    caplog.clear()
+    with caplog.at_level(logging.INFO):
+        mod.fit(pkg.io.NDArrayIter(X, Y, batch_size=BATCH), num_epoch=2,
+                optimizer="sgd", optimizer_params=dict(OPT),
+                arg_params=_args(pkg), initializer=None,
+                kvstore="tpu_sync", eval_metric="acc",
+                batch_end_callback=pkg.callback.Speedometer(BATCH, 2),
+                steps_per_dispatch=k)
+    out = []
+    for r in caplog.records:
+        m = r.getMessage()
+        if "Speed" in m or "Train-" in m:
+            out.append(m.split("\tSpeed")[0] + m.split("samples/sec")[-1]
+                       if "Speed" in m else m)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_speedometer_auto_reset_over_grouped_steps_matches(monkeypatch,
+                                                           caplog, k):
+    """R7: at ``steps_per_dispatch`` K > 1 the callbacks of a window fire
+    after its K steps, so ``Speedometer(auto_reset=True)`` resets a
+    metric that already holds the whole window, and an epoch that ends
+    inside the window reads ``Train-accuracy=nan``: the JAX package's
+    behaviour, kept."""
+    with mt.cpu():
+        want = _fit_lines(mx, monkeypatch, caplog, k)
+        got = _fit_lines(mt, monkeypatch, caplog, k)
+    assert got == want and len(got) == 4
+    assert ("nan" in got[1]) == (k > 1)
