@@ -19,11 +19,22 @@ Phases; any failure raises and the script exits non-zero:
    f32 within atol/rtol 1e-5 (nvcc may contract the multiply-add into an
    FMA where torch rounds twice); bf16 within one bf16 ulp of the plain
    result plus that same 1e-5 (near zero, where a sum cancels, the FMA's
-   f32 difference is more than a bf16 ulp). Then device times at batch
-   32 (median of 20 CUDA-event pairs, L2 flushed before every launch,
-   host enqueue hidden) beside the bound, the larger of the bytes moved
-   over 3.35 TB/s and the f32 flops over 67 TFLOP/s; and the host time
-   of one launch through the wrapper.
+   f32 difference is more than a bf16 ulp); every NaN and infinity of
+   the plain result must be the kernel's too. Then B1's index paths
+   (``B1_EDGE_SHAPES``: rows of odd length, rows a multiple of a vector,
+   rows shorter than a vector, one channel, element counts no multiple
+   of 8), both dtypes, forms and activations, again with NaN, +-inf and
+   -0.0 planted in x, and with x and r at the storage offsets
+   ``B1_EDGE_OFFSETS``; one launch captured in a CUDA graph and
+   replayed, bitwise the eager launch. Then device times at batch 32
+   (median of 20 CUDA-event pairs, L2 flushed before every launch by
+   writing 96 MB, and again by reading it, which leaves L2 clean; host
+   enqueue hidden) beside the bound, the larger of the bytes moved over
+   3.35 TB/s and the f32 flops over 67 TFLOP/s, and beside torch's copy
+   of x into y (a yardstick, not the same function; phases 12 and 20 time
+   their B1 classes the same way); an empty kernel's time in both flush
+   modes, the least any launch reads; and the host time of one launch
+   through the wrapper.
 4. The main path: ResNet-50 (224x224, 1000 classes, weights drawn from
    numpy RandomState(0) as bench.py's serving leg draws them) exported
    with a dynamic batch and served by ``Server`` with buckets (1, 8, 32):
@@ -215,8 +226,9 @@ Phases; any failure raises and the script exits non-zero:
    quantize + im2col and of the rest.
 12. B1 (``bn_act``) against its plain version at every site class of
    the bf16 training forward at batch 128 (tolerance of phase 3), then
-   its bf16 times per class and summed over the 49 sites, beside the
-   bound (bf16 bytes over 3.35 TB/s: half of f32's 94.7 MB an image).
+   its bf16 times per class (both flushes, as phase 3) and summed over
+   the 49 sites, beside the bound (bf16 bytes over 3.35 TB/s: half of
+   f32's 94.7 MB an image).
 13. The ResNet-50 training path, as bench.py's fit leg runs it: ResNet-50
    v1 (224x224, 1000 classes, weights from ``Xavier(factor_type="in",
    magnitude=2)``, seed 0) trained by ``Module.fit`` with SGD (lr 0.05,
@@ -480,8 +492,8 @@ Phases; any failure raises and the script exits non-zero:
    -> ReLU sites, each fused into one B1 launch), AlexNet with LRN, and
    the Gluon zoo. (a) B1 against its plain version at each of the 18
    distinct site shapes, bf16 at batch 128 and f32 at batch 32 (phase
-   3's tolerances), each timed as in phase 3 beside its bound, and the
-   sums over the 94 sites beside theirs. (b) Inception-v3 with
+   3's tolerances), each timed as in phase 3 (both flushes) beside its
+   bound, and the sums over the 94 sites beside theirs. (b) Inception-v3 with
    uniform(-0.05, 0.05) weights from RandomState(0) exported with a
    dynamic batch and served with buckets (1, 8, 32) as phase 4 serves
    ResNet-50: counts zeroed just before and read just after, 94
@@ -626,36 +638,142 @@ def make_case(shape, dtype, residual, dev, seed):
     return x, sc, sh, r
 
 
-def check_kernel(x, sc, sh, r):
+def b1_bad(y, ref):
+    """B1's tolerance (f32 1e-5 abs + rel; bf16 one ulp + 1e-5) ->
+    (|y - ref| over the finite outputs, elements past it); every NaN and
+    infinity of ``ref`` must be in ``y`` too, and no other."""
+    yf, rf = y.float(), ref.float()
+    inf = torch.isinf(rf)
+    if not (torch.equal(torch.isnan(yf), torch.isnan(rf))
+            and torch.equal(torch.isinf(yf), inf)
+            and torch.equal(yf[inf], rf[inf])):
+        raise RuntimeError(
+            "bn_act kernel: NaN or infinity where its plain version has none "
+            "or another (%d NaN against %d, %d inf against %d)"
+            % (int(torch.isnan(yf).sum()), int(torch.isnan(rf).sum()),
+               int(torch.isinf(yf).sum()), int(inf.sum())))
+    diff = torch.where(torch.isfinite(rf), (yf - rf).abs(),
+                       torch.zeros_like(rf))
+    if y.dtype == torch.float32:
+        bad = diff > 1e-5 + 1e-5 * rf.abs()
+    else:
+        ulp = torch.maximum(yf.abs(), rf.abs()) * 2 ** -7
+        bad = diff > ulp + 1e-5
+    return diff, bad
+
+
+def check_kernel(x, sc, sh, r, act="relu"):
     """Kernel vs plain on the card -> max abs error; raises past the
     stated tolerance."""
-    y = bn_act._launch(x, sc, sh, r, "relu", bn_act.DEFAULT_CONFIG)
-    ref = bn_act._plain_epilogue(x, sc, sh, r, "relu")
+    y = bn_act._launch(x, sc, sh, r, act, bn_act.DEFAULT_CONFIG)
+    ref = bn_act._plain_epilogue(x, sc, sh, r, act)
     torch.cuda.synchronize()
-    diff = (y.float() - ref.float()).abs()
-    if x.dtype == torch.float32:
-        bad = diff > 1e-5 + 1e-5 * ref.float().abs()
-    else:
-        ulp = torch.maximum(y.float().abs(), ref.float().abs()) * 2 ** -7
-        bad = diff > ulp + 1e-5
+    diff, bad = b1_bad(y, ref)
     if bool(bad.any()):
         # what tells a systematic fault from a one-off corrupted value:
         # how many elements, the worst one's inputs, and a second launch
         i = int(diff.flatten().argmax())
         ch = i // (x.shape[2] * x.shape[3]) % x.shape[1]
-        again = bn_act._launch(x, sc, sh, r, "relu", bn_act.DEFAULT_CONFIG)
+        again = bn_act._launch(x, sc, sh, r, act, bn_act.DEFAULT_CONFIG)
         torch.cuda.synchronize()
         raise RuntimeError(
             "bn_act kernel disagrees with its plain version at %s %s "
-            "residual=%s: max abs err %g in %d of %d elements; worst at "
-            "flat index %d (channel %d): kernel %r, plain %r, x %r, sc %r, "
-            "sh %r; a second launch on the same inputs is off by %g"
-            % (tuple(x.shape), x.dtype, r is not None, float(diff.max()),
-               int(bad.sum()), x.numel(), i, ch,
+            "residual=%s act=%s: max abs err %g in %d of %d elements; worst "
+            "at flat index %d (channel %d): kernel %r, plain %r, x %r, sc "
+            "%r, sh %r; a second launch on the same inputs is off by %g"
+            % (tuple(x.shape), x.dtype, r is not None, act,
+               float(diff.max()), int(bad.sum()), x.numel(), i, ch,
                float(y.flatten()[i]), float(ref.flatten()[i]),
                float(x.flatten()[i]), float(sc[ch]), float(sh[ch]),
-               float((again.float() - ref.float()).abs().max())))
+               float(b1_bad(again, ref)[0].max())))
     return float(diff.max())
+
+
+# B1's index paths in csrc/bn_act.cu: rows of odd length (147x147, 17x17,
+# 7x7), rows a multiple of a vector (8x8, 56x56), rows shorter than a
+# vector (1x1, 2x3), one channel, element counts no multiple of 8
+B1_EDGE_SHAPES = ((2, 3, 147, 147), (3, 5, 17, 17), (4, 6, 7, 7),
+                  (2, 5, 8, 8), (2, 3, 56, 56), (3, 7, 1, 1), (2, 5, 2, 3),
+                  (3, 1, 9, 11), (2, 1, 8, 8))
+# storage offsets (elements) of x and of r: 16-byte alignments other than y's
+B1_EDGE_OFFSETS = ((1, 1), (3, 3), (1, 3), (0, 1))
+
+
+def at_offset(t, off):
+    """A contiguous copy of ``t`` that starts ``off`` elements into its
+    storage."""
+    buf = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def plant_nonfinite(x):
+    """NaN, +inf, -inf and -0.0 at the ends of the tensor, at the first
+    row boundary and in the middle."""
+    hw, n = x.shape[2] * x.shape[3], x.numel()
+    flat = x.view(-1)
+    vals = (float("nan"), float("inf"), float("-inf"), -0.0)
+    for k, i in enumerate((0, 1, hw - 1, min(hw, n - 1), n // 2, n - 2,
+                           n - 1)):
+        flat[i] = vals[k % len(vals)]
+    return x
+
+
+def b1_graph_check(dev):
+    """One B1 launch captured in a CUDA graph and replayed: bitwise the
+    eager launch, and again after new values are copied into x."""
+    x, sc, sh, r = make_case((32, 64, 35, 35), torch.bfloat16, True, dev, 9)
+
+    def launch():
+        return bn_act._launch(x, sc, sh, r, "relu", bn_act.DEFAULT_CONFIG)
+    eager = launch()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = torch.equal(y, eager)
+    x.copy_(x.flip(0))
+    eager = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (same and torch.equal(y, eager)):
+        raise RuntimeError("bn_act: the replayed graph differs from the "
+                           "eager launch")
+
+
+def b1_edge_phase(dev):
+    """B1 against its plain version on B1_EDGE_SHAPES, both dtypes, both
+    forms, both activations; on the same values with NaN, +-inf and -0.0
+    planted in x; with x and r at B1_EDGE_OFFSETS; then captured and
+    replayed in a CUDA graph."""
+    cases, err, seed = 0, 0.0, 500
+    for shape in B1_EDGE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for residual in (False, True):
+                seed += 1
+                x, sc, sh, r = make_case(shape, dtype, residual, dev, seed)
+                for xx in (x, plant_nonfinite(x.clone())):
+                    for act in ("relu", "identity"):
+                        err = max(err, check_kernel(xx, sc, sh, r, act))
+                        cases += 1
+                for ox, orr in B1_EDGE_OFFSETS:
+                    err = max(err, check_kernel(
+                        at_offset(x, ox), sc, sh,
+                        None if r is None else at_offset(r, orr)))
+                    cases += 1
+    b1_graph_check(dev)
+    log("B1 index paths vs plain: %d cases (%d shapes x {f32,bf16} x "
+        "{plain,residual} x {relu,identity} x {finite, NaN/inf/-0.0 "
+        "planted} and at storage offsets %s) agree, max abs err %g; a "
+        "launch captured in a CUDA graph replays bitwise"
+        % (cases, len(B1_EDGE_SHAPES), list(B1_EDGE_OFFSETS), err))
 
 
 def time_ms(fn, dev, iters=20, warmup=3, hide_host=True, clean_l2=False):
@@ -719,6 +837,57 @@ def bound_parts(shape, dtype, residual):
 def bound_of(bytes_ms, ops_ms):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+B1_SUM_KEYS = ("kernel_ms", "kernel_clean_ms", "plain_ms", "copy_ms",
+               "bytes_ms", "ops_ms")
+
+
+def b1_class_row(form, shape, dtype, sites, dev, seed, what):
+    """One B1 site class: the kernel against its plain version (phase 3's
+    tolerances), then its time with time_ms's dirty flush and with a clean
+    L2, the plain version's time, torch's copy of x into y (a yardstick,
+    not the same function), the bound and both shares -> the row."""
+    residual = form == "bn_act_res"
+    x, sc, sh, r = make_case(shape, dtype, residual, dev, seed)
+    err = check_kernel(x, sc, sh, r)
+
+    def kernel():
+        bn_act._launch(x, sc, sh, r, "relu", bn_act.DEFAULT_CONFIG)
+    k = time_ms(kernel, dev)
+    kc = time_ms(kernel, dev, clean_l2=True)
+    p = time_ms(lambda: bn_act._plain_epilogue(x, sc, sh, r, "relu"), dev)
+    y = torch.empty_like(x)
+    cp = time_ms(lambda: y.copy_(x), dev)
+    del y
+    bytes_ms, ops_ms = bound_parts(shape, dtype, residual)
+    b, by = bound_of(bytes_ms, ops_ms)
+    row = {"form": form, "shape": list(shape),
+           "dtype": str(dtype).replace("torch.", ""), "sites": sites,
+           "kernel_ms": k, "kernel_clean_ms": kc, "plain_ms": p,
+           "copy_ms": cp, "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": b,
+           "bound_by": by, "roofline_share": b / k,
+           "roofline_share_clean": b / kc, "max_abs_err": err}
+    log("  %s%-10s %-20s %-8s sites=%-2d kernel_ms=%.5f clean_l2_ms=%.5f "
+        "plain_ms=%.5f copy_ms=%.5f bound_ms=%.5f (%s) share=%.3f clean=%.3f "
+        "err=%.3g" % (what, form, tuple(shape), row["dtype"], sites, k, kc,
+                      p, cp, b, by, b / k, b / kc, err))
+    return row
+
+
+def b1_totals(rows, what):
+    """B1's rows summed over their sites -> the totals, logged."""
+    tot = {key: sum(r[key] * r["sites"] for r in rows) for key in B1_SUM_KEYS}
+    tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
+                                                tot["ops_ms"])
+    tot["roofline_share"] = tot["bound_ms"] / tot["kernel_ms"]
+    tot["roofline_share_clean"] = tot["bound_ms"] / tot["kernel_clean_ms"]
+    log("  %s: kernel_ms=%.4f (clean L2 %.4f) plain_ms=%.4f copy_ms=%.4f "
+        "bound_ms=%.4f (%s), share %.3f (clean L2 %.3f)"
+        % (what, tot["kernel_ms"], tot["kernel_clean_ms"], tot["plain_ms"],
+           tot["copy_ms"], tot["bound_ms"], tot["bound_by"],
+           tot["roofline_share"], tot["roofline_share_clean"]))
+    return tot
 
 
 def flash_bound_parts(q, pairs):
@@ -787,45 +956,19 @@ def kernel_phase(sites, dev):
     log("kernel vs plain: %d shapes x batch {1,32} x {f32,bf16} x "
         "{plain,residual} agree; max abs err %s"
         % (len(distinct), json.dumps(max_err)))
+    b1_edge_phase(dev)
     # times at batch 32, per shape class and form as the main path has them
-    per_class = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for form, chw in sorted(set(sites)):
-            residual = form == "bn_act_res"
-            shape = (32,) + chw
-            x, sc, sh, r = make_case(shape, dtype, residual, dev, 7)
-            k = time_ms(lambda: bn_act._launch(x, sc, sh, r, "relu",
-                                               bn_act.DEFAULT_CONFIG), dev)
-            p = time_ms(lambda: bn_act._plain_epilogue(x, sc, sh, r,
-                                                       "relu"), dev)
-            bytes_ms, ops_ms = bound_parts(shape, dtype, residual)
-            b, by = bound_of(bytes_ms, ops_ms)
-            row = {"form": form, "shape": list(shape),
-                   "dtype": str(dtype).replace("torch.", ""),
-                   "sites": sum(1 for s in sites if s == (form, chw)),
-                   "kernel_ms": k, "plain_ms": p, "bytes_ms": bytes_ms,
-                   "ops_ms": ops_ms, "bound_ms": b, "bound_by": by,
-                   "roofline_share": b / k}
-            per_class.append(row)
-            log("  %-10s %-18s %-8s sites=%-2d kernel_ms=%.5f plain_ms=%.5f "
-                "bound_ms=%.5f (%s) share=%.3f"
-                % (form, shape, row["dtype"], row["sites"], k, p, b, by,
-                   b / k))
-            del x, r
+    per_class = [b1_class_row(form, (32,) + chw, dtype,
+                              sites.count((form, chw)), dev, 7, "")
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for form, chw in sorted(set(sites))]
     totals = {}
     for dt in ("float32", "bfloat16"):
         rows = [r for r in per_class if r["dtype"] == dt]
         for form in ("bn_act", "bn_act_res", "all"):
-            sel = [r for r in rows if form in ("all", r["form"])]
-            tot = {key: sum(r[key] * r["sites"] for r in sel)
-                   for key in ("kernel_ms", "plain_ms", "bytes_ms", "ops_ms")}
-            tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
-                                                        tot["ops_ms"])
-            totals["%s/%s" % (dt, form)] = tot
-    for k, v in totals.items():
-        log("  batch-32 forward, %-20s kernel_ms=%.4f plain_ms=%.4f "
-            "bound_ms=%.4f" % (k, v["kernel_ms"], v["plain_ms"],
-                               v["bound_ms"]))
+            totals["%s/%s" % (dt, form)] = b1_totals(
+                [r for r in rows if form in ("all", r["form"])],
+                "batch-32 forward, %s/%s" % (dt, form))
     return max_err, per_class, totals
 
 
@@ -899,13 +1042,16 @@ def device_profile(model, dev, batch, reps=3):
             model.run(x)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the wrapper's "bn_act.coefs" range shows as a device entry spanning
+    # the coefficient kernels: no kernel of its own
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and e.key != "bn_act.coefs"]
     busy = sum(k[1] for k in kernels)
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
-    mine = sum(k[1] for k in kernels if "bn_act" in k[0])
+    mine = sum(k[1] for k in kernels if "bn_act_kernel" in k[0])
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     return {"batch": batch, "wall_ms_per_forward": wall_us / reps / 1e3,
             "device_ms_per_forward": busy / reps / 1e3,
@@ -3448,41 +3594,18 @@ def b1_train_phase(sites, dev, batch=RESNET_TRAIN["bf16_batch"]):
     training forward (batch 128), then the device times per class and
     summed over the 49 sites, beside the bound (bf16 bytes over 3.35
     TB/s)."""
+    rows = [b1_class_row(form, (batch,) + chw, torch.bfloat16,
+                         sites.count((form, chw)), dev, 100 + i, "train ")
+            for i, (form, chw) in enumerate(sorted(set(sites)))]
     max_err = {}
-    rows = []
-    for i, (form, chw) in enumerate(sorted(set(sites))):
-        residual = form == "bn_act_res"
-        shape = (batch,) + chw
-        x, sc, sh, r = make_case(shape, torch.bfloat16, residual, dev,
-                                 100 + i)
-        err = check_kernel(x, sc, sh, r)
-        max_err[form] = max(max_err.get(form, 0.0), err)
-        k = time_ms(lambda: bn_act._launch(x, sc, sh, r, "relu",
-                                           bn_act.DEFAULT_CONFIG), dev)
-        p = time_ms(lambda: bn_act._plain_epilogue(x, sc, sh, r, "relu"),
-                    dev)
-        bytes_ms, ops_ms = bound_parts(shape, torch.bfloat16, residual)
-        b, by = bound_of(bytes_ms, ops_ms)
-        n = sum(1 for s in sites if s == (form, chw))
-        rows.append({"form": form, "shape": list(shape), "sites": n,
-                     "kernel_ms": k, "plain_ms": p, "bytes_ms": bytes_ms,
-                     "ops_ms": ops_ms, "bound_ms": b, "bound_by": by})
-        log("  train %-10s %-20s bf16 sites=%-2d kernel_ms=%.5f "
-            "plain_ms=%.5f bound_ms=%.5f (%s) share=%.3f"
-            % (form, shape, n, k, p, b, by, b / k))
-        del x, r
-    totals = {}
-    for form in ("bn_act", "bn_act_res", "all"):
-        sel = [r for r in rows if form in ("all", r["form"])]
-        tot = {key: sum(r[key] * r["sites"] for r in sel)
-               for key in ("kernel_ms", "plain_ms", "bytes_ms", "ops_ms")}
-        tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
-                                                    tot["ops_ms"])
-        totals[form] = tot
-        log("  batch-%d bf16 training forward, %-10s kernel_ms=%.4f "
-            "plain_ms=%.4f bound_ms=%.4f" % (batch, form, tot["kernel_ms"],
-                                             tot["plain_ms"],
-                                             tot["bound_ms"]))
+    for r in rows:
+        max_err[r["form"]] = max(max_err.get(r["form"], 0.0),
+                                 r["max_abs_err"])
+    totals = {form: b1_totals([r for r in rows if form in ("all",
+                                                           r["form"])],
+                              "batch-%d bf16 training forward, %s"
+                              % (batch, form))
+              for form in ("bn_act", "bn_act_res", "all")}
     log("B1 vs plain at the batch-%d bf16 training shapes: %d site classes "
         "agree; max abs err %s" % (batch, len(rows), json.dumps(max_err)))
     return max_err, rows, totals
@@ -7746,38 +7869,14 @@ def inception_b1_phase(sites, dev):
     for dtype, batch in ((torch.bfloat16, INCEPTION["bf16_batch"]),
                          (torch.float32, INCEPTION["f32_batch"])):
         dt = str(dtype).replace("torch.", "")
-        tot = dict.fromkeys(("kernel_ms", "plain_ms", "bytes_ms", "ops_ms"),
-                            0.0)
-        for i, chw in enumerate(distinct):
-            shape = (batch,) + chw
-            x, sc, sh, _r = make_case(shape, dtype, False, dev, 300 + i)
-            err = check_kernel(x, sc, sh, None)
-            max_err[dt] = max(max_err.get(dt, 0.0), err)
-            k = time_ms(lambda: bn_act._launch(x, sc, sh, None, "relu",
-                                               bn_act.DEFAULT_CONFIG), dev)
-            p = time_ms(lambda: bn_act._plain_epilogue(x, sc, sh, None,
-                                                       "relu"), dev)
-            bytes_ms, ops_ms = bound_parts(shape, dtype, False)
-            b, by = bound_of(bytes_ms, ops_ms)
-            n = sum(1 for _f, c in sites if c == chw)
-            rows.append({"shape": list(shape), "dtype": dt, "sites": n,
-                         "kernel_ms": k, "plain_ms": p, "bytes_ms": bytes_ms,
-                         "ops_ms": ops_ms, "bound_ms": b, "bound_by": by,
-                         "roofline_share": b / k, "max_abs_err": err})
-            for key, v in (("kernel_ms", k), ("plain_ms", p),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                tot[key] += v * n
-            log("  inception %-20s %-8s sites=%-2d kernel_ms=%.5f "
-                "plain_ms=%.5f bound_ms=%.5f (%s) share=%.3f err=%.3g"
-                % (shape, dt, n, k, p, b, by, b / k, err))
-            del x
-        tot["bound_ms"], tot["bound_by"] = bound_of(tot["bytes_ms"],
-                                                    tot["ops_ms"])
-        totals[dt] = tot
-        log("  Inception-v3 %s forward at batch %d, 94 sites: kernel_ms=%.4f "
-            "plain_ms=%.4f bound_ms=%.4f (%s), share %.3f"
-            % (dt, batch, tot["kernel_ms"], tot["plain_ms"], tot["bound_ms"],
-               tot["bound_by"], tot["bound_ms"] / tot["kernel_ms"]))
+        mine = [b1_class_row("bn_act", (batch,) + chw, dtype,
+                             sum(1 for _f, c in sites if c == chw), dev,
+                             300 + i, "inception ")
+                for i, chw in enumerate(distinct)]
+        max_err[dt] = max(r["max_abs_err"] for r in mine)
+        totals[dt] = b1_totals(mine, "Inception-v3 %s forward at batch %d, "
+                               "94 sites" % (dt, batch))
+        rows += mine
     log("B1 vs plain at Inception-v3's 18 site shapes (%.3f M elements an "
         "image over the 94 sites), bf16 batch %d and f32 batch %d, agree; "
         "max abs err %s" % (elems / 1e6, INCEPTION["bf16_batch"],
@@ -7862,7 +7961,7 @@ def inception_serve(sym, dev, card, report):
     return launches
 
 
-def inception_train(sym, dev, card, report, b1_totals):
+def inception_train(sym, dev, card, report, b1_tot):
     """Part c: train_imagenet.py's benchmark loop on Inception-v3, bf16 at
     batch 128: 10 steps per step, tier off's first step, then 3 windows
     at K 30 and a profiled one -> (B1 launches at K 1, the window's
@@ -7893,8 +7992,8 @@ def inception_train(sym, dev, card, report, b1_totals):
         "profiled step %.3f ms for 94 forward launches (the kernel alone "
         "at these shapes: %.3f ms, bound %.3f ms)"
         % (["%.4f" % x for x in losses], n_aux, prof["b1_ms"],
-           b1_totals["bfloat16"]["kernel_ms"],
-           b1_totals["bfloat16"]["bound_ms"]))
+           b1_tot["bfloat16"]["kernel_ms"],
+           b1_tot["bfloat16"]["bound_ms"]))
     del mod
     released(dev)
     # -- tier off, the first step from the same start
@@ -8254,8 +8353,14 @@ def main():
     max_err, per_class, totals = kernel_phase(sites, dev)
     host_us = wrapper_host_us(dev)
     log("host time per kernel launch through the wrapper: %.1f us" % host_us)
+    # the least time_ms reads for any launch, in each flush mode
+    empty = {mode: time_ms(lambda: torch.cuda._sleep(0), dev,
+                           clean_l2=mode == "clean")
+             for mode in ("dirty", "clean")}
+    log("an empty kernel (torch.cuda._sleep(0)) in time_ms: %s ms"
+        % json.dumps(empty))
     report.update(kernel_classes=per_class, kernel_totals=totals,
-                  wrapper_host_us=host_us)
+                  wrapper_host_us=host_us, empty_kernel_ms=empty)
     launches = main_path(dev, card, report)
     gpt_err, gpt_rows = gpt_kernel_phase(dev)
     report["decode_kernels"] = gpt_rows
@@ -8325,7 +8430,9 @@ def main():
                 inc_train[form], inc_err["bfloat16"], inc_tot["bfloat16"],
                 [INCEPTION["bf16_batch"], "bfloat16"])
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
-                       "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+                       "ms": t["kernel_ms"],
+                       "ms_clean_l2": t["kernel_clean_ms"],
+                       "plain_ms": t["plain_ms"],
                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                        "library_ms": None}
                    for p, (n, e, t, bd) in paths.items()}

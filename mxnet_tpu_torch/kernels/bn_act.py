@@ -32,9 +32,11 @@ __all__ = ["fused_bn_act", "eligible", "shape_key_shapes", "DEFAULT_CONFIG",
            "OP_NAME", "launches", "launches_by_kernel", "reset_launches"]
 
 OP_NAME = "bn_act"
-# CUDA launch shape: threads per block, and the grid-stride loop's cap on
-# blocks (about 15 resident blocks of 256 threads on each of 132 SMs)
-DEFAULT_CONFIG = {"threads": 256, "max_blocks": 2048}
+# CUDA launch shape: threads per block, and the cap on blocks past which
+# the kernel's grid-stride loops take the rest (the default, 2^31 - 1, is
+# CUDA's largest grid: every block one pass, which ran faster on the H100
+# than one wave of resident blocks looping)
+DEFAULT_CONFIG = {"threads": 256, "max_blocks": 2147483647}
 
 _ACTS = ("relu", "identity")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

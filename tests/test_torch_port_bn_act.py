@@ -24,7 +24,9 @@ from mxnet_tpu_torch.kernels import bn_act as tbn
 
 SHAPES = [(2, 16, 7, 7),      # HW = 49, ResNet-50's last stage
           (3, 5, 4, 6),       # N*C = 15, a multiple of no block
-          (1, 3, 13, 11)]     # odd HW = 143
+          (1, 3, 13, 11),     # odd HW = 143
+          (2, 5, 17, 17),     # Inception-v3's odd rows: 17x17 and 35x35
+          (1, 3, 35, 35)]
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -11,8 +11,10 @@ ResNet-20 in f32 and bf16 trained by ``Module.fit``, the example's GPT
 trained through Gluon, a recommend batch through the cache-backed
 engine, a fused gluon.rnn layer with dropout, Inception-v3 at 139 x 139
 with its 94 B1 launches, the LRN op) on the card against the CPU, B1 at
-Inception-v3's odd and small site shapes, and B2's launches under
-gluon.rnn's word language model.
+Inception-v3's odd and small site shapes and on each of its index paths
+(rows odd, aligned and shorter than a vector, one channel, x and r at
+storage offsets, NaN and infinities, a CUDA graph's replay, more than
+2^31 elements), and B2's launches under gluon.rnn's word language model.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -108,6 +110,131 @@ def test_small_grids_cover_every_element(cuda):
     torch.cuda.synchronize()
     _assert_kernel_matches_plain(y, tbn._plain_epilogue(x, sc, sh, r,
                                                         "relu"))
+
+
+# B1's index paths (csrc/bn_act.cu, 16-byte vectors over the flat tensor):
+# rows of odd length, rows a multiple of a vector, rows shorter than a
+# vector, one channel, element counts no multiple of 8; chip_smoke.py's
+# phase 3 runs the same cases
+_B1_EDGE_SHAPES = [(2, 3, 147, 147), (3, 5, 17, 17), (4, 6, 7, 7),
+                   (2, 5, 8, 8), (2, 3, 56, 56), (3, 7, 1, 1), (2, 5, 2, 3),
+                   (3, 1, 9, 11), (2, 1, 8, 8)]
+
+
+def _launch_once(x, sc, sh, r, act):
+    before = tbn.launches
+    y = tbn._launch(x, sc, sh, r, act, tbn.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    assert tbn.launches == before + 1
+    return y
+
+
+@pytest.mark.parametrize("shape", _B1_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_bn_act_index_paths_match_plain(cuda, shape, dtype, residual):
+    x, sc, sh, r = _case(shape, dtype, residual, cuda, seed=sum(shape))
+    for act in ("relu", "identity"):
+        _assert_kernel_matches_plain(_launch_once(x, sc, sh, r, act),
+                                     tbn._plain_epilogue(x, sc, sh, r, act))
+
+
+def _at_offset(t, off):
+    """A contiguous copy of ``t`` starting ``off`` elements into its
+    storage."""
+    buf = torch.empty(off + t.numel(), dtype=t.dtype, device=t.device)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (3, 3), (1, 3), (0, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_bn_act_at_storage_offsets_matches_plain(cuda, offsets, dtype,
+                                                 residual):
+    """x and r as views whose 16-byte alignment differs from y's: the
+    same kernel's element-wise path."""
+    for shape in ((3, 5, 17, 17), (2, 3, 56, 56)):
+        x, sc, sh, r = _case(shape, dtype, residual, cuda, seed=5)
+        xo = _at_offset(x, offsets[0])
+        ro = None if r is None else _at_offset(r, offsets[1])
+        assert xo.is_contiguous() and xo.storage_offset() == offsets[0]
+        _assert_kernel_matches_plain(_launch_once(xo, sc, sh, ro, "relu"),
+                                     tbn._plain_epilogue(x, sc, sh, r,
+                                                         "relu"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+def test_bn_act_passes_nan_inf_and_negative_zero_as_plain(cuda, dtype,
+                                                         residual):
+    """NaN stays NaN through the ReLU (``v < 0 ? 0 : v``), infinities
+    follow the arithmetic, -0.0 is an ordinary zero: the kernel's NaN and
+    infinities are the plain version's, and the rest within tolerance."""
+    for shape in ((3, 5, 17, 17), (2, 5, 8, 8)):
+        x, sc, sh, r = _case(shape, dtype, residual, cuda, seed=11)
+        hw, n = shape[2] * shape[3], x.numel()
+        flat = x.view(-1)
+        vals = (float("nan"), float("inf"), float("-inf"), -0.0)
+        for k, i in enumerate((0, 1, hw - 1, hw, n // 2, n - 2, n - 1)):
+            flat[i] = vals[k % len(vals)]
+        for act in ("relu", "identity"):
+            y = _launch_once(x, sc, sh, r, act)
+            ref = tbn._plain_epilogue(x, sc, sh, r, act)
+            nan, inf = torch.isnan(ref), torch.isinf(ref)
+            assert nan.any() and inf.any()
+            assert torch.equal(torch.isnan(y), nan)
+            assert torch.equal(torch.isinf(y), inf)
+            assert torch.equal(y[inf], ref[inf])
+            fin = torch.isfinite(ref)
+            _assert_kernel_matches_plain(torch.where(fin, y, 0),
+                                         torch.where(fin, ref, 0))
+
+
+def test_bn_act_replays_bitwise_in_a_cuda_graph(cuda):
+    x, sc, sh, r = _case((8, 64, 35, 35), torch.bfloat16, True, cuda, seed=9)
+
+    def launch():
+        return tbn._launch(x, sc, sh, r, "relu", tbn.DEFAULT_CONFIG)
+    eager = launch()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = tbn.launches
+    with torch.cuda.graph(graph):
+        y = launch()
+    assert tbn.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager)
+    x.copy_(x.flip(0))                # the graph reads x by its address
+    eager = launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, eager)
+
+
+def test_bn_act_past_2_31_elements(cuda):
+    """2.17e9 bf16 elements (H*W odd): the 64-bit index path, held
+    against the plain version one (n, c) row at a time."""
+    N, C, H, W = 2, 3, 19001, 19001
+    x = torch.empty((N, C, H, W), dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for n in range(N):
+        x[n].normal_(generator=g)
+    assert x.numel() > 2 ** 31
+    _x, sc, sh, _r = _case((1, C, 1, 1), torch.bfloat16, False, cuda)
+    y = _launch_once(x, sc, sh, None, "relu")
+    for n in range(N):
+        for c in range(C):
+            ref = tbn._plain_epilogue(x[n:n + 1, c:c + 1], sc[c:c + 1],
+                                      sh[c:c + 1], None, "relu")
+            _assert_kernel_matches_plain(y[n:n + 1, c:c + 1], ref)
+    del x, y
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
