@@ -539,11 +539,56 @@ Phases; any failure raises and the script exits non-zero:
    of ``mobilenetv2_1.0`` and ``densenet121`` with finite losses. Gluon
    fuses nothing, so no kernel launches in (e). The phase's wall time
    is printed.
-21. The whole run's wall time, then the ``kernels`` JSON line (B1's
+21. Object detection, BASELINE config 4 (ROADMAP A9's detection slice), through
+   ``tests/detection_graphs.py``, the two examples spelled over ``mt``
+   (the examples import the JAX package). (a) Every detection op on the
+   card against the port on the CPU, the same seeded inputs with ties
+   planted (equal scores, equal background probabilities, all-zero ROI
+   bins): ``box_nms`` over 2 x 5120 boxes (plain and class-aware with
+   topk) and ``bipartite_matching`` bitwise; ``MultiBoxTarget`` at SSD's
+   5120 anchors (its mask and mined classes bitwise, offsets within
+   1e-5), ``MultiBoxDetection`` (class ids and kept rows bitwise, values
+   within 1e-5), ``MultiBoxPrior``, ``Proposal`` at R-CNN's shape (batch
+   indices and padding bitwise, boxes within 1e-4 of 128-pixel
+   coordinates), ``ROIPooling`` and ``ROIAlign`` with their gradients at
+   R-CNN's (2, 64, 8, 8) feature map and 32 ROIs (1e-5); the host NMS
+   walks and their copied bytes printed. B1 at SSD's site shapes and B5
+   at R-CNN's fc6 shape (32, 128) + bias -> ReLU against their plain
+   versions (phase 3's and phase 7's tolerances), timed beside their
+   bounds. (b) ``examples/train_rcnn.py``'s fit at its settings (IMG
+   128, stride 16, 3 anchors, 16 ROIs an image, batch 2, 64 synthetic
+   images of seed 7, SGD lr 0.01 momentum 0.9 wd 5e-4, kvstore
+   ``local``, ``RCNNMetric``, the example's Xavier as the JAX package
+   draws it from numpy after ``numpy.random.seed(7)``): first one step
+   on the card against the CPU, the CPU replaying the card's custom-op
+   outputs (its ROIs and samples), outputs within 1e-4 and gradients
+   within 1e-3 relative L2; then 5 epochs at the automatic K (1: the
+   graph holds the ``Custom`` and ``Proposal`` host ops, so its steps run
+   uncaptured, read from the graph) and 1 epoch at
+   ``steps_per_dispatch=4`` (uncaptured): counts zeroed before and read
+   after, one B5 launch a forward at fc6 and nothing else, no fallback;
+   the loss falling over the epochs (the last below the first,
+   ``check_improved``'s rule); step wall by epoch, the custom op's round
+   trips and their host us, the NMS walks; 8 profiled steps (wall,
+   device time, busy share). (c) ``examples/train_ssd.py``'s fit from
+   the detection fixture (``tests/data/det_fixture``, packed into
+   records here) through ``mt.image.ImageDetIter`` on the card (nvJPEG,
+   shuffled, mirrored, batch 8 at 64x64, ``ResizeIter`` of 8 batches),
+   4 epochs, kvstore ``tpu_sync``, ``Speedometer(8, 4)``,
+   ``MultiBoxMetric``, the example's Xavier drawn as in (b) from seed 7:
+   4 B1 launches a forward and nothing else, every image decoded by
+   nvJPEG, the loss falling; images/s; then the reference SSD's
+   inference head (softmax, ``MultiBoxDetection``, nms_topk 400) over one
+   batch with the trained weights: 4 B1 launches, the detections' class
+   ids and kept rows bitwise the port's CPU op on the card's own
+   probabilities and offsets, values within 1e-5, the op's host wall.
+   The phase's wall time is printed.
+22. The whole run's wall time, then the ``kernels`` JSON line (B1's
    entry has ``_contrib_FusedBNAct``, ``grouped``, ``records``,
-   ``imagenet_loop``, ``inception_v3_serve`` and ``inception_v3_train``
-   among its paths, B2, B3 and B5 ``grouped``, B5
-   ``alexnet_train/float32`` and ``alexnet_train/bfloat16``, B2
+   ``imagenet_loop``, ``inception_v3_serve``, ``inception_v3_train``,
+   ``ssd_train`` and ``ssd_detect`` among its paths, B2, B3 and B5
+   ``grouped``, B5 ``alexnet_train/float32``,
+   ``alexnet_train/bfloat16`` and ``rcnn_train``, B2
    ``recommend``, ``matrix_factorization``,
    ``lstm_bench``, ``word_lm`` and ``char_lstm``; ``image_aug`` and
    ``jpeg_color``, which no TPU kernel stands behind), the card's
@@ -2071,6 +2116,34 @@ def b5_check(x, scale, b, act, cot, what):
     _o, gp = grads_of(lambda a, s, c: ref(a, s, c, act), (x, scale, b), cot)
     return err, max(grad_check(a_, w_, what)
                     for a_, w_ in zip(gk, gp) if w_ is not None)
+
+
+def b5_row(shape, dtype, dev, what, seed=23):
+    """B5 at ``shape`` (+ bias -> ReLU, the fusion pass's ``fc_act``
+    plan), held by ``b5_check`` as phase 7 holds it and timed beside its
+    bound -> the row."""
+    from mxnet_tpu_torch.kernels import mlp
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = str(dtype)[6:]
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    b = torch.randn(shape[1], generator=g, device=dev)
+    cot = torch.randn(shape, generator=g, device=dev)
+    err, gerr = b5_check(x, None, b, "relu", cot, "scale_bias_act %s %s, "
+                         "bias, ReLU (%s)" % (shape, dt, what))
+    ms = time_ms(lambda: mlp._launch(x, None, b, "relu", mlp.DEFAULT_CONFIG),
+                 dev)
+    plain = time_ms(lambda: mlp._plain_scale_bias_act(x, None, b, "relu"),
+                    dev)
+    bytes_ms = (2 * x.numel() * x.element_size() + b.numel() * 4) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * x.numel() / F32_FLOPS * 1e3
+    bound, by = bound_of(bytes_ms, ops_ms)
+    log("  B5 at %s %s %s: agrees (max abs err %.3g, gradients %.3g); "
+        "kernel_ms=%.5f plain_ms=%.5f bound_ms=%.5f (%s), share %.3f"
+        % (what, shape, dt, err, gerr, ms, plain, bound, by, bound / ms))
+    return {"shape": "%s %s, bias, ReLU" % (shape, dt), "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "max_abs_err": err, "grad_max_abs_err": gerr}
 
 
 def train_kernel_phase(dev):
@@ -8087,36 +8160,9 @@ def alexnet_b5_check(dev):
     """Part d: B5 at AlexNet's fc6 and fc7 shape, (128, 4096) + bias ->
     ReLU, f32 and bf16, held by ``b5_check`` as phase 7 holds it, each
     timed beside its bound -> {dtype: row}."""
-    from mxnet_tpu_torch.kernels import mlp
-    shape = ALEXNET["b5_shape"]
-    g = torch.Generator(device=dev).manual_seed(23)
-    rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dt = str(dtype)[6:]
-        x = torch.randn(shape, generator=g, device=dev).to(dtype)
-        b = torch.randn(shape[1], generator=g, device=dev)
-        cot = torch.randn(shape, generator=g, device=dev)
-        what = "scale_bias_act %s %s, bias, ReLU (AlexNet fc6/fc7)" % (
-            shape, dt)
-        err, gerr = b5_check(x, None, b, "relu", cot, what)
-        ms = time_ms(lambda: mlp._launch(x, None, b, "relu",
-                                         mlp.DEFAULT_CONFIG), dev)
-        plain = time_ms(lambda: mlp._plain_scale_bias_act(x, None, b,
-                                                          "relu"), dev)
-        bytes_ms = (2 * x.numel() * x.element_size() + b.numel() * 4) \
-            / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * x.numel() / F32_FLOPS * 1e3
-        bound, by = bound_of(bytes_ms, ops_ms)
-        rows[dt] = {"shape": "%s %s, bias, ReLU" % (shape, dt), "ms": ms,
-                    "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                    "library_ms": None, "max_abs_err": err,
-                    "grad_max_abs_err": gerr}
-        log("  B5 at AlexNet's fc6/fc7 %s %s: agrees (max abs err %.3g, "
-            "gradients %.3g); kernel_ms=%.5f plain_ms=%.5f bound_ms=%.5f "
-            "(%s), share %.3f" % (shape, dt, err, gerr, ms, plain, bound, by,
-                                  bound / ms))
-        del x
-    return rows
+    return {str(dt)[6:]: b5_row(ALEXNET["b5_shape"], dt, dev,
+                                "AlexNet's fc6/fc7")
+            for dt in (torch.float32, torch.bfloat16)}
 
 
 def alexnet_path(dev, card, report):
@@ -8313,6 +8359,486 @@ def vision_path(dev, card, report):
     return err, totals, serve, train, census, b5
 
 
+# ------------------------------------------- object detection (phase 21)
+DET = dict(rcnn_epochs=5, rcnn_k=4, ssd_epochs=4,
+           ssd_batch=8, ssd_side=64, ssd_classes=3, seed=7,
+           sgd={"learning_rate": 0.01, "momentum": 0.9, "wd": 5e-4},
+           # B1's four sites at SSD's batch 8 (c2 and c3 share a shape)
+           ssd_sites=(((8, 16, 64, 64), 1), ((8, 32, 32, 32), 2),
+                      ((8, 64, 16, 16), 1)),
+           # B5 at fc6: 2 images x 16 ROIs by 128 features
+           fc6_shape=(32, 128))
+RCNN_NAMES = dict(data_names=("data", "im_info", "gt_boxes"),
+                  label_names=("rpn_label", "rpn_bbox_target",
+                               "rpn_bbox_weight"))
+
+
+def detection_graphs():
+    """``tests/detection_graphs.py``: the two examples' graphs and loops
+    spelled over a package argument (the examples import the JAX
+    package)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import detection_graphs as dg
+    return dg
+
+
+def det_on_both(name, ins, dev, **kw):
+    """The registry op on the card and on the CPU (the port's), same
+    inputs -> (card outputs, CPU outputs) as numpy lists."""
+    fn = mt.ops.registry.get(name).fn
+    card = fn(*[torch.from_numpy(x).to(dev) for x in ins], **kw)
+    cpu = fn(*[torch.from_numpy(x) for x in ins], **kw)
+    torch.cuda.synchronize()
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    return [c.cpu().numpy() for c in card], [c.numpy() for c in cpu]
+
+
+def det_same(what, got, want, sel=(), atol=1e-5):
+    """``sel`` (column slices or callables) bitwise, every value within
+    atol/rtol ``atol`` -> the max abs error; raises past it."""
+    for s in sel:
+        a, b = s(got), s(want)
+        if not np.array_equal(a, b):
+            raise RuntimeError("%s: the card's selections differ from the "
+                               "CPU's (%d of %d)" % (what, int((a != b).sum()),
+                                                     a.size))
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    if not np.allclose(got, want, rtol=atol, atol=atol):
+        raise RuntimeError("%s: max abs err %g past %g" % (what, err, atol))
+    return err
+
+
+def det_ops_check(dev):
+    """Part a: every detection op on seeded inputs with ties, card against
+    the port on the CPU: selections bitwise, values and the ROI ops'
+    gradients within 1e-5 -> {op: max abs err}."""
+    from mxnet_tpu_torch.ops import contrib_ops
+    rng = np.random.RandomState(21)
+    errs = {}
+    n = 5120
+    nms = np.zeros((2, n, 6), np.float32)
+    nms[..., 0] = rng.randint(0, 3, (2, n))
+    nms[..., 1] = np.round(rng.uniform(0, 1, (2, n)), 2)       # ties
+    lo = rng.uniform(0, 0.8, (2, n, 2))
+    nms[..., 2:4] = lo
+    nms[..., 4:] = lo + rng.uniform(0.02, 0.2, (2, n, 2))
+    for kw in (dict(), dict(id_index=0, topk=400)):
+        (g,), (w,) = det_on_both("_contrib_box_nms", [nms], dev, **kw)
+        errs["box_nms"] = det_same("box_nms %s" % kw, g, w,
+                                   [lambda x: x], atol=0.0)
+    x = np.round(rng.uniform(0, 1, (4, 12, 9)), 1).astype(np.float32)
+    g, w = det_on_both("_contrib_bipartite_matching", [x], dev,
+                       threshold=0.2)
+    for a, b in zip(g, w):
+        det_same("bipartite_matching", a, b, [lambda x: x], atol=0.0)
+    errs["bipartite_matching"] = 0.0
+    side = DET["ssd_side"]
+    anchors = np.concatenate([mt.ops.registry.get(
+        "_contrib_MultiBoxPrior").fn(torch.zeros(1, 1, s, s), sizes=sizes,
+                                     ratios=(1.0, 2.0, 0.5)).numpy()
+        for s, sizes in ((side // 2, (0.3, 0.39)), (side // 4, (0.6, 0.78)))],
+        axis=1)
+    (g,), (w,) = det_on_both("_contrib_MultiBoxPrior",
+                             [np.zeros((1, 1, side // 2, side // 2),
+                                       np.float32)], dev,
+                             sizes=(0.3, 0.39), ratios=(1.0, 2.0, 0.5))
+    errs["MultiBoxPrior"] = det_same("MultiBoxPrior", g, w)
+    a = anchors.shape[1]
+    label = np.full((8, 2, 5), -1.0, np.float32)
+    for b in range(8):
+        k = 1 + b % 2
+        label[b, :k, 0] = rng.randint(0, 3, k)
+        xy = rng.uniform(0.05, 0.5, (k, 2))
+        label[b, :k, 1:3] = xy
+        label[b, :k, 3:] = np.minimum(xy + rng.uniform(0.25, 0.45, (k, 2)),
+                                      0.95)
+    conf = rng.randn(8, 4, a).astype(np.float32)
+    conf[:, :, :1000] = conf[:, :, :1]                     # tied backgrounds
+    g, w = det_on_both("_contrib_MultiBoxTarget", [anchors, label, conf],
+                       dev, negative_mining_ratio=3,
+                       negative_mining_thresh=0.5, ignore_label=-1)
+    det_same("MultiBoxTarget mask", g[1], w[1], [lambda x: x], atol=0.0)
+    det_same("MultiBoxTarget classes", g[2], w[2], [lambda x: x], atol=0.0)
+    errs["MultiBoxTarget"] = det_same("MultiBoxTarget offsets", g[0], w[0])
+    e = np.exp(conf - conf.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rng.randn(8, a * 4) * 0.3).astype(np.float32)
+    (g,), (w,) = det_on_both("_contrib_MultiBoxDetection",
+                             [prob, loc, anchors], dev, nms_topk=400)
+    errs["MultiBoxDetection"] = det_same(
+        "MultiBoxDetection", g, w, [lambda x: x[..., 0],
+                                    lambda x: x[..., 1] >= 0])
+    logits = rng.randn(2, 2, 3, 8, 8).astype(np.float32)
+    logits[:, :, :, :3] = logits[:, :, :, :1]              # equal scores
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    rprob = (e / e.sum(1, keepdims=True)).reshape(2, 6, 8, 8) \
+        .astype(np.float32)
+    deltas = (rng.randn(2, 12, 8, 8) * 0.2).astype(np.float32)
+    info = np.array([[128, 128, 1], [128, 128, 1]], np.float32)
+    g, w = det_on_both("_contrib_Proposal", [rprob, deltas, info], dev,
+                       scales=(2, 4, 6), ratios=(1.0,), feature_stride=16,
+                       rpn_pre_nms_top_n=64, rpn_post_nms_top_n=16,
+                       threshold=0.7, rpn_min_size=8, output_score=True)
+    errs["Proposal"] = det_same("Proposal", g[0], w[0],
+                                [lambda x: x[:, 0], lambda x: x[:, 1] == -1],
+                                atol=1e-4)
+    feat = np.maximum(rng.randn(2, 64, 8, 8), 0).astype(np.float32)
+    rois = np.concatenate([rng.randint(0, 2, (32, 1)),
+                           rng.uniform(0, 60, (32, 2)),
+                           rng.uniform(60, 127, (32, 2))], 1) \
+        .astype(np.float32)
+    cot = rng.randn(32, 64, 4, 4).astype(np.float32)
+    for op in ("ROIPooling", "_contrib_ROIAlign"):
+        res = []
+        for d in (dev, torch.device("cpu")):
+            f = torch.from_numpy(feat).to(d).requires_grad_(True)
+            out = mt.ops.registry.get(op).fn(
+                f, torch.from_numpy(rois).to(d), pooled_size=(4, 4),
+                spatial_scale=1.0 / 16)
+            (gr,) = torch.autograd.grad(
+                (out * torch.from_numpy(cot).to(d)).sum(), [f])
+            res.append((out.detach().cpu().numpy(), gr.cpu().numpy()))
+        errs[op] = max(det_same(op, res[0][0], res[1][0]),
+                       det_same(op + " gradient", res[0][1], res[1][1]))
+    log("  (a) detection ops on the card vs the port on the CPU (ties "
+        "planted; selections bitwise): max abs err %s; %d NMS walks on "
+        "the host, %d bytes copied for them"
+        % (json.dumps({k: float("%.3g" % v) for k, v in errs.items()}),
+           contrib_ops.nms_passes, contrib_ops.nms_copy_bytes))
+    return errs
+
+
+def fit_profile(fit_once):
+    """torch.profiler around ``fit_once()`` (one short fit, the card
+    synchronized after) -> wall ms, device ms, busy share, top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit_once()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(x[1] for x in kernels)
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return {"wall_ms": wall_us / 1e3, "device_ms": busy / 1e3,
+            "device_busy_share": busy / wall_us,
+            "top_kernels": [{"name": x[0][:80], "ms": x[1] / 1e3,
+                             "calls": x[2]}
+                            for x in sorted(kernels, key=lambda x: -x[1])[:6]]}
+
+
+def rcnn_module(P, ctx):
+    return mt.mod.Module(P.rcnn_symbol(), context=ctx, **RCNN_NAMES)
+
+
+def example_init(sym, shapes, seed):
+    """The examples' ``mx.initializer.Xavier()`` as the JAX package draws
+    it (uniform, "avg", magnitude 3, from numpy's global state after
+    ``numpy.random.seed(seed)``, in the symbol's argument order; biases
+    and betas 0, gammas 1, moving means 0 and variances 1), reproduced
+    with numpy -> (arg params, aux params) as CPU tensors. At the
+    R-CNN example's seed 7 these are its starting weights."""
+    arg_shapes, _, aux_shapes = sym.infer_shape(**shapes)
+    np.random.seed(seed)
+    args = {}
+    for n, shp in zip(sym.list_arguments(), arg_shapes):
+        if n in shapes:
+            continue
+        if n.endswith("_weight"):
+            hw = float(np.prod(shp[2:])) if len(shp) > 2 else 1.0
+            fan = (shp[1] * hw + shp[0] * hw) / 2.0
+            scale = np.sqrt(3.0 / fan)
+            v = np.random.uniform(-scale, scale, shp)
+        else:
+            v = np.full(shp, 1.0 if n.endswith("_gamma") else 0.0)
+        args[n] = torch.from_numpy(v.astype(np.float32))
+    aux = {n: torch.full(tuple(shp), 1.0 if n.endswith("_var") else 0.0)
+           for n, shp in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def rcnn_first_step(dg, dev, p0):
+    """Trouble spot: the first step, card against the CPU port, the CPU
+    taking the card's ROIs and samples (its custom op replays the card's
+    outputs) -> (outputs' worst relative L2, gradients' worst)."""
+    rec, res = [], []
+    for i, ctx in enumerate((mt.gpu(0), mt.cpu())):
+        P = dg.rcnn_parts(mt)
+        orig = P.ProposalTarget.forward
+
+        def fwd(self, is_train, req, in_data, out_data, aux, _o=orig,
+                _card=i == 0):
+            if _card:
+                _o(self, is_train, req, in_data, out_data, aux)
+                rec.append([o.asnumpy() for o in out_data])
+            else:
+                for o, r, v in zip(out_data, req, rec[0]):
+                    self.assign(o, r, v)
+        P.ProposalTarget.forward = fwd
+        it = P.RCNNIter(n=2, batch_size=2, seed=DET["seed"])
+        with ctx:
+            batch = next(it)
+        sym = P.rcnn_symbol()
+        shapes = dict(it.provide_data + it.provide_label)
+        ex = sym.simple_bind(ctx, grad_req={n: "write" for n in p0},
+                             **shapes)
+        ex.copy_params_from({n: v for n, v in p0.items()})
+        feed = dict(zip([n for n, _ in it.provide_data + it.provide_label],
+                        list(batch.data) + list(batch.label)))
+        outs = ex.forward(is_train=True, **{k: v.data for k, v in
+                                            feed.items()})
+        ex.backward()
+        res.append(({j: o.detach().cpu() for j, o in enumerate(outs)},
+                    {n: ex.grad_dict[n].detach().cpu() for n in p0}))
+    (go, gg), (co, cg) = res
+    out_err = max(rel_l2(go, co).values())
+    grad_err = max(rel_l2(gg, cg).values())
+    if out_err > 1e-4 or grad_err > 1e-3:
+        raise RuntimeError("R-CNN's first step on the card vs the CPU (the "
+                           "card's ROIs): outputs %g, gradients %g relative "
+                           "L2" % (out_err, grad_err))
+    return out_err, grad_err
+
+
+def rcnn_path(dg, dev, card, report):
+    """Part b: train_rcnn.py's fit at the example's settings (see the
+    module docstring) -> (B5 launches, the per-step rows)."""
+    from mxnet_tpu_torch.ops import contrib_ops, custom_op
+    gpu = mt.gpu(0)
+    P = dg.rcnn_parts(mt)
+    it0 = P.RCNNIter(n=2, batch_size=2, seed=DET["seed"])
+    p0, _ = example_init(P.rcnn_symbol(), dict(it0.provide_data
+                                               + it0.provide_label),
+                         DET["seed"])
+    out_err, grad_err = rcnn_first_step(dg, dev, p0)
+    log("  (b) R-CNN's first step on the card vs the CPU (the card's ROIs "
+        "and samples replayed on the CPU): outputs within %.3g, gradients "
+        "within %.3g relative L2" % (out_err, grad_err))
+    runs = {}
+    b5 = 0
+    for label, k, epochs in (("auto", None, DET["rcnn_epochs"]),
+                             ("k%d" % DET["rcnn_k"], DET["rcnn_k"], 1)):
+        P = dg.rcnn_parts(mt)
+        it = P.RCNNIter(batch_size=2, seed=DET["seed"])
+        mod = rcnn_module(P, gpu)
+        metric = P.RCNNMetric()
+        losses, stamps = [], [time.perf_counter()]
+
+        def epoch_cb(_e, _s, _a, _x, _m=metric, _l=losses, _t=stamps):
+            torch.cuda.synchronize()
+            _t.append(time.perf_counter())
+            _l.append(float(_m.get()[1]))
+        reset_all_counts()
+        contrib_ops.reset_counts()
+        custom_op.reset_counts()
+        mod.fit(it, num_epoch=epochs, optimizer="sgd",
+                optimizer_params=DET["sgd"],
+                arg_params={n: v.clone() for n, v in p0.items()},
+                aux_params={}, kvstore="local", eval_metric=metric,
+                epoch_end_callback=epoch_cb, steps_per_dispatch=k)
+        steps = epochs * (it.n // 2)
+        counts = held_counts("R-CNN %s (B5 at fc6 each forward)" % label,
+                             {"scale_bias_act": steps})
+        b5 += counts["scale_bias_act"]
+        fused = mod._fused
+        if fused is None or fused.dispatch != "eager" or fused.captures:
+            raise RuntimeError("R-CNN %s: the step must run uncaptured "
+                               "(host ops %s)" % (label, getattr(
+                                   fused, "host_ops", None)))
+        if mod._fit_k != (k or 1):
+            raise RuntimeError("R-CNN: fit ran at K %s" % mod._fit_k)
+        if not np.isfinite(losses).all() or (
+                len(losses) > 1 and not losses[-1] < losses[0]):
+            raise RuntimeError("R-CNN %s: the loss did not fall: %s"
+                               % (label, losses))
+        step_ms = [float(x) * 1e3 / (it.n // 2) for x in np.diff(stamps)]
+        runs[label] = {
+            "k": mod._fit_k, "dispatch": fused.dispatch,
+            "host_ops": list(fused.host_ops), "losses": losses,
+            "step_ms_by_epoch": step_ms, "b5_launches": b5,
+            "custom_round_trips": custom_op.round_trips,
+            "custom_round_trip_us": custom_op.round_trip_us
+            / max(custom_op.round_trips, 1),
+            "custom_drain_us": custom_op.drain_us
+            / max(custom_op.round_trips, 1),
+            "nms_walks": contrib_ops.nms_passes,
+            "nms_copy_bytes": contrib_ops.nms_copy_bytes}
+        log("  R-CNN fit, K %s (%s, %s dispatch, host ops %s): losses %s; "
+            "step wall by epoch %s ms; B5 launches %d (one a forward); "
+            "Custom %d round trips, %.1f us each (copies and the op's "
+            "Python) after %.1f us waiting for the queue; %d NMS walks, "
+            "%d bytes copied  [%s]"
+            % (mod._fit_k, label, fused.dispatch, list(fused.host_ops),
+               ["%.4f" % x for x in losses], ["%.2f" % x for x in step_ms],
+               counts["scale_bias_act"], custom_op.round_trips,
+               runs[label]["custom_round_trip_us"],
+               runs[label]["custom_drain_us"], contrib_ops.nms_passes,
+               contrib_ops.nms_copy_bytes, card))
+        if label == "auto":
+            prof = fit_profile(lambda: mod.fit(
+                P.RCNNIter(n=16, batch_size=2, seed=DET["seed"]),
+                num_epoch=1, optimizer="sgd", optimizer_params=DET["sgd"],
+                kvstore="local", eval_metric=P.RCNNMetric()))
+            runs[label]["profile_8_steps"] = prof
+            log("  R-CNN profiled over 8 steps: %.2f ms a step of wall, "
+                "%.3f ms of device time, busy share %.3f; top kernels %s"
+                % (prof["wall_ms"] / 8, prof["device_ms"] / 8,
+                   prof["device_busy_share"],
+                   [(t["name"][:40], round(t["ms"] / 8, 4))
+                    for t in prof["top_kernels"][:4]]))
+        del mod
+    report["rcnn"] = {"first_step": {"outputs_rel_l2": out_err,
+                                     "grads_rel_l2": grad_err},
+                      "runs": runs}
+    return b5
+
+
+def ssd_path(dg, dev, card, report):
+    """Part c: train_ssd.py's fit from the detection fixture through
+    ``ImageDetIter`` on the card, then ``MultiBoxDetection`` over one
+    batch -> (B1 launches in training, B1 launches in the detection
+    forward)."""
+    from mxnet_tpu_torch.kernels import nvjpeg
+    from mxnet_tpu_torch.ops import contrib_ops
+    import random as pyrandom
+    gpu = mt.gpu(0)
+    prefix = os.path.join(REPO, "build", "chip_smoke", "det")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    rec = dg.det_fixture().write_records(prefix, mt.recordio)
+    B, side = DET["ssd_batch"], DET["ssd_side"]
+    P = dg.ssd_parts(mt)
+    pyrandom.seed(DET["seed"])
+    mt.random.seed(DET["seed"])
+    base = mt.image.ImageDetIter(batch_size=B, data_shape=(3, side, side),
+                                 path_imgrec=rec, shuffle=True,
+                                 rand_mirror=True, mean=True, std=True,
+                                 ctx=gpu)
+    it = mt.io.ResizeIter(base, size=max(1, 64 // B))
+    mod = mt.mod.Module(P.ssd_symbol(DET["ssd_classes"]),
+                        data_names=("data",), label_names=("label",),
+                        context=gpu)
+    metric = P.MultiBoxMetric()
+    losses, stamps = [], [time.perf_counter()]
+
+    def epoch_cb(_e, _s, _a, _x):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(metric.get()[1]))
+    reset_all_counts()
+    decodes0 = nvjpeg.decodes
+    args0, aux0 = example_init(mod.symbol, {"data": (B, 3, side, side),
+                                            "label": (B,) + base.label_shape},
+                               DET["seed"])
+    mod.fit(it, num_epoch=DET["ssd_epochs"], optimizer="sgd",
+            optimizer_params=DET["sgd"], arg_params=args0, aux_params=aux0,
+            kvstore="tpu_sync", eval_metric=metric,
+            batch_end_callback=mt.callback.Speedometer(B, 4),
+            epoch_end_callback=epoch_cb)
+    steps = DET["ssd_epochs"] * it.size
+    counts = held_counts("SSD training (B1 at the four BatchNorm -> ReLU "
+                         "sites each forward)", {"bn_act": 4 * steps})
+    decoded = nvjpeg.decodes - decodes0
+    if decoded != steps * B:
+        raise RuntimeError("SSD: %d images decoded by nvJPEG, want %d"
+                           % (decoded, steps * B))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise RuntimeError("SSD: the loss did not fall: %s" % losses)
+    wall = stamps[-1] - stamps[0]
+    ep = [float(x) for x in np.diff(stamps)]
+    log("  (c) SSD fit (ImageDetIter on the card, nvJPEG %d images; %d "
+        "steps of %d): losses %s; %.1f images/s over the fit (decode "
+        "included), epochs %s s; B1 launches %d (4 a forward); dispatch "
+        "K %d  [%s]" % (decoded, steps, B, ["%.4f" % x for x in losses],
+                        steps * B / wall, ["%.3f" % x for x in ep],
+                        counts["bn_act"], mod._fit_k, card))
+    # the detection forward over one batch: the trained weights, the
+    # reference SSD's inference head
+    args, aux = mod.get_params()
+    it.reset()
+    batch = next(it)
+    base.close()
+    dmod = mt.mod.Module(P.detect_symbol(DET["ssd_classes"]),
+                         data_names=("data",), label_names=None,
+                         context=gpu)
+    dmod.bind(data_shapes=[("data", tuple(batch.data[0].shape))],
+              for_training=False)
+    dmod.init_params(arg_params=args, aux_params=aux)
+    reset_all_counts()
+    contrib_ops.reset_counts()
+    dmod.forward(batch, is_train=False)
+    det, prob, loc, anc = dmod.get_outputs()
+    torch.cuda.synchronize()
+    dcounts = held_counts("SSD detection forward", {"bn_act": 4})
+    nms_bytes = contrib_ops.nms_copy_bytes
+    cpu_det = mt.ops.registry.get("_contrib_MultiBoxDetection").fn(
+        prob.cpu(), loc.cpu(), anc.cpu(), nms_threshold=0.5,
+        force_suppress=False, variances=(0.1, 0.1, 0.2, 0.2), nms_topk=400)
+    got = det.cpu().numpy()
+    err = det_same("SSD MultiBoxDetection (card vs CPU, the card's "
+                   "probabilities)", got, cpu_det.numpy(),
+                   [lambda x: x[..., 0], lambda x: x[..., 1] >= 0])
+    if got.shape != (B, 5120, 6) or not (got[..., 0] >= 0).any():
+        raise RuntimeError("SSD detections: shape %s, %d kept"
+                           % (got.shape, int((got[..., 0] >= 0).sum())))
+
+    def detect():
+        mt.ops.registry.get("_contrib_MultiBoxDetection").fn(
+            prob, loc, anc, nms_threshold=0.5, force_suppress=False,
+            variances=(0.1, 0.1, 0.2, 0.2), nms_topk=400)
+        torch.cuda.synchronize()
+    detect()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        detect()
+    det_ms = (time.perf_counter() - t0) / 3 * 1e3
+    kept = int((got[..., 0] >= 0).sum())
+    log("  SSD MultiBoxDetection over one batch (8 x 5120 anchors): %d "
+        "detections kept, selections bitwise the CPU's on the card's "
+        "probabilities, values within %.3g; %.2f ms of host wall a call "
+        "(IoU on the card, %d bytes of packed suppression bits copied, "
+        "the greedy walk on the host); B1 launches %d  [%s]"
+        % (kept, err, det_ms, nms_bytes, dcounts["bn_act"], card))
+    report["ssd"] = {"losses": losses, "epoch_s": ep,
+                     "images_per_s": steps * B / wall,
+                     "b1_launches": counts["bn_act"],
+                     "detect": {"kept": kept, "max_abs_err": err,
+                                "ms": det_ms, "nms_copy_bytes": nms_bytes,
+                                "b1_launches": dcounts["bn_act"]}}
+    del mod, dmod
+    return counts["bn_act"], dcounts["bn_act"]
+
+
+def detection_path(dev, card, report):
+    """Phase 21 (see the module docstring) -> (the detection ops' errors,
+    B1's SSD rows and totals, B1 launches trained and in detection, B5's
+    row at R-CNN's fc6 with its launches)."""
+    t_phase = time.perf_counter()
+    log("phase 21: object detection (train_rcnn.py's Faster R-CNN with its "
+        "Custom op, train_ssd.py's SSD through ImageDetIter on the card, "
+        "MultiBoxDetection)")
+    dg = detection_graphs()
+    errs = det_ops_check(dev)
+    rows = [b1_class_row("bn_act", shape, torch.float32, sites, dev, 31,
+                         "SSD ") for shape, sites in DET["ssd_sites"]]
+    b1_tot = b1_totals(rows, "B1 over SSD's 4 sites (batch 8, f32)")
+    b1_err = max(r["max_abs_err"] for r in rows)
+    b5 = b5_row(DET["fc6_shape"], torch.float32, dev, "R-CNN's fc6")
+    b5["launches"] = rcnn_path(dg, dev, card, report)
+    b1_train, b1_detect = ssd_path(dg, dev, card, report)
+    released(dev)
+    wall = time.perf_counter() - t_phase
+    report["detection"] = {"ops_max_abs_err": errs, "b1_rows": rows,
+                           "b1_totals": b1_tot, "b5": b5, "wall_s": wall}
+    log("phase 21 wall: %.1f s" % wall)
+    return errs, b1_err, b1_tot, b1_train, b1_detect, b5
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -8395,6 +8921,8 @@ def main():
     loop_b1 = imagenet_path(dev, card, report)
     inc_err, inc_tot, inc_serve, inc_train, inc_census, alex_b5 = \
         vision_path(dev, card, report)
+    det_errs, ssd_err, ssd_tot, ssd_train_b1, ssd_detect_b1, rcnn_b5 = \
+        detection_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -8429,6 +8957,12 @@ def main():
             paths["inception_v3_train"] = (
                 inc_train[form], inc_err["bfloat16"], inc_tot["bfloat16"],
                 [INCEPTION["bf16_batch"], "bfloat16"])
+            # phase 21: SSD's four sites, trained (K 1) and in the
+            # detection forward, timed at their shapes (batch 8, f32)
+            paths["ssd_train"] = (ssd_train_b1, ssd_err, ssd_tot,
+                                  [DET["ssd_batch"], "float32"])
+            paths["ssd_detect"] = (ssd_detect_b1, ssd_err, ssd_tot,
+                                   [DET["ssd_batch"], "float32"])
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"],
                        "ms_clean_l2": t["kernel_clean_ms"],
@@ -8527,6 +9061,9 @@ def main():
             more += [("alexnet_train/" + dt, row["launches"],
                       row["max_abs_err"], row)
                      for dt, row in sorted(alex_b5.items())]
+            # phase 21: R-CNN's fc6, once a forward (automatic K and K 4)
+            more.append(("rcnn_train", rcnn_b5["launches"],
+                         rcnn_b5["max_abs_err"], rcnn_b5))
         if more:
             entry["by_path"] = {
                 p: dict(launches=n, max_abs_err=e, shape=row["shape"],
@@ -8555,6 +9092,7 @@ def main():
                         "shape": r["shape"],
                         **{k: r[k] for k in TIME_KEYS}})
     report["kernels"] = kernels
+    report["detection_ops_max_abs_err"] = det_errs
     report["wall_s"] = time.perf_counter() - t_run
     log("whole run: %.1f s of wall time, the kernels' build included"
         % report["wall_s"])

@@ -23,6 +23,10 @@ steps ahead of ``Module.fit``. Training keeps the JAX package's loop
 surface in one process: the key-value store (``kv``), atomic
 checkpoints and resume (``checkpoint``, ``model.save_checkpoint``),
 callbacks (``callback``), ``monitor`` and ``model.FeedForward``.
+Object detection trains through the same ``Module.fit``: the box, ROI
+and SSD ops, ``Proposal``, user Python operators (``operator``, the
+``Custom`` op, run on the host mid-step) and ``image`` (the augmenters,
+``ImageIter`` and ``ImageDetIter``).
 Its kernel tier runs hand-written CUDA kernels: ``bn_act``,
 ``take_rows``, ``flash_attn``, ``flash_attn_paged``, ``scale_bias_act``,
 the legacy flash forward ``flash_fwd``, the int8 epilogue
@@ -70,3 +74,5 @@ from . import ndarray as nd  # noqa: F401
 from . import autograd  # noqa: F401
 from . import gluon  # noqa: F401
 from . import name  # noqa: F401
+from . import operator  # noqa: F401
+from . import image  # noqa: F401

@@ -17,11 +17,16 @@ function of the batches, so the staged path is bitwise the unstaged one.
 
 When the iterator has ``get_cursor``, the feeder takes the cursor right
 after pulling each window's batches and attaches it to the window.
+
+The feeder reads the iterator in the context current where the feed was
+made (``with mt.cpu():`` around ``fit`` reaches an iterator that makes
+its arrays in the default context), as the per-step path reads it.
 """
 from __future__ import annotations
 
 import threading
 
+from ..context import current_context
 from .pipeline import PrefetchQueue
 
 __all__ = ["StagedKFeed", "StagedWindow"]
@@ -58,17 +63,20 @@ class StagedKFeed:
         self._stage_fn = stage_fn
         self._cursor_fn = cursor_fn
         self._stream = stream
+        # the caller's context: a thread starts with none of its own
+        self._ctx = current_context()
         self._pq = PrefetchQueue(max(1, int(depth)))
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
     def _run(self):
-        if self._stream is None:
-            self._feed()
-            return
-        import torch
-        with torch.cuda.stream(self._stream):
-            self._feed()
+        with self._ctx:
+            if self._stream is None:
+                self._feed()
+                return
+            import torch
+            with torch.cuda.stream(self._stream):
+                self._feed()
 
     def _feed(self):
         pq = self._pq

@@ -3,8 +3,10 @@
 ``CrossEntropy``, ``NegativeLogLikelihood``, ``Perplexity``, ``Loss``
 (with its aliases ``Torch`` and ``Caffe``) and ``create``. Labels and
 predictions are copied to the host as numpy arrays once per
-``update_dict``; ``fit(eval_metric=None)`` calls no metric at all, so it
-reads nothing back from the device, and ``fit`` folds the metrics that
+``update_dict``, arrays that still answer ``asnumpy()`` (a user metric
+written against NDArrays, ``preds[0].asnumpy()``, keeps working);
+``fit(eval_metric=None)`` calls no metric at all, so it reads nothing
+back from the device, and ``fit`` folds the metrics that
 ``device_metric`` supports into the fused step."""
 from __future__ import annotations
 
@@ -45,12 +47,19 @@ def create(metric, *args, **kwargs):
                          % (metric, sorted(_METRIC_REGISTRY))) from None
 
 
+class _HostArray(_np.ndarray):
+    """A numpy array that answers the NDArray host API."""
+
+    def asnumpy(self):
+        return _np.asarray(self)
+
+
 def _as_np(x):
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    if hasattr(x, "asnumpy"):
-        return x.asnumpy()
-    return _np.asarray(x)
+        x = x.detach().cpu().numpy()
+    elif hasattr(x, "asnumpy"):
+        x = x.asnumpy()
+    return _np.asarray(x).view(_HostArray)
 
 
 def _check(labels, preds):

@@ -199,8 +199,11 @@ class BaseModule:
         16) when nothing in the loop needs per-step host attention: no
         monitor/batch_end_callback/checkpoint/sparse_row_id_fn/
         lr_scheduler, and the eval metric either absent or folded into
-        the device step (``device_metric``). Otherwise K = 1, reference
-        per-step semantics.
+        the device step (``device_metric``), and a graph with no op that
+        reads back to the host mid-step (``FusedStep.host_ops``: a
+        ``Custom`` op, ``Proposal``). Otherwise K = 1, reference per-step
+        semantics. An explicit K over such a graph runs its K steps
+        uncaptured (``FusedStep.dispatch``).
 
         Dispatches are not waited for one by one: a
         :class:`~mxnet_tpu_torch.engine.DepthController`
@@ -320,12 +323,14 @@ class BaseModule:
                       and ckpt is None
                       and hasattr(self, "_fit_group")
                       and getattr(self, "_fused", None) is not None
+                      and not self._fused.host_ops
                       and (eval_metric is None or
                            getattr(eval_metric, "_device_resident", False))
                       and getattr(getattr(self, "_optimizer", None),
                                   "lr_scheduler", None) is None)
             steps_per_dispatch = max(1, int(_flags.steps_per_dispatch)) \
                 if auto_k else 1
+        self._fit_k = steps_per_dispatch   # the K this fit runs at
         grouped = steps_per_dispatch > 1
         # 3. dispatch without waiting; bound the in-flight queue
         depth_ctl = DepthController()

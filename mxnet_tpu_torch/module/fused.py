@@ -31,6 +31,14 @@ steps with the same arithmetic, and capture itself runs nothing. One
 graph is kept per (feed shapes and dtypes, kernel tier, metric carry);
 a failed capture raises ``MXNetError``, never falls back.
 
+A graph holding an op that reads values back to the host mid-step (a
+``Custom`` op's user Python, the NMS walk of ``Proposal`` or
+``box_nms``: ops registered ``host``) cannot be captured. That is read
+from the graph when the step is made (:attr:`FusedStep.host_ops`), never
+learnt from a failed capture: such a step's K steps run as the loop of
+eager steps on a card too (:attr:`FusedStep.dispatch` is ``"eager"``,
+``"graph"`` otherwise), and ``fit``'s automatic K is 1 for it.
+
 Mixed precision, as the JAX package's step: with a ``compute_dtype``
 (bf16 or f16) the forward casts the f32 data inputs and every f32
 parameter that is neither in ``keep_f32`` (BatchNorm's gamma and beta)
@@ -118,9 +126,15 @@ class FusedStep:
         self._keep_f32 = frozenset(keep_f32)
         self._met_fn = None
         self._graphs = {}
+        # ops that read back to the host mid-step: no CUDA graph
+        self.host_ops = tuple(sorted({
+            n.op.name for n in executor._symbol._topo()
+            if not n.is_variable and n.op.host}))
+        self.dispatch = "eager" if self.host_ops else "graph"
         # census of how steps ran: graphs captured, inner steps replayed
-        # from a graph, steps run eagerly (per-step path, CPU windows and
-        # the warm-up before a capture)
+        # from a graph, steps run eagerly (per-step path, CPU windows,
+        # windows of a graph with host ops and the warm-up before a
+        # capture)
         self.captures = 0
         self.replays = 0
         self.eager_steps = 0
@@ -356,7 +370,7 @@ class FusedStep:
         K = keys.shape[0]
         hyp = self._stage(self.hyper_rows(K))
         keys = self._stage(keys)
-        if self._device.type == "cuda":
+        if self._device.type == "cuda" and self.dispatch == "graph":
             outs = self._run_graph(stacked, keys, hyp, opt_state, met_state)
         else:
             per = [self._body(opt_state, hyp[i],

@@ -2,7 +2,11 @@
 ``mxnet_tpu/ops/elemwise.py``): the broadcasting binary ops and their
 comparisons under their MXNet names, their scalar forms behind the
 Symbol's and the NDArray's operators, the unary math the Gluon layers
-and losses reach, ``clip``, ``where``, ``BlockGrad`` and Cast.
+and losses reach, ``clip``, ``where``, ``BlockGrad``, Cast and the
+detection losses' ``smooth_l1``. The JAX package's elemwise
+``make_loss`` is shadowed there by ``MakeLoss``'s alias of the same name
+(its registry resolves ``make_loss`` to ``MakeLoss``), so the port
+registers only ``MakeLoss`` (:mod:`.nn`) under both names.
 
 A comparison returns the lhs dtype (1 or 0), as the JAX op does. A
 scalar is rounded to the data's dtype before the op, as the JAX op
@@ -150,3 +154,14 @@ def cast(data, *, dtype="float32"):
 
 
 alias("Cast", "cast")
+
+
+@register("smooth_l1")
+def smooth_l1(data, *, scalar=1.0):
+    """``0.5 s^2 x^2`` where ``|x| < 1 / s^2``, else ``|x| - 0.5 / s^2``,
+    with ``s = scalar`` (the JAX op's formula; torch autograd gives its
+    gradient)."""
+    s2 = float(scalar) * float(scalar)
+    return torch.where(torch.abs(data) < 1.0 / s2,
+                       0.5 * s2 * torch.square(data),
+                       torch.abs(data) - 0.5 / s2)

@@ -5,7 +5,7 @@ and Deconvolution (1-, 2- and 3-D, NC... data and O/I-major weights,
 through ``F.conv{n}d`` / ``F.conv_transpose{n}d``), Pooling (1-3 D),
 BatchNorm, LayerNorm, InstanceNorm, LRN, Activation, LeakyReLU,
 softmax, log_softmax, Embedding, Dropout (its mask from the random key
-chain), SoftmaxOutput and the fused RNN,
+chain), SoftmaxOutput, MakeLoss and the fused RNN,
 each with the JAX op's keyword names and contract rather than torch's
 defaults:
 
@@ -29,6 +29,10 @@ defaults:
 * SoftmaxOutput is a loss head: its backward is ``softmax - onehot``
   scaled by ``grad_scale`` and the normalization, and it ignores the
   incoming cotangent (``_SoftmaxOutputGrad``).
+* MakeLoss (alias ``make_loss``) is the identity forward whose backward
+  seeds ``grad_scale``, over the batch (``batch``) or over the count of
+  elements above ``valid_thresh`` (``valid``), whatever cotangent
+  arrives (``_MakeLossGrad``).
 * RNN (lstm, gru, rnn_tanh, rnn_relu; time major) takes one flat
   parameter vector in the JAX op's order (:func:`_rnn_param_shapes`),
   projects the input of all T steps in one product and then loops over
@@ -523,6 +527,46 @@ def softmax_output(data, label=None, *, grad_scale=1.0, ignore_label=-1.0,
         data, label, float(grad_scale), float(ignore_label),
         bool(multi_output), bool(use_ignore), str(normalization),
         float(smooth_alpha))
+
+
+class _MakeLossGrad(torch.autograd.Function):
+    """The JAX op's ``_make_loss_bwd``: the input is the loss, so its
+    gradient is the constant ``grad_scale``, divided by the batch or by
+    the count of elements above ``valid_thresh`` (at least 1), computed
+    on the device (no host read, so a step stays capturable)."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, normalization, valid_thresh):
+        ctx.hyper = (grad_scale, normalization, valid_thresh)
+        ctx.save_for_backward(data)
+        return data * 1.0
+
+    @staticmethod
+    def backward(ctx, _g):
+        (data,) = ctx.saved_tensors
+        grad_scale, normalization, valid_thresh = ctx.hyper
+        # a fill, not a copy from the host: a captured step holds it
+        scale = torch.full((), grad_scale, dtype=data.dtype,
+                           device=data.device)
+        if normalization == "batch":
+            scale = scale / data.shape[0]
+        elif normalization == "valid":
+            valid = (data > valid_thresh).to(data.dtype).sum().clamp_min(1.0)
+            scale = scale / valid
+        return scale.expand(data.shape).clone(), None, None, None
+
+
+@register("MakeLoss")
+def make_loss(data, *, grad_scale=1.0, normalization="null",
+              valid_thresh=0.0):
+    """Any value as a loss head: the identity forward; the backward
+    injects ``grad_scale`` (0 makes a monitoring output that adds no
+    gradient, SSD's ``cls_label``)."""
+    return _MakeLossGrad.apply(data, float(grad_scale), str(normalization),
+                               float(valid_thresh))
+
+
+alias("MakeLoss", "make_loss")
 
 
 # ---------------------------------------------------------------------------

@@ -20,16 +20,20 @@ class Operator:
     """A registered op: a torch function plus symbolic-layer metadata."""
 
     __slots__ = ("name", "fn", "num_outputs", "param_names", "doc",
-                 "is_random",
+                 "is_random", "host",
                  "shape_hook", "aux_inputs", "aux_outputs",
                  "num_visible_outputs", "input_names", "input_optional",
                  "has_var_inputs")
 
-    def __init__(self, name, fn, num_outputs=1, is_random=False):
+    def __init__(self, name, fn, num_outputs=1, is_random=False,
+                 host=False):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs  # int, or callable(params)->int
         self.is_random = is_random    # draws keys from ``random.next_key``
+        # reads values back to the host mid-graph (a greedy pass, user
+        # Python): a step holding it cannot be captured as a CUDA graph
+        self.host = host
         self.doc = fn.__doc__ or ""
         self.shape_hook = None        # fn(in_shapes, params) -> completed
         self.aux_inputs = ()          # input slots that are auxiliary states
@@ -86,14 +90,15 @@ class Operator:
         return "Operator(%s)" % self.name
 
 
-def register(name=None, num_outputs=1, is_random=False):
-    """Decorator: register a torch function as an operator."""
+def register(name=None, num_outputs=1, is_random=False, host=False):
+    """Decorator: register a torch function as an operator; ``host``
+    marks an op that reads values back to the host while it runs."""
     def deco(fn):
         opname = name or fn.__name__
         if opname in _REGISTRY:
             raise ValueError("duplicate op registration: %s" % opname)
         _REGISTRY[opname] = Operator(opname, fn, num_outputs=num_outputs,
-                                     is_random=is_random)
+                                     is_random=is_random, host=host)
         return fn
     return deco
 

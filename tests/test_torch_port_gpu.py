@@ -1663,3 +1663,198 @@ def test_lrn_on_the_card_matches_the_cpu(cuda):
         res.append((y.detach().cpu(), xt.grad.cpu()))
     for a, b in zip(*res):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Object detection (BASELINE config 4): the detection ops, the Custom op
+# and mt.image on the card, against the port on the CPU. Selections
+# bitwise, values f32 atol/rtol 1e-5 (other summation orders).
+# ---------------------------------------------------------------------------
+
+def _det_case(seed=0):
+    rng = np.random.RandomState(seed)
+    n = 300
+    data = np.zeros((2, n, 6), np.float32)
+    data[..., 0] = rng.randint(0, 3, (2, n))
+    data[..., 1] = np.round(rng.uniform(0, 1, (2, n)), 2)    # ties
+    lo = rng.uniform(0, 0.7, (2, n, 2))
+    data[..., 2:4] = lo
+    data[..., 4:] = lo + rng.uniform(0.05, 0.3, (2, n, 2))
+    return data
+
+
+def _both(name, ins, cuda, **kw):
+    from mxnet_tpu_torch.ops import registry as treg
+    fn = treg.get(name).fn
+    cpu = fn(*[torch.from_numpy(x) for x in ins], **kw)
+    card = fn(*[torch.from_numpy(x).to(cuda) for x in ins], **kw)
+    torch.cuda.synchronize()
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    card = card if isinstance(card, tuple) else (card,)
+    return [c.cpu().numpy() for c in card], [c.numpy() for c in cpu]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(id_index=0, topk=40),
+                                dict(force_suppress=True, id_index=0)])
+def test_box_nms_on_the_card_is_bitwise_the_cpu(cuda, kw):
+    from mxnet_tpu_torch.ops import contrib_ops
+    before = contrib_ops.nms_passes
+    (got,), (want,) = _both("_contrib_box_nms", [_det_case()], cuda, **kw)
+    np.testing.assert_array_equal(got, want)
+    assert contrib_ops.nms_passes == before + 4
+
+
+def test_multibox_ops_on_the_card_match_the_cpu(cuda):
+    rng = np.random.RandomState(1)
+    anchors = mt.ops.registry.get("_contrib_MultiBoxPrior").fn(
+        torch.zeros(1, 1, 16, 16), sizes=(0.3, 0.39),
+        ratios=(1.0, 2.0, 0.5)).numpy()
+    a = anchors.shape[1]
+    label = np.full((4, 2, 5), -1.0, np.float32)
+    label[:, 0] = [[0, 0.1, 0.1, 0.5, 0.6], [1, 0.3, 0.2, 0.7, 0.9],
+                   [2, 0.05, 0.5, 0.4, 0.95], [0, 0.5, 0.5, 0.6, 0.6]]
+    label[:2, 1] = [[1, 0.6, 0.1, 0.9, 0.4], [0, 0.1, 0.1, 0.3, 0.3]]
+    conf = rng.randn(4, 4, a).astype(np.float32)
+    conf[:, :, :100] = conf[:, :, :1]                 # tied backgrounds
+    got, want = _both("_contrib_MultiBoxTarget", [anchors, label, conf],
+                      cuda, negative_mining_ratio=3)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-5)
+    e = np.exp(conf - conf.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    loc = (rng.randn(4, a * 4) * 0.3).astype(np.float32)
+    (got,), (want,) = _both("_contrib_MultiBoxDetection",
+                            [prob, loc, anchors], cuda)
+    np.testing.assert_array_equal(got[..., 0], want[..., 0])
+    np.testing.assert_array_equal(got[..., 1] >= 0, want[..., 1] >= 0)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_proposal_and_bipartite_matching_on_the_card(cuda):
+    rng = np.random.RandomState(2)
+    logits = rng.randn(2, 2, 3, 8, 8).astype(np.float32)
+    logits[:, :, :, :3] = logits[:, :, :, :1]
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).reshape(2, 6, 8, 8)
+    deltas = (rng.randn(2, 12, 8, 8) * 0.2).astype(np.float32)
+    info = np.array([[128, 128, 1], [128, 128, 1]], np.float32)
+    got, want = _both("_contrib_Proposal", [prob.astype(np.float32), deltas,
+                                            info], cuda,
+                      scales=(2, 4, 6), ratios=(1.0,), feature_stride=16,
+                      rpn_pre_nms_top_n=64, rpn_post_nms_top_n=16,
+                      threshold=0.7, rpn_min_size=8, output_score=True)
+    np.testing.assert_array_equal(got[0][:, 0], want[0][:, 0])
+    np.testing.assert_array_equal(got[0][:, 1] == -1, want[0][:, 1] == -1)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
+    x = np.round(rng.uniform(0, 1, (3, 7, 5)), 1).astype(np.float32)
+    got, want = _both("_contrib_bipartite_matching", [x], cuda,
+                      threshold=0.2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("op", ["ROIPooling", "_contrib_ROIAlign"])
+def test_roi_ops_and_gradients_on_the_card_match_the_cpu(cuda, op):
+    from mxnet_tpu_torch.ops import registry as treg
+    rng = np.random.RandomState(3)
+    data = np.maximum(rng.randn(2, 64, 8, 8), 0).astype(np.float32)
+    rois = np.concatenate([rng.randint(0, 2, (32, 1)),
+                           rng.uniform(0, 60, (32, 2)),
+                           rng.uniform(60, 127, (32, 2))], 1) \
+        .astype(np.float32)
+    cot = rng.randn(32, 64, 4, 4).astype(np.float32)
+    res = []
+    for dev in ("cpu", cuda):
+        d = torch.from_numpy(data).to(dev).requires_grad_(True)
+        out = treg.get(op).fn(d, torch.from_numpy(rois).to(dev),
+                              pooled_size=(4, 4), spatial_scale=1.0 / 16)
+        (g,) = torch.autograd.grad((out * torch.from_numpy(cot).to(dev))
+                                   .sum(), [d])
+        res.append((out.detach().cpu().numpy(), g.cpu().numpy()))
+    for a, b in zip(res[1], res[0]):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_a_custom_op_in_a_k3_fit_on_the_card_runs_uncaptured(cuda):
+    """A graph with a Custom node: its K = 3 window runs eagerly on the
+    card (decided from the graph), two host round trips a step counted,
+    the parameters against the same fit on the CPU."""
+    from mxnet_tpu_torch.ops import custom_op
+
+    @mt.operator.register("gpu_t_sqr")
+    class SqrProp(mt.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Sqr()
+
+    class Sqr(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0], in_data[0] * in_data[0])
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], 2 * in_data[0] * out_grad[0])
+
+    rng = np.random.RandomState(4)
+    X = rng.randn(12, 5).astype(np.float32)
+    Y = rng.randint(0, 3, 12).astype(np.float32)
+    p0 = {"fc1_weight": rng.randn(6, 5) * 0.3, "fc1_bias": np.zeros(6),
+          "fc2_weight": rng.randn(3, 6) * 0.3, "fc2_bias": np.zeros(3)}
+    out = {}
+    for ctx in (mt.cpu(), mt.gpu(0)):
+        h = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=6,
+                                  name="fc1")
+        h = mt.sym.Custom(h, op_type="gpu_t_sqr")
+        net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+            h, num_hidden=3, name="fc2"), name="softmax")
+        with ctx:
+            mod = mt.mod.Module(net, context=ctx)
+            it = mt.io.NDArrayIter(X, Y, batch_size=4)
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mod.init_params(arg_params={
+                n: mt.nd.array(v.astype(np.float32))
+                for n, v in p0.items()}, aux_params={})
+            custom_op.reset_counts()
+            mod.fit(it, num_epoch=1, kvstore="tpu_sync", eval_metric=None,
+                    optimizer_params={"learning_rate": 0.1},
+                    steps_per_dispatch=3)
+        assert mod._fused.dispatch == "eager"
+        assert mod._fused.captures == 0 and custom_op.round_trips == 6
+        out[ctx.device_type] = {n: v.detach().cpu().numpy() for n, v in
+                                mod.get_params()[0].items()}
+    for n in out["cpu"]:
+        np.testing.assert_allclose(out["gpu"][n], out["cpu"][n], rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_image_det_iter_on_the_card(cuda, tmp_path):
+    """The SSD example's iterator on the card (nvJPEG, no cv2): labels
+    bitwise the CPU iterator's (same draws), pixels within the decode
+    bound; a resize to another size raises, to the same size is the
+    identity."""
+    import random
+    import detection_graphs
+    rec = detection_graphs.det_fixture().write_records(str(tmp_path / "d"),
+                                                       mt.recordio)
+    out = {}
+    for ctx in (mt.gpu(0), mt.cpu()):
+        if ctx.device_type == "cpu":
+            pytest.importorskip("cv2")
+        random.seed(3)
+        it = mt.image.ImageDetIter(batch_size=8, data_shape=(3, 64, 64),
+                                   path_imgrec=rec, shuffle=True,
+                                   rand_mirror=True, mean=True, std=True,
+                                   ctx=ctx)
+        out[ctx.device_type] = [(b.data[0].asnumpy(), b.label[0].asnumpy(),
+                                 b.data[0].context) for b in it]
+        it.close()
+    for (gd, gl, gc), (cd, cl, _) in zip(out["gpu"], out["cpu"]):
+        assert gc == mt.gpu(0)
+        np.testing.assert_array_equal(gl, cl)
+        d = np.abs(gd - cd)
+        assert d.mean() <= 1.0 and np.percentile(d, 99.9) <= 8
+    img = mt.nd.array(np.zeros((5, 7, 3), np.uint8), ctx=mt.gpu(0),
+                      dtype="uint8")
+    assert mt.image.imresize(img, 7, 5) is img
+    with pytest.raises(mt.MXNetError, match="A5b"):
+        mt.image.imresize(img, 8, 5)
