@@ -583,12 +583,56 @@ Phases; any failure raises and the script exits non-zero:
    ids and kept rows bitwise the port's CPU op on the card's own
    probabilities and offsets, values within 1e-5, the op's host wall.
    The phase's wall time is printed.
-22. The whole run's wall time, then the ``kernels`` JSON line (B1's
+22. The common ops and the optimizers (ROADMAP A3b.2 and A3b.6), BASELINE
+   configurations 3 and 1 through ``tests/example_nets.py`` (the examples
+   spelled over ``mt``). (e) First, every new op family on the card
+   against the port on the CPU, one input set each: movement, index,
+   ordering (ties planted), rounding, sign, logical and integer ops
+   bitwise, the transcendental ops within rtol 1e-5, atol 1e-6, sums
+   and the 16 update ops within rtol 1e-5, atol 1e-4. (a)
+   ``examples/super_resolution.py`` at its defaults: the ESPCN net
+   (64-64-32-4 filters at 5/3/3/3, ``depth_to_space``), 128 synthetic
+   pairs of 32 -> 64 pixels (seed 0), ``NDArrayIter`` shuffled at batch
+   16, ``Orthogonal``, ``hybridize(static_alloc=True)``, ``L2Loss``,
+   Adam lr 1e-3, 6 epochs: first one step on the card against the CPU
+   from the same weights (outputs within 1e-4, gradients within 1e-3
+   relative L2), then the run with every count zeroed before and read
+   after (no kernel on this path, no fallback), the PSNR rising; epoch
+   wall, images/s, 4 profiled steps' busy share. (b)
+   ``examples/train_mnist.py`` at its defaults (the synthetic stand-in,
+   ``mlp_symbol``, batch 64, 5 epochs, SGD lr 0.1 momentum 0.9, kvstore
+   ``local``, ``Speedometer``): B5 at fc1 (64, 128) and fc2 (64, 64)
+   against its plain version, timed beside its bound; the run's B5
+   launches held to the fusion plan's 2 a forward over every training
+   and validation forward, nothing else, no fallback; the validation
+   accuracy above the one before training. (c)
+   ``examples/train_cifar10.py`` at its defaults (ResNet-20 at 3x28x28,
+   the synthetic stand-in, batch 128, 10 epochs, SGD lr 0.05 momentum
+   0.9 wd 1e-4 ``multi_precision``, ``MultiFactorScheduler``,
+   ``tpu_sync``, ``eval_data`` with ``eval_end_callback``, a checkpoint
+   at every epoch's end): B1 at ResNet-20's site classes (bf16, batch
+   128) against its plain version, timed; the run's B1 launches held to
+   the plan's count a forward over every forward, nothing else, no
+   fallback, the fused step in bf16; the last checkpoint read back
+   bitwise; the validation accuracy above the one before training; step
+   p50 and images/s. (d) Each of the ten new optimizers: 3 steps of
+   ResNet-20 at batch 16 through ``Module.fit`` on the card (kvstore
+   ``local``, lr 0.01; fused where the optimizer has a fused form), SGD
+   with momentum beside them, then the same optimizer on the CPU applying
+   the card's own gradients in the card's order: every card weight within
+   1e-4 of the largest update of the CPU's. First the witness: one step's
+   outputs and gradients from the same weights, card and CPU, tier auto
+   and off, each against the CPU's f64 step (outputs within 1e-5,
+   gradients within 5e-2 relative L2 at the worst parameter, every ReLU
+   flip of the CPU's paths at a pre-activation below 1e-4). The phase's
+   wall time is printed.
+23. The whole run's wall time, then the ``kernels`` JSON line (B1's
    entry has ``_contrib_FusedBNAct``, ``grouped``, ``records``,
    ``imagenet_loop``, ``inception_v3_serve``, ``inception_v3_train``,
-   ``ssd_train`` and ``ssd_detect`` among its paths, B2, B3 and B5
-   ``grouped``, B5 ``alexnet_train/float32``,
-   ``alexnet_train/bfloat16`` and ``rcnn_train``, B2
+   ``ssd_train``, ``ssd_detect`` and ``cifar10_train`` among its paths,
+   B2, B3 and B5 ``grouped``, B5 ``alexnet_train/float32``,
+   ``alexnet_train/bfloat16``, ``rcnn_train``, ``mnist_train/fc1`` and
+   ``mnist_train/fc2``, B2
    ``recommend``, ``matrix_factorization``,
    ``lstm_bench``, ``word_lm`` and ``char_lstm``; ``image_aug`` and
    ``jpeg_color``, which no TPU kernel stands behind), the card's
@@ -8839,6 +8883,663 @@ def detection_path(dev, card, report):
     return errs, b1_err, b1_tot, b1_train, b1_detect, b5
 
 
+# --------------------------- the common ops and the optimizers (phase 22)
+EX = dict(sr=dict(n=128, size=32, factor=2, batch=16, epochs=6, lr=1e-3),
+          mnist=dict(batch=64, epochs=5,
+                     sgd={"learning_rate": 0.1, "momentum": 0.9}),
+          cifar=dict(batch=128, epochs=10, lr_step_epochs=(200, 250),
+                     sgd={"learning_rate": 0.05, "momentum": 0.9,
+                          "wd": 1e-4, "multi_precision": True}),
+          opt=dict(batch=16, steps=3, lr=0.01),
+          # B5 at train_mnist.py's fc1 and fc2 (batch 64)
+          mnist_b5=((64, 128), (64, 64)))
+# the ten optimizers of this slice, each with its momentum where it takes
+# one; a card weight farther from the CPU's replay than OPT_LIMIT of the
+# largest update fails
+NEW_OPTIMIZERS = {"nag": {"momentum": 0.9}, "adadelta": {}, "rmsprop": {},
+                  "ftrl": {}, "signum": {}, "signsgd": {}, "ftml": {},
+                  "nadam": {}, "dcasgd": {"momentum": 0.9},
+                  "lbsgd": {"momentum": 0.9}}
+OPT_LIMIT = 1e-4
+# the witness of part d: one training step of ResNet-20 at batch 16 in
+# f64 on the CPU; every f32 path's outputs within WITNESS_OUT of it and
+# its gradients within WITNESS_GRAD (relative L2, the worst parameter:
+# ReLU masks that flip at pre-activations of rounding size move a
+# parameter's gradient by ~1 %, a fault by far more); every flip of the
+# CPU's fused path at a pre-activation below WITNESS_PRE
+WITNESS_OUT, WITNESS_GRAD, WITNESS_PRE = 1e-5, 5e-2, 1e-4
+TRANS_TOL = dict(rtol=1e-5, atol=1e-6)
+SUM_TOL = dict(rtol=1e-5, atol=1e-4)     # sums over 96 terms of size ~3
+# the update ops: ftrl's z - sign(z) * lamda1 and rmspropalex's n - g^2
+# cancel, which magnifies a contracted FMA's rounding on the card
+UPDATE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+def example_nets():
+    """``tests/example_nets.py``: the examples of BASELINE configurations
+    1 and 3 spelled over a package argument (the examples import the JAX
+    package)."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import example_nets as en
+    return en
+
+
+def sr_first_step(en, lo, hi, dev):
+    """One step's forward and backward of the ESPCN net on the card and
+    on the CPU from the same Orthogonal weights -> (the outputs' max abs
+    error, the gradients' worst relative L2 error)."""
+    res = {}
+    for where in ("cpu", "card"):
+        ctx = mt.cpu() if where == "cpu" else mt.gpu(0)
+        net = en.sr_net(mt.gluon, EX["sr"]["factor"], prefix="sr_")
+        net.initialize(mt.init.Orthogonal(), ctx=ctx)
+        net.hybridize(static_alloc=True)
+        x = mt.nd.array(lo[:EX["sr"]["batch"]], ctx=ctx)
+        y = mt.nd.array(hi[:EX["sr"]["batch"]], ctx=ctx)
+        with mt.autograd.record():
+            out = net(x)
+            loss = mt.gluon.loss.L2Loss()(out, y)
+        loss.backward()
+        res[where] = (out.asnumpy(), {
+            k: torch.from_numpy(p.grad().asnumpy())
+            for k, p in net.collect_params().items()})
+    out_err = float(np.abs(res["card"][0] - res["cpu"][0]).max())
+    grad_err = max(rel_l2(res["card"][1], res["cpu"][1]).values())
+    if out_err > 1e-4 or grad_err > 1e-3:
+        raise RuntimeError("super_resolution first step: outputs %.3g, "
+                           "gradients %.3g relative from the CPU's"
+                           % (out_err, grad_err))
+    return out_err, grad_err
+
+
+def super_resolution_path(en, dev, card, report):
+    """Part a: ``examples/super_resolution.py`` at its defaults through
+    ``mt`` -> PSNR by epoch."""
+    P = EX["sr"]
+    lo, hi = en.synthetic_pairs(n=P["n"], size=P["size"], factor=P["factor"])
+    out_err, grad_err = sr_first_step(en, lo, hi, dev)
+    log("  super_resolution.py's first step on the card vs the CPU from the "
+        "same Orthogonal weights: outputs within %.3g, gradients %.3g "
+        "relative L2" % (out_err, grad_err))
+    ctx = mt.gpu(0)
+    np.random.seed(0)
+    it = mt.io.NDArrayIter(lo, hi, batch_size=P["batch"], shuffle=True,
+                           label_name="label")
+    net = en.sr_net(mt.gluon, P["factor"])
+    net.initialize(mt.init.Orthogonal(), ctx=ctx)
+    net.hybridize(static_alloc=True)
+    loss_fn = mt.gluon.loss.L2Loss()
+    trainer = mt.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": P["lr"]})
+
+    def step(batch):
+        x = batch.data[0].as_in_context(ctx)
+        y = batch.label[0].as_in_context(ctx)
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+
+    # the main path: every count zeroed just before, read just after
+    reset_all_counts()
+    tier.reset_stats()
+    psnrs, walls = [], []
+    for _ in range(P["epochs"]):
+        it.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in it:
+            step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        pred = net(mt.nd.array(lo[:16], ctx=ctx)).asnumpy()
+        psnrs.append(en.psnr(pred, hi[:16]))
+    held_counts("super_resolution.py (no kernel on its path)", {})
+    if not psnrs[-1] > psnrs[0]:
+        raise RuntimeError("super_resolution PSNR did not rise: %s" % psnrs)
+    it.reset()
+    batches = [b for _, b in zip(range(4), it)]
+    prof = fit_profile(lambda: [step(b) for b in batches])
+    img_s = P["n"] / float(np.median(walls[1:]))
+    log("  super_resolution.py, %d epochs of %d images at batch %d: PSNR %s "
+        "dB; epoch wall %s s, %.1f images/s (median past the first epoch); "
+        "4 profiled steps %.2f ms wall, busy share %.3f; no kernel launched, "
+        "no fallback  [%s]"
+        % (P["epochs"], P["n"], P["batch"], ["%.2f" % v for v in psnrs],
+           ["%.3f" % w for w in walls], img_s, prof["wall_ms"],
+           prof["device_busy_share"], card))
+    report["super_resolution"] = {
+        "first_step": {"out_max_abs_err": out_err, "grad_rel_l2": grad_err},
+        "psnr_db": psnrs, "epoch_wall_s": walls, "img_per_s": img_s,
+        "profile": prof}
+
+
+def score_acc(mod, it):
+    it.reset()
+    return dict(mod.score(it, "acc"))["accuracy"]
+
+
+def mnist_path(en, dev, card, report):
+    """Part b: ``examples/train_mnist.py`` at its defaults -> (B5 rows at
+    fc1 and fc2 with the run's launches)."""
+    P = EX["mnist"]
+    Xt, yt, Xv, yv = en.mnist_data()
+    sym = en.mlp_symbol(mt.sym)
+    with mt.config.override(kernel_tier="auto"):
+        per_fwd = mt.serving._kernel_census(sym).get("fc_act", 0)
+    if per_fwd != 2:
+        raise RuntimeError("train_mnist's fusion plan routes %d fc_act "
+                           "sites, not 2 (fc1, fc2)" % per_fwd)
+    rows = [b5_row(s, torch.float32, dev, "train_mnist.py's fc%d" % (i + 1))
+            for i, s in enumerate(EX["mnist_b5"])]
+    np.random.seed(0)
+    train = mt.io.NDArrayIter(Xt, yt, P["batch"], shuffle=True)
+    val = mt.io.NDArrayIter(Xv, yv, P["batch"])
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(mt.init.Xavier())
+    acc0 = score_acc(mod, val)
+    accs = []
+    catcher = LineCatcher()
+    logging.getLogger().addHandler(catcher)
+    level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    reset_all_counts()
+    tier.reset_stats()
+    t0 = time.perf_counter()
+    try:
+        mod.fit(train, eval_data=val, num_epoch=P["epochs"], kvstore="local",
+                optimizer="sgd", optimizer_params=dict(P["sgd"]),
+                initializer=mt.init.Xavier(),
+                batch_end_callback=mt.callback.Speedometer(P["batch"], 50),
+                eval_end_callback=lambda p: accs.append(
+                    dict(p.eval_metric.get_name_value())["accuracy"]))
+        torch.cuda.synchronize()
+    finally:
+        logging.getLogger().removeHandler(catcher)
+        logging.getLogger().setLevel(level)
+    wall = time.perf_counter() - t0
+    fwd = P["epochs"] * (train.num_batches + val.num_batches)
+    counts = held_counts("train_mnist.py (B5 at fc1 and fc2 each forward)",
+                         {"scale_bias_act": per_fwd * fwd})
+    if mod._fused is None:
+        raise RuntimeError("train_mnist on the card ran without the fused "
+                           "step")
+    if not accs[-1] > acc0:
+        raise RuntimeError("train_mnist accuracy did not rise: %.4f -> %s"
+                           % (acc0, accs))
+    for r in rows:
+        r["launches"] = counts["scale_bias_act"] // per_fwd
+    log("  train_mnist.py, %d epochs at batch %d (kvstore local, SGD lr 0.1 "
+        "momentum 0.9): validation accuracy %.4f before, %s by epoch; "
+        "%.1f images/s over the fit (eval included); B5 launches %d (%d a "
+        "forward over %d forwards), no fallback  [%s]"
+        % (P["epochs"], P["batch"], acc0, ["%.4f" % a for a in accs],
+           P["epochs"] * len(Xt) / wall, counts["scale_bias_act"], per_fwd,
+           fwd, card))
+    for ln in catcher.lines:
+        if "Speed" in ln and "Batch [50]" in ln:
+            log("    " + ln)
+    report["mnist"] = {"acc_before": acc0, "acc": accs, "wall_s": wall,
+                       "b5_rows": rows, "launches": counts}
+    return rows
+
+
+def cifar_b1_rows(sym, dev):
+    """B1 at ResNet-20's site classes (bf16, batch 128) against its plain
+    version, timed beside its bound -> (rows, totals)."""
+    classes = {}
+    for form, chw in planned_sites(sym, (3, 28, 28)):
+        classes[(form, chw)] = classes.get((form, chw), 0) + 1
+    rows = [b1_class_row(form, (EX["cifar"]["batch"],) + chw,
+                         torch.bfloat16, n, dev, 41, "ResNet-20 ")
+            for (form, chw), n in sorted(classes.items())]
+    tot = {}
+    for form in ("bn_act", "bn_act_res"):
+        mine = [r for r in rows if r["form"] == form]
+        tot[form] = b1_totals(mine, "B1 %s over ResNet-20's sites (batch "
+                              "128, bf16)" % form)
+    return rows, tot
+
+
+def cifar_path(en, dev, card, report):
+    """Part c: ``examples/train_cifar10.py`` at its defaults -> (B1
+    launches by form, B1 rows, totals, the worst error)."""
+    P = EX["cifar"]
+    Xt, yt, Xv, yv = en.cifar_data()
+    sym = mt.models.resnet_symbol(num_classes=10, num_layers=20,
+                                  image_shape=(3, 28, 28))
+    with mt.config.override(kernel_tier="auto"):
+        census = mt.serving._kernel_census(sym)
+    rows, tot = cifar_b1_rows(sym, dev)
+    np.random.seed(0)
+    train = mt.io.NDArrayIter(Xt, yt, P["batch"], shuffle=True)
+    val = mt.io.NDArrayIter(Xv, yv, P["batch"])
+    steps = [e * train.num_batches for e in P["lr_step_epochs"]]
+    sgd = dict(P["sgd"], lr_scheduler=mt.lr_scheduler.MultiFactorScheduler(
+        step=steps, factor=0.1))
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(mt.init.Xavier(factor_type="in", magnitude=2.0))
+    acc0 = score_acc(mod, val)
+    prefix = os.path.join(REPO, "build", "chip_smoke", "cifar10", "resnet20")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    accs, stamps, saved = [], [], []
+
+    def epoch_cb(epoch, s, arg, aux):
+        mt.model.save_checkpoint(prefix, epoch + 1, s, arg, aux)
+        saved.append(epoch + 1)
+
+    reset_all_counts()
+    tier.reset_stats()
+    t0 = time.perf_counter()
+    mod.fit(train, eval_data=val, num_epoch=P["epochs"], eval_metric="acc",
+            optimizer="sgd", optimizer_params=sgd,
+            initializer=mt.init.Xavier(factor_type="in", magnitude=2.0),
+            kvstore="tpu_sync", epoch_end_callback=epoch_cb,
+            eval_end_callback=lambda p: accs.append(
+                dict(p.eval_metric.get_name_value())["accuracy"]),
+            batch_end_callback=[mt.callback.Speedometer(P["batch"], 50),
+                                lambda p: stamps.append(time.perf_counter())])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = P["epochs"] * (train.num_batches + val.num_batches)
+    want = {k: n * fwd for k, n in census.items()}
+    counts = held_counts("train_cifar10.py (B1 at ResNet-20's %s sites each "
+                         "forward)" % census, want)
+    fused = mod._fused
+    if fused is None or fused.compute_dtype != torch.bfloat16:
+        raise RuntimeError("train_cifar10: fused step %s" % fused)
+    if not accs[-1] > acc0:
+        raise RuntimeError("train_cifar10 validation accuracy did not rise: "
+                           "%.4f -> %s" % (acc0, accs))
+    _, arg, _ = mt.model.load_checkpoint(prefix, P["epochs"], ctx=mt.cpu())
+    now, _ = mod.get_params()
+    if saved != list(range(1, P["epochs"] + 1)) or any(
+            not torch.equal(arg[k].data, now[k].cpu()) for k in now):
+        raise RuntimeError("train_cifar10: the last checkpoint is not the "
+                           "trained weights (saved %s)" % saved)
+    per_epoch = train.num_batches
+    step_ms = [d * 1e3 for e in range(P["epochs"])
+               for d in np.diff(stamps[e * per_epoch:(e + 1) * per_epoch])]
+    p50 = float(np.median(step_ms))
+    log("  train_cifar10.py, ResNet-20 at batch %d, %d epochs (tpu_sync, "
+        "bf16 over f32 masters, MultiFactorScheduler): validation accuracy "
+        "%.4f before, %s by epoch; step p50 %.2f ms (host stamps at batch "
+        "end within an epoch), %.1f images/s; fit wall %.1f s (eval and "
+        "checkpoints included); B1 launches %s, %s a forward over %d "
+        "forwards, no fallback  [%s]"
+        % (P["batch"], P["epochs"], acc0, ["%.4f" % a for a in accs], p50,
+           P["batch"] / (p50 / 1e3), wall, {k: counts[k] for k in census},
+           census, fwd, card))
+    report["cifar10"] = {"acc_before": acc0, "acc": accs,
+                         "step_ms_p50": p50,
+                         "img_per_s": P["batch"] / (p50 / 1e3),
+                         "wall_s": wall, "census": census,
+                         "b1_rows": rows, "b1_totals": tot,
+                         "launches": counts}
+    return ({k: counts.get(k, 0) for k in ("bn_act", "bn_act_res")}, rows,
+            tot, max(r["max_abs_err"] for r in rows))
+
+
+def optimizer_fit(sym, name, X, Y, p0, aux0):
+    """``Module.fit`` on the card, 3 steps with optimizer ``name``
+    (kvstore ``local``: its fused form where it has one, else the eager
+    Updater) -> (module, the gradients each update received, in order:
+    per fused step {name: grad}, per eager call (index, grad))."""
+    from mxnet_tpu_torch.module.fused import FusedStep
+    records = []
+    fused_apply, eager_call = FusedStep._apply, mt.optimizer.Updater.__call__
+
+    def apply(self, grads, opt_state, hyp):
+        records.append({k: grads[k].detach().clone()
+                        for k in self.param_names})
+        return fused_apply(self, grads, opt_state, hyp)
+
+    def call(self, index, grad, weight):
+        records.append((index, grad.detach().clone()))
+        return eager_call(self, index, grad, weight)
+
+    FusedStep._apply, mt.optimizer.Updater.__call__ = apply, call
+    try:
+        mod = mt.mod.Module(sym, context=mt.gpu(0))
+        mod.fit(mt.io.NDArrayIter(X, Y, EX["opt"]["batch"]), num_epoch=1,
+                kvstore="local", optimizer=name,
+                optimizer_params=dict(NEW_OPTIMIZERS.get(
+                    name, {"momentum": 0.9}), learning_rate=EX["opt"]["lr"]),
+                arg_params={k: v.clone() for k, v in p0.items()},
+                aux_params={k: v.clone() for k, v in aux0.items()},
+                initializer=None, eval_metric=None, steps_per_dispatch=1)
+        torch.cuda.synchronize()
+    finally:
+        FusedStep._apply, mt.optimizer.Updater.__call__ = fused_apply, \
+            eager_call
+    return mod, records
+
+
+def optimizer_replay(mod, name, records, p0):
+    """The same updates on the CPU: the port's optimizer, made as
+    ``Module.init_optimizer`` makes it, applies the card's own gradients
+    to the starting weights in the card's order -> {name: weight}."""
+    names = list(mod._param_names)
+    idx = {n: i for i, n in enumerate(names)}
+    opt = mt.optimizer.create(
+        name, rescale_grad=1.0 / EX["opt"]["batch"],
+        param_idx2name=dict(enumerate(names)),
+        learning_rate=EX["opt"]["lr"],
+        **NEW_OPTIMIZERS.get(name, {"momentum": 0.9}))
+    upd = mt.optimizer.get_updater(opt)
+    w = {n: p0[n].clone() for n in names}
+    for rec in records:
+        if isinstance(rec, dict):
+            for n in mod._fused.param_names:
+                upd(idx[n], rec[n].cpu(), w[n])
+        else:
+            upd(rec[0], rec[1].cpu(), w[names[rec[0]]])
+    return w
+
+
+def witness_step(sym, X, Y, p0, aux0, device, dtype, kernel_tier):
+    """One training forward and backward of ``sym`` at ``p0`` through an
+    executor -> (outputs, {name: gradient}, [pre-activation of every ReLU
+    site in graph order]), all f64 on the CPU. The pre-activations are
+    read on the CPU only: the Activation op's input, or at a fused site
+    the unfused formula's value on the fused op's inputs."""
+    pre = []
+    act = mt.ops.registry.get("Activation")
+    act_fn, bn_fwd = act.fn, bn_act._BnAct.forward
+
+    def spy_act(data, **kw):
+        pre.append(data.detach().double().clone())
+        return act_fn(data, **kw)
+
+    def spy_bn(ctx, data, gamma, beta, mm, mv, residual, kw, act_t, cfg):
+        with torch.no_grad():
+            pre.append(bn_act._reference(data, gamma, beta, mm, mv,
+                                         residual, None, **kw).double())
+        return bn_fwd(ctx, data, gamma, beta, mm, mv, residual, kw, act_t,
+                      cfg)
+
+    ctx = mt.cpu() if device == "cpu" else mt.gpu(0)
+    put = lambda t: mt.nd.NDArray(t.to(device, dtype), ctx=ctx)  # noqa
+    args = {k: put(v) for k, v in p0.items()}
+    args["data"], args["softmax_label"] = put(X), put(Y)
+    if device == "cpu":
+        act.fn, bn_act._BnAct.forward = spy_act, staticmethod(spy_bn)
+    try:
+        with mt.config.override(kernel_tier=kernel_tier):
+            ex = sym.bind(ctx, args, args_grad={
+                k: put(torch.zeros_like(v)) for k, v in p0.items()},
+                aux_states={k: put(v) for k, v in aux0.items()})
+            out = ex.forward(is_train=True)[0]
+            ex.backward()
+    finally:
+        act.fn, bn_act._BnAct.forward = act_fn, bn_fwd
+    as64 = lambda t: (t._data if hasattr(t, "_data") else t).detach() \
+        .to("cpu", torch.float64)  # noqa
+    return (as64(out), {k: as64(ex.grad_dict[k]) for k in p0}, pre)
+
+
+def gradient_witness(sym, X, Y, p0, aux0, dev):
+    """Part d's witness: one step's outputs and gradients of the card's
+    f32 paths (tier auto, as ``Module.fit`` runs, and off) and the CPU's
+    (auto and off) against the CPU's f64 step (no site is fused in f64)
+    -> {path: (out err, worst relative L2 gradient error, ReLU flips)}.
+    Flips are counted where the CPU saw the pre-activations."""
+    X, Y = torch.from_numpy(X), torch.from_numpy(Y)
+    ref_out, ref_g, ref_pre = witness_step(sym, X, Y, p0, aux0, "cpu",
+                                           torch.float64, "off")
+    rows = {}
+    for device, kt in (("cpu", "off"), ("cpu", "auto"), (dev, "off"),
+                       (dev, "auto")):
+        out, g, pre = witness_step(sym, X, Y, p0, aux0, device,
+                                   torch.float32, kt)
+        o_err = float((out - ref_out).abs().max())
+        g_err = max(float((g[k] - ref_g[k]).norm()
+                          / ref_g[k].norm().clamp_min(1e-30)) for k in g)
+        flips, worst_pre = 0, 0.0
+        for a, b in zip(pre, ref_pre):
+            f = (a > 0) != (b > 0)
+            flips += int(f.sum())
+            if f.any():
+                worst_pre = max(worst_pre, float(b[f].abs().max()))
+        name = "%s/%s" % ("cpu" if device == "cpu" else "card", kt)
+        rows[name] = (o_err, g_err, flips if pre else None)
+        log("  witness %-9s one step of ResNet-20 at batch 16 against the "
+            "CPU's f64: outputs within %.3g, gradients within %.3g "
+            "(worst parameter, relative L2)%s"
+            % (name, o_err, g_err, "" if not pre else
+               "; %d ReLU flips, the largest at |pre| %.3g"
+               % (flips, worst_pre)))
+        if not (o_err <= WITNESS_OUT and g_err <= WITNESS_GRAD
+                and worst_pre <= WITNESS_PRE):
+            raise RuntimeError("witness %s: outputs %.3g, gradients %.3g, "
+                               "a flip at |pre| %.3g from the f64 step"
+                               % (name, o_err, g_err, worst_pre))
+    return rows
+
+
+def optimizers_path(en, dev, card, report):
+    """Part d: each new optimizer, and SGD with momentum beside them, 3
+    steps of ResNet-20 at batch 16 through ``Module.fit`` on the card,
+    then the same optimizer on the CPU applying the card's own gradients
+    in the card's order -> {name: the largest distance of a card weight
+    from the CPU's, over the largest update}. Before them the witness
+    holds the first step's outputs and gradients, card and CPU, against
+    the CPU's f64 step: a ReLU mask that flips at a pre-activation of
+    rounding size moves some parameter's gradient by ~1 % at this batch,
+    so two whole f32 runs on two devices are compared through f64, not
+    with each other."""
+    sym = mt.models.resnet_symbol(num_classes=10, num_layers=20,
+                                  image_shape=(3, 28, 28))
+    Xt, yt, _, _ = en.cifar_data()
+    n = EX["opt"]["batch"] * EX["opt"]["steps"]
+    X, Y = Xt[:n], yt[:n]
+    p0, aux0 = resnet_init(sym, dev, (3, 28, 28))
+    b = EX["opt"]["batch"]
+    witness = gradient_witness(sym, X[:b], Y[:b], p0, aux0, dev)
+    errs = {}
+    tier.reset_stats()
+    for name in ("sgd",) + tuple(NEW_OPTIMIZERS):
+        mod, records = optimizer_fit(sym, name, X, Y, p0, aux0)
+        want = optimizer_replay(mod, name, records, p0)
+        got, _ = mod.get_params()
+        step = max(float((want[k] - p0[k]).abs().max()) for k in want)
+        diff = max(float((got[k].cpu() - want[k]).abs().max())
+                   for k in want)
+        errs[name] = diff / max(step, 1e-30)
+        if mod._fused is not None:
+            n_upd = len(records)
+        else:
+            n_upd = len(records) // len(want)
+        log("  %-8s 3 steps of ResNet-20 (batch 16, lr 0.01, %s), %s on the "
+            "card: its weights within %.3g of the CPU's replay of the card's "
+            "gradients (max abs error over the largest update, %.3g); %d "
+            "updates"
+            % (name, NEW_OPTIMIZERS.get(name, {"momentum": 0.9})
+               or "defaults", "fused" if mod._fused is not None
+               else "eager", errs[name], step, n_upd))
+        if n_upd != EX["opt"]["steps"] or not errs[name] <= OPT_LIMIT:
+            raise RuntimeError("optimizer %s on the card: %d updates, weights "
+                               "%.3g from the CPU's replay"
+                               % (name, n_upd, errs[name]))
+    if tier.stats()["fallback"]:
+        raise RuntimeError("optimizers: tier fallback %s"
+                           % tier.stats()["fallback"])
+    report["optimizers"] = errs
+    report["optimizer_witness"] = witness
+    return errs
+
+
+def op_cases():
+    """(name, inputs, params, tolerance) for the new op families: None
+    is bitwise."""
+    rng = np.random.RandomState(0)
+    f = rng.uniform(-3, 3, (64, 96)).astype(np.float32)
+    pos = rng.uniform(0.1, 5, (64, 96)).astype(np.float32)
+    unit = rng.uniform(-0.99, 0.99, (64, 96)).astype(np.float32)
+    ties = np.round(f * 2).astype(np.float32)
+    i32 = rng.randint(-20, 20, (64, 96)).astype(np.int32)
+    idx = rng.randint(-70, 70, (2, 500)).astype(np.int32)
+    cases = [(n, [f], {}, None) for n in (
+        "sign", "rint", "round", "ceil", "floor", "trunc", "fix",
+        "logical_not", "softsign", "degrees", "reciprocal")]
+    cases += [(n, [pos], {}, TRANS_TOL) for n in (
+        "rsqrt", "cbrt", "rcbrt", "log10", "log2", "log1p", "expm1", "sin",
+        "cos", "arctan", "sinh", "cosh", "arcsinh", "erf", "gammaln",
+        "gamma")]
+    cases += [(n, [unit], {}, TRANS_TOL) for n in (
+        "arcsin", "arccos", "arctanh", "erfinv", "tan")]
+    cases += [("arccosh", [pos + 1], {}, TRANS_TOL),
+              ("broadcast_hypot", [f, f[:1]], {}, TRANS_TOL)]
+    cases += [(n, [i32, np.where(i32[:1] == 0, 7, i32[:1])], {}, None)
+              for n in ("broadcast_mod", "broadcast_logical_and",
+                        "broadcast_logical_or", "broadcast_logical_xor")]
+    cases += [("_mod", [f, np.where(f == 0, 1, f)[::-1].copy()], {}, None),
+              ("_mod_scalar", [f], {"scalar": -1.5}, None),
+              ("_rmod_scalar", [pos], {"scalar": 2.5}, None),
+              ("_maximum_scalar", [f], {"scalar": 0.5}, None),
+              ("add_n", [f, pos, unit], {}, None),
+              ("argmax", [ties], {"axis": 1}, None),
+              ("argmin", [ties], {"axis": 0}, None),
+              ("sort", [ties], {"is_ascend": False}, None),
+              ("argsort", [ties], {}, None),
+              ("topk", [ties], {"k": 7, "ret_typ": "both"}, None),
+              ("topk", [ties], {"k": 7, "ret_typ": "mask",
+                                "is_ascend": True}, None),
+              ("cumsum", [f], {"axis": 1}, SUM_TOL),
+              ("nansum", [np.where(f > 2, np.nan, f)], {"axis": 0},
+               SUM_TOL),
+              ("square_sum", [f], {"axis": 1}, SUM_TOL),
+              ("slice", [f], {"begin": (3, None), "end": (50, 5),
+                              "step": (2, -3)}, None),
+              ("tile", [f[:8]], {"reps": (2, 3)}, None),
+              ("repeat", [f], {"repeats": 2, "axis": 0}, None),
+              ("flip", [f], {"axis": (0, 1)}, None),
+              ("take", [f, idx[0].astype(np.float32)], {"axis": 1}, None),
+              ("gather_nd", [f, idx], {}, None),
+              ("scatter_nd", [f[0, :50], np.stack([
+                  np.arange(50) % 64, np.arange(50) * 7 % 96])
+                  .astype(np.int32)], {"shape": (64, 96)}, None),
+              ("one_hot", [idx[0]], {"depth": 50}, None),
+              ("batch_take", [f, idx[0, :64].copy()], {}, None),
+              ("depth_to_space", [f.reshape(2, 48, 8, 8)],
+               {"block_size": 2}, None),
+              ("space_to_depth", [f.reshape(2, 12, 16, 16)],
+               {"block_size": 4}, None),
+              ("diag", [f], {"k": 2}, None),
+              ("khatri_rao", [f[:4, :6], pos[:5, :6]], {}, None),
+              ("histogram", [f], {"bin_cnt": 17, "range": (-2.0, 2.5)},
+               None),
+              ("_unravel_index", [idx[0] * 40], {"shape": (64, 96)}, None),
+              ("_ravel_multi_index", [idx], {"shape": (64, 96)}, None),
+              ("_slice_assign", [f, pos[:20, :10]],
+               {"begin": (40, 5), "end": (0, 15), "step": (-2, 1)}, None),
+              ("_sparse_retain", [f, idx[0, :9].copy()], {}, None),
+              ("_eye", [], {"N": 64, "M": 96, "k": -3}, None),
+              ("_linspace", [], {"start": -1.0, "stop": 3.0, "num": 500},
+               TRANS_TOL),
+              ("_sample_unique_zipfian", [], {"range_max": 50,
+                                              "shape": (16, 40)}, None)]
+    w, g = f, unit
+    st = [np.abs(pos), np.abs(pos[::-1]).copy(), np.abs(f)]
+    clip = {"rescale_grad": 0.5, "clip_gradient": 0.8}
+    cases += [
+        ("sgd_update", [w, g], dict(clip, lr=0.1, wd=0.01), UPDATE_TOL),
+        ("sgd_mom_update", [w, g, st[0]], dict(clip, lr=0.1, momentum=0.9),
+         UPDATE_TOL),
+        ("nag_mom_update", [w, g, st[0]], dict(clip, lr=0.1, momentum=0.9),
+         UPDATE_TOL),
+        ("adam_update", [w, g, st[0], st[1]], dict(clip, lr=0.01),
+         UPDATE_TOL),
+        ("rmsprop_update", [w, g, st[0]], dict(clip, lr=0.01), UPDATE_TOL),
+        ("rmspropalex_update", [w, g, st[0], st[1] * 0.01, st[2]],
+         dict(clip, lr=0.01), UPDATE_TOL),
+        ("ftrl_update", [w, g, st[0], st[1]], dict(clip, lr=0.1),
+         UPDATE_TOL),
+        ("signsgd_update", [w, g], dict(clip, lr=0.1, wd=0.01), UPDATE_TOL),
+        ("signum_update", [w, g, st[0]], dict(clip, lr=0.1, momentum=0.9),
+         UPDATE_TOL),
+        ("adagrad_update", [w, g, st[0]], dict(clip, lr=0.1), UPDATE_TOL),
+        ("_sparse_adagrad_update", [w, g, st[0]], dict(clip, lr=0.1),
+         UPDATE_TOL),
+        ("adadelta_update", [w, g, st[0], st[1]], dict(clip), UPDATE_TOL),
+        ("ftml_update", [w, g, st[0], st[1], st[2]],
+         dict(rescale_grad=0.5, clip_grad=0.8, lr=0.01, t=3), UPDATE_TOL),
+        ("mp_sgd_update", [w.astype(np.float16), g.astype(np.float16), w],
+         dict(clip, lr=0.1), UPDATE_TOL),
+        ("mp_sgd_mom_update", [w.astype(np.float16), g.astype(np.float16),
+                               st[0], w], dict(clip, lr=0.1, momentum=0.9),
+         UPDATE_TOL),
+        ("group_adagrad_update", [w, g, st[0][:, :1].copy()],
+         dict(clip, lr=0.1), UPDATE_TOL)]
+    return cases
+
+
+def op_families_check(dev):
+    """Part e: each new op family on the card against the port's CPU
+    version on one input set -> {op: max abs err}."""
+    errs = {}
+    for name, ins, params, tol in op_cases():
+        op = mt.ops.registry.get(name)
+        kw = dict(params, ctx=dev) if not ins else params
+        if op.is_random:
+            mt.random.seed(0)
+        card = op.fn(*[torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                       for x in ins], **kw)
+        if op.is_random:
+            mt.random.seed(0)
+        cpu = op.fn(*[torch.from_numpy(np.ascontiguousarray(x))
+                      for x in ins],
+                    **dict(params, ctx=None) if "ctx" in kw else params)
+        card = card if isinstance(card, tuple) else (card,)
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        worst = 0.0
+        for a, b in zip(card, cpu):
+            if a.device != torch.device(dev):
+                raise RuntimeError("%s left the card" % name)
+            a, b = a.cpu().float().numpy(), b.float().numpy()
+            ok = (np.array_equal(a, b, equal_nan=True) if tol is None
+                  else np.allclose(a, b, equal_nan=True, **tol))
+            if a.shape != b.shape or not ok:
+                raise RuntimeError("%s on the card differs from the CPU: "
+                                   "max abs err %g (%s)" % (
+                                       name, float(np.nanmax(np.abs(a - b)))
+                                       if a.shape == b.shape else -1,
+                                       "bitwise" if tol is None else tol))
+            if a.size:
+                worst = max(worst, float(np.nanmax(np.abs(a - b))))
+        errs["%s/%s" % (name, params.get("ret_typ", ""))
+             if name == "topk" else name] = worst
+    n_bit = sum(1 for c in op_cases() if c[3] is None)
+    log("  %d op cases on the card vs the CPU: %d bitwise, %d within rtol "
+        "1e-5 and atol 1e-6 (sums and update ops: 1e-4) (worst abs err "
+        "%.3g)"
+        % (len(errs), n_bit, len(errs) - n_bit, max(errs.values())))
+    return errs
+
+
+def common_ops_path(dev, card, report):
+    """Phase 22 (see the module docstring) -> (B1 launches on
+    train_cifar10's path by form, its rows, totals and worst error; B5's
+    rows at train_mnist's fc1 and fc2 with their launches)."""
+    t_phase = time.perf_counter()
+    log("phase 22: the common ops and the optimizers (super_resolution.py, "
+        "train_mnist.py, train_cifar10.py, the ten new optimizers, the new "
+        "op families)")
+    en = example_nets()
+    op_errs = op_families_check(dev)
+    super_resolution_path(en, dev, card, report)
+    b5_rows = mnist_path(en, dev, card, report)
+    b1_counts, b1_rows, b1_tot, b1_err = cifar_path(en, dev, card, report)
+    optimizers_path(en, dev, card, report)
+    released(dev)
+    wall = time.perf_counter() - t_phase
+    report["common_ops"] = {"op_max_abs_err": op_errs, "wall_s": wall}
+    log("phase 22 wall: %.1f s" % wall)
+    return b1_counts, b1_rows, b1_tot, b1_err, b5_rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -8923,6 +9624,8 @@ def main():
         vision_path(dev, card, report)
     det_errs, ssd_err, ssd_tot, ssd_train_b1, ssd_detect_b1, rcnn_b5 = \
         detection_path(dev, card, report)
+    cifar_b1, cifar_rows, cifar_tot, cifar_err, mnist_b5 = \
+        common_ops_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -8963,6 +9666,10 @@ def main():
                                   [DET["ssd_batch"], "float32"])
             paths["ssd_detect"] = (ssd_detect_b1, ssd_err, ssd_tot,
                                    [DET["ssd_batch"], "float32"])
+        # phase 22: train_cifar10.py's ResNet-20, bf16 at batch 128
+        paths["cifar10_train"] = (cifar_b1[form], cifar_err,
+                                  cifar_tot[form],
+                                  [EX["cifar"]["batch"], "bfloat16"])
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"],
                        "ms_clean_l2": t["kernel_clean_ms"],
@@ -9064,6 +9771,10 @@ def main():
             # phase 21: R-CNN's fc6, once a forward (automatic K and K 4)
             more.append(("rcnn_train", rcnn_b5["launches"],
                          rcnn_b5["max_abs_err"], rcnn_b5))
+            # phase 22: train_mnist.py's fc1 and fc2, once a forward each
+            more += [("mnist_train/fc%d" % (i + 1), row["launches"],
+                      row["max_abs_err"], row)
+                     for i, row in enumerate(mnist_b5)]
         if more:
             entry["by_path"] = {
                 p: dict(launches=n, max_abs_err=e, shape=row["shape"],

@@ -42,7 +42,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "mark_variables", "backward", "grad", "Function"]
+           "is_training", "set_recording", "set_training", "mark_variables", "backward", "grad", "Function"]
 
 _state = threading.local()
 
@@ -60,6 +60,20 @@ def is_recording():
 
 def is_training():
     return _st().training
+
+
+def set_recording(is_record):
+    """Set the recording flag -> the previous one."""
+    prev = _st().recording
+    _state.recording = bool(is_record)
+    return prev
+
+
+def set_training(train_mode):
+    """Set the training flag -> the previous one."""
+    prev = _st().training
+    _state.training = bool(train_mode)
+    return prev
 
 
 def grad_mode():

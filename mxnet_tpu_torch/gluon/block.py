@@ -440,6 +440,46 @@ class Block:
     def forward(self, *args):
         raise NotImplementedError
 
+    def summary(self, *inputs):
+        """Run ``inputs`` through the block and print (and return) one
+        row per block called: name, type, output shapes and the count
+        of its own parameters, then the total."""
+        rows = []
+        registered = []
+
+        def _register(blk):
+            def hook(block, ins, outs):
+                outs_ = outs if isinstance(outs, (list, tuple)) else [outs]
+                n_params = 0
+                for p in block._reg_params.values():
+                    if p.shape is not None:
+                        n = 1
+                        for d in p.shape:
+                            n *= int(d)
+                        n_params += n
+                rows.append((block.name, type(block).__name__,
+                             [tuple(o.shape) for o in outs_
+                              if hasattr(o, "shape")], n_params))
+            blk._forward_hooks.append(hook)
+            registered.append((blk, hook))
+        self.apply(_register)
+        try:
+            self(*inputs)
+        finally:
+            for blk, hook in registered:
+                blk._forward_hooks.remove(hook)
+        lines = ["%-30s %-20s %-28s %10s" % ("Layer", "Type", "Output Shape",
+                                             "Params")]
+        total = 0
+        for name, typ, shapes, n in rows:
+            total += n
+            lines.append("%-30s %-20s %-28s %10d"
+                         % (name, typ, ",".join(map(str, shapes)), n))
+        lines.append("Total params: %d" % total)
+        text = "\n".join(lines)
+        print(text)
+        return text
+
 
 def _indent(s, num_spaces):
     lines = s.split("\n")

@@ -237,6 +237,16 @@ class Parameter:
             with torch.no_grad():
                 self._grad._data.zero_()
 
+    def reset_ctx(self, ctx):
+        """Move the value to ``ctx`` (the first of a list), with a fresh
+        gradient buffer there."""
+        self._check_initialized()
+        ctx = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+        self._data = self._data.as_in_context(ctx)
+        self._ctx_list = [ctx]
+        if self._grad_req != "null":
+            self._init_grad()
+
     def cast(self, dtype):
         self.dtype = normalize_dtype(dtype)
         if self._data is None:
@@ -377,6 +387,10 @@ class ParameterDict:
     def zero_grad(self):
         for _, v in self.items():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for _, v in self.items():
+            v.reset_ctx(ctx)
 
     def setattr(self, name, value):
         for _, v in self.items():

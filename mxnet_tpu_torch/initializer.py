@@ -1,7 +1,7 @@
 """Weight initializers (counterpart of a subset of ``mxnet_tpu/initializer.py``):
 the name-suffix rules of ``Initializer`` and ``Uniform``, ``Normal``,
-``Zero``, ``One``, ``Constant``, ``Xavier``, ``Orthogonal``, ``LSTMBias``,
-``FusedRNN`` and ``Mixed``.
+``Zero``, ``One``, ``Constant``, ``Xavier``, ``MSRAPrelu``,
+``Orthogonal``, ``Bilinear``, ``LSTMBias``, ``FusedRNN`` and ``Mixed``.
 
 Each initializer draws from its own generator seeded by its ``seed``
 argument (the JAX package draws from numpy's global state), on the CPU,
@@ -10,7 +10,9 @@ initializers with the same seed fill the same parameters in the same
 order with the same values. ``Orthogonal`` draws from a
 ``numpy.random.RandomState(seed)`` and factors in f64 with numpy, as
 the JAX package does from numpy's global state: after
-``numpy.random.seed(seed)`` there, both fill the same f32 values. The
+``numpy.random.seed(seed)`` there, both fill the same f32 values.
+``MSRAPrelu`` draws its Gaussian from a ``RandomState(seed)`` too, and
+``Bilinear`` (the upsampling kernel) draws nothing. The
 others draw from a ``torch.Generator``, on the CPU in f32.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as _np
 import torch
 
 __all__ = ["Initializer", "Uniform", "Normal", "Zero", "One", "Constant",
-           "Xavier", "Orthogonal", "LSTMBias", "FusedRNN", "Mixed",
+           "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear", "LSTMBias", "FusedRNN", "Mixed",
            "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
@@ -209,6 +211,22 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """Xavier's Gaussian at ``magnitude = 2 / (1 + slope^2)``, drawn in
+    f64 from a ``numpy.random.RandomState(seed)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25, seed=0):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         seed=seed)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+        self._rs = _np.random.RandomState(int(seed))
+
+    def _normal(self, arr, sigma):
+        self._set(arr, torch.from_numpy(
+            self._rs.normal(0, sigma, tuple(arr.shape)).astype(_np.float32)))
+
+
+@register
 class Orthogonal(Initializer):
     """The orthogonal factor of a uniform (``rand_type="uniform"``) or
     normal matrix of shape (out, prod(in)), times ``scale``."""
@@ -232,6 +250,23 @@ class Orthogonal(Initializer):
         q = u if u.shape == tmp.shape else v
         self._set(arr, torch.from_numpy(
             (self.scale * q).reshape(tuple(arr.shape)).astype(_np.float32)))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel over the last two axes of every
+    (out, in) slice."""
+
+    def _init_weight(self, _, arr):
+        shape = tuple(arr.shape)
+        weight = _np.zeros(shape, dtype="float32")
+        f = _np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(_np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight.flat[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        self._set(arr, torch.from_numpy(weight))
 
 
 @register

@@ -2,8 +2,10 @@
 ``LibSVMIter``, which waits for ROADMAP A5b).
 
 ``NDArrayIter`` batches in-memory arrays (numpy arrays, tensors, or
-dicts of them) in order, into CPU tensors; the executor copies each
-batch to its device. The last partial batch is padded from the start
+dicts of them) in order, into CPU tensors (``HostBatch``: they also
+answer ``as_in_context``, ``asnumpy`` and ``context``, the NDArray calls
+a Gluon loop makes on a batch); the executor copies each batch to its
+device. The last partial batch is padded from the start
 (``last_batch_handle="pad"``, the default) or dropped (``"discard"``).
 With ``shuffle=True`` every ``reset`` (the constructor's included)
 shuffles the order with ``numpy.random.shuffle``, as the JAX package
@@ -23,6 +25,31 @@ import torch
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter"]
+
+
+class HostBatch(torch.Tensor):
+    """A batch on the host: a CPU tensor (torch ops on it return plain
+    tensors) that answers the NDArray calls of a Gluon loop."""
+
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    def _plain(self):
+        return self.as_subclass(torch.Tensor)
+
+    def as_in_context(self, context):
+        """An NDArray of the batch on ``context``."""
+        from ..context import resolve_device
+        from ..ndarray.ndarray import NDArray
+        return NDArray(self._plain().to(resolve_device(context)),
+                       ctx=context)
+
+    def asnumpy(self):
+        return self._plain().numpy()
+
+    @property
+    def context(self):
+        from ..context import cpu
+        return cpu()
 
 
 class DataDesc(collections.namedtuple("DataDesc", ["name", "shape", "dtype",
@@ -167,7 +194,7 @@ class NDArrayIter(DataIter):
         if pad > 0:
             sel = _np.concatenate([sel, self.idx[:pad]])
         return [torch.from_numpy(_np.ascontiguousarray(v[sel]))
-                for v in arrays.values()]
+                .as_subclass(HostBatch) for v in arrays.values()]
 
     def getdata(self):
         return self._take(self.data)

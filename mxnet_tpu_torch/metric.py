@@ -1,7 +1,9 @@
 """Evaluation metrics (counterpart of a subset of ``mxnet_tpu/metric.py``):
 ``EvalMetric``, ``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``,
-``CrossEntropy``, ``NegativeLogLikelihood``, ``Perplexity``, ``Loss``
-(with its aliases ``Torch`` and ``Caffe``) and ``create``. Labels and
+``F1``, ``MCC``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``,
+``NegativeLogLikelihood``, ``PearsonCorrelation``, ``Perplexity``,
+``Loss`` (with its aliases ``Torch`` and ``Caffe``), ``CustomMetric``
+(``create(callable)``, ``np(feval)``) and ``create``. Labels and
 predictions are copied to the host as numpy arrays once per
 ``update_dict``, arrays that still answer ``asnumpy()`` (a user metric
 written against NDArrays, ``preds[0].asnumpy()``, keeps working);
@@ -16,8 +18,10 @@ import numpy as _np
 import torch
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
-           "CrossEntropy", "NegativeLogLikelihood", "Perplexity", "Loss",
-           "Torch", "Caffe", "create", "register"]
+           "F1", "MCC", "MAE", "MSE", "RMSE", "CrossEntropy",
+           "NegativeLogLikelihood", "PearsonCorrelation", "Perplexity",
+           "Loss", "Torch", "Caffe", "CustomMetric", "np", "create",
+           "register"]
 
 _METRIC_REGISTRY = {}
 
@@ -28,6 +32,8 @@ def register(klass):
 
 
 def create(metric, *args, **kwargs):
+    if callable(metric) and not isinstance(metric, (EvalMetric, type)):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -38,7 +44,8 @@ def create(metric, *args, **kwargs):
     name = str(metric).lower()
     aliases = {"acc": "accuracy", "ce": "crossentropy",
                "nll_loss": "negativeloglikelihood",
-               "top_k_accuracy": "topkaccuracy"}
+               "top_k_accuracy": "topkaccuracy",
+               "pearsonr": "pearsoncorrelation"}
     name = aliases.get(name, name)
     try:
         return _METRIC_REGISTRY[name](*args, **kwargs)
@@ -187,6 +194,137 @@ class TopKAccuracy(EvalMetric):
             self.num_inst += len(label)
 
 
+def _binary_preds(pred):
+    """Class-1 decisions: column 1 of (N, 2) scores, else the scores,
+    over 0.5."""
+    pred = pred[:, 1] if pred.ndim == 2 else pred
+    return (pred > 0.5).astype(_np.int32)
+
+
+class _BinaryCounts(EvalMetric):
+    """Running confusion counts of a binary classifier."""
+
+    def reset(self):
+        super().reset()
+        self._tp = self._fp = self._fn = self._tn = 0.0
+
+    def _count(self, label, pred):
+        label = _as_np(label).ravel().astype(_np.int32)
+        pred = _binary_preds(_as_np(pred))
+        self._tp += ((pred == 1) & (label == 1)).sum()
+        self._fp += ((pred == 1) & (label == 0)).sum()
+        self._fn += ((pred == 0) & (label == 1)).sum()
+        self._tn += ((pred == 0) & (label == 0)).sum()
+
+
+@register
+class F1(_BinaryCounts):
+    """F1 of the positive class over every update so far."""
+
+    def __init__(self, name="f1", output_names=None, label_names=None,
+                 average="macro"):
+        super().__init__(name, output_names, label_names)
+        self.average = average
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            self._count(label, pred)
+            prec = self._tp / max(self._tp + self._fp, 1e-12)
+            rec = self._tp / max(self._tp + self._fn, 1e-12)
+            self.sum_metric = 2 * prec * rec / max(prec + rec, 1e-12)
+            self.num_inst = 1
+
+
+@register
+class MCC(_BinaryCounts):
+    """Matthews correlation coefficient over every update so far."""
+
+    def __init__(self, name="mcc", output_names=None, label_names=None,
+                 average="macro"):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            self._count(label, pred)
+            tp, fp, fn, tn = self._tp, self._fp, self._fn, self._tn
+            den = math.sqrt(max((tp + fp) * (tp + fn) * (tn + fp)
+                                * (tn + fn), 1e-12))
+            self.sum_metric = (tp * tn - fp * fn) / den
+            self.num_inst = 1
+
+
+def _columns(label, pred):
+    """Label and prediction as numpy, a 1-D one as a column."""
+    label, pred = _as_np(label), _as_np(pred)
+    if label.ndim == 1:
+        label = label.reshape(label.shape[0], 1)
+    if pred.ndim == 1:
+        pred = pred.reshape(pred.shape[0], 1)
+    return label, pred
+
+
+class _Regression(EvalMetric):
+    """Mean over batches of ``_batch(label - pred)``."""
+
+    def __init__(self, name, output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            label, pred = _columns(label, pred)
+            self.sum_metric += self._batch(label - pred)
+            self.num_inst += 1
+
+
+@register
+class MAE(_Regression):
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def _batch(d):
+        return _np.abs(d).mean()
+
+
+@register
+class MSE(_Regression):
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def _batch(d):
+        return (d ** 2.0).mean()
+
+
+@register
+class RMSE(_Regression):
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    @staticmethod
+    def _batch(d):
+        return _np.sqrt((d ** 2.0).mean())
+
+
+@register
+class PearsonCorrelation(EvalMetric):
+    """Mean over batches of the correlation of predictions and labels."""
+
+    def __init__(self, name="pearsonr", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names, label_names)
+
+    def update(self, labels, preds):
+        _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            self.sum_metric += _np.corrcoef(_as_np(pred).ravel(),
+                                            _as_np(label).ravel())[0, 1]
+            self.num_inst += 1
+
+
 @register
 class Perplexity(EvalMetric):
     def __init__(self, ignore_label=None, axis=-1, name="perplexity",
@@ -270,3 +408,38 @@ class Torch(Loss):
 class Caffe(Loss):
     def __init__(self, name="caffe", output_names=None, label_names=None):
         super().__init__(name, output_names, label_names)
+
+
+class CustomMetric(EvalMetric):
+    """A metric from ``feval(label, pred)`` on numpy arrays, returning
+    a value or ``(sum, count)``."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__ if feval.__name__ != "<lambda>" \
+                else "custom"
+        super().__init__("custom(%s)" % name, output_names, label_names)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            _check(labels, preds)
+        for label, pred in zip(labels, preds):
+            reval = self._feval(_as_np(label), _as_np(pred))
+            if isinstance(reval, tuple):
+                self.sum_metric += reval[0]
+                self.num_inst += reval[1]
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A :class:`CustomMetric` over a numpy ``feval``."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)

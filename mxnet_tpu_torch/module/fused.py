@@ -129,7 +129,7 @@ class FusedStep:
         # ops that read back to the host mid-step: no CUDA graph
         self.host_ops = tuple(sorted({
             n.op.name for n in executor._symbol._topo()
-            if not n.is_variable and n.op.host}))
+            if not n.is_variable and n.op.reads_back(n.params)}))
         self.dispatch = "eager" if self.host_ops else "graph"
         # census of how steps ran: graphs captured, inner steps replayed
         # from a graph, steps run eagerly (per-step path, CPU windows,

@@ -6,8 +6,8 @@ namespace (``nd.contrib.FlashAttention(...)``), ``nd.image``, the samplers
 (``nd.sparse.cast_storage(...)``)."""
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from .ndarray import (NDArray, arange, array, asnumpy_all,  # noqa: F401
-                      concat, empty, full, invoke, load, ones, save,
-                      waitall, zeros, zeros_like)
+                      concat, empty, full, imperative_invoke, invoke, load,
+                      ones, save, waitall, zeros, zeros_like)
 from . import register as _register
 
 _register.populate(__name__)
@@ -16,4 +16,5 @@ from . import contrib  # noqa: E402,F401
 from . import image  # noqa: E402,F401
 from . import random  # noqa: E402,F401
 from . import sparse  # noqa: E402,F401
-from .sparse import csr_matrix, row_sparse_array  # noqa: E402,F401
+from .sparse import (cast_storage, csr_matrix,  # noqa: E402,F401
+                     row_sparse_array)

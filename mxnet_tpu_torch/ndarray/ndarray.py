@@ -383,6 +383,47 @@ class NDArray:
         return invoke("pick", [self, index], {"axis": axis,
                                               "keepdims": keepdims})
 
+    def slice(self, begin, end, step=None):
+        return invoke("slice", [self], {"begin": begin, "end": end,
+                                        "step": step})
+
+    def take(self, indices, axis=0, mode="clip"):
+        return invoke("take", [self, indices], {"axis": axis, "mode": mode})
+
+    def one_hot(self, depth, **kw):
+        return invoke("one_hot", [self], {"depth": depth, **kw})
+
+    def argmax(self, axis=None, keepdims=False):
+        return invoke("argmax", [self], {"axis": axis, "keepdims": keepdims})
+
+    def argmin(self, axis=None, keepdims=False):
+        return invoke("argmin", [self], {"axis": axis, "keepdims": keepdims})
+
+    def argsort(self, axis=-1, is_ascend=True):
+        return invoke("argsort", [self], {"axis": axis,
+                                          "is_ascend": is_ascend})
+
+    def sort(self, axis=-1, is_ascend=True):
+        return invoke("sort", [self], {"axis": axis, "is_ascend": is_ascend})
+
+    def topk(self, **kw):
+        return invoke("topk", [self], kw)
+
+    def sign(self):
+        return invoke("sign", [self], {})
+
+    def flip(self, axis):
+        return invoke("flip", [self], {"axis": axis})
+
+    def tile(self, reps):
+        return invoke("tile", [self], {"reps": reps})
+
+    def repeat(self, repeats, axis=None):
+        return invoke("repeat", [self], {"repeats": repeats, "axis": axis})
+
+    def pad(self, **kw):
+        return invoke("pad", [self], kw)
+
     def split(self, num_outputs, axis=1, squeeze_axis=False):
         return invoke("split", [self], {"num_outputs": num_outputs,
                                         "axis": axis,
@@ -471,6 +512,12 @@ def invoke(op_name, inputs, params, out=None):
             t._rebind(o._data)
         return out
     return out_nds[0] if len(out_nds) == 1 else tuple(out_nds)
+
+
+def imperative_invoke(op_name, *inputs, out=None, **params):
+    """:func:`invoke` with the inputs as arguments and the
+    hyper-parameters as keywords."""
+    return invoke(op_name, list(inputs), params, out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,36 @@
-"""Shape operators (counterpart of a subset of ``mxnet_tpu/ops/matrix.py``):
-Flatten, MXNet's Reshape with its special codes, transpose, expand_dims,
-squeeze, slice_axis, split, batch_dot, Concat, stack, pad, swapaxes,
-dot, pick (clip mode), reshape_like and the sequence ops
-(SequenceMask, SequenceLast, SequenceReverse, with optional per-sample
-lengths). Each is a plain function on
-tensors that torch autograd differentiates."""
+"""Shape, indexing and ordering operators (counterpart of
+``mxnet_tpu/ops/matrix.py``): Flatten, MXNet's Reshape with its special
+codes, transpose, expand_dims, squeeze, slice, slice_axis, slice_like,
+split, batch_dot, Concat, stack, pad, tile, repeat, flip, swapaxes,
+depth_to_space/space_to_depth, dot, khatri_rao, take, pick, batch_take,
+gather_nd/scatter_nd, one_hot, sort/argsort/topk, diag, shape_array,
+size_array, histogram, ravel_multi_index/unravel_index,
+boolean_mask_dense, reshape_like, the out-of-place slice assignments and
+the sequence ops (SequenceMask, SequenceLast, SequenceReverse, with
+optional per-sample lengths). Each is a plain function on tensors that
+torch autograd differentiates.
+
+Indices follow the JAX op, never torch's checks (a CUDA index past the
+end asserts the device): ``take`` clips (``mode="wrap"`` wraps),
+``gather_nd`` counts a negative index from the end and clamps the rest,
+``scatter_nd`` drops what falls outside, ``batch_take`` fills NaN (the
+integer minimum) there, and ``one_hot`` gives an all-``off_value`` row
+for an index outside ``[0, depth)``. ``sort``, ``argsort`` and ``topk``
+are stable: equal values keep the lower index first, as ``jnp.argsort``
+and ``lax.top_k``; a NaN sorts as the largest value.
+``depth_to_space``/``space_to_depth`` are MXNet's DCR order
+(``(n, b, b, c / b^2, h, w)``), which ``torch.pixel_shuffle`` (CRD)
+equals only at ``c / b^2 = 1``. Index outputs are int32, the JAX
+package's index dtype."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, normalize_dtype
 from .registry import alias, register
+
+_INDEX = torch.int32   # the JAX package's index dtype (x64 off)
 
 
 @register("Flatten")
@@ -275,3 +294,341 @@ def sequence_reverse(data, sequence_length=None, *,
 
 
 alias("sequence_reverse", "SequenceReverse")
+
+
+# ---------------------------------------------------------------------------
+# slicing
+# ---------------------------------------------------------------------------
+
+def _slices(shape, begin, end, step):
+    """``(key, flips)`` for MXNet's begin/end/step over the leading
+    axes: ``data[key].flip(flips)`` is numpy's ``data[b:e:s, ...]``
+    (torch slices take no negative step)."""
+    step = list(step or []) + [None] * (len(begin) - len(step or []))
+    key, flips = [], []
+    for ax, (b, e, st) in enumerate(zip(begin, end, step)):
+        idx = range(shape[ax])[slice(b, e, st)]
+        if idx.step > 0 or len(idx) == 0:
+            key.append(slice(idx.start, idx.stop, idx.step) if len(idx)
+                       else slice(0, 0))
+        else:
+            key.append(slice(idx[-1], idx[0] + 1, -idx.step))
+            flips.append(ax)
+    return tuple(key), tuple(flips)
+
+
+@register("slice")
+def slice_op(data, *, begin, end, step=None):
+    key, flips = _slices(data.shape, begin, end, step)
+    out = data[key]
+    return out.flip(flips) if flips else out
+
+
+@register("slice_like")
+def slice_like(data, shape_like, *, axes=None):
+    axes = range(data.dim()) if axes is None or len(axes) == 0 else axes
+    idx = [slice(None)] * data.dim()
+    for a in axes:
+        idx[a] = slice(0, shape_like.shape[a])
+    return data[tuple(idx)]
+
+
+@register("_slice_assign")
+def slice_assign(lhs, rhs, *, begin, end, step=None):
+    """``lhs`` with ``rhs`` written into ``lhs[begin:end:step]``, out of
+    place."""
+    key, flips = _slices(lhs.shape, begin, end, step)
+    out = lhs.clone()
+    out[key] = rhs.flip(flips) if flips else rhs
+    return out
+
+
+@register("_slice_assign_scalar")
+def slice_assign_scalar(data, *, scalar=0.0, begin=(), end=(), step=None):
+    """``data`` with ``data[begin:end:step]`` set to ``scalar``, out of
+    place."""
+    key, _ = _slices(data.shape, begin, end, step)
+    out = data.clone()
+    out[key] = torch.tensor(scalar, dtype=data.dtype).item()
+    return out
+
+
+alias("_slice_assign", "_crop_assign")
+alias("_slice_assign_scalar", "_crop_assign_scalar")
+
+
+@register("tile")
+def tile(data, *, reps):
+    return torch.tile(data, tuple(reps))
+
+
+@register("repeat")
+def repeat(data, *, repeats, axis=None):
+    return torch.repeat_interleave(data, int(repeats), dim=axis)
+
+
+@register("flip")
+def flip(data, *, axis):
+    return torch.flip(data, tuple(axis) if isinstance(axis, (list, tuple))
+                      else (axis,))
+
+
+alias("flip", "reverse")
+
+
+@register("depth_to_space")
+def depth_to_space(data, *, block_size):
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, b, b, c // (b * b), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("space_to_depth")
+def space_to_depth(data, *, block_size):
+    n, c, h, w = data.shape
+    b = block_size
+    x = data.reshape(n, c, h // b, b, w // b, b)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(n, c * b * b, h // b, w // b)
+
+
+@register("khatri_rao")
+def khatri_rao(*args):
+    """The column-wise Kronecker product of the matrices."""
+    out = args[0]
+    for m in args[1:]:
+        out = torch.einsum("i...,j...->ij...", out, m).reshape(
+            out.shape[0] * m.shape[0], *out.shape[1:])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# indexing
+# ---------------------------------------------------------------------------
+
+def _wrap_clamp(idx, n):
+    """numpy indexing as ``jnp`` gathers: a negative index counts from
+    the end, then every index is clamped to ``[0, n)``."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+@register("take")
+def take(a, indices, *, axis=0, mode="clip"):
+    """``a`` at ``indices`` along ``axis``: clipped, or wrapped with
+    ``mode="wrap"``."""
+    axis = axis % a.dim()
+    n = a.shape[axis]
+    idx = indices.long()
+    idx = torch.remainder(idx, n) if mode == "wrap" else idx.clamp(0, n - 1)
+    out = torch.index_select(a, axis, idx.reshape(-1))
+    return out.reshape(tuple(a.shape[:axis]) + tuple(indices.shape)
+                       + tuple(a.shape[axis + 1:]))
+
+
+@register("batch_take")
+def batch_take(a, indices):
+    """``out[i] = a[i, indices[i]]``; a negative index counts from the
+    end, one still outside the row reads NaN (the integer minimum)."""
+    n = a.shape[1]
+    idx = indices.long().reshape(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    ok = (idx >= 0) & (idx < n)
+    got = torch.gather(a, 1, idx.clamp(0, n - 1)[:, None])[:, 0]
+    fill = float("nan") if a.is_floating_point() \
+        else torch.iinfo(a.dtype).min
+    return torch.where(ok, got, torch.full_like(got, fill))
+
+
+@register("gather_nd")
+def gather_nd(data, indices):
+    """``data[indices[0], indices[1], ...]``; see the module note for
+    indices outside the data."""
+    idx = indices.long()
+    key = tuple(_wrap_clamp(idx[i], data.shape[i])
+                for i in range(idx.shape[0]))
+    return data[key]
+
+
+@register("scatter_nd")
+def scatter_nd(data, indices, *, shape):
+    """Zeros of ``shape`` with ``data`` written at ``indices``; a
+    negative index counts from the end, a write outside is dropped."""
+    shape = tuple(shape)
+    idx = indices.long()
+    k = idx.shape[0]
+    norm = [torch.where(idx[i] < 0, idx[i] + shape[i], idx[i])
+            for i in range(k)]
+    ok = torch.ones_like(norm[0], dtype=torch.bool)
+    for i in range(k):
+        ok &= (norm[i] >= 0) & (norm[i] < shape[i])
+    # a dropped write goes to a scratch row past the end
+    flat = torch.zeros_like(norm[0])
+    for i in range(k):
+        flat = flat * shape[i] + norm[i].clamp(0, shape[i] - 1)
+    n_lead = 1
+    for d in shape[:k]:
+        n_lead *= d
+    flat = torch.where(ok, flat, torch.full_like(flat, n_lead))
+    out = torch.zeros((n_lead + 1,) + shape[k:], dtype=data.dtype,
+                      device=data.device)
+    out = out.index_put((flat.reshape(-1),),
+                        data.reshape((-1,) + shape[k:]))
+    return out[:n_lead].reshape(shape)
+
+
+@register("one_hot")
+def one_hot(indices, *, depth, on_value=1.0, off_value=0.0,
+            dtype="float32"):
+    idx = indices.to(_INDEX)
+    oh = (idx[..., None] == torch.arange(depth, dtype=_INDEX,
+                                         device=idx.device)).float()
+    out = oh * on_value + (1.0 - oh) * off_value
+    return out.to(normalize_dtype(dtype))
+
+
+@register("boolean_mask_dense", host=True)
+def boolean_mask_dense(data, mask):
+    """The rows (or elements) of ``data`` where ``mask`` is nonzero: a
+    shape that only the data decides, so it reads the mask back."""
+    return data[mask.to(torch.bool)]
+
+
+# ---------------------------------------------------------------------------
+# ordering
+# ---------------------------------------------------------------------------
+
+@register("sort")
+def sort(data, *, axis=-1, is_ascend=True):
+    out = torch.sort(data, dim=axis, stable=True).values
+    return out if is_ascend else torch.flip(out, (axis,))
+
+
+@register("argsort")
+def argsort(data, *, axis=-1, is_ascend=True, dtype="float32"):
+    idx = torch.sort(data if is_ascend else -data, dim=axis,
+                     stable=True).indices
+    return idx.to(normalize_dtype(dtype))
+
+
+@register("topk", num_outputs=lambda p: 2 if p.get("ret_typ") == "both"
+          else 1)
+def topk(data, *, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """``lax.top_k``'s order: largest first (smallest with
+    ``is_ascend``), equal values by lower index."""
+    d = data.movedim(axis, -1)
+    vals, raw_idx = torch.sort(-d if is_ascend else d, dim=-1,
+                               descending=True, stable=True)
+    vals, raw_idx = vals[..., :k], raw_idx[..., :k]
+    if is_ascend:
+        vals = -vals
+    if ret_typ == "mask":
+        # 1 at every top-k position in the data's layout, built from the
+        # integer indices before any float cast
+        mask = torch.zeros_like(d).scatter_(-1, raw_idx, 1)
+        return mask.movedim(-1, axis)
+    vals = vals.movedim(-1, axis)
+    idx = raw_idx.movedim(-1, axis).to(normalize_dtype(dtype))
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, idx
+    return idx
+
+
+# ---------------------------------------------------------------------------
+# misc
+# ---------------------------------------------------------------------------
+
+@register("diag")
+def diag(data, *, k=0):
+    if data.dim() == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=-2, dim2=-1).clone()
+
+
+@register("shape_array")
+def shape_array(data):
+    return torch.tensor(tuple(data.shape), dtype=_INDEX, device=data.device)
+
+
+@register("size_array")
+def size_array(data):
+    return torch.tensor([data.numel()], dtype=_INDEX, device=data.device)
+
+
+def linspace(start, stop, num, endpoint=True, dtype=torch.float32,
+             device=None):
+    """``jnp.linspace``'s formula, ``start * (1 - s) + stop * s`` at
+    ``s = i / div``, then ``stop`` itself at the end. XLA folds the
+    constants of that formula in another order, so the inner points
+    agree with the JAX op's within an ulp or two, not bitwise."""
+    start = torch.tensor(start, dtype=dtype, device=device)
+    stop = torch.tensor(stop, dtype=dtype, device=device)
+    if num <= 1:
+        return start.reshape(1)[:num]
+    div = num - 1 if endpoint else num
+    step = torch.arange(div, dtype=dtype, device=device) / div
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, stop.reshape(1)]) if endpoint else out
+
+
+def bin_counts(data, edges):
+    """``jnp.histogram``'s counts (f32) over sorted ``edges``: every bin
+    half-open but the last, which holds its upper edge."""
+    x = data.reshape(-1).to(edges.dtype)
+    nb = edges.shape[0] - 1
+    b = torch.searchsorted(edges, x, right=True)
+    b = torch.where(x == edges[-1], torch.full_like(b, nb), b)
+    counts = torch.zeros(nb + 2, dtype=torch.float32, device=x.device)
+    counts.index_add_(0, b, torch.ones_like(x, dtype=torch.float32))
+    return counts[1:-1]
+
+
+def hist_edges(data, bins, rng):
+    """``jnp.histogram_bin_edges``: ``bins + 1`` edges over ``rng`` or
+    else the data's min and max (read back), widened by 0.5 each way
+    when they are equal."""
+    if rng is None:
+        rng = (data.min().item(), data.max().item())
+    dt = data.dtype if data.is_floating_point() else torch.float32
+    lo, hi = torch.tensor(tuple(rng), dtype=dt)
+    if lo == hi:
+        lo, hi = lo - 0.5, hi + 0.5
+    return linspace(lo.item(), hi.item(), int(bins) + 1, dtype=dt,
+                    device=data.device)
+
+
+def _range_read_back(params):
+    """A histogram without ``range`` reads the data's min and max back."""
+    return params.get("range") is None
+
+
+@register("histogram", num_outputs=2, host=_range_read_back)
+def histogram(data, *, bin_cnt=10, range=None):
+    edges = hist_edges(data, bin_cnt, range)
+    counts = bin_counts(data, edges)
+    return counts.to(_INDEX), edges.to(data.dtype)
+
+
+@register("ravel_multi_index")
+def ravel_multi_index(data, *, shape):
+    strides, acc = [], 1
+    for s in reversed(shape):
+        strides.append(acc)
+        acc *= s
+    strides = torch.tensor(strides[::-1], dtype=data.dtype,
+                           device=data.device)
+    return torch.sum(data * strides[:, None], dim=0).to(data.dtype)
+
+
+@register("unravel_index")
+def unravel_index(data, *, shape):
+    idx = data.to(_INDEX)
+    out = []
+    for s in reversed(shape):
+        out.append(torch.remainder(idx, s))
+        idx = torch.div(idx, s, rounding_mode="floor")
+    return torch.stack(out[::-1], dim=0).to(data.dtype)

@@ -1,5 +1,6 @@
 """Random sampling operators (counterpart of ``mxnet_tpu/ops/random_ops.py``
-and of ``_sample_exponential`` in its ``legacy_aliases.py``).
+and of ``_sample_exponential`` and the random-surface aliases in its
+``legacy_aliases.py``).
 
 Every op takes its key from :func:`random.next_key`: the chain in an
 eager call, the call's folded key inside a hybridized block or an
@@ -9,10 +10,12 @@ JAX package's values (normal and exponential draws within a few f32
 ulp; see ``random.py``).
 
 The gamma family (``_random_gamma``, ``_random_poisson``, the negative
-binomials, ``_sample_gamma`` and the ``_sample_*`` Poisson mixtures)
-draws through JAX's rejection loops, which are not ported: those ops
-raise (ROADMAP A3b.1b). A no-input op lands on ``ctx``, on the CPU when
-it is None.
+binomials, ``_sample_gamma`` and the ``_sample_*`` Poisson mixtures,
+with their aliases ``random_gamma`` ...) draws through JAX's rejection
+loops, which are not ported: those ops raise (ROADMAP A3b.1b).
+``_sample_unique_zipfian`` runs the JAX op's vectorised rejection loop
+block by block on the device, all rows at once. A no-input op lands on
+``ctx``, on the CPU when it is None.
 """
 from __future__ import annotations
 
@@ -135,3 +138,82 @@ for _name in ("_random_gamma", "_random_poisson", "_random_negative_binomial",
 for _name in ("_sample_gamma", "_sample_poisson", "_sample_negative_binomial",
               "_sample_generalized_negative_binomial"):
     register(_name, is_random=True)(_gamma_family(_name))
+
+
+@register("_sample_unique_zipfian", is_random=True, num_outputs=2,
+          host=True)
+def sample_unique_zipfian(*, range_max, shape=(1, 1), ctx=None):
+    """``n`` distinct classes a row from the log-uniform (zipfian)
+    proposal, and the draws each row took: the JAX op's loop over
+    blocks of proposals, all rows at once on ``ctx``'s device. A block
+    is deduplicated by a stable sort and checked against the sorted set
+    so far (a draw after the one that fills the row never happened); a
+    row that is full keeps its state, as under the JAX op's vmap. The
+    loop reads back one flag a block. Int32."""
+    shape = tuple(shape)
+    if len(shape) == 1:
+        shape = (1,) + shape
+    batch, n = shape
+    if n > range_max:
+        raise ValueError("Number of samples (%d) cannot exceed the number "
+                         "of possible classes (%d)" % (n, range_max))
+    dev, i32, i64 = _dev(ctx), torch.int32, torch.int64
+    log_rm = torch.log(torch.tensor(float(range_max), dtype=torch.float32,
+                                    device=dev))
+    blk = min(max(64, 2 * n), 8192)
+    keys = _random.split(_random.next_key(), batch)
+    if not isinstance(keys, torch.Tensor):
+        keys = torch.from_numpy(keys.astype("int64"))
+    keys = keys.to(dev, i64)
+    k1, k2 = keys[:, :1], keys[:, 1:]
+    two = torch.arange(2, dtype=i64, device=dev)
+    draw = torch.arange(blk, dtype=i64, device=dev)
+    samples = torch.zeros((batch, n + 1), dtype=i32, device=dev)
+    sset = torch.full((batch, n), range_max, dtype=i32, device=dev)
+    tries = torch.zeros((batch,), dtype=i32, device=dev)
+    count = torch.zeros((batch,), dtype=i32, device=dev)
+    while bool((count < n).any()):
+        live = count < n
+        # split(key): the row's next key and this block's subkey
+        s1, s2 = _random.threefry2x32(k1, k2, 0, two)
+        b1, b2 = _random.threefry2x32(s1[:, 1:], s2[:, 1:], 0, draw)
+        # jax.random.uniform on [0, 1): the unit float of the bits
+        x = _random._unit(b1 ^ b2, torch.float32)
+        k1 = torch.where(live[:, None], s1[:, :1], k1)
+        k2 = torch.where(live[:, None], s2[:, :1], k2)
+        vals = (torch.round(torch.exp(x * log_rm)).to(i32) - 1).clamp(
+            0, range_max - 1)
+        sv, order = torch.sort(vals, dim=1, stable=True)
+        head = torch.ones_like(sv, dtype=torch.bool)
+        head[:, 1:] = sv[:, 1:] != sv[:, :-1]
+        first = torch.zeros_like(head).scatter_(1, order, head)
+        at = torch.searchsorted(sset.contiguous(), vals).clamp(0, n - 1)
+        is_new = first & (torch.gather(sset, 1, at) != vals)
+        pos = count[:, None] + torch.cumsum(is_new.to(i32), 1)
+        apply = is_new & (pos <= n) & live[:, None]
+        samples.scatter_(1, torch.where(apply, pos - 1, n).to(i64), vals)
+        sset = torch.sort(torch.cat(
+            [sset, torch.where(apply, vals, range_max)], 1), 1).values[:, :n]
+        last = pos[:, -1]
+        took = torch.where(last >= n, torch.argmax((pos >= n).to(i32), 1)
+                           .to(i32) + 1, blk)
+        tries = torch.where(live, tries + took, tries)
+        count = torch.where(live, torch.clamp_max(last, n), count)
+    return samples[:, :n].contiguous(), tries
+
+
+# the random-surface names of the JAX package's alias table
+for _legacy, _new in {
+    "uniform": "_random_uniform", "random_uniform": "_random_uniform",
+    "normal": "_random_normal", "random_normal": "_random_normal",
+    "random_gamma": "_random_gamma",
+    "random_exponential": "_random_exponential",
+    "random_poisson": "_random_poisson",
+    "random_negative_binomial": "_random_negative_binomial",
+    "random_generalized_negative_binomial":
+        "_random_generalized_negative_binomial",
+    "random_randint": "_random_randint",
+    "sample_multinomial": "_sample_multinomial",
+    "shuffle": "_shuffle",
+}.items():
+    alias(_new, _legacy)

@@ -32,7 +32,8 @@ class Operator:
         self.num_outputs = num_outputs  # int, or callable(params)->int
         self.is_random = is_random    # draws keys from ``random.next_key``
         # reads values back to the host mid-graph (a greedy pass, user
-        # Python): a step holding it cannot be captured as a CUDA graph
+        # Python): a step holding it cannot be captured as a CUDA graph;
+        # bool, or callable(params)->bool where only some calls read back
         self.host = host
         self.doc = fn.__doc__ or ""
         self.shape_hook = None        # fn(in_shapes, params) -> completed
@@ -74,6 +75,12 @@ class Operator:
             return self.num_outputs(params)
         return self.num_outputs
 
+    def reads_back(self, params):
+        """Whether a call with ``params`` reads values back to the host."""
+        if callable(self.host):
+            return bool(self.host(params))
+        return bool(self.host)
+
     def resolve_num_visible_outputs(self, params):
         """Outputs exposed to the graph; the hidden suffix carries the
         updated aux state."""
@@ -92,7 +99,8 @@ class Operator:
 
 def register(name=None, num_outputs=1, is_random=False, host=False):
     """Decorator: register a torch function as an operator; ``host``
-    marks an op that reads values back to the host while it runs."""
+    marks an op that reads values back to the host while it runs (a
+    bool, or a predicate of the call's params)."""
     def deco(fn):
         opname = name or fn.__name__
         if opname in _REGISTRY:

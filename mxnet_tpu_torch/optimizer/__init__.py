@@ -1,5 +1,9 @@
 """Optimizers: the ``Optimizer`` base, ``SGD`` (with momentum),
-``Adam``, ``AdaGrad`` and ``GroupAdaGrad`` (with their lazy row updates
-for row-sparse gradients), their registry, and the eager ``Updater``."""
-from .optimizer import (SGD, AdaGrad, Adam, GroupAdaGrad,  # noqa: F401
-                        Optimizer, Updater, create, get_updater, register)
+``NAG``, ``Adam``, ``AdaGrad`` and ``GroupAdaGrad`` (with their lazy row
+updates for row-sparse gradients), ``AdaDelta``, ``RMSProp``, ``Ftrl``,
+``Signum``, ``SignSGD``, ``FTML``, ``Nadam``, ``DCASGD`` and ``LBSGD``,
+their registry, and the eager ``Updater``."""
+from .optimizer import (DCASGD, FTML, LBSGD, NAG, SGD,  # noqa: F401
+                        AdaDelta, AdaGrad, Adam, Ftrl, GroupAdaGrad,
+                        Nadam, Optimizer, RMSProp, Signum, SignSGD, Updater,
+                        create, get_updater, register)

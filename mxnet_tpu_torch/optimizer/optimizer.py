@@ -38,8 +38,17 @@ a ``grad_stype="row_sparse"`` parameter) takes the lazy row update of
 each optimizer (SGD and Adam unless ``lazy_update=False``; AdaGrad and
 GroupAdaGrad always): only the rows the gradient holds are read,
 updated and written back in place; the others get no weight decay and
-no momentum tick. The other optimizers of the JAX package are not
-ported yet.
+no momentum tick.
+
+``NAG``, ``AdaDelta``, ``RMSProp`` (plain and centered), ``Ftrl``,
+``Signum`` and ``SignSGD`` (``Signum`` without momentum) run the update
+ops of :mod:`ops.optimizer_ops` and copy the results into the weight and
+the states, eagerly and in ``fused_ops``. ``FTML`` does so eagerly only
+(its rule needs the update count inside the step, which the fused
+update does not get). ``Nadam``, ``DCASGD`` and ``LBSGD`` (SGD scaled
+by the ratio of the weight's norm to the gradient's, read back per
+update) are eager only, as in the JAX package. A row-sparse gradient is
+densified for them.
 """
 from __future__ import annotations
 
@@ -49,8 +58,16 @@ import pickle
 import numpy as _np
 import torch
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdaGrad", "GroupAdaGrad", "create",
-           "register", "Updater", "get_updater"]
+from ..ops import optimizer_ops as _ops
+from ..ops.optimizer_ops import (adagrad_update_, adam_update_,
+                                 group_adagrad_update_, mp_sgd_mom_update_,
+                                 mp_sgd_update_, sgd_mom_update_,
+                                 sgd_update_)
+
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "GroupAdaGrad",
+           "AdaDelta", "RMSProp", "Ftrl", "Signum", "SignSGD", "FTML",
+           "Nadam", "DCASGD", "LBSGD", "create", "register", "Updater",
+           "get_updater"]
 
 _OPT_REGISTRY = {}
 
@@ -121,95 +138,6 @@ def create(name, **kwargs):
     except KeyError:
         raise ValueError("Cannot find optimizer %s; candidates: %s"
                          % (name, sorted(_OPT_REGISTRY))) from None
-
-
-# --------------------------------------------------------------- the math
-def _prep(grad, rescale, clip, wd, weight):
-    g = grad * rescale
-    if clip is not None and clip > 0:
-        g = g.clamp(-clip, clip)
-    return g + wd * weight
-
-
-@torch.no_grad()
-def sgd_update_(weight, grad, *, lr, wd=0.0, rescale_grad=1.0,
-                clip_gradient=-1.0):
-    """w -= lr * g, in place."""
-    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
-    weight.sub_(lr * g)
-    return weight
-
-
-@torch.no_grad()
-def sgd_mom_update_(weight, grad, mom, *, lr, momentum=0.0, wd=0.0,
-                    rescale_grad=1.0, clip_gradient=-1.0):
-    """mom = momentum * mom - lr * g; w += mom, in place."""
-    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
-    mom.mul_(momentum).sub_(lr * g)
-    weight.add_(mom)
-    return weight, mom
-
-
-@torch.no_grad()
-def mp_sgd_update_(weight, grad, weight32, *, lr, wd=0.0, rescale_grad=1.0,
-                   clip_gradient=-1.0):
-    """w32 -= lr * g on the f32 master, then w = w32 rounded, in
-    place."""
-    g = _prep(grad.float(), rescale_grad, clip_gradient, wd, weight32)
-    weight32.sub_(lr * g)
-    weight.copy_(weight32)
-    return weight, weight32
-
-
-@torch.no_grad()
-def mp_sgd_mom_update_(weight, grad, mom, weight32, *, lr, momentum=0.0,
-                       wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
-    """mom = momentum * mom - lr * g; w32 += mom on the f32 master, then
-    w = w32 rounded, in place."""
-    g = _prep(grad.float(), rescale_grad, clip_gradient, wd, weight32)
-    mom.mul_(momentum).sub_(lr * g)
-    weight32.add_(mom)
-    weight.copy_(weight32)
-    return weight, mom, weight32
-
-
-@torch.no_grad()
-def adagrad_update_(weight, grad, history, *, lr, epsilon=1e-7, wd=0.0,
-                    rescale_grad=1.0, clip_gradient=-1.0):
-    """history += g^2; w -= lr * g / sqrt(history + eps), in place."""
-    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
-    history.add_(g.square())
-    weight.sub_(lr * g / (history + epsilon).sqrt())
-    return weight, history
-
-
-@torch.no_grad()
-def group_adagrad_update_(weight, grad, history, *, lr, epsilon=1e-5,
-                          rescale_grad=1.0, clip_gradient=-1.0):
-    """One accumulator per row: history += mean(g^2 over the row);
-    w -= lr * g / sqrt(history + eps), in place. ``history`` is (N,) or
-    (N, 1) and keeps its layout."""
-    g = grad * rescale_grad
-    if clip_gradient is not None and clip_gradient > 0:
-        g = g.clamp(-clip_gradient, clip_gradient)
-    axes = tuple(range(1, g.dim()))
-    ssq = g.square().mean(dim=axes) if axes else g.square()
-    history.add_(ssq.reshape(history.shape))
-    bshape = tuple(weight.shape[:1]) + (1,) * len(axes)
-    weight.sub_(lr * g / (history.reshape(bshape) + epsilon).sqrt())
-    return weight, history
-
-
-@torch.no_grad()
-def adam_update_(weight, grad, mean, var, *, lr, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
-    """The moments and w -= lr * mean / (sqrt(var) + eps), in place
-    (``lr`` already carries the bias correction)."""
-    g = _prep(grad, rescale_grad, clip_gradient, wd, weight)
-    mean.mul_(beta1).add_((1 - beta1) * g)
-    var.mul_(beta2).add_((1 - beta2) * g.square())
-    weight.sub_(lr * mean / (var.sqrt() + epsilon))
-    return weight, mean, var
 
 
 class Optimizer:
@@ -549,6 +477,320 @@ class GroupAdaGrad(Optimizer):
                                   rescale_grad=rescale, clip_gradient=clip)
             return w, s
         return (lambda w: (_row_history(w),)), upd
+
+
+@torch.no_grad()
+def _run(op, targets, *inputs, **params):
+    """Update op ``op`` on ``targets`` (the weight, then the states it
+    returns) and ``inputs``; its outputs copied into the targets."""
+    outs = op(*targets[:1], *inputs, *targets[1:], **params)
+    for t, o in zip(targets, outs if isinstance(outs, tuple) else (outs,)):
+        t.copy_(o)
+
+
+def _zeros(n):
+    return lambda w: tuple(torch.zeros_like(w) for _ in range(n))
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov momentum (plain SGD without momentum)."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else torch.zeros_like(weight)
+
+    def _kw(self, lr, wd, rescale):
+        return dict(lr=lr, wd=wd, rescale_grad=rescale,
+                    clip_gradient=self._clip_const())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = self._kw(self._get_lr(index), self._get_wd(index),
+                      self.rescale_grad)
+        if state is None:
+            _run(_ops.sgd_update, [weight], _dense(grad), **kw)
+        else:
+            _run(_ops.nag_mom_update, [weight, state], _dense(grad),
+                 momentum=self.momentum, **kw)
+
+    def fused_ops(self):
+        n = 0 if self.momentum == 0.0 else 1
+
+        def upd(w, g, s, lr, wd, rescale):
+            if n:
+                _run(_ops.nag_mom_update, [w, s[0]], g,
+                     momentum=self.momentum, **self._kw(lr, wd, rescale))
+            else:
+                _run(_ops.sgd_update, [w], g, **self._kw(lr, wd, rescale))
+            return w, s
+        return _zeros(n), upd
+
+
+@register
+class AdaDelta(Optimizer):
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(2)(weight)
+
+    def _step(self, w, g, s, wd, rescale):
+        _run(_ops.adadelta_update, [w, *s], g, rho=self.rho,
+             epsilon=self.epsilon, wd=wd, rescale_grad=rescale,
+             clip_gradient=self._clip_const())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._step(weight, _dense(grad), state, self._get_wd(index),
+                   self.rescale_grad)
+
+    def fused_ops(self):
+        def upd(w, g, s, lr, wd, rescale):
+            self._step(w, g, s, wd, rescale)
+            return w, s
+        return _zeros(2), upd
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; ``centered`` keeps the gradient's running mean too
+    (Graves' form, ``rmspropalex_update``)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        if self.centered:
+            return _zeros(3)(weight)
+        return torch.zeros_like(weight)
+
+    def _step(self, w, g, s, lr, wd, rescale):
+        kw = dict(lr=lr, wd=wd, gamma1=self.gamma1, epsilon=self.epsilon,
+                  clip_weights=self.clip_weights or -1.0,
+                  rescale_grad=rescale, clip_gradient=self._clip_const())
+        if self.centered:
+            _run(_ops.rmspropalex_update, [w, *s], g, gamma2=self.gamma2,
+                 **kw)
+        else:
+            _run(_ops.rmsprop_update, [w, s], g, **kw)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._step(weight, _dense(grad), state, self._get_lr(index),
+                   self._get_wd(index), self.rescale_grad)
+
+    def fused_ops(self):
+        def upd(w, g, s, lr, wd, rescale):
+            self._step(w, g, s if self.centered else s[0], lr, wd, rescale)
+            return w, s
+        return _zeros(3 if self.centered else 1), upd
+
+
+@register
+class Ftrl(Optimizer):
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return _zeros(2)(weight)
+
+    def _step(self, w, g, s, lr, wd, rescale):
+        _run(_ops.ftrl_update, [w, *s], g, lr=lr, wd=wd,
+             lamda1=self.lamda1, beta=self.beta, rescale_grad=rescale,
+             clip_gradient=self._clip_const())
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._step(weight, _dense(grad), state, self._get_lr(index),
+                   self._get_wd(index), self.rescale_grad)
+
+    def fused_ops(self):
+        def upd(w, g, s, lr, wd, rescale):
+            self._step(w, g, s, lr, wd, rescale)
+            return w, s
+        return _zeros(2), upd
+
+
+@register
+class Signum(Optimizer):
+    """The sign of the momentum (of the gradient without momentum)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else torch.zeros_like(weight)
+
+    def _step(self, w, g, s, lr, wd, rescale):
+        kw = dict(lr=lr, wd=wd, rescale_grad=rescale,
+                  clip_gradient=self._clip_const())
+        if s is None:
+            _run(_ops.signsgd_update, [w], g, **kw)
+        else:
+            _run(_ops.signum_update, [w, s], g, momentum=self.momentum,
+                 wd_lh=self.wd_lh, **kw)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        self._step(weight, _dense(grad), state, self._get_lr(index),
+                   self._get_wd(index), self.rescale_grad)
+
+    def fused_ops(self):
+        n = 0 if self.momentum == 0.0 else 1
+
+        def upd(w, g, s, lr, wd, rescale):
+            self._step(w, g, s[0] if n else None, lr, wd, rescale)
+            return w, s
+        return _zeros(n), upd
+
+
+@register
+class SignSGD(Signum):
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader (eager only: its rule reads the update
+    count)."""
+
+    def __init__(self, learning_rate=0.0025, beta1=0.6, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(3)(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        _run(_ops.ftml_update, [weight, *state], _dense(grad),
+             lr=self._get_lr(index), wd=self._get_wd(index),
+             beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+             t=self._index_update_count[index],
+             rescale_grad=self.rescale_grad,
+             clip_grad=self._clip_const())
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and the momentum schedule
+    ``m_schedule`` (one product over every update of every
+    parameter, as in the JAX package)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros(2)(weight)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        grad = _dense(grad) * self.rescale_grad + wd * weight
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        m_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (t * self.schedule_decay))
+        m_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** ((t + 1)
+                                                  * self.schedule_decay))
+        self.m_schedule = self.m_schedule * m_t
+        m_schedule_next = self.m_schedule * m_t_1
+        mean, var = state
+        mean.mul_(self.beta1).add_((1.0 - self.beta1) * grad)
+        var.mul_(self.beta2).add_((1.0 - self.beta2) * grad * grad)
+        g_prime = grad / (1.0 - self.m_schedule)
+        m_prime = mean / (1.0 - m_schedule_next)
+        v_prime = var / (1.0 - self.beta2 ** t)
+        m_bar = (1.0 - m_t) * g_prime + m_t_1 * m_prime
+        weight.sub_(lr * m_bar / (v_prime.sqrt() + self.epsilon))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: the gradient corrected by
+    ``lamda * g^2 * (w - w_prev)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = torch.zeros_like(weight) if self.momentum != 0.0 else None
+        return (mom, weight.detach().clone())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = _dense(grad) * self.rescale_grad
+        if self.clip_gradient is not None:
+            grad = grad.clamp(-self.clip_gradient, self.clip_gradient)
+        mom, prev_w = state
+        comp = grad + wd * weight + self.lamda * grad * grad * (
+            weight - prev_w)
+        if mom is None:
+            delta = -lr * comp
+        else:
+            mom.mul_(self.momentum).sub_(lr * comp)
+            delta = mom
+        prev_w.copy_(weight)
+        weight.add_(delta)
+
+
+@register
+class LBSGD(SGD):
+    """Large-batch SGD: the rate scaled per update by
+    ``eta * |w| / (|g| + wd * |w|)`` (both norms read back)."""
+
+    def __init__(self, eta=0.001, **kwargs):
+        super().__init__(**kwargs)
+        self.eta = eta
+
+    def fused_ops(self):
+        return None
+
+    def update_multi_precision(self, index, weight, grad, state):
+        Optimizer.update_multi_precision(self, index, weight, grad, state)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        grad = _dense(grad)
+        wn = float(torch.sqrt(torch.sum(torch.square(weight.detach()))))
+        gn = float(torch.sqrt(torch.sum(torch.square(grad)))) \
+            * self.rescale_grad
+        if wn > 0 and gn > 0:
+            lr = lr * self.eta * wn / (gn + wd * wn + 1e-9)
+        kw = dict(lr=lr, wd=wd, rescale_grad=self.rescale_grad,
+                  clip_gradient=self._clip_const())
+        if state is None:
+            sgd_update_(weight, grad, **kw)
+        else:
+            sgd_mom_update_(weight, grad, state, momentum=self.momentum,
+                            **kw)
 
 
 def _state_to(state, fn):

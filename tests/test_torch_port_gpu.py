@@ -14,7 +14,8 @@ with its 94 B1 launches, the LRN op) on the card against the CPU, B1 at
 Inception-v3's odd and small site shapes and on each of its index paths
 (rows odd, aligned and shorter than a vector, one channel, x and r at
 storage offsets, NaN and infinities, a CUDA graph's replay, more than
-2^31 elements), and B2's launches under gluon.rnn's word language model.
+2^31 elements), B2's launches under gluon.rnn's word language model, and
+the common op families and the 16 update ops against the CPU.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -1858,3 +1859,130 @@ def test_image_det_iter_on_the_card(cuda, tmp_path):
     assert mt.image.imresize(img, 7, 5) is img
     with pytest.raises(mt.MXNetError, match="A5b"):
         mt.image.imresize(img, 8, 5)
+
+
+# ------------------------------------------ the common ops and update ops
+def _common_inputs(kind):
+    rng = np.random.RandomState(0)
+    f = rng.uniform(-3, 3, (32, 48)).astype(np.float32)
+    return {"f": [f], "pos": [np.abs(f) + 0.1],
+            "unit": [np.clip(f / 3.1, -0.99, 0.99)],
+            "ties": [np.round(f * 2)],
+            "ii": [rng.randint(-9, 9, (32, 48)).astype(np.int32),
+                   rng.randint(1, 9, (1, 48)).astype(np.int32)],
+            "idx": [f, rng.randint(-60, 60, (2, 200)).astype(np.int32)],
+            "img": [f.reshape(2, 48, 4, 4)]}[kind]
+
+
+# name -> (inputs, params, bitwise)
+COMMON_CARD = {
+    "sign": ("f", {}, True), "round": ("f", {}, True),
+    "rint": ("f", {}, True), "ceil": ("f", {}, True),
+    "fix": ("f", {}, True), "logical_not": ("f", {}, True),
+    "cbrt": ("f", {}, False), "rsqrt": ("pos", {}, False),
+    "log1p": ("pos", {}, False), "expm1": ("f", {}, False),
+    "arcsin": ("unit", {}, False), "arctanh": ("unit", {}, False),
+    "erfinv": ("unit", {}, False), "gammaln": ("pos", {}, False),
+    "gamma": ("pos", {}, False), "broadcast_mod": ("ii", {}, True),
+    "broadcast_logical_xor": ("ii", {}, True),
+    "_rmod_scalar": ("pos", {"scalar": 2.5}, True),
+    "argmax": ("ties", {"axis": 1}, True),
+    "sort": ("ties", {"is_ascend": False}, True),
+    "argsort": ("ties", {}, True),
+    "topk": ("ties", {"k": 5, "ret_typ": "both"}, True),
+    "slice": ("f", {"begin": (30, 1), "end": (2, None),
+                    "step": (-3, 2)}, True),
+    "tile": ("f", {"reps": (2, 2)}, True),
+    "take": ("idx", {"axis": 1}, True),
+    "gather_nd": ("idx", {}, True),
+    "one_hot": ("ties", {"depth": 5}, True),
+    "depth_to_space": ("img", {"block_size": 2}, True),
+    "histogram": ("f", {"bin_cnt": 9, "range": (-2.0, 2.0)}, True),
+    "cumsum": ("f", {"axis": 1}, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMMON_CARD))
+def test_common_ops_on_the_card_match_the_cpu(cuda, name):
+    """Bitwise for movement, index, ordering, rounding, sign, logical and
+    integer ops; rtol 1e-5, atol 1e-5 for the transcendental ones and
+    cumsum (another summation order)."""
+    kind, params, bitwise = COMMON_CARD[name]
+    ins = _common_inputs(kind)
+    fn = mt.ops.registry.get(name).fn
+    card = fn(*[torch.from_numpy(x).to(cuda) for x in ins], **params)
+    cpu = fn(*[torch.from_numpy(x) for x in ins], **params)
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        if bitwise:
+            assert torch.equal(a.cpu(), b), name
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_sample_unique_zipfian_lands_on_the_card_and_matches_the_cpu(
+        cuda):
+    """The sampler's block loop runs on the card, all rows at once, and
+    draws the CPU's classes and tries bitwise from the same seed."""
+    mt.random.seed(3)
+    card = mt.nd._sample_unique_zipfian(range_max=50, shape=(16, 40))
+    mt.random.seed(3)
+    cpu = mt.nd._sample_unique_zipfian(range_max=50, shape=(16, 40),
+                                       ctx=mt.cpu())
+    for a, b in zip(card, cpu):
+        assert a._data.device.type == "cuda"
+        assert torch.equal(a._data.cpu(), b._data)
+    rows = card[0].asnumpy()
+    assert all(len(set(r)) == 40 for r in rows) and rows.max() < 50
+
+
+UPDATE_OPS = {
+    "sgd_update": (0, {"lr": 0.1, "wd": 0.01}),
+    "sgd_mom_update": (1, {"lr": 0.1, "momentum": 0.9}),
+    "nag_mom_update": (1, {"lr": 0.1, "momentum": 0.9}),
+    "adam_update": (2, {"lr": 0.01}),
+    "rmsprop_update": (1, {"lr": 0.01}),
+    "rmspropalex_update": (3, {"lr": 0.01}),
+    "ftrl_update": (2, {"lr": 0.1}),
+    "signsgd_update": (0, {"lr": 0.1}),
+    "signum_update": (1, {"lr": 0.1, "momentum": 0.9}),
+    "adagrad_update": (1, {"lr": 0.1}),
+    "_sparse_adagrad_update": (1, {"lr": 0.1}),
+    "adadelta_update": (2, {}),
+    "ftml_update": (3, {"lr": 0.01, "t": 2}),
+    "mp_sgd_update": (0, {"lr": 0.1}),
+    "mp_sgd_mom_update": (1, {"lr": 0.1, "momentum": 0.9}),
+    "group_adagrad_update": (1, {"lr": 0.1}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(UPDATE_OPS))
+def test_update_ops_on_the_card_match_the_cpu(cuda, name):
+    """The 16 update ops, card against CPU: rtol 1e-5, atol 1e-4 (ftrl's
+    and rmspropalex's cancellations magnify a contracted FMA's
+    rounding)."""
+    n_states, params = UPDATE_OPS[name]
+    rng = np.random.RandomState(1)
+    w, g = rng.randn(2, 24, 16).astype(np.float32)
+    states = [np.abs(rng.randn(24, 16)).astype(np.float32)
+              for _ in range(n_states)]
+    if name == "rmspropalex_update":
+        states[1] *= 0.01
+    if name == "group_adagrad_update":
+        states = [states[0][:, :1].copy()]
+    ins = [w, g] + states
+    if name.startswith("mp_"):
+        ins = [w.astype(np.float16), g.astype(np.float16)] + states + [w]
+    if name == "ftml_update":
+        params = dict(params, clip_grad=0.8, rescale_grad=0.5)
+    else:
+        params = dict(params, clip_gradient=0.8, rescale_grad=0.5)
+    fn = mt.ops.registry.get(name).fn
+    card = fn(*[torch.from_numpy(x).to(cuda) for x in ins], **params)
+    cpu = fn(*[torch.from_numpy(x) for x in ins], **params)
+    card = card if isinstance(card, tuple) else (card,)
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4)
