@@ -626,7 +626,41 @@ Phases; any failure raises and the script exits non-zero:
    gradients within 5e-2 relative L2 at the worst parameter, every ReLU
    flip of the CPU's paths at a pre-activation below 1e-4). The phase's
    wall time is printed.
-23. The whole run's wall time, then the ``kernels`` JSON line (B1's
+23. Sparse linear classification (BASELINE configuration 5), the rest of
+   ``ops/nn.py`` and the single-process examples nothing ran before,
+   through ``tests/example_nets.py``. (a) C15: ``_sample_unique_zipfian``
+   at range_max 5000, 50000 and 1000000, three seeds each, and
+   ``random.exp_f32`` on all 2^23 of its inputs at each range, card
+   bitwise the CPU. (b) ``LibSVMIter`` over the example's synthetic file
+   (2000 rows, 1000 features, seed 0): two epochs of card batches
+   bitwise the CPU's. (c) ``sparse.dot``, CSR and CSR transposed, on the
+   first batch at the defaults (64 x 1000) and at the upstream example's
+   Avazu width (8192 x 1,000,001, 12 entries a row): card within 1e-5
+   relative L2 of the CPU, two card calls bitwise, the time beside the
+   bound (bytes over 3.35 TB/s) and ``torch.sparse.mm`` (a yardstick off
+   the path). (d) Each of the 19 ``ops/nn.py`` names of this slice on
+   the card against the CPU, forward and the first input's gradient (CTC
+   at T 100, N 32, C 29, L 20 with lengths; the legacy names included).
+   (e) ``examples/sparse_linear_classification.py`` at its defaults
+   (1000 features, batch 64, 6 epochs, AdaGrad lr 0.5, kvstore
+   ``local``): no kernel launched, the accuracy rising (the example's
+   ``check_improved``), the first epoch's weights within 1e-6 of a CPU
+   replay. (f) The same loop at the Avazu width over 65,536 rows written
+   by a vectorised draw of the example's law, 2 epochs: batches/s, then
+   one epoch profiled (busy share). (g) ``examples/nce_word2vec.py`` at
+   its defaults (vocab 512, dim 32, 15 negatives, batch 256, 300 steps):
+   B2 at the two lookups' shapes against its plain version and timed,
+   the first step against the CPU, then the run with B2 held to 2
+   launches a step and nothing else, the NLL below 0.95 of its first
+   value and the partner rate above 0.2 (the example's checks). (h)
+   ``gluon_cnn.py``, ``train_dcgan.py`` and ``train_vae.py`` at their
+   defaults: each one's first step on the card against the CPU from the
+   same weights and key-chain seed (loss within 1e-4, gradients within
+   1e-3 relative L2), then the run with no kernel launched (BatchNorm ->
+   relu under Gluon fuses into no B1, as in the JAX package) and the
+   example's own check (gluon_cnn.py has none: its loss must fall). The
+   phase's wall time is printed.
+24. The whole run's wall time, then the ``kernels`` JSON line (B1's
    entry has ``_contrib_FusedBNAct``, ``grouped``, ``records``,
    ``imagenet_loop``, ``inception_v3_serve``, ``inception_v3_train``,
    ``ssd_train``, ``ssd_detect`` and ``cifar10_train`` among its paths,
@@ -634,7 +668,8 @@ Phases; any failure raises and the script exits non-zero:
    ``alexnet_train/bfloat16``, ``rcnn_train``, ``mnist_train/fc1`` and
    ``mnist_train/fc2``, B2
    ``recommend``, ``matrix_factorization``,
-   ``lstm_bench``, ``word_lm`` and ``char_lstm``; ``image_aug`` and
+   ``lstm_bench``, ``word_lm``, ``char_lstm`` and ``nce_word2vec``;
+   ``image_aug`` and
    ``jpeg_color``, which no TPU kernel stands behind), the card's
    nvidia-smi line, and last the result line ``{"ok": true, "device":
    {...}}``.
@@ -652,6 +687,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -9540,6 +9576,631 @@ def common_ops_path(dev, card, report):
     return b1_counts, b1_rows, b1_tot, b1_err, b5_rows
 
 
+# ------------------- sparse linear classification and the examples (phase 23)
+# examples/sparse_linear_classification.py's defaults, and the upstream
+# example's Avazu width (1,000,001 features at batch 8192, upstream
+# MXNet's example/sparse/linear_classification/train.py) with the JAX
+# example's 12 entries a row, 65,536 rows, 2 epochs
+SPARSE = dict(rows=2000, features=1000, batch=64, epochs=6, nnz=12,
+              wide_features=1000001, wide_batch=8192, wide_rows=65536,
+              wide_epochs=2)
+# examples/nce_word2vec.py's defaults
+NCE = dict(vocab=512, dim=32, num_neg=15, batch_size=256, steps=300, lr=0.2)
+# C15's ranges and shapes (tests/test_torch_port_common_ops.py)
+ZIPF_WIDE = ((5000, (64, 2048)), (50000, (64, 256)), (1000000, (16, 512)))
+DOT_REL = 1e-5             # sparse.dot card vs CPU, relative L2
+EX_FIRST = dict(out=1e-4, grad=1e-3)     # first steps, card vs CPU
+NN19 = ("BatchNorm_v1", "CTCLoss", "Convolution_v1", "CuDNNBatchNorm",
+        "L2Normalization", "LinearRegressionOutput",
+        "LogisticRegressionOutput", "MAERegressionOutput", "Pooling_v1",
+        "Softmax", "SoftmaxActivation", "UpSampling",
+        "_contrib_AdaptiveAvgPooling2D", "_contrib_BilinearResize2D",
+        "_contrib_CTCLoss", "_contrib_ctc_loss", "ctc_loss",
+        "softmax_cross_entropy", "softmin")
+
+
+def zipfian_card_check(dev):
+    """Part a: ``_sample_unique_zipfian`` at C15's ranges, three seeds
+    each, card against CPU bitwise; and ``random.exp_f32`` on every input
+    the op can give it at those ranges (2^23 uniform floats times
+    log(range_max)), card against CPU bitwise."""
+    op = mt.ops.registry.get("_sample_unique_zipfian")
+    for rm, shape in ZIPF_WIDE:
+        for seed in (0, 1, 2):
+            outs = []
+            for ctx in (mt.gpu(0), mt.cpu()):
+                mt.random.seed(seed)
+                outs.append([o.cpu() for o in op.fn(range_max=rm,
+                                                    shape=shape, ctx=ctx)])
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise RuntimeError("_sample_unique_zipfian at range_max %d "
+                                   "seed %d: card differs from the CPU"
+                                   % (rm, seed))
+    u = ((torch.arange(2 ** 23, dtype=torch.int32) | 0x3F800000)
+         .view(torch.float32) - 1.0)
+    for rm, _ in ZIPF_WIDE:
+        x = u * torch.log(torch.tensor(float(rm)))
+        card = mt.random.exp_f32(x.to(dev)).cpu()
+        if not torch.equal(card.view(torch.int32),
+                           mt.random.exp_f32(x).view(torch.int32)):
+            raise RuntimeError("exp_f32 at range_max %d: card differs from "
+                               "the CPU" % rm)
+    log("  C15: _sample_unique_zipfian at range_max %s, seeds 0-2, and "
+        "exp_f32 on all 2^23 of its inputs at each: card bitwise the CPU"
+        % [r for r, _ in ZIPF_WIDE])
+
+
+def csr_parts(a):
+    return (a._indptr, a._indices, a._values)
+
+
+def libsvm_card_check(path, features, batch):
+    """Part b: every batch of two epochs of ``LibSVMIter`` on the card
+    bitwise the CPU's -> the number of batches."""
+    it = mt.io.LibSVMIter(path, (features,), batch_size=batch)
+    n = 0
+    for _ in range(2):
+        it.reset()
+        with mt.cpu():
+            cpu = list(it)
+        it.reset()
+        for c, b in zip(cpu, it):
+            x = b.data[0]
+            if x._values.device.type != "cuda" or \
+                    b.label[0]._data.device.type != "cuda":
+                raise RuntimeError("LibSVMIter's batch is not on the card")
+            if b.pad != c.pad or not all(
+                    torch.equal(u.cpu(), v) for u, v in zip(
+                        csr_parts(x) + (b.label[0]._data,),
+                        csr_parts(c.data[0]) + (c.label[0]._data,))):
+                raise RuntimeError("LibSVMIter's card batch %d differs from "
+                                   "the CPU's" % n)
+            n += 1
+    return n
+
+
+def csr_to_cpu(x):
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    return tsp.CSRNDArray(x._values.cpu(), x._indptr.cpu(),
+                          x._indices.cpu(), x.shape, ctx=mt.cpu())
+
+
+def dot_rows(x, what, dev, seed):
+    """Part c: ``sparse.dot(x, w)`` and ``sparse.dot(x, g,
+    transpose_a=True)`` for a card CSR batch ``x``: card against CPU
+    within DOT_REL relative L2, two card calls bitwise, then the card's
+    time beside the bound (the bytes it must move over the HBM rate) and
+    ``torch.sparse.mm`` on the same operands (cuSPARSE; a yardstick off
+    the path) -> rows."""
+    from mxnet_tpu_torch.ndarray import sparse as tsp
+    B, D = x.shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = mt.nd.NDArray(torch.randn(D, 1, generator=g, device=dev))
+    gr = mt.nd.NDArray(torch.randn(B, 1, generator=g, device=dev))
+    xc = csr_to_cpu(x)
+    nnz = int(x._values.numel())
+    cols_touched = int(torch.unique(x._indices).numel())
+    rows = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # torch's sparse CSR is beta
+        A = torch.sparse_csr_tensor(x._indptr, x._indices, x._values,
+                                    (B, D))
+        At = torch.sparse_coo_tensor(
+            torch.stack([x._indices, x._row_ids()]), x._values,
+            (D, B)).coalesce().to_sparse_csr()
+    for form, rhs, yard, out_bytes, rhs_bytes in (
+            ("csr", w, lambda: torch.sparse.mm(A, w._data),
+             B * 4, cols_touched * 4),
+            ("csr_t", gr, lambda: torch.sparse.mm(At, gr._data),
+             D * 4, B * 4)):
+        tr = form == "csr_t"
+
+        def fn():
+            return tsp.dot(x, rhs, transpose_a=tr)._data
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise RuntimeError("sparse.dot (%s, %s) gave other bits on a "
+                               "second call" % (what, form))
+        cpu = tsp.dot(xc, mt.nd.NDArray(rhs._data.cpu()),
+                      transpose_a=tr)._data
+        err = float((a.cpu() - cpu).norm() / cpu.norm().clamp_min(1e-30))
+        if err > DOT_REL:
+            raise RuntimeError("sparse.dot (%s, %s): card %.3g relative L2 "
+                               "from the CPU" % (what, form, err))
+        ys = yard()
+        yerr = float((ys.to_dense() if ys.is_sparse else ys).sub(a).norm()
+                     / a.norm().clamp_min(1e-30))
+        nbytes = nnz * (4 + 8) + (B + 1) * 8 + rhs_bytes + out_bytes
+        r = {"shape": "%s (%d, %d) nnz %d" % (form, B, D, nnz),
+             "rel_l2_vs_cpu": err, "ms": time_ms(fn, dev),
+             "sparse_mm_ms": time_ms(yard, dev), "sparse_mm_rel_l2": yerr,
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "ops_ms": 2 * nnz / F32_FLOPS * 1e3}
+        r["bound_ms"], r["bound_by"] = bound_of(r["bytes_ms"], r["ops_ms"])
+        rows["%s/%s" % (what, form)] = r
+        log("  sparse.dot %-8s %-34s ms=%.4f torch.sparse.mm_ms=%.4f "
+            "bound_ms=%.5f (%s); card vs CPU %.3g rel L2, two card calls "
+            "bitwise" % (what, r["shape"], r["ms"], r["sparse_mm_ms"],
+                         r["bound_ms"], r["bound_by"], err))
+    return rows
+
+
+def write_wide_libsvm(path, n, dim, nnz, seed=0):
+    """The example's law at a width where its per-row
+    ``rng.choice(dim, nnz, replace=False)`` would permute all of ``dim``
+    each row: ``nnz`` distinct column ids a row (redrawn until no row
+    repeats one), ``randn`` values, the label the sign of ``w_true .
+    x``; one vectorised draw."""
+    rng = np.random.RandomState(seed)
+    w_true = rng.randn(dim)
+    idx = rng.randint(0, dim, (n, nnz))
+    while True:
+        idx.sort(axis=1)
+        dup = np.zeros_like(idx, dtype=bool)
+        dup[:, 1:] = idx[:, 1:] == idx[:, :-1]
+        if not dup.any():
+            break
+        idx[dup] = rng.randint(0, dim, int(dup.sum()))
+    val = rng.randn(n, nnz)
+    y = ((w_true[idx] * val).sum(1) > 0).astype(int)
+    with open(path, "w") as f:
+        for r in range(n):
+            f.write("%d %s\n" % (y[r], " ".join(
+                "%d:%.4f" % p for p in zip(idx[r], val[r]))))
+    return path
+
+
+def sparse_linear_path(en, dev, card, report):
+    """Parts b, c, e and f: ``examples/sparse_linear_classification.py``
+    through ``mt`` at its defaults and at the Avazu width."""
+    P = SPARSE
+    root = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    path = en.make_synthetic_libsvm(os.path.join(root, "lc.libsvm"),
+                                    n=P["rows"], dim=P["features"],
+                                    nnz=P["nnz"])
+    nb = libsvm_card_check(path, P["features"], P["batch"])
+    log("  LibSVMIter: %d card batches over two epochs bitwise the CPU's "
+        "(CSR indptr, indices, values, labels, pad)" % nb)
+    t0 = time.perf_counter()
+    wide = write_wide_libsvm(os.path.join(root, "avazu_width.libsvm"),
+                             P["wide_rows"], P["wide_features"], P["nnz"])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide_it = mt.io.LibSVMIter(wide, (P["wide_features"],),
+                               batch_size=P["wide_batch"])
+    parse_s = time.perf_counter() - t0
+    small = next(iter(mt.io.LibSVMIter(path, (P["features"],),
+                                       batch_size=P["batch"]))).data[0]
+    wide_it.reset()
+    big = next(iter(wide_it)).data[0]
+    dots = dot_rows(small, "defaults", dev, 23)
+    dots.update(dot_rows(big, "avazu", dev, 24))
+
+    # part e: the defaults; the first epoch's weights against the CPU
+    first = {}
+    reset_all_counts()
+    t0 = time.perf_counter()
+    accs = en.sparse_linear(
+        mt, path, on_epoch=lambda e, w, b: first.setdefault(
+            "card", (w.asnumpy().copy(), b.asnumpy().copy())))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held_counts("sparse_linear_classification.py (no kernel on its path)",
+                {})
+    en.check_improved("accuracy", accs, lower_is_better=False)
+    with mt.cpu():
+        en.sparse_linear(mt, path, epochs=1, on_epoch=lambda e, w, b:
+                         first.setdefault("cpu", (w.asnumpy().copy(),
+                                                  b.asnumpy().copy())))
+    w_err = max(float(np.abs(a - b).max())
+                for a, b in zip(first["card"], first["cpu"]))
+    if w_err > 1e-6:
+        raise RuntimeError("sparse_linear_classification's first epoch: "
+                           "card weights %.3g from the CPU replay" % w_err)
+    log("  sparse_linear_classification.py at its defaults (%d features, "
+        "batch %d, %d epochs, adagrad lr 0.5, kvstore local): accuracy %s; "
+        "%.2f s; first epoch's weights within %.3g of the CPU replay; no "
+        "kernel launched  [%s]" % (P["features"], P["batch"], P["epochs"],
+                                    ["%.3f" % a for a in accs], wall, w_err,
+                                    card))
+
+    # part f: the Avazu width, 2 epochs; then one epoch profiled
+    walls = []
+    stamp = [time.perf_counter()]
+
+    def epoch_end(e, w, b):
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - stamp[0])
+        stamp[0] = time.perf_counter()
+    reset_all_counts()
+    stamp[0] = time.perf_counter()
+    wide_accs = en.sparse_linear(
+        mt, wide, num_features=P["wide_features"],
+        batch_size=P["wide_batch"], epochs=P["wide_epochs"],
+        on_epoch=epoch_end, it=wide_it)
+    held_counts("sparse linear classification at the Avazu width", {})
+    n_batches = -(-P["wide_rows"] // P["wide_batch"])
+    prof = fit_profile(lambda: en.sparse_linear(
+        mt, wide, num_features=P["wide_features"],
+        batch_size=P["wide_batch"], epochs=1, it=wide_it))
+    bps = [n_batches / w for w in walls]
+    log("  the Avazu width (%d features, batch %d, %d rows, %d entries a "
+        "row, %d epochs): accuracy %s; file written in %.2f s, parsed in "
+        "%.2f s; epoch walls %s s, %s batches/s; one epoch profiled: %.1f "
+        "ms wall, %.2f ms device, busy share %.3f  [%s]"
+        % (P["wide_features"], P["wide_batch"], P["wide_rows"], P["nnz"],
+           P["wide_epochs"], ["%.3f" % a for a in wide_accs], write_s,
+           parse_s, ["%.3f" % w for w in walls], ["%.2f" % b for b in bps],
+           prof["wall_ms"], prof["device_ms"], prof["device_busy_share"],
+           card))
+    report["sparse_linear"] = {
+        "libsvm_batches_bitwise": nb, "dot": dots, "accuracy": accs,
+        "wall_s": wall, "first_epoch_max_abs_err": w_err,
+        "avazu": {"accuracy": wide_accs, "epoch_wall_s": walls,
+                  "batches_per_s": bps, "write_s": write_s,
+                  "parse_s": parse_s, "profile": prof}}
+
+
+def nn19_cases():
+    """(name, inputs, params, tolerance) for each of the 19 names: card
+    against CPU, forward and the gradients of every float input."""
+    rng = np.random.RandomState(23)
+
+    def x(*shape):
+        return rng.uniform(-2, 2, shape).astype(np.float32)
+    T, N, C, L = 100, 32, 29, 20
+    lab = rng.randint(1, C, (N, L)).astype(np.float32)
+    lab_len = rng.randint(5, L + 1, N).astype(np.float32)
+    data_len = rng.randint(60, T + 1, N).astype(np.float32)
+    small_lab = rng.randint(1, 5, (4, 3)).astype(np.float32)
+    tight = dict(rtol=1e-5, atol=1e-6)
+    ctc = dict(rtol=1e-4, atol=1e-5)
+    ones = np.ones(8, np.float32)
+    cases = []
+    for head in ("LinearRegressionOutput", "MAERegressionOutput",
+                 "LogisticRegressionOutput"):
+        cases.append((head, [x(64, 8), rng.rand(64, 8).astype(np.float32)],
+                      {"grad_scale": 0.5}, tight))
+    cases += [
+        ("softmin", [x(16, 10)], {"axis": 1}, tight),
+        ("SoftmaxActivation", [x(4, 8, 5, 5)], {"mode": "channel"}, tight),
+        ("softmax_cross_entropy",
+         [x(16, 10), rng.randint(0, 10, 16).astype(np.float32)], {}, tight),
+        ("L2Normalization", [x(4, 8, 5, 5)], {"mode": "spatial"}, tight),
+        ("UpSampling", [x(2, 4, 6, 6), x(2, 3, 3, 3)],
+         {"scale": 2, "num_args": 2}, tight),
+        ("_contrib_BilinearResize2D", [x(2, 4, 7, 9)],
+         {"height": 15, "width": 4}, tight),
+        ("_contrib_AdaptiveAvgPooling2D", [x(2, 4, 7, 9)],
+         {"output_size": (3, 4)}, tight),
+        ("CTCLoss", [x(T, N, C), lab, data_len, lab_len],
+         {"use_data_lengths": True, "use_label_lengths": True}, ctc),
+        ("ctc_loss", [x(T, N, C), lab], {"blank_label": "last"}, ctc),
+        ("_contrib_CTCLoss", [x(12, 4, 6), small_lab], {}, ctc),
+        ("_contrib_ctc_loss", [x(12, 4, 6), small_lab],
+         {"blank_label": "last"}, ctc),
+        ("BatchNorm_v1", [x(4, 8, 5, 5), ones, 0 * ones, 0 * ones, ones],
+         {"fix_gamma": False}, tight),
+        ("CuDNNBatchNorm", [x(4, 8, 5, 5), ones, 0 * ones, 0 * ones, ones],
+         {"fix_gamma": False}, tight),
+        ("Convolution_v1", [x(2, 3, 9, 9), x(8, 3, 3, 3), x(8)],
+         {"kernel": (3, 3), "num_filter": 8, "pad": (1, 1)},
+         dict(rtol=1e-4, atol=1e-5)),
+        ("Pooling_v1", [x(2, 3, 8, 8)],
+         {"kernel": (2, 2), "stride": (2, 2), "pool_type": "max"}, tight),
+        ("Softmax", [x(16, 10), rng.randint(0, 10, 16).astype(np.float32)],
+         {"grad_scale": 0.5, "normalization": "batch"}, tight)]
+    return cases
+
+
+def nn19_card_check(dev):
+    """Part d: each of the 19 names on the card against the CPU, forward
+    and gradients (of every float input, under a fixed cotangent) ->
+    {name: worst abs err}."""
+    errs = {}
+    cases = nn19_cases()
+    if sorted(c[0] for c in cases) != sorted(NN19):
+        raise RuntimeError("part d does not cover the 19 names")
+    for name, ins, params, tol in cases:
+        op = mt.ops.registry.get(name)
+        res = []
+        for where in (dev, torch.device("cpu")):
+            ts = [torch.from_numpy(a.copy()).to(where) for a in ins]
+            for t in ts[:1]:
+                t.requires_grad_(True)
+            out = op.fn(*ts, **params)
+            out = out[0] if isinstance(out, tuple) else out
+            cot = torch.linspace(0.5, 1.5, out.numel(),
+                                 device=where).reshape(out.shape)
+            (out * cot).sum().backward()
+            res.append((out.detach().cpu(), ts[0].grad.cpu()))
+        worst = 0.0
+        for a, b in zip(*res):
+            if a.shape != b.shape or not torch.allclose(a, b, **tol):
+                raise RuntimeError("%s on the card differs from the CPU: "
+                                   "max abs err %g (%s)" % (
+                                       name, float((a - b).abs().max()),
+                                       tol))
+            worst = max(worst, float((a - b).abs().max()))
+        errs[name] = worst
+    log("  the 19 ops/nn.py names on the card vs the CPU, forward and "
+        "gradients (CTC at T 100, N 32, C 29, L 20 with lengths): worst "
+        "abs err %.3g (%s)" % (max(errs.values()), max(errs, key=errs.get)))
+    return errs
+
+
+def nce_first_step(en, dev):
+    """One step of the NCE loop on the card and on the CPU after the same
+    seed -> (the outputs' max abs error, the gradient's)."""
+    rec = {}
+    for where, ctx in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        mt.random.seed(0)
+        with ctx:
+            en.nce_train(mt, ctx, steps=1, check=False,
+                         on_step=lambda i, ex: rec.setdefault(where, (
+                             en.host(ex.outputs[0]),
+                             en.host(ex.grad_dict["embed_weight"]))),
+                         **{k: v for k, v in NCE.items() if k != "steps"})
+    out_err = float(np.abs(rec["card"][0] - rec["cpu"][0]).max())
+    grad_err = float(np.abs(rec["card"][1] - rec["cpu"][1]).max())
+    if out_err > 1e-6 or grad_err > 1e-5:
+        raise RuntimeError("nce_word2vec's first step: outputs %.3g, "
+                           "gradient %.3g from the CPU" % (out_err,
+                                                           grad_err))
+    return out_err, grad_err
+
+
+def nce_path(en, dev, card, report):
+    """Part g: ``examples/nce_word2vec.py`` at its defaults -> (B2's
+    launches, its rows)."""
+    from mxnet_tpu_torch.kernels import take
+    P = NCE
+    reason = take.eligible((P["vocab"], P["dim"]), torch.float32,
+                           (P["batch_size"], 1 + P["num_neg"]),
+                           torch.float32)
+    if reason is not None:
+        raise RuntimeError("B2's guard declines the NCE lookups: %s" % reason)
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    b2_row(rows, "take_rows@nce_ctx", P["vocab"], P["dim"],
+           (P["batch_size"],), dev, g)
+    b2_row(rows, "take_rows@nce_cands", P["vocab"], P["dim"],
+           (P["batch_size"], 1 + P["num_neg"]), dev, g)
+    out_err, grad_err = nce_first_step(en, dev)
+    reset_all_counts()
+    mt.random.seed(0)
+    t0 = time.perf_counter()
+    losses, _, hits = en.nce_train(mt, mt.gpu(0), **P)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = 2 * P["steps"]
+    counts = held_counts("nce_word2vec.py", {"take_rows": want})
+    log("  nce_word2vec.py at its defaults (vocab %d, dim %d, %d negatives, "
+        "batch %d, %d steps): NLL %.4f -> %.4f, partner-nearest-neighbour "
+        "rate %.2f; %.2f s (%.2f ms a step); B2 launched %d times (2 "
+        "Embedding lookups a step, the guard's count at the (%d, %d) "
+        "table); first step vs the CPU: outputs %.3g, gradient %.3g  [%s]"
+        % (P["vocab"], P["dim"], P["num_neg"], P["batch_size"], P["steps"],
+           losses[0], losses[-1], hits, wall, wall / P["steps"] * 1e3,
+           counts["take_rows"], P["vocab"], P["dim"], out_err, grad_err,
+           card))
+    report["nce_word2vec"] = {"nll_first": float(losses[0]),
+                              "nll_last": float(losses[-1]),
+                              "partner_rate": hits, "wall_s": wall,
+                              "take_rows_launches": counts["take_rows"],
+                              "first_step": [out_err, grad_err],
+                              "b2_rows": rows}
+    return counts["take_rows"], rows
+
+
+def param_grads(net):
+    return {k: p.grad().asnumpy().copy()
+            for k, p in net.collect_params().items()
+            if p.grad_req != "null"}
+
+
+def first_step_check(what, make, step, seed):
+    """Build the net on the CPU (``make(ctx)`` initializes it and runs a
+    forward), carry its weights to a card net, run ``step(net, ctx)``
+    (one forward and backward under ``record`` -> the loss) on both
+    after the same key-chain seed -> (loss max abs err, worst gradient
+    relative L2)."""
+    res = {}
+    ref = None
+    for where, ctx in (("cpu", mt.cpu()), ("card", mt.gpu(0))):
+        with ctx:
+            mt.random.seed(seed)
+            np.random.seed(seed)
+            nets = make(ctx, ref)
+            if ref is None:
+                ref = [{n[len(b.prefix):]: p.data().asnumpy()
+                        for n, p in b.collect_params().items()}
+                       for b in nets]
+            mt.random.seed(seed + 1)
+            loss = step(nets, ctx).asnumpy()
+            grads = {}
+            for b in nets:
+                grads.update({n[len(b.prefix):]: torch.from_numpy(v)
+                              for n, v in param_grads(b).items()})
+            res[where] = (loss, grads)
+    loss_err = float(np.abs(res["card"][0] - res["cpu"][0]).max())
+    grad_err = max(rel_l2(res["card"][1], res["cpu"][1]).values())
+    if loss_err > EX_FIRST["out"] * max(1.0, float(np.abs(
+            res["cpu"][0]).max())) or grad_err > EX_FIRST["grad"]:
+        raise RuntimeError("%s's first step: loss %.3g, gradients %.3g "
+                           "relative L2 from the CPU" % (what, loss_err,
+                                                         grad_err))
+    return loss_err, grad_err
+
+
+def cnn_path(en, dev, card, report):
+    """Part h: ``examples/gluon_cnn.py`` at its defaults."""
+    X, y = en.cnn_data()
+
+    def make(ctx, ref):
+        net = en.cnn_net(mt.gluon)
+        if ref is None:
+            net.initialize(mt.init.Xavier(), ctx=ctx)
+            net(mt.nd.array(X[:2], ctx=ctx))
+        else:
+            mt.gluon.utils.params_from_reference(net, ref[0], ctx=ctx)
+        net.hybridize()
+        return [net]
+
+    def step(nets, ctx):
+        with mt.autograd.record():
+            loss = mt.gluon.loss.SoftmaxCrossEntropyLoss()(
+                nets[0](mt.nd.array(X[:32], ctx=ctx)),
+                mt.nd.array(y[:32], ctx=ctx))
+        loss.backward()
+        return loss
+    first = first_step_check("gluon_cnn.py", make, step, 1)
+    mt.random.seed(0)
+    np.random.seed(0)
+    net = en.cnn_net(mt.gluon)
+    net.initialize(mt.init.Xavier())
+    net.hybridize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    hist = en.cnn_train(mt, net, X, y)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held_counts("gluon_cnn.py (no kernel on its path)", {})
+    losses = [h[0] for h in hist]
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise RuntimeError("gluon_cnn's loss did not fall: %s" % hist)
+    log("  gluon_cnn.py at its defaults (batch 32, 3 epochs, hybridized): "
+        "(loss, accuracy) by epoch %s; %.2f s; first step vs the CPU: loss "
+        "%.3g, gradients %.3g relative L2; no kernel launched  [%s]"
+        % (["(%.4f, %.3f)" % h for h in hist], wall, first[0], first[1],
+           card))
+    report["gluon_cnn"] = {"epochs": hist, "wall_s": wall,
+                           "first_step": first}
+
+
+def dcgan_path(en, dev, card, report):
+    """Part h: ``examples/train_dcgan.py`` at its defaults."""
+    rng = np.random.RandomState(0)
+    imgs = en.dcgan_images(256, rng)
+    z0 = np.random.RandomState(1).randn(32, 64, 1, 1).astype(np.float32)
+
+    def make(ctx, ref):
+        gen, disc = en.dcgan_nets(mt.gluon)
+        if ref is None:
+            gen.initialize(mt.init.Normal(0.02), ctx=ctx)
+            disc.initialize(mt.init.Normal(0.02), ctx=ctx)
+            disc(gen(mt.nd.array(z0[:2], ctx=ctx)))
+        else:
+            mt.gluon.utils.params_from_reference(gen, ref[0], ctx=ctx)
+            mt.gluon.utils.params_from_reference(disc, ref[1], ctx=ctx)
+        gen.hybridize()
+        disc.hybridize()
+        return [gen, disc]
+
+    def step(nets, ctx):
+        gen, disc = nets
+        bce = mt.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        with mt.autograd.record():
+            out_real = disc(mt.nd.array(imgs[:32], ctx=ctx)).reshape((-1,))
+            out_fake = disc(gen(mt.nd.array(z0, ctx=ctx))).reshape((-1,))
+            loss = bce(out_real, mt.nd.ones((32,), ctx=ctx)) + \
+                bce(out_fake, mt.nd.zeros((32,), ctx=ctx))
+        loss.backward()
+        return loss
+    first = first_step_check("train_dcgan.py", make, step, 2)
+    ctx = mt.gpu(0)
+    mt.random.seed(0)
+    np.random.seed(0)
+    gen, disc = en.dcgan_nets(mt.gluon)
+    gen.initialize(mt.init.Normal(0.02), ctx=ctx)
+    disc.initialize(mt.init.Normal(0.02), ctx=ctx)
+    gen.hybridize()
+    disc.hybridize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    hist = en.dcgan_train(mt, ctx, gen, disc, rng, imgs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held_counts("train_dcgan.py (BatchNorm -> relu under Gluon fuses into "
+                "no B1, as in the JAX package)", {})
+    log("  train_dcgan.py at its defaults (batch 32, 3 epochs, nz 64, 256 "
+        "images, ngf = ndf = 32): (d_loss, g_loss, fool rate) by epoch %s, "
+        "the example's collapse check passed; %.2f s; first step vs the "
+        "CPU: loss %.3g, gradients %.3g relative L2; no kernel launched  "
+        "[%s]" % (["(%.3f, %.3f, %.2f)" % h for h in hist], wall, first[0],
+                  first[1], card))
+    report["train_dcgan"] = {"epochs": hist, "wall_s": wall,
+                             "first_step": first}
+
+
+def vae_path(en, dev, card, report):
+    """Part h: ``examples/train_vae.py`` at its defaults."""
+    X = en.vae_images(512, np.random.RandomState(0))
+
+    def make(ctx, ref):
+        net = en.vae_net(mt.gluon, n_out=X.shape[1])
+        if ref is None:
+            net.initialize(mt.init.Xavier(), ctx=ctx)
+            net(mt.nd.array(X[:2], ctx=ctx))
+        else:
+            mt.gluon.utils.params_from_reference(net, ref[0], ctx=ctx)
+        net.hybridize()
+        return [net]
+
+    def step(nets, ctx):
+        x = mt.nd.array(X[:64], ctx=ctx)
+        bce = mt.gluon.loss.SigmoidBinaryCrossEntropyLoss(from_sigmoid=True)
+        with mt.autograd.record():
+            y, kl = nets[0](x)
+            loss = bce(y, x) * X.shape[1] + kl
+        loss.backward()
+        return loss
+    first = first_step_check("train_vae.py", make, step, 3)
+    ctx = mt.gpu(0)
+    mt.random.seed(0)
+    np.random.seed(0)
+    net = en.vae_net(mt.gluon, n_out=X.shape[1])
+    net.initialize(mt.init.Xavier(), ctx=ctx)
+    net.hybridize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    elbos = en.vae_train(mt, ctx, net, X)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    held_counts("train_vae.py (no kernel on its path)", {})
+    log("  train_vae.py at its defaults (batch 64, 5 epochs, 512 images, "
+        "8 latents): -ELBO by epoch %s, the example's check passed; %.2f s; "
+        "first step vs the CPU (eps from the key chain on each): loss %.3g, "
+        "gradients %.3g relative L2; no kernel launched  [%s]"
+        % (["%.3f" % e for e in elbos], wall, first[0], first[1], card))
+    report["train_vae"] = {"elbo": elbos, "wall_s": wall,
+                           "first_step": first}
+
+
+def examples_path(dev, card, report):
+    """Phase 23 (see the module docstring) -> (B2's launches on the NCE
+    path, its rows)."""
+    t_phase = time.perf_counter()
+    log("phase 23: sparse linear classification (BASELINE configuration 5), "
+        "the rest of ops/nn.py, nce_word2vec.py, gluon_cnn.py, "
+        "train_dcgan.py and train_vae.py")
+    en = example_nets()
+    zipfian_card_check(dev)
+    sparse_linear_path(en, dev, card, report)
+    nn_errs = nn19_card_check(dev)
+    nce_launches, nce_rows = nce_path(en, dev, card, report)
+    cnn_path(en, dev, card, report)
+    dcgan_path(en, dev, card, report)
+    vae_path(en, dev, card, report)
+    released(dev)
+    wall = time.perf_counter() - t_phase
+    report["examples"] = {"nn_ops_max_abs_err": nn_errs, "wall_s": wall}
+    log("phase 23 wall: %.1f s" % wall)
+    return nce_launches, nce_rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
@@ -9626,6 +10287,7 @@ def main():
         detection_path(dev, card, report)
     cifar_b1, cifar_rows, cifar_tot, cifar_err, mnist_b5 = \
         common_ops_path(dev, card, report)
+    nce_b2, nce_rows = examples_path(dev, card, report)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -9737,6 +10399,10 @@ def main():
             for p_ in ("lstm_bench", "word_lm", "char_lstm"):
                 paths[p_] = (rnn_launches[p_], 0.0,
                              rnn_rows["take_rows@" + p_])
+            # phase 23: nce_word2vec.py's two lookups a step, timed at
+            # the candidates' (256, 16) ids
+            paths["nce_word2vec"] = (nce_b2, 0.0,
+                                     nce_rows["take_rows@nce_cands"])
         by_path = {p: dict(launches=n, max_abs_err=e, shape=r["shape"],
                            **{k: r[k] for k in NAMED_KEYS if k in r})
                    for p, (n, e, r) in paths.items()}

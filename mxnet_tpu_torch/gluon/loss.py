@@ -1,12 +1,10 @@
 """Loss layers (counterpart of ``mxnet_tpu/gluon/loss.py``): the Loss
 base with ``weight`` and ``batch_axis``, L2, L1, SigmoidBCE, SoftmaxCE,
-KLDiv, Huber, Hinge, SquaredHinge, Logistic, Triplet, PoissonNLL and
-CosineEmbedding, each the JAX package's formula over the port's ops.
-``CTCLoss`` needs the CTC op, which is not ported yet (ROADMAP A9), and
-raises."""
+KLDiv, CTC, Huber, Hinge, SquaredHinge, Logistic, Triplet, PoissonNLL
+and CosineEmbedding, each the JAX package's formula over the port's
+ops."""
 from __future__ import annotations
 
-from ..base import MXNetError
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
@@ -152,10 +150,33 @@ class KLDivLoss(Loss):
 
 
 class CTCLoss(Loss):
+    """The CTC loss of ``pred`` (``NTC`` or ``TNC``) against ``label``
+    (``NT`` or ``TN``), the blank the last class. Given only
+    ``label_lengths``, every sample's prediction counts in full."""
+
     def __init__(self, layout="NTC", label_layout="NT", weight=None,
                  **kwargs):
-        raise MXNetError("CTCLoss needs the CTCLoss op, which is not "
-                         "ported yet (ROADMAP A9)")
+        assert layout in ("NTC", "TNC")
+        assert label_layout in ("NT", "TN")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        if pred_lengths is None and label_lengths is not None:
+            # an input left out would move label_lengths into the
+            # data_lengths slot: give every sample its full length
+            pred_lengths = F.ones_like(F.sum(label, axis=1)) * pred.shape[0]
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None,
+                         blank_label="last")
+        return _apply_weighting(F, loss, self._weight, sample_weight)
 
 
 class HuberLoss(Loss):

@@ -1,8 +1,9 @@
 """Data iterators: ``DataDesc``, ``DataBatch``, ``DataIter``,
-``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``MNISTIter`` and
-``ImageRecordIter`` (JPEG records decoded and augmented on the card)."""
-from .io import (DataBatch, DataDesc, DataIter, NDArrayIter,  # noqa: F401
-                 PrefetchingIter, ResizeIter)
+``NDArrayIter``, ``ResizeIter``, ``PrefetchingIter``, ``LibSVMIter``
+(CSR batches), ``MNISTIter`` and ``ImageRecordIter`` (JPEG records
+decoded and augmented on the card)."""
+from .io import (DataBatch, DataDesc, DataIter, LibSVMIter,  # noqa: F401
+                 NDArrayIter, PrefetchingIter, ResizeIter)
 from .image_record_iter import ImageRecordIter  # noqa: F401
 
 

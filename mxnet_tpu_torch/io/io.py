@@ -1,5 +1,4 @@
-"""Data iterators (counterpart of ``mxnet_tpu/io/io.py`` but
-``LibSVMIter``, which waits for ROADMAP A5b).
+"""Data iterators (counterpart of ``mxnet_tpu/io/io.py``).
 
 ``NDArrayIter`` batches in-memory arrays (numpy arrays, tensors, or
 dicts of them) in order, into CPU tensors (``HostBatch``: they also
@@ -13,7 +12,10 @@ does, so under one ``numpy.random.seed`` both give the same batches.
 ``ResizeIter`` gives a fixed number of batches an epoch from another
 iterator, resetting it when it runs out; ``PrefetchingIter`` pulls
 batches on a thread of its own through a
-:class:`~mxnet_tpu_torch.data.pipeline.PrefetchQueue`.
+:class:`~mxnet_tpu_torch.data.pipeline.PrefetchQueue`. ``LibSVMIter``
+parses a LibSVM file once into a host CSR arena and gives each batch as
+a ``CSRNDArray`` on the current context (the card unless the caller
+asks for the CPU).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import numpy as _np
 import torch
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "PrefetchingIter"]
+           "PrefetchingIter", "LibSVMIter"]
 
 
 class HostBatch(torch.Tensor):
@@ -359,3 +361,137 @@ class PrefetchingIter(DataIter):
             self.close()
         except Exception:
             pass
+
+
+class LibSVMIter(DataIter):
+    """A zero-based LibSVM file as CSR batches. Each line is an optional
+    label token and ``index:value`` pairs; blank lines and lines that
+    start with ``#`` are skipped. ``num_parts``/``part_index`` take
+    contiguous line ranges. The label is each line's leading token, or
+    with ``label_libsvm`` the rows of a second LibSVM file (then the
+    label batch is CSR too, of width ``prod(label_shape)``). The last
+    batch wraps around to the start of the part (``round_batch=True``
+    only) and ``getpad`` counts the wrapped rows. The part is parsed
+    once into one host CSR arena (numpy); each batch's CSR data and its
+    labels go to the current context."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=(1,), batch_size=128, num_parts=1,
+                 part_index=0, round_batch=True, **kwargs):
+        super().__init__(batch_size)
+        if isinstance(data_shape, int):
+            data_shape = (data_shape,)
+        if isinstance(label_shape, int):
+            label_shape = (label_shape,)
+        if len(data_shape) != 1:
+            raise ValueError("dimension of data_shape is expected to be 1")
+        if num_parts <= 0 or not 0 <= part_index < num_parts:
+            raise ValueError("bad num_parts/part_index: %r/%r"
+                             % (num_parts, part_index))
+        if not round_batch:
+            raise ValueError("LibSVMIter supports round_batch=True only")
+        self._data_shape = tuple(data_shape)
+        self._label_shape = tuple(label_shape)
+        self.round_batch = round_batch
+        self._vals, self._idxs, self._ptr, labels = self._parse(
+            data_libsvm, num_parts, part_index)
+        self.num_data = len(self._ptr) - 1
+        width = int(_np.prod(self._label_shape))
+        if label_libsvm and label_libsvm != "NULL":
+            if width <= 1:
+                raise ValueError("label_shape is not expected to be (1,) "
+                                 "when label_libsvm is set")
+            lv, li, lp, _ = self._parse(label_libsvm, num_parts, part_index)
+            if len(lp) - 1 != self.num_data:
+                raise ValueError("label file row count %d != data rows %d"
+                                 % (len(lp) - 1, self.num_data))
+            self._lab = (lv, li, lp)
+        else:
+            if width > 1:
+                raise ValueError("label_shape is expected to be (1,) when "
+                                 "label_libsvm is NULL")
+            self._lab = _np.asarray(labels, dtype=_np.float32) \
+                .reshape(-1, 1)
+        self.reset()
+
+    @staticmethod
+    def _parse(path, num_parts, part_index):
+        with open(path, "r") as f:
+            lines = [ln.strip() for ln in f]
+        lines = [ln for ln in lines if ln and not ln.startswith("#")]
+        n = len(lines)
+        lo, hi = part_index * n // num_parts, (part_index + 1) * n // num_parts
+        vals, idxs, ptr, labels = [], [], [0], []
+        for ln in lines[lo:hi]:
+            toks = ln.split()
+            k = 0
+            if toks and ":" not in toks[0]:
+                labels.append(float(toks[0]))
+                k = 1
+            else:
+                labels.append(0.0)
+            for t in toks[k:]:
+                i, v = t.split(":")
+                idxs.append(int(i))
+                vals.append(float(v))
+            ptr.append(len(vals))
+        return (_np.asarray(vals, _np.float32), _np.asarray(idxs, _np.int64),
+                _np.asarray(ptr, _np.int64), labels)
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self._data_shape,
+                         _np.float32)]
+
+    @property
+    def provide_label(self):
+        # a leading-token label is (batch,); a label file's (batch,) +
+        # label_shape
+        shp = self._label_shape if isinstance(self._lab, tuple) else ()
+        return [DataDesc("softmax_label", (self.batch_size,) + tuple(shp),
+                         _np.float32)]
+
+    def reset(self):
+        self.cursor = -1
+
+    def iter_next(self):
+        self.cursor += 1
+        return self.cursor * self.batch_size < self.num_data
+
+    @staticmethod
+    def _csr_rows(vals, idxs, ptr, rows, width):
+        """Rows of the arena as one CSRNDArray on the current context."""
+        from ..ndarray import sparse as _sp
+        counts = ptr[rows + 1] - ptr[rows]
+        bptr = _np.zeros(len(rows) + 1, dtype=_np.int64)
+        _np.cumsum(counts, out=bptr[1:])
+        take = _np.concatenate(
+            [_np.arange(ptr[r], ptr[r + 1]) for r in rows]) \
+            if len(rows) else _np.zeros((0,), _np.int64)
+        return _sp.csr_matrix((vals[take], idxs[take], bptr),
+                              shape=(len(rows), width))
+
+    def _rows(self):
+        start = self.cursor * self.batch_size
+        rows = _np.arange(start, min(start + self.batch_size, self.num_data))
+        if len(rows) < self.batch_size:
+            # wrap modulo the part, so a part smaller than a batch works
+            extra = _np.arange(self.batch_size - len(rows)) % self.num_data
+            rows = _np.concatenate([rows, extra])
+        return rows
+
+    def getdata(self):
+        return [self._csr_rows(self._vals, self._idxs, self._ptr,
+                               self._rows(), self._data_shape[0])]
+
+    def getlabel(self):
+        rows = self._rows()
+        if isinstance(self._lab, tuple):
+            lv, li, lp = self._lab
+            return [self._csr_rows(lv, li, lp, rows,
+                                   int(_np.prod(self._label_shape)))]
+        from ..ndarray import ndarray as _nd
+        return [_nd.array(self._lab[rows, 0])]
+
+    def getpad(self):
+        return max(0, (self.cursor + 1) * self.batch_size - self.num_data)

@@ -53,15 +53,6 @@ def _dense_tensor(v):
     return torch.from_numpy(_np.ascontiguousarray(_np.asarray(v)))
 
 
-def _rsp_add(a, b):
-    """Sum of two row_sparse values: the union of their rows."""
-    dense = a._data + b._data.to(a.dtype)
-    rows = torch.unique(torch.cat([a._indices, b._indices.to(
-        a._indices.device)]))
-    return _sp.RowSparseNDArray(dense.index_select(0, rows), rows, a.shape,
-                                ctx=a.context)
-
-
 class KVStore:
     def __init__(self, kv_type="local"):
         self._type = kv_type
@@ -141,7 +132,7 @@ class KVStore:
                     v = _sp.cast_storage(v if isinstance(v, NDArray)
                                          else NDArray(_dense_tensor(v)),
                                          "row_sparse")
-                out = _rsp_add(out, v)
+                out = _sp.add(out, v)
             return out
         acc = _dense_tensor(vs[0]).detach()
         for v in vs[1:]:

@@ -6,11 +6,18 @@ The storage formats are the reference's: row_sparse keeps
 keeps ``indptr``, ``indices`` and ``data``; each part is a tensor on
 the array's device. Indices read back as int32 (``.indices``), as the
 JAX package's do with 64-bit types off. What runs sparse, never
-touching the dense logical shape: ``retain``, ``write_rows`` and the
-optimizers' lazy row updates (``optimizer.py``). Everything else reads
-``_data``, a dense tensor made on first use: the reference's storage
-fallback. The sparse ``dot`` and the row_sparse ``add`` of the kvstore's
-reduce come with distributed training (ROADMAP A6).
+touching the dense logical shape: ``retain``, ``write_rows``, the
+optimizers' lazy row updates (``optimizer.py``), ``dot`` of a CSR matrix
+(or its transpose) with a dense one, and ``add`` of two row_sparse
+arrays (the kvstore's reduce). Everything else reads ``_data``, a dense
+tensor made on first use: the reference's storage fallback.
+
+``dot`` and ``add`` sum without float atomics, so a card gives the same
+bits on every call: the terms of each output row are put in order (a
+CSR row's entries as stored; for the transpose a stable sort by column,
+so each column's terms come in row-major entry order) and added one
+after another from zero, the order in which the JAX package's
+scatter-add sums them on the CPU (:func:`_segment_sum`).
 
 ``cast_storage(dense, "row_sparse")`` finds the rows that hold a
 nonzero on the device and copies only that ``(rows,)`` occupancy vector
@@ -28,7 +35,8 @@ from . import ndarray as _ndarray
 from .ndarray import NDArray, _ctx_of
 
 __all__ = ["RowSparseNDArray", "CSRNDArray", "csr_matrix",
-           "row_sparse_array", "cast_storage", "retain", "write_rows"]
+           "row_sparse_array", "cast_storage", "dot", "zeros", "retain",
+           "write_rows"]
 
 
 def _tensor(x, device, dtype=None):
@@ -220,9 +228,111 @@ def _rsp_from_dense(dense_np, ctx):
                             dense_np.shape, ctx=ctx)
 
 
+def zeros(stype, shape, ctx=None, dtype=None):
+    """An empty row_sparse or CSR array of ``shape`` (no stored row or
+    entry), or the dense zeros for any other ``stype``."""
+    if stype not in ("row_sparse", "csr"):
+        return _ndarray.zeros(shape, ctx=ctx, dtype=dtype)
+    ctx = ctx or current_context()
+    dev = resolve_device(ctx)
+    dt = normalize_dtype(dtype) or torch.float32
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    if stype == "row_sparse":
+        return RowSparseNDArray(
+            torch.zeros((0,) + tuple(shape[1:]), dtype=dt, device=dev),
+            empty, shape, ctx=ctx)
+    return CSRNDArray(torch.zeros(0, dtype=dt, device=dev),
+                      torch.zeros(shape[0] + 1, dtype=torch.int64,
+                                  device=dev), empty, shape, ctx=ctx)
+
+
 # ---------------------------------------------------------------------------
 # ops
 # ---------------------------------------------------------------------------
+
+def _segment_sum(terms, starts, counts, targets, nout):
+    """``out[targets[i]] = 0 + terms[starts[i]] + ... + terms[starts[i]
+    + counts[i] - 1]``, added in that order, into zeros of ``(nout,) +
+    terms.shape[1:]``; ``targets`` are distinct. Step k adds the k-th
+    term of every segment that has one (the segments sorted by count,
+    so those are a prefix), and no two terms ever race for an output:
+    the result is the same on every call and every device. Only the
+    histogram of the counts is read to the host."""
+    out = torch.zeros((nout,) + tuple(terms.shape[1:]), dtype=terms.dtype,
+                      device=terms.device)
+    if terms.shape[0] == 0:
+        return out
+    perm = torch.argsort(counts, descending=True, stable=True)
+    live = (counts.numel() - torch.cumsum(torch.bincount(counts), 0)) \
+        .tolist()
+    first = starts[perm]
+    acc = torch.zeros((counts.numel(),) + tuple(terms.shape[1:]),
+                      dtype=terms.dtype, device=terms.device)
+    for k, n in enumerate(live):
+        if n == 0:
+            break
+        acc[:n] += terms.index_select(0, first[:n] + k)
+    out[targets[perm]] = acc
+    return out
+
+
+def _sorted_segments(keys):
+    """A stable sort of ``keys`` -> (the order, each distinct key, its
+    first position in the sorted keys, its count)."""
+    skeys, order = torch.sort(keys, stable=True)
+    uniq, counts = torch.unique_consecutive(skeys, return_counts=True)
+    return order, uniq, torch.cumsum(counts, 0) - counts, counts
+
+
+def dot(lhs, rhs, transpose_a=False, transpose_b=False):
+    """``csr @ dense`` and ``csr.T @ dense`` summed sparse, on the
+    operands' device (:func:`_segment_sum`): ``out[row] += val *
+    d[col]`` over each row's entries, and for the transpose ``out[col]
+    += val * d[row]`` into ``(lhs.shape[1], d.shape[1])``. A row_sparse
+    operand is made dense; any other pair goes to the ``dot`` op."""
+    if isinstance(lhs, CSRNDArray) and isinstance(rhs, NDArray) \
+            and not isinstance(rhs, BaseSparseNDArray):
+        d = rhs._data
+        vals, cols = lhs._values, lhs._indices
+        if transpose_a:
+            order, uniq, starts, counts = _sorted_segments(cols)
+            terms = vals[order, None] * d[lhs._row_ids()[order]]
+            out = _segment_sum(terms, starts, counts, uniq, lhs.shape[1])
+        else:
+            ptr = lhs._indptr
+            out = _segment_sum(vals[:, None] * d[cols], ptr[:-1],
+                               ptr[1:] - ptr[:-1],
+                               torch.arange(lhs.shape[0], device=d.device),
+                               lhs.shape[0])
+        return NDArray(out, ctx=lhs._ctx)
+    if isinstance(lhs, RowSparseNDArray):
+        lhs = lhs.todense()
+    if isinstance(rhs, BaseSparseNDArray):
+        rhs = rhs.todense()
+    return _ndarray.invoke("dot", [lhs, rhs], {"transpose_a": transpose_a,
+                                               "transpose_b": transpose_b})
+
+
+def add(lhs, rhs):
+    """``lhs + rhs``. Two row_sparse arrays add sparse: the union of
+    their stored rows (only the index vectors go to the host), each row
+    summed on the device in the order lhs's values, then rhs's. Any
+    other pair adds dense."""
+    if isinstance(lhs, RowSparseNDArray) and isinstance(rhs,
+                                                        RowSparseNDArray):
+        dev = lhs._values.device
+        idx = torch.cat([lhs._indices, rhs._indices.to(dev)])
+        uniq, inv = _np.unique(idx.cpu().numpy(), return_inverse=True)
+        order, segs, starts, counts = _sorted_segments(
+            _tensor(inv.reshape(-1), dev, torch.int64))
+        vals = torch.cat([lhs._values, rhs._values.to(dev)])
+        summed = _segment_sum(vals[order], starts, counts, segs, len(uniq))
+        return RowSparseNDArray(summed, uniq, lhs.shape, ctx=lhs._ctx)
+    a = lhs.todense() if isinstance(lhs, BaseSparseNDArray) else lhs
+    b = rhs.todense() if isinstance(rhs, BaseSparseNDArray) else rhs
+    return a + b
+
+
 
 def cast_storage(arr, stype):
     """Between dense, row_sparse and csr (the reference's

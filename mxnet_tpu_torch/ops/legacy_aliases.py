@@ -9,15 +9,27 @@ so the op is the identity; ``nd.cast_storage`` converts NDArrays through
 elemwise names live in :mod:`.elemwise`, the random-surface names in
 :mod:`.random_ops`, ``_sparse_adagrad_update`` in :mod:`.optimizer_ops`.
 
-Deprecated layer names (``BatchNorm_v1``, ``Convolution_v1``,
-``Pooling_v1``, ``Softmax``, ``crop``) and the contrib spellings of
-``CTCLoss`` and ``box_nms`` wait for their ops (ROADMAP A3b.7)."""
+The deprecated layer names ``BatchNorm_v1``, ``CuDNNBatchNorm``,
+``Convolution_v1``, ``Pooling_v1`` and ``Softmax`` (``SoftmaxOutput``)
+and the contrib spellings of ``CTCLoss`` are aliases: the same
+operator under another name, so a graph's fusion pass sees the op
+itself (``BatchNorm_v1 -> relu`` fuses as ``BatchNorm -> relu`` does).
+``crop`` and the contrib spelling of ``box_nms`` wait for their ops
+(ROADMAP A9)."""
 from __future__ import annotations
 
 import torch
 
 from .matrix import bin_counts, hist_edges
-from .registry import register
+from .registry import alias, register
+
+for _legacy, _new in {
+    "BatchNorm_v1": "BatchNorm", "CuDNNBatchNorm": "BatchNorm",
+    "Convolution_v1": "Convolution", "Pooling_v1": "Pooling",
+    "Softmax": "SoftmaxOutput",
+    "_contrib_CTCLoss": "CTCLoss", "_contrib_ctc_loss": "CTCLoss",
+}.items():
+    alias(_new, _legacy)
 
 
 @register("_rnn_param_concat")

@@ -4,10 +4,12 @@ Counterpart of ``mxnet_tpu/ops/nn.py``: FullyConnected, Convolution
 and Deconvolution (1-, 2- and 3-D, NC... data and O/I-major weights,
 through ``F.conv{n}d`` / ``F.conv_transpose{n}d``), Pooling (1-3 D),
 BatchNorm, LayerNorm, InstanceNorm, LRN, Activation, LeakyReLU,
-softmax, log_softmax, Embedding, Dropout (its mask from the random key
-chain), SoftmaxOutput, MakeLoss and the fused RNN,
-each with the JAX op's keyword names and contract rather than torch's
-defaults:
+softmax, log_softmax, softmin, SoftmaxActivation, softmax_cross_entropy,
+L2Normalization, Embedding, Dropout (its mask from the random key
+chain), SoftmaxOutput, MakeLoss, the three regression heads, CTCLoss,
+UpSampling (nearest), BilinearResize2D, AdaptiveAvgPooling2D and the
+fused RNN, each with the JAX op's keyword names and contract rather than
+torch's defaults:
 
 * BatchNorm returns the 5-tuple ``(out, batch_mean, batch_var,
   new_moving_mean, new_moving_var)``; the default eps is 1e-3, gamma is
@@ -33,6 +35,14 @@ defaults:
   seeds ``grad_scale``, over the batch (``batch``) or over the count of
   elements above ``valid_thresh`` (``valid``), whatever cotangent
   arrives (``_MakeLossGrad``).
+* Linear-, MAE- and LogisticRegressionOutput are loss heads too: the
+  backward ignores the cotangent and returns ``grad_fn(out, label) *
+  grad_scale / num_output``, ``num_output`` the label's elements a
+  sample (``_RegressionGrad``).
+* CTCLoss runs the JAX op's recursion step by step in torch ops, so
+  autograd gives the gradient JAX takes through its ``lax.scan``.
+* BilinearResize2D interpolates with aligned corners, not half-pixel
+  centres; AdaptiveAvgPooling2D averages variable windows.
 * RNN (lstm, gru, rnn_tanh, rnn_relu; time major) takes one flat
   parameter vector in the JAX op's order (:func:`_rnn_param_shapes`),
   projects the input of all T steps in one product and then loops over
@@ -880,6 +890,246 @@ def sparse_embedding(data, weight, *, input_dim=0, output_dim=0,
 
 
 # ---------------------------------------------------------------------------
+# Regression heads, the softmax family's rest, L2Normalization
+# ---------------------------------------------------------------------------
+
+_REGRESSION = {
+    "linear": (lambda x: x * 1.0, lambda o, l: o - l),
+    "mae": (lambda x: x * 1.0, lambda o, l: torch.sign(o - l)),
+    "logistic": (torch.sigmoid, lambda o, l: o - l),
+}
+
+
+class _RegressionGrad(torch.autograd.Function):
+    """The JAX package's regression head (``_regression_core``): the
+    forward is the identity or the sigmoid; the backward ignores the
+    incoming cotangent and returns ``grad_fn(out, label) * grad_scale /
+    num_output``, ``num_output`` being the label's elements a sample
+    (not the batch). The label's gradient is zero."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, kind):
+        out = _REGRESSION[kind][0](data)
+        ctx.save_for_backward(out, label)
+        ctx.hyper = (grad_scale, kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, _g):
+        out, label = ctx.saved_tensors
+        grad_scale, kind = ctx.hyper
+        num_output = max(label.numel() // label.shape[0], 1)
+        grad = _REGRESSION[kind][1](out, label.reshape(out.shape)) \
+            * (grad_scale / num_output)
+        lgrad = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return grad, lgrad, None, None
+
+
+def _regression_op(name, kind):
+    def op(data, label=None, *, grad_scale=1.0):
+        if label is None:
+            return _REGRESSION[kind][0](data)
+        return _RegressionGrad.apply(data, label, float(grad_scale), kind)
+    op.__name__ = name
+    op.__doc__ = ("The %s regression head: a loss head whose backward "
+                  "is :class:`_RegressionGrad`'s." % kind)
+    register(name)(op)
+
+
+_regression_op("LinearRegressionOutput", "linear")
+_regression_op("MAERegressionOutput", "mae")
+_regression_op("LogisticRegressionOutput", "logistic")
+
+
+@register("softmin")
+def softmin(data, *, axis=-1, temperature=None):
+    x = data / temperature if temperature else data
+    return torch.softmax(-x, dim=axis)
+
+
+@register("SoftmaxActivation")
+def softmax_activation(data, *, mode="instance"):
+    """The softmax over the channels (``channel``) or over everything
+    but the batch (``instance``)."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
+
+
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    """The summed negative log-likelihood of the labels over the last
+    axis."""
+    lp = torch.log_softmax(data, dim=-1)
+    lab = label.to(torch.int32).long()
+    return -lp.gather(-1, lab[:, None]).sum()
+
+
+@register("L2Normalization")
+def l2_normalization(data, *, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over everything but the batch
+    (``instance``), the channels (``channel``) or the spatial axes
+    (``spatial``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.sum(torch.square(data), dim=red,
+                                       keepdim=True) + eps)
+
+
+# ---------------------------------------------------------------------------
+# CTCLoss
+# ---------------------------------------------------------------------------
+
+_CTC_NEG_INF = -1e30
+
+
+def _wrap(idx, n):
+    """An index as ``jnp``'s gathers read it: -n..-1 count from the end."""
+    return torch.where(idx < 0, idx + n, idx).long()
+
+
+@register("CTCLoss")
+def ctc_loss(data, label, data_lengths=None, label_lengths=None, *,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """The JAX op's CTC: ``data`` (T, N, C) activations, ``label`` (N,
+    L); the forward recursion over the 2L+1 extended labels in log space
+    (``neg_inf = -1e30``, ``logaddexp``), one torch step a time step,
+    which autograd differentiates as JAX differentiates its scan.
+    Without ``label_lengths`` a label counts if it is >= 0 and, with the
+    blank first (0), not 0. With ``data_lengths`` each sample's loss
+    reads the recursion at its own last step."""
+    logp = torch.log_softmax(data, dim=-1)
+    T, N, C = data.shape
+    dev = data.device
+    lab = label.to(torch.int32)
+    L = lab.shape[1]
+    blank = 0 if blank_label == "first" else C - 1
+    S = 2 * L + 1
+    ext = torch.full((N, S), blank, dtype=torch.int32, device=dev)
+    ext[:, 1::2] = lab
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.to(torch.int32)
+    else:
+        pad_mask = (lab >= 0) & (lab != 0) if blank == 0 else (lab >= 0)
+        lab_len = pad_mask.to(torch.int32).sum(dim=1)
+    ext_len = 2 * lab_len + 1
+    gidx = _wrap(ext, C)
+    ext_m2 = torch.cat([torch.full((N, 2), -2, dtype=torch.int32,
+                                   device=dev), ext[:, :-2]], 1)
+    can_skip = (ext != blank) & (ext != ext_m2)
+    pad1 = torch.full((N, 1), _CTC_NEG_INF, dtype=logp.dtype, device=dev)
+    pad2 = torch.full((N, 2), _CTC_NEG_INF, dtype=logp.dtype, device=dev)
+    alpha = torch.cat(
+        [logp[0, :, blank:blank + 1],
+         logp[0].gather(1, gidx[:, 1:2]),
+         torch.full((N, S - 2), _CTC_NEG_INF, dtype=logp.dtype,
+                    device=dev)], 1)
+    alphas = [alpha]
+    for t in range(1, T):
+        emit = logp[t].gather(1, gidx)
+        a1 = torch.cat([pad1, alpha[:, :-1]], 1)
+        a2 = torch.where(can_skip, torch.cat([pad2, alpha[:, :-2]], 1),
+                         pad1)
+        alpha = torch.logaddexp(torch.logaddexp(alpha, a1), a2) + emit
+        alphas.append(alpha)
+    if use_data_lengths and data_lengths is not None:
+        t_idx = (data_lengths.to(torch.int32) - 1).clamp(0, T - 1).long()
+        alpha = torch.stack(alphas)[t_idx, torch.arange(N, device=dev)]
+    idx_last = (ext_len - 1).long()[:, None]
+    idx_prev = (ext_len - 2).clamp_min(0).long()[:, None]
+    ll = torch.logaddexp(alpha.gather(1, idx_last),
+                         alpha.gather(1, idx_prev))[:, 0]
+    return -ll
+
+
+alias("CTCLoss", "ctc_loss")
+
+
+# ---------------------------------------------------------------------------
+# UpSampling, BilinearResize2D, AdaptiveAvgPooling2D
+# ---------------------------------------------------------------------------
+
+def _nearest(x, s):
+    return x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+
+
+@register("UpSampling")
+def upsampling(*data, scale=2, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """Nearest-neighbour upsampling by ``scale``; further inputs are
+    each repeated up to the first one's size and concatenated on the
+    channels. ``bilinear`` raises, as the JAX op does."""
+    if sample_type != "nearest":
+        raise NotImplementedError("bilinear UpSampling via Deconvolution")
+    out = _nearest(data[0], int(scale))
+    if len(data) > 1 and multi_input_mode == "concat":
+        out = torch.cat([out] + [_nearest(d, out.shape[2] // d.shape[2])
+                                 for d in data[1:]], dim=1)
+    return out
+
+
+def _interp_align_corners(x, out_len, axis):
+    """Linear interpolation along ``axis`` with the align-corners ratio
+    ``(in - 1) / (out - 1)``."""
+    in_len = x.shape[axis]
+    if out_len == in_len:
+        return x
+    if out_len > 1 and in_len > 1:
+        pos = torch.arange(out_len, dtype=torch.float32, device=x.device) \
+            * ((in_len - 1) / (out_len - 1))
+    else:
+        pos = torch.zeros(out_len, dtype=torch.float32, device=x.device)
+    lo = torch.floor(pos).to(torch.int32)
+    hi = torch.clamp_max(lo + 1, in_len - 1)
+    shape = [1] * x.dim()
+    shape[axis] = out_len
+    t = (pos - lo).reshape(shape).to(x.dtype)
+    return x.index_select(axis, lo.long()) * (1 - t) \
+        + x.index_select(axis, hi.long()) * t
+
+
+@register("_contrib_BilinearResize2D")
+def bilinear_resize(data, *, height=0, width=0, scale_height=None,
+                    scale_width=None):
+    n, c, h, w = data.shape
+    oh = height or int(h * scale_height)
+    ow = width or int(w * scale_width)
+    return _interp_align_corners(_interp_align_corners(data, oh, 2), ow, 3)
+
+
+def _adaptive_pool_matrix(in_len, out_len, dtype, device):
+    """(out, in): row i averages the window ``[floor(i * in / out),
+    ceil((i + 1) * in / out))``."""
+    import numpy as _np
+    a = _np.zeros((out_len, in_len), _np.float32)
+    for i in range(out_len):
+        s = (i * in_len) // out_len
+        e = -(-((i + 1) * in_len) // out_len)
+        a[i, s:e] = 1.0 / (e - s)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+@register("_contrib_AdaptiveAvgPooling2D")
+def adaptive_avg_pool(data, *, output_size=1):
+    if isinstance(output_size, int):
+        oh = ow = output_size
+    else:
+        oh, ow = output_size
+    n, c, h, w = data.shape
+    if h % oh == 0 and w % ow == 0:
+        return data.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    ah = _adaptive_pool_matrix(h, oh, data.dtype, data.device)
+    aw = _adaptive_pool_matrix(w, ow, data.dtype, data.device)
+    return torch.einsum("oh,nchw,pw->ncop", ah, data, aw)
+
+
+# ---------------------------------------------------------------------------
 # Parameter-shape hooks and aux slots
 # ---------------------------------------------------------------------------
 
@@ -994,3 +1244,16 @@ set_op_meta("RNN", shape_hook=_rnn_shapes)
 set_op_meta("LayerNorm", shape_hook=_ln_shapes)
 set_op_meta("Embedding", shape_hook=_embedding_shapes)
 set_op_meta("_contrib_SparseEmbedding", shape_hook=_embedding_shapes)
+
+
+def _reg_out_shapes(ins, p):
+    out = list(ins)
+    if ins[0] is not None and len(ins) > 1 and ins[1] is None:
+        out[1] = tuple(ins[0])
+    return out
+
+
+set_op_meta("softmax_cross_entropy", shape_hook=_softmax_out_shapes)
+for _name in ("LinearRegressionOutput", "MAERegressionOutput",
+              "LogisticRegressionOutput"):
+    set_op_meta(_name, shape_hook=_reg_out_shapes)

@@ -181,7 +181,7 @@ def sample_unique_zipfian(*, range_max, shape=(1, 1), ctx=None):
         x = _random._unit(b1 ^ b2, torch.float32)
         k1 = torch.where(live[:, None], s1[:, :1], k1)
         k2 = torch.where(live[:, None], s2[:, :1], k2)
-        vals = (torch.round(torch.exp(x * log_rm)).to(i32) - 1).clamp(
+        vals = (torch.round(_random.exp_f32(x * log_rm)).to(i32) - 1).clamp(
             0, range_max - 1)
         sv, order = torch.sort(vals, dim=1, stable=True)
         head = torch.ones_like(sv, dtype=torch.bool)

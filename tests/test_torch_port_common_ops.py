@@ -448,6 +448,37 @@ def test_sample_unique_zipfian_matches():
                                           "shape": (3, 20)}, BITWISE)
 
 
+# C15: at these ranges torch.exp, one ulp off XLA's exp on ~10 % of its
+# inputs, moved a few draws of the op at each of these shapes and seeds
+# (5000: 1554, 600 and 122 ids at seeds 0-2; 50000: 1 at seed 1;
+# 1000000: 7-8 at each seed)
+ZIPF_WIDE = [(5000, (64, 2048)), (50000, (64, 256)), (1000000, (16, 512))]
+
+
+@pytest.mark.parametrize("range_max,shape", ZIPF_WIDE,
+                         ids=[str(r) for r, _ in ZIPF_WIDE])
+def test_sample_unique_zipfian_matches_at_wide_ranges(range_max, shape):
+    for seed in (0, 1, 2):
+        mx.random.seed(seed)
+        mt.random.seed(seed)
+        _check("_sample_unique_zipfian", [], {"range_max": range_max,
+                                              "shape": shape}, BITWISE)
+
+
+@pytest.mark.parametrize("range_max", [r for r, _ in ZIPF_WIDE])
+def test_exp_f32_is_xlas_exp_on_every_zipfian_input(range_max):
+    """``random.exp_f32`` against ``jnp.exp`` on every input the op can
+    give it: ``u * log(range_max)`` for each of the 2^23 uniform
+    floats."""
+    u = ((np.arange(2 ** 23, dtype=np.uint32) | np.uint32(0x3F800000))
+         .view(np.float32) - np.float32(1.0))
+    lr = np.float32(jnp.log(float(range_max)))
+    want = np.asarray(jax.jit(lambda x: jnp.exp(x * lr))(u))
+    got = mt.random.exp_f32(torch.from_numpy(u) * torch.log(
+        torch.tensor(float(range_max)))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_sample_unique_zipfian_runs_on_the_context_it_is_given():
     """Like its siblings the op takes ``ctx``: the default context is the
     card (it raises on a host without one), and ``cpu()`` draws the
@@ -649,13 +680,6 @@ def test_gradient_matches_jax_grad(name, params):
 
 # ----------------------------------------------------- the remaining gap
 GAP = {
-    # ops/nn.py
-    "BatchNorm_v1", "CTCLoss", "Convolution_v1", "CuDNNBatchNorm",
-    "L2Normalization", "LinearRegressionOutput", "LogisticRegressionOutput",
-    "MAERegressionOutput", "Pooling_v1", "Softmax", "SoftmaxActivation",
-    "UpSampling", "_contrib_AdaptiveAvgPooling2D",
-    "_contrib_BilinearResize2D", "_contrib_CTCLoss", "_contrib_ctc_loss",
-    "ctc_loss", "softmax_cross_entropy", "softmin",
     # ops/contrib_ops.py
     "BilinearSampler", "GridGenerator", "SVMOutput", "SpatialTransformer",
     "_contrib_boolean_mask", "_contrib_box_non_maximum_suppression",
@@ -685,8 +709,8 @@ GAP = {
 
 
 def test_registry_gap_is_the_roadmaps():
-    """The JAX names the port still lacks: exactly the 78 that
+    """The JAX names the port still lacks: exactly the 59 that
     ROADMAP.md queues under A3b.7 and A9."""
-    assert len(GAP) == 78
+    assert len(GAP) == 59
     assert set(jreg.list_ops()) - set(treg.list_ops()) == GAP
     assert not set(treg.list_ops()) - set(jreg.list_ops())

@@ -252,7 +252,9 @@ def test_sequential_and_lambda_blocks_match_the_jax_package():
 def test_dropout_raises_in_training_and_ctc_loss_raises():
     """Dropout no longer raises in training: after the same seed it
     draws the JAX package's mask (``test_torch_port_random.py`` holds
-    every path). CTCLoss still raises."""
+    every path). CTCLoss no longer raises either: it gives the JAX
+    package's loss (``test_torch_port_nn_heads.py`` holds its layouts
+    and lengths)."""
     x = np.ones((2, 3), np.float32)
     outs = []
     for pkg in (JAX, PORT):
@@ -264,8 +266,11 @@ def test_dropout_raises_in_training_and_ctc_loss_raises():
             outs.append(_np(blk(pkg.arr(x))))
     np.testing.assert_array_equal(outs[1], outs[0])
     assert set(np.unique(outs[1])) <= {0.0, 2.0}
-    with pytest.raises(mt.MXNetError, match="CTCLoss"):
-        mt.gluon.loss.CTCLoss()
+    pred = np.random.RandomState(0).randn(2, 6, 4).astype(np.float32)
+    label = np.array([[1, 2], [3, 3]], np.float32)
+    losses = [_np(pkg.gluon.loss.CTCLoss()(pkg.arr(pred), pkg.arr(label)))
+              for pkg in (JAX, PORT)]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------- the GPT
