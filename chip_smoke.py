@@ -660,13 +660,52 @@ Phases; any failure raises and the script exits non-zero:
    relu under Gluon fuses into no B1, as in the JAX package) and the
    example's own check (gluon_cnn.py has none: its loss must fall). The
    phase's wall time is printed.
-24. The whole run's wall time, then the ``kernels`` JSON line (B1's
+24. Multi-process training (A6c), every part's ranks started by the
+   port's launcher (``python -m mxnet_tpu_torch.tools.launch``) and
+   sharing ``cuda:0`` over gloo, each rank ``python3 chip_smoke.py
+   --worker <part>``; a failed rank fails the phase. (a) The reference
+   nightly ``dist_sync_kvstore.py``'s invariants
+   (``tests/torch_dist_worker.py``) at 2 ranks (first in part b's
+   launch) and 3 ranks, every value on the card, with ``dist_async``
+   through rank 0's server and, at 3 ranks, ``get_num_dead_node`` while
+   the last rank stops beating. (b)
+   ``examples/sparse_linear_classification.py`` at phase 23's Avazu width,
+   2 ranks on their halves (``num_parts``/``part_index``), 2 epochs at
+   ``dist_sync`` and at ``dist_async``: ``dist_sync``'s final weight and
+   bias bitwise a one-process replay that pushes both ranks' gradients of
+   each step as a list to a ``local`` store with the same AdaGrad;
+   ``dist_async``'s accuracy rising, its weights finite and every push
+   applied once (the server's log); batches/s, the all-reduce's ms and
+   bytes a push, one epoch profiled (busy share). (c) ResNet-50 as
+   ``train_imagenet.py --benchmark 1 --kv-store dist_sync`` (2 ranks x
+   batch 64, SGD 0.05/0.9/1e-4 with f32 masters, Xavier(in, 2) seed 0,
+   cuDNN deterministic), 8 steps each: the kvstore path, ``MXNET_DDP``
+   at 1 MiB, the automatic size (no ``MXNET_DDP_BUCKET_MB``) and 64 MiB
+   buckets (bf16), and DDP at 64 MiB in f32. Every
+   rank's weights bitwise each other's, the bucket sizes bitwise each
+   other, DDP in f32 bitwise the kvstore path (the kvstore path updates
+   in the store, outside the fused step, so it computes in f32), the
+   first step's all-reduced gradient bitwise a one-process replay of the
+   two half-batches, B1 49 launches a forward on each rank with no
+   fallback (its kernel checked and timed at batch 64, bf16 and f32),
+   losses falling; step p50, images/s over both ranks beside phase 13's
+   step, the all-reduce's ms, bytes and calls a step, peak memory, 2 DDP
+   steps profiled (busy share). (d) ``train_mnist.py``'s MLP at
+   ``dist_sync``, 2 ranks, 2 epochs: run 1 uninterrupted; run 2 with
+   ``MXNET_FAULT_INJECT=kill@step=7:rank=0``, ``--max-restarts 1`` and
+   ``--checkpoint-dir``, resumed by the launcher from the newest common
+   snapshot, its final weights bitwise run 1's; B5 2 launches a forward
+   on each rank; run 2's checkpoint resharded to one rank
+   (``reshard_checkpoint``) and restored by ``restore_resharded`` bitwise
+   the gathered state. Each part's wall is printed.
+25. The whole run's wall time, then the ``kernels`` JSON line (B1's
    entry has ``_contrib_FusedBNAct``, ``grouped``, ``records``,
    ``imagenet_loop``, ``inception_v3_serve``, ``inception_v3_train``,
-   ``ssd_train``, ``ssd_detect`` and ``cifar10_train`` among its paths,
-   B2, B3 and B5 ``grouped``, B5 ``alexnet_train/float32``,
-   ``alexnet_train/bfloat16``, ``rcnn_train``, ``mnist_train/fc1`` and
-   ``mnist_train/fc2``, B2
+   ``ssd_train``, ``ssd_detect``, ``cifar10_train``, ``dist_resnet_bf16``
+   and ``dist_resnet_f32`` among its paths, B2, B3 and B5 ``grouped``, B5
+   ``alexnet_train/float32``, ``alexnet_train/bfloat16``, ``rcnn_train``,
+   ``mnist_train/fc1``, ``mnist_train/fc2``, ``dist_mnist/fc1`` and
+   ``dist_mnist/fc2``, B2
    ``recommend``, ``matrix_factorization``,
    ``lstm_bench``, ``word_lm``, ``char_lstm`` and ``nce_word2vec``;
    ``image_aug`` and
@@ -3742,12 +3781,14 @@ RESNET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
 HEAD = ("fc1_weight", "fc1_bias")
 
 
-def b1_train_phase(sites, dev, batch=RESNET_TRAIN["bf16_batch"]):
+def b1_train_phase(sites, dev, batch=RESNET_TRAIN["bf16_batch"],
+                   dtype=torch.bfloat16):
     """B1 against its plain version at every site class of the bf16
-    training forward (batch 128), then the device times per class and
-    summed over the 49 sites, beside the bound (bf16 bytes over 3.35
-    TB/s)."""
-    rows = [b1_class_row(form, (batch,) + chw, torch.bfloat16,
+    training forward (batch 128; or ``batch`` in ``dtype``), then the
+    device times per class and summed over the 49 sites, beside the
+    bound (the dtype's bytes over 3.35 TB/s)."""
+    dt = str(dtype).replace("torch.", "")
+    rows = [b1_class_row(form, (batch,) + chw, dtype,
                          sites.count((form, chw)), dev, 100 + i, "train ")
             for i, (form, chw) in enumerate(sorted(set(sites)))]
     max_err = {}
@@ -3756,11 +3797,12 @@ def b1_train_phase(sites, dev, batch=RESNET_TRAIN["bf16_batch"]):
                                  r["max_abs_err"])
     totals = {form: b1_totals([r for r in rows if form in ("all",
                                                            r["form"])],
-                              "batch-%d bf16 training forward, %s"
-                              % (batch, form))
+                              "batch-%d %s training forward, %s"
+                              % (batch, dt, form))
               for form in ("bn_act", "bn_act_res", "all")}
-    log("B1 vs plain at the batch-%d bf16 training shapes: %d site classes "
-        "agree; max abs err %s" % (batch, len(rows), json.dumps(max_err)))
+    log("B1 vs plain at the batch-%d %s training shapes: %d site classes "
+        "agree; max abs err %s" % (batch, dt, len(rows),
+                                   json.dumps(max_err)))
     return max_err, rows, totals
 
 
@@ -10201,10 +10243,651 @@ def examples_path(dev, card, report):
     return nce_launches, nce_rows
 
 
+
+# ------------------------------------ multi-process training (phase 24)
+# Each part's ranks are started by the port's launcher and share cuda:0
+# (gloo: NCCL refuses two ranks on one device); every rank runs
+# ``python3 chip_smoke.py --worker <part> --out <dir>`` and writes its
+# results to <dir>/<part>_rank<r>.json for the parent to hold.
+DIST = dict(ranks=2, resnet_batch=64, resnet_steps=8, chw=(3, 224, 224),
+            mnist_batch=64, mnist_epochs=2, kill_step=7, timeout=600)
+DIST_DIR = os.path.join(REPO, "build", "chip_smoke", "dist")
+
+
+def dist_launch(part, n, *launcher_args, env=None):
+    """One launch of ``n`` ranks of ``--worker part`` -> (wall s, stdout).
+    A failed rank fails the launch and the phase (the launcher returns
+    the first failing rank's code; nothing here catches it)."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(n)] + list(launcher_args) \
+        + [sys.executable, os.path.abspath(__file__), "--worker", part,
+           "--out", DIST_DIR]
+    full = dict(os.environ)
+    # every rank of every launch imports torch: where the environment
+    # writes no bytecode (PYTHONDONTWRITEBYTECODE), each one compiles
+    # torch's sources again, ~10 s a process; the ranks share a cache
+    # under build/ instead
+    full.pop("PYTHONDONTWRITEBYTECODE", None)
+    full["PYTHONPYCACHEPREFIX"] = os.path.join(REPO, "build", "chip_smoke",
+                                               "pycache")
+    full.update(env or {})
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=REPO, env=full, capture_output=True,
+                       text=True, timeout=DIST["timeout"])
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError("phase 24 part %s (%d ranks) failed, rc %d:\n%s\n%s"
+                           % (part, n, r.returncode, r.stdout[-6000:],
+                              r.stderr[-4000:]))
+    return wall, r.stdout + r.stderr
+
+
+def dist_results(part, n):
+    out = []
+    for rank in range(n):
+        with open(os.path.join(DIST_DIR, "%s_rank%d.json" % (part, rank))) \
+                as f:
+            out.append(json.load(f))
+    return out
+
+
+def worker_dump(part, obj):
+    from mxnet_tpu_torch.parallel import dist
+    with open(os.path.join(DIST_DIR, "%s_rank%d.json" % (part, dist.rank())),
+              "w") as f:
+        json.dump(obj, f, default=float)
+
+
+def digest(t):
+    """sha256 of a tensor's bytes (on the host)."""
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().view(-1)
+                          .view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def dist_stats_delta(before):
+    from mxnet_tpu_torch.parallel import dist
+    now = dist.stats()
+    return {k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
+            for k, v in now.items()}
+
+
+# ---- part a: the nightly dist_sync invariants, every value on the card
+def worker_invariants():
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_dist_worker as w
+    with mt.gpu(0):
+        w.invariants()
+
+
+# ---- part b: sparse linear classification at the Avazu width
+def worker_sparse():
+    from mxnet_tpu_torch.parallel import dist
+    worker_invariants()      # part a at 2 ranks
+    en = example_nets()
+    P = SPARSE
+    rank, n = dist.rank(), dist.num_workers()
+    wide = os.path.join(REPO, "build", "chip_smoke", "avazu_width.libsvm")
+    it = mt.io.LibSVMIter(wide, (P["wide_features"],),
+                          batch_size=P["wide_batch"], num_parts=n,
+                          part_index=rank)
+    stores, pushes = [], []
+    create, push = mt.kv.create, mt.kv.KVStore.push
+
+    def made(name="local"):
+        stores.append(create(name))
+        return stores[-1]
+
+    def recorded(self, key, value, priority=0):
+        if self._type == "dist_sync":
+            if isinstance(value, mt.nd.sparse.RowSparseNDArray):
+                pushes.append({"key": key,
+                               "values": value._values.cpu().numpy(),
+                               "indices": value._indices.cpu().numpy()})
+            else:
+                pushes.append({"key": key, "dense": value._data.cpu()
+                               .numpy() if hasattr(value, "_data")
+                               else value.cpu().numpy()})
+        return push(self, key, value, priority)
+    mt.kv.create, mt.kv.KVStore.push = made, recorded
+    res = {}
+    try:
+        for name in ("dist_sync", "dist_async"):
+            walls, last = [], {}
+            stamp = [0.0]
+
+            def epoch_end(e, w_, b_):
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - stamp[0])
+                last["w"], last["b"] = w_._data.clone(), b_._data.clone()
+                stamp[0] = time.perf_counter()
+            dist.barrier("sparse_" + name)
+            before = dist.stats()
+            stamp[0] = time.perf_counter()
+            accs = en.sparse_linear(
+                mt, wide, num_features=P["wide_features"],
+                batch_size=P["wide_batch"], epochs=P["wide_epochs"],
+                kv_store=name, on_epoch=epoch_end, it=it)
+            coll = dist_stats_delta(before)
+            kv = stores[-1]
+            r = {"accuracy": accs, "epoch_wall_s": walls,
+                 "collectives": coll,
+                 "w_finite": bool(torch.isfinite(last["w"]).all()),
+                 "w_digest": digest(last["w"]), "b_digest": digest(last["b"])}
+            if name == "dist_sync":
+                np.savez(os.path.join(DIST_DIR, "sparse_pushes_rank%d.npz"
+                                      % rank),
+                         **{"%d_%s" % (i, k): v for i, p in enumerate(pushes)
+                            for k, v in p.items() if k != "key"},
+                         keys=np.array([p["key"] for p in pushes]))
+                r["pushes"] = len(pushes)
+                # one more epoch, profiled on every rank
+                dist.barrier("sparse_prof")
+                r["profile"] = fit_profile(lambda: en.sparse_linear(
+                    mt, wide, num_features=P["wide_features"],
+                    batch_size=P["wide_batch"], epochs=1,
+                    kv_store="dist_sync", it=it))
+            else:
+                kv._barrier()   # every rank's pushes are in
+                if rank == 0:
+                    r["server_pushes"] = len(
+                        kv._async_client.call("stats")["pushes"])
+                    r["server_device"] = str(kv._async_server.device)
+            res[name] = r
+    finally:
+        mt.kv.create, mt.kv.KVStore.push = create, push
+    worker_dump("b", res)
+
+
+def sparse_replay(dev, n):
+    """Part b's check: a one-process replay on the card pushing each
+    step's gradients of every rank as a list to a ``local`` store with
+    the same AdaGrad -> (weight, bias) digests."""
+    P = SPARSE
+    F = P["wide_features"]
+    rec = [np.load(os.path.join(DIST_DIR, "sparse_pushes_rank%d.npz" % r))
+           for r in range(n)]
+    keys = rec[0]["keys"]
+    if any(not np.array_equal(z["keys"], keys) for z in rec):
+        raise RuntimeError("the ranks pushed different keys")
+    kv = mt.kv.create("local")
+    kv.set_optimizer(mt.optimizer.create("adagrad", learning_rate=0.5))
+    weight = mt.nd.zeros((F, 1), ctx=mt.gpu(0))
+    bias = mt.nd.zeros((1,), ctx=mt.gpu(0))
+    kv.init(0, weight)
+    kv.init(1, bias)
+    for i, key in enumerate(keys):
+        vals = []
+        for z in rec:
+            if "%d_values" % i in z.files:
+                vals.append(mt.nd.sparse.RowSparseNDArray(
+                    torch.from_numpy(z["%d_values" % i]).to(dev),
+                    torch.from_numpy(z["%d_indices" % i]).to(dev), (F, 1),
+                    ctx=mt.gpu(0)))
+            else:
+                vals.append(mt.nd.array(z["%d_dense" % i], ctx=mt.gpu(0)))
+        kv.push(int(key), vals)
+    kv.pull(0, out=weight, ignore_sparse=False)
+    kv.pull(1, out=bias)
+    return digest(weight._data), digest(bias._data), len(keys)
+
+
+# ---- part c: ResNet-50 at dist_sync, the kvstore path and DDP
+def worker_resnet():
+    from mxnet_tpu_torch.parallel import dist
+    P = DIST
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    rank, n = dist.rank(), dist.num_workers()
+    B = P["resnet_batch"]
+    sym = resnet50()
+    p0, aux0 = resnet_init(sym, dev, P["chw"], rnd_type="gaussian")
+    X, Y = image_batch(B * n, seed=0, chw=P["chw"])
+    X, Y = X[rank * B:(rank + 1) * B], Y[rank * B:(rank + 1) * B]
+    res = {}
+    for run, ddp, mb, cdt in (("kvstore", False, 0.0, "auto"),
+                              ("ddp_1mb", True, 1.0, "auto"),
+                              ("ddp_auto", True, 0.0, "auto"),
+                              ("ddp_64mb", True, 64.0, "auto"),
+                              ("ddp_64mb_f32", True, 64.0, "float32")):
+        it = OneBatchIter(X, Y, P["resnet_steps"], dev)
+        lab = it.batch.label[0].long()
+        mod = mt.mod.Module(sym, context=dev)
+        losses, stamps, first = [], [], {}
+
+        def record(_p):
+            out = mod.get_outputs()[0].float()
+            losses.append(float(-out.gather(1, lab.unsqueeze(1))
+                                .clamp_min(1e-30).log().mean()))
+            stamps.append(time.perf_counter())
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        tier.reset_stats()
+        dist.barrier("resnet_" + run)
+        before = dist.stats()
+        mt.random.seed(0)
+        with mt.config.override(ddp=ddp, ddp_bucket_mb=mb,
+                                compute_dtype=cdt):
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(arg_params=p0, aux_params=aux0)
+            mod.init_optimizer(kvstore=mt.kv.create("dist_sync"),
+                               optimizer="sgd",
+                               optimizer_params=dict(IMAGENET_SGD))
+            if ddp:
+                red = mod._fused.reducer
+                reduce = red.reduce
+
+                def first_reduce(grads):
+                    out = reduce(grads)
+                    if not first:
+                        first.update({k: digest(v) for k, v in out.items()})
+                    return out
+                red.reduce = first_reduce
+            stamps.append(time.perf_counter())
+            mod.fit(it, num_epoch=1, eval_metric=None, batch_end_callback=
+                    record, steps_per_dispatch=1)
+            torch.cuda.synchronize()
+        coll = dist_stats_delta(before)
+        counts = held_counts("phase 24 ResNet-50 %s rank %d" % (run, rank),
+                             {"bn_act": 33 * P["resnet_steps"],
+                              "bn_act_res": 16 * P["resnet_steps"]})
+        args, aux = mod.get_params()
+        r = {"losses": losses, "step_ms": list(np.diff(stamps) * 1e3),
+             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+             "collectives": coll, "launches": counts,
+             "ddp": mod._ddp, "update_on_kvstore": mod._update_on_kvstore,
+             "compute": "eager f32" if mod._fused is None else "fused %s"
+             % str(mod._fused.compute_dtype or torch.float32)[6:],
+             "params": {k: digest(v) for k, v in sorted(args.items())},
+             "aux": {k: digest(v) for k, v in sorted(aux.items())}}
+        if ddp:
+            st = mod.ddp_stats()
+            r.update(ddp_stats={k: v for k, v in st.items()
+                                if k != "reduce_ms"},
+                     reduce_ms=st["reduce_ms"], first_grads=first)
+        if run == "ddp_64mb":
+            # two more steps, profiled on every rank
+            dist.barrier("resnet_prof")
+            it2 = OneBatchIter(X, Y, 2, dev)
+            r["profile"] = fit_profile(lambda: mod.fit(
+                it2, num_epoch=1, eval_metric=None, steps_per_dispatch=1,
+                force_init=False))
+        res[run] = r
+        del mod
+        torch.cuda.empty_cache()
+    worker_dump("c", res)
+
+
+def resnet_replay(dev, n):
+    """Part c's check: the first step's summed gradient, replayed in one
+    process on the card: the two half-batches' forward and backward in
+    turn (the fused bf16 step at the same weights), added in rank order
+    -> {name: digest}."""
+    P = DIST
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    B = P["resnet_batch"]
+    sym = resnet50()
+    p0, aux0 = resnet_init(sym, dev, P["chw"], rnd_type="gaussian")
+    X, Y = image_batch(B * n, seed=0, chw=P["chw"])
+    mod = mt.mod.Module(sym, context=dev)
+    mod.bind([("data", (B,) + tuple(P["chw"]))], [("softmax_label", (B,))])
+    mod.init_params(arg_params=p0, aux_params=aux0)
+    mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd",
+                       optimizer_params=dict(IMAGENET_SGD))
+    total = None
+    for r in range(n):
+        batch = mt.io.DataBatch(
+            data=[torch.from_numpy(X[r * B:(r + 1) * B]).to(dev)],
+            label=[torch.from_numpy(Y[r * B:(r + 1) * B]).to(dev)])
+        mt.random.seed(0)
+        mod.forward_backward(batch)
+        g = {k: v.clone() for k, v in mod._fused_grads.items()}
+        total = g if total is None else {k: total[k] + g[k] for k in g}
+        mod._fused_grads = None
+    out = {k: digest(v) for k, v in total.items()}
+    del mod, total
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- part d: train_mnist.py's MLP at dist_sync, killed and resumed
+def worker_mnist():
+    from mxnet_tpu_torch.parallel import dist
+    logging.basicConfig(level=logging.INFO)   # the resume's log line
+    P = DIST
+    en = example_nets()
+    rank, n = dist.rank(), dist.num_workers()
+    Xt, yt, _, _ = en.mnist_data()
+    half = len(Xt) // n
+    Xt, yt = Xt[rank * half:(rank + 1) * half], yt[rank * half:(rank + 1)
+                                                   * half]
+    sym = en.mlp_symbol(mt.sym)
+    mt.random.seed(0)
+    it = mt.io.NDArrayIter(Xt, yt, P["mnist_batch"])
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    reset_all_counts()
+    tier.reset_stats()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=P["mnist_epochs"], kvstore="dist_sync",
+            optimizer="sgd", optimizer_params=dict(EX["mnist"]["sgd"]),
+            initializer=mt.init.Xavier(), eval_metric=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    args, _ = mod.get_params()
+    tag = os.environ.get("PHASE24_RUN", "run")
+    np.savez(os.path.join(DIST_DIR, "mnist_%s_rank%d.npz" % (tag, rank)),
+             **{k: v.cpu().numpy() for k, v in args.items()})
+    worker_dump("d_" + tag, {"wall_s": wall, "launches": all_counts(),
+                             "fallback": tier.stats()["fallback"],
+                             "steps": P["mnist_epochs"] * it.num_batches
+                             if hasattr(it, "num_batches") else None})
+
+
+def worker_main(part, out):
+    """One rank of a phase-24 part (under the port's launcher)."""
+    global DIST_DIR
+    DIST_DIR = out
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mxnet_tpu_torch.parallel import dist
+    {"a": worker_invariants, "b": worker_sparse, "c": worker_resnet,
+     "d": worker_mnist}[part]()
+    dist.shutdown()
+    return 0
+
+
+def dist_part_a(dev, card, walls):
+    """Part a at 3 ranks, with dead-node detection (part b's launch runs
+    them at 2 ranks first, one launch fewer)."""
+    for k in (3,):
+        walls["a%d" % k], out = dist_launch(
+            "a", k, "--max-restarts", "0", "--env",
+            "MXNET_HEARTBEAT_INTERVAL=0.2")
+        want = ["rank %d/%d: all dist_sync invariants OK" % (r, k)
+                for r in range(k)]
+        if k == 3:
+            want += ["rank %d/3: fault detection OK" % r for r in range(3)]
+        missing = [w for w in want if w not in out]
+        if missing:
+            raise RuntimeError("part a: %s missing:\n%s" % (missing,
+                                                            out[-3000:]))
+        log("  (a) the nightly dist_sync invariants at %d ranks on cuda:0 "
+            "(init broadcast, the 'test' optimizer, replace, row_sparse, "
+            "2-bit over the wire, collectives, dist_async through rank 0's "
+            "server%s): %.1f s wall" % (k, ", get_num_dead_node with the "
+                                        "last rank silent" if k == 3 else "",
+                                        walls["a%d" % k]))
+
+
+
+def dist_part_b(dev, card, walls, P=DIST):
+    """Part b: sparse linear classification at the Avazu width -> the
+    ranks' results."""
+    n = P["ranks"]
+    Sp = SPARSE
+    wide = os.path.join(REPO, "build", "chip_smoke", "avazu_width.libsvm")
+    if not os.path.exists(wide):
+        write_wide_libsvm(wide, Sp["wide_rows"], Sp["wide_features"],
+                          Sp["nnz"])
+    walls["b"], out = dist_launch("b", n, "--max-restarts", "0")
+    missing = [r for r in range(n) if "rank %d/%d: all dist_sync invariants "
+               "OK" % (r, n) not in out]
+    if missing:
+        raise RuntimeError("part a at %d ranks: ranks %s missing:\n%s"
+                           % (n, missing, out[-3000:]))
+    log("  (a) the nightly dist_sync invariants at %d ranks on cuda:0 (run "
+        "first in part b's launch)" % n)
+    rb = dist_results("b", n)
+    w_d, b_d, n_push = sparse_replay(dev, n)
+    sync = [r["dist_sync"] for r in rb]
+    if any((s["w_digest"], s["b_digest"]) != (w_d, b_d) for s in sync):
+        raise RuntimeError("part b: dist_sync's final weights are not "
+                           "bitwise the one-process replay")
+    asy = [r["dist_async"] for r in rb]
+    # the same batches and epochs at dist_async: the same pushes a rank
+    expected = sum(s["pushes"] for s in sync)
+    if asy[0]["server_pushes"] != expected or not all(
+            a["w_finite"] and a["accuracy"][-1] > a["accuracy"][0]
+            for a in asy):
+        raise RuntimeError("part b: dist_async %s (server pushes %s, want "
+                           "%d)" % (asy, asy[0].get("server_pushes"),
+                                    expected))
+    batches = sync[0]["pushes"] // 2
+    ar = sync[0]["collectives"].get("allreduce", {})
+    for name, rs in (("dist_sync", sync), ("dist_async", asy)):
+        ep = [max(w) for w in zip(*[r["epoch_wall_s"] for r in rs])]
+        bps = [n * (batches // len(ep)) / w for w in ep]
+        log("  (b) sparse_linear_classification.py at the Avazu width, %s, "
+            "%d ranks on their halves: accuracy %s; epoch walls %s s, %s "
+            "batches/s over both ranks (phase 23's one process: 24.9-32.1 "
+            "(PERF.md))%s  [%s]"
+            % (name, n, ["%.3f" % a for a in rs[0]["accuracy"]],
+               ["%.3f" % w for w in ep], ["%.2f" % b for b in bps],
+               "; all-reduce %.3f ms and %.0f bytes a batch (its two "
+               "pushes; %d collectives in %d batches), busy share %.3f of "
+               "%.1f ms (rank 0, one epoch profiled)"
+               % (ar["ms"] / batches, ar["bytes"] / batches, ar["calls"],
+                  batches,
+                                    rs[0]["profile"]["device_busy_share"],
+                                    rs[0]["profile"]["wall_ms"])
+               if name == "dist_sync" else "; server pushes %d, each "
+               "applied once" % asy[0]["server_pushes"], card))
+    log("  (b) dist_sync's final weight and bias bitwise the one-process "
+        "replay of %d pushes (both ranks' gradients a step as a list to a "
+        "local store, AdaGrad lr 0.5): %.1f s wall" % (n_push, walls["b"]))
+
+    return rb
+
+
+def dist_part_c(dev, card, report, sites, walls, P=DIST):
+    """Part c: ResNet-50, the kvstore path and DDP at 1 MiB, the
+    automatic bucket size (``MXNET_DDP_BUCKET_MB`` unset) and 64 MiB ->
+    (the ranks' results, the paths' rows, B1's checks at batch 64 in
+    bf16 and f32)."""
+    n = P["ranks"]
+    torch.backends.cudnn.deterministic = True
+    b1_bf16 = b1_train_phase(sites, dev, batch=P["resnet_batch"])
+    b1_f32 = b1_train_phase(sites, dev, batch=P["resnet_batch"],
+                            dtype=torch.float32)
+    walls["c"], _ = dist_launch("c", n, "--max-restarts", "0")
+    rc = dist_results("c", n)
+    replay = resnet_replay(dev, n)
+    torch.backends.cudnn.deterministic = False
+    for run in rc[0]:
+        if any(r[run]["params"] != rc[0][run]["params"] for r in rc):
+            raise RuntimeError("part c %s: the ranks' weights differ" % run)
+        if not all(falling(r[run]["losses"]) for r in rc):
+            raise RuntimeError("part c %s: losses do not fall: %s"
+                               % (run, [r[run]["losses"] for r in rc]))
+    c0 = rc[0]
+    for run in ("ddp_auto", "ddp_64mb"):
+        if c0["ddp_1mb"]["params"] != c0[run]["params"] or \
+                c0["ddp_1mb"]["aux"] != c0[run]["aux"]:
+            raise RuntimeError("part c: the bucket size changed the weights "
+                               "(%s against ddp_1mb)" % run)
+    if c0["ddp_64mb_f32"]["params"] != c0["kvstore"]["params"]:
+        diff = [k for k in c0["kvstore"]["params"]
+                if c0["kvstore"]["params"][k] !=
+                c0["ddp_64mb_f32"]["params"][k]]
+        raise RuntimeError("part c: DDP in f32 is not bitwise the kvstore "
+                           "path (%d of %d parameters differ: %s)"
+                           % (len(diff), len(c0["kvstore"]["params"]),
+                              diff[:5]))
+    for r in rc:
+        if r["ddp_1mb"]["first_grads"] != replay:
+            raise RuntimeError("part c: the first step's all-reduced "
+                               "gradient is not bitwise the one-process "
+                               "replay")
+    if not (c0["kvstore"]["update_on_kvstore"] and all(
+            c0[k]["ddp"] for k in ("ddp_1mb", "ddp_auto", "ddp_64mb",
+                                   "ddp_64mb_f32"))):
+        raise RuntimeError("part c: the paths did not engage as asked")
+    img_n = n * P["resnet_batch"]
+    rows_c = {}
+    for run in ("kvstore", "ddp_1mb", "ddp_auto", "ddp_64mb",
+                "ddp_64mb_f32"):
+        st = [max(s) for s in zip(*[r[run]["step_ms"][1:] for r in rc])]
+        p50 = float(np.median(st))
+        ar = c0[run]["collectives"].get("allreduce", {"calls": 0,
+                                                      "bytes": 0, "ms": 0})
+        steps = P["resnet_steps"]
+        rows_c[run] = {"step_ms_p50": p50, "img_per_s": img_n * 1e3 / p50,
+                       "allreduce_ms_step": ar["ms"] / steps,
+                       "allreduce_bytes_step": ar["bytes"] / steps,
+                       "collectives_step": ar["calls"] / steps,
+                       "peak_gb": [r[run]["peak_gb"] for r in rc]}
+        log("  (c) ResNet-50 %s (%s): step p50 %.2f ms (steps 2-%d, "
+            "the slower rank), %.1f images/s over both ranks; all-reduce "
+            "%.2f ms and %.1f MB a step in %.0f collectives; peak memory %s "
+            "GB; losses %s -> %s  [%s]"
+            % (run, c0[run]["compute"], p50, steps,
+               rows_c[run]["img_per_s"], rows_c[run]["allreduce_ms_step"],
+               rows_c[run]["allreduce_bytes_step"] / 1e6,
+               rows_c[run]["collectives_step"],
+               ["%.2f" % g for g in rows_c[run]["peak_gb"]],
+               "%.3f" % c0[run]["losses"][0], "%.3f" % c0[run]["losses"][-1],
+               card))
+    prof = [r["ddp_64mb"]["profile"] for r in rc]
+    one = report.get("resnet_train", {}).get("bf16", {}).get("step_ms_p50")
+    log("  (c) DDP buckets: %d at 1 MiB, %d at the automatic %d bytes, %d "
+        "at 64 MiB; busy share %s "
+        "(each rank, 2 profiled DDP steps); phase 13's one-process bf16 "
+        "step at batch 128 in this run: %s ms. Weights bitwise across "
+        "ranks in every run, the three bucket sizes bitwise, DDP in f32 "
+        "bitwise the kvstore path (f32 eager: the kvstore path's update "
+        "runs in the store, outside the fused bf16 step), the first "
+        "step's all-reduced gradient bitwise the one-process replay of "
+        "the two half-batches; B1 %s a rank and run, no fallback: %.1f s "
+        "wall" % (c0["ddp_1mb"]["ddp_stats"]["buckets"],
+                  c0["ddp_auto"]["ddp_stats"]["buckets"],
+                  c0["ddp_auto"]["ddp_stats"]["bucket_bytes_plan"],
+                  c0["ddp_64mb"]["ddp_stats"]["buckets"],
+                  ["%.3f" % p["device_busy_share"] for p in prof],
+                  "%.2f" % one if one else "not measured",
+                  json.dumps(c0["kvstore"]["launches"]), walls["c"]))
+
+    return rc, rows_c, b1_bf16, b1_f32
+
+
+def dist_part_d(dev, card, walls, P=DIST):
+    """Part d: train_mnist.py's MLP, uninterrupted; killed at step 7 and
+    resumed; its checkpoint resharded -> (run 1's results, B5's rows)."""
+    from mxnet_tpu_torch import checkpoint as ckpt
+    from mxnet_tpu_torch.parallel import layout
+    n = P["ranks"]
+    walls["d1"], _ = dist_launch("d", n, "--max-restarts", "0",
+                                 env={"PHASE24_RUN": "run1"})
+    root = os.path.join(DIST_DIR, "mnist_ckpt")
+    walls["d2"], out = dist_launch(
+        "d", n, "--max-restarts", "1", "--restart-backoff", "0.2",
+        "--checkpoint-dir", root, "--env",
+        "MXNET_FAULT_INJECT=kill@step=%d:rank=0" % P["kill_step"],
+        env={"PHASE24_RUN": "run2"})
+    if "launch: restarting the group" not in out or \
+            "resumed from checkpoint step" not in out:
+        raise RuntimeError("part d: no kill and resume:\n%s" % out[-4000:])
+    for r in range(n):
+        with np.load(os.path.join(DIST_DIR, "mnist_run1_rank%d.npz" % r)) \
+                as a, np.load(os.path.join(DIST_DIR, "mnist_run2_rank%d.npz"
+                                           % r)) as b:
+            for k in a.files:
+                if not np.array_equal(a[k], b[k]):
+                    raise RuntimeError("part d: rank %d's %s after the "
+                                       "resume is not bitwise run 1's"
+                                       % (r, k))
+    d1 = dist_results("d_run1", n)
+    steps = d1[0]["steps"]
+    for r in d1:
+        if r["fallback"] or r["launches"] != dict(
+                dict.fromkeys(r["launches"], 0), scale_bias_act=2 * steps):
+            raise RuntimeError("part d: launches %s (want B5 2 a forward "
+                               "over %d steps), fallback %s"
+                               % (r["launches"], steps, r["fallback"]))
+    states, mans, s = ckpt._load_rank_states(root)
+    gathered = layout.gather_state(states, layout.LayoutManifest.from_dict(
+        mans[0]["meta"]["layout"]))
+    rep = ckpt.reshard_checkpoint(root, 1, dst_root=root + "-w1")
+    got, man = ckpt.CheckpointManager(root + "-w1", rank=0, world=1,
+                                      async_save=False).restore_resharded()
+    direct, _ = ckpt.CheckpointManager(root, rank=0, world=1,
+                                       async_save=False).restore_resharded()
+    for st in (got, direct):
+        for k, v in gathered.items():
+            if k == "__data_cursor__":
+                continue
+            same = bytes(v) == bytes(st[k]) if isinstance(v, bytes) else \
+                np.array_equal(v, st[k])
+            if not same:
+                raise RuntimeError("part d: resharded %s is not bitwise the "
+                                   "gathered state" % k)
+    b5_rows = [b5_row(s_, torch.float32, dev, "train_mnist.py's fc%d, a "
+                      "rank of part d" % (i + 1))
+               for i, s_ in enumerate(EX["mnist_b5"])]
+    for row in b5_rows:
+        row["launches"] = sum(r["launches"]["scale_bias_act"]
+                              for r in d1) // 2
+    log("  (d) train_mnist.py's MLP at dist_sync, %d ranks, %d steps: run 1 "
+        "%.1f s; run 2 killed at step %d on rank 0 and resumed by the "
+        "launcher from step %s, final weights bitwise run 1's (%.1f s); "
+        "B5 2 a forward (%d a rank), no fallback; run 2's checkpoint "
+        "resharded 2 -> 1 (step %d, fingerprint %s) and restored by "
+        "restore_resharded bitwise the gathered state"
+        % (n, steps, walls["d1"], P["kill_step"],
+           "/".join(sorted(set(ln.split("step ")[1].split(" ")[0]
+                               for ln in out.splitlines()
+                               if "resumed from checkpoint step" in ln))),
+           walls["d2"], 2 * steps, rep["step"], rep["layout_fingerprint"]))
+    return d1, b5_rows
+
+
+def dist_path(dev, card, report, sites):
+    """Phase 24 (see the module docstring) -> the B1 launches of its
+    ranks by dtype, B1's checks at batch 64 (bf16, f32) and B5's rows
+    with their launches."""
+    t_phase = time.perf_counter()
+    log("phase 24: multi-process training, two and three ranks on cuda:0 "
+        "through the port's launcher (gloo)")
+    import shutil
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    walls = {}
+    dist_part_a(dev, card, walls)
+    rb = dist_part_b(dev, card, walls)
+    rc, rows_c, b1_bf16, b1_f32 = dist_part_c(dev, card, report, sites,
+                                              walls)
+    d1, b5_rows = dist_part_d(dev, card, walls)
+    wall = time.perf_counter() - t_phase
+    log("phase 24 wall: %.1f s (a %.1f, a at 2 ranks and b %.1f, c %.1f, "
+        "d %.1f + %.1f)" % (wall, walls["a3"], walls["b"], walls["c"],
+                            walls["d1"], walls["d2"]))
+    report["dist"] = {"walls": walls, "wall_s": wall, "sparse": rb,
+                      "resnet": rows_c, "resnet_ranks": rc, "mnist": d1}
+    b1_by_dtype = {
+        "bfloat16": {form: sum(r[run]["launches"][form] for r in rc
+                               for run in ("ddp_1mb", "ddp_auto",
+                                           "ddp_64mb"))
+                     for form in ("bn_act", "bn_act_res")},
+        "float32": {form: sum(r[run]["launches"][form] for r in rc
+                              for run in ("kvstore", "ddp_64mb_f32"))
+                    for form in ("bn_act", "bn_act_res")}}
+    return b1_by_dtype, b1_bf16, b1_f32, b5_rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", help="also write the full JSON report here")
+    ap.add_argument("--worker", choices=("a", "b", "c", "d"),
+                    help="run one rank of a phase-24 part (the launcher "
+                         "starts these)")
+    ap.add_argument("--out", help="the phase-24 worker's output directory")
     opts = ap.parse_args()
+    if opts.worker:
+        return worker_main(opts.worker, opts.out)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -10288,6 +10971,8 @@ def main():
     cifar_b1, cifar_rows, cifar_tot, cifar_err, mnist_b5 = \
         common_ops_path(dev, card, report)
     nce_b2, nce_rows = examples_path(dev, card, report)
+    dist_b1, dist_b1_bf16, dist_b1_f32, dist_b5 = dist_path(dev, card, report,
+                                                            sites)
 
     kernels = []
     for form in ("bn_act", "bn_act_res"):
@@ -10332,6 +11017,14 @@ def main():
         paths["cifar10_train"] = (cifar_b1[form], cifar_err,
                                   cifar_tot[form],
                                   [EX["cifar"]["batch"], "bfloat16"])
+        # phase 24: ResNet-50's ranks at batch 64 (the DDP runs in bf16,
+        # the kvstore path and DDP in f32), each timed at its shapes
+        paths["dist_resnet_bf16"] = (
+            dist_b1["bfloat16"][form], dist_b1_bf16[0][form],
+            dist_b1_bf16[2][form], [DIST["resnet_batch"], "bfloat16"])
+        paths["dist_resnet_f32"] = (
+            dist_b1["float32"][form], dist_b1_f32[0][form],
+            dist_b1_f32[2][form], [DIST["resnet_batch"], "float32"])
         by_path = {p: {"launches": n, "max_abs_err": e, "batch_dtype": bd,
                        "ms": t["kernel_ms"],
                        "ms_clean_l2": t["kernel_clean_ms"],
@@ -10441,6 +11134,10 @@ def main():
             more += [("mnist_train/fc%d" % (i + 1), row["launches"],
                       row["max_abs_err"], row)
                      for i, row in enumerate(mnist_b5)]
+            # phase 24: the same MLP in two ranks at dist_sync (run 1)
+            more += [("dist_mnist/fc%d" % (i + 1), row["launches"],
+                      row["max_abs_err"], row)
+                     for i, row in enumerate(dist_b5)]
         if more:
             entry["by_path"] = {
                 p: dict(launches=n, max_abs_err=e, shape=row["shape"],

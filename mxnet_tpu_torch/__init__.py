@@ -35,8 +35,16 @@ the legacy flash forward ``flash_fwd``, the int8 epilogue
 Importing does no device work and builds nothing. Entry points run on
 ``cuda:0`` unless the caller asks for the CPU (``device="cpu"`` or
 ``mxnet_tpu_torch.cpu()``); without a card they raise. The package
-imports neither ``jax`` nor ``mxnet_tpu``.
+imports neither ``jax`` nor ``mxnet_tpu``. A process that a ps-lite
+launcher started in the ``server`` or ``scheduler`` role (``DMLC_ROLE``)
+exits at import (``kvstore_server``), as the reference's does.
 """
+import os as _os
+
+if _os.environ.get("DMLC_ROLE", "") in ("server", "scheduler"):
+    from . import kvstore_server as _kvs
+    _kvs._init_kvstore_server_module()
+
 from . import config  # noqa: F401
 from .base import MXNetError  # noqa: F401
 from .context import Context, cpu, current_context, gpu  # noqa: F401
@@ -58,6 +66,7 @@ from . import rnn  # noqa: F401
 from . import parallel  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
+from . import kvstore_server  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import callback  # noqa: F401
 from . import model  # noqa: F401

@@ -1,5 +1,5 @@
 """Atomic training-state checkpoints (counterpart of
-``mxnet_tpu/checkpoint.py``), one process.
+``mxnet_tpu/checkpoint.py``).
 
 ``CheckpointManager`` persists the full training state (parameters, aux
 states, the optimizer's state and update counts, the random key chain,
@@ -24,9 +24,16 @@ copy the device tensors to the host first. Retention keeps the newest
 The npz keys are the JAX package's (``arg:``, ``aux:``,
 ``param:<i>:<name>``, ``__opt__``, ``__rng__``, ``__data_cursor__`` and
 ``__bytes_keys__``), so a snapshot written by either package restores
-in the other. The port's snapshots carry no layout record: resharding
-a snapshot to another world size (``reshard_checkpoint``,
-``restore_resharded``) is multi-process work (ROADMAP A6c) and raises.
+in the other. Every snapshot's manifest carries its layout record
+(``meta["layout"]``, a ``parallel/layout.py`` manifest: the inferred
+all-replicated layout unless the caller passes one), so a run saved at
+world N restores at another world size: ``restore_resharded`` gathers
+every old rank's snapshot at the newest step that all of them committed
+and re-slices it for this rank, and ``reshard_checkpoint`` (``python -m
+mxnet_tpu_torch.tools.reshard``) writes a new root for another world.
+Fault points (``parallel/faultinject.py``): ``ckpt`` between the data
+file and the manifest (``phase="pre_manifest"``) and after the manifest
+(``phase="committed"``).
 
 Environment: ``MXNET_CHECKPOINT_DIR`` turns checkpoints on in
 ``Module.fit`` and the Gluon ``Trainer``, ``MXNET_CHECKPOINT_EVERY``
@@ -46,8 +53,6 @@ import threading
 import zlib
 
 import numpy as _np
-
-from .parallel import dist as _dist
 
 __all__ = ["CheckpointManager", "atomic_replace", "atomic_write_bytes",
            "module_state", "restore_module", "trainer_state",
@@ -242,9 +247,24 @@ class CheckpointManager:
             _log.error("async checkpoint save failed: %s", e)
 
     def _write(self, state, step, epoch, nbatch, meta):
+        from .parallel import faultinject as _fi
+        meta = dict(meta or {})
+        if "layout" not in meta:
+            # every snapshot carries its layout: by default the inferred
+            # all-replicated (DDP) one; a sharded caller passes its own
+            try:
+                from .parallel import layout as _layout
+                meta["layout"] = _layout.infer_manifest(
+                    state, self._world).to_dict()
+            except Exception as e:
+                _log.warning("checkpoint: could not derive a layout "
+                             "manifest (%s); snapshot will only restore "
+                             "at world %d", e, self._world)
         blob = _encode_state(state)
         data_path = self._data_path(step)
         atomic_write_bytes(data_path, blob)
+        # a kill here leaves data without a manifest: no snapshot
+        _fi.fire("ckpt", step=step, path=data_path, phase="pre_manifest")
         manifest = {
             "version": _MANIFEST_VERSION,
             "step": int(step),
@@ -255,10 +275,13 @@ class CheckpointManager:
             "crc32": zlib.crc32(blob) & 0xFFFFFFFF,
             "rank": self._rank,
             "world": self._world,
-            "meta": dict(meta or {}),
+            "meta": meta,
         }
         atomic_write_bytes(self._manifest_path(step),
                            json.dumps(manifest, indent=1).encode())
+        # a truncation here corrupts a committed snapshot: the CRC check
+        # at restore skips it
+        _fi.fire("ckpt", step=step, path=data_path, phase="committed")
         self._retain()
 
     def _retain(self):
@@ -290,9 +313,33 @@ class CheckpointManager:
         return self.restore()
 
     def restore_resharded(self, step=None):
-        """A snapshot written at another world size, resliced for this
-        rank: multi-process work (ROADMAP A6c)."""
-        raise _dist.multi_process_error("restore_resharded")
+        """This rank's state from a root written at ANY world size. At
+        this manager's world it is :meth:`restore`; otherwise every old
+        rank's snapshot at the newest step all of them committed is
+        gathered per the layout record in its meta and re-sliced for
+        this rank of this world (a missing or corrupt record falls back
+        to the inferred all-replicated layout). -> ``(state, manifest)``
+        with ``meta["resharded_from"]``, or ``(None, None)``."""
+        state, manifest = self.restore(step)
+        if manifest is not None and \
+                int(manifest.get("world", self._world)) == self._world:
+            return state, manifest
+        states, manifests, s = _load_rank_states(self.root, step)
+        if not states:
+            return state, manifest
+        from .parallel import layout as _layout
+        r0 = min(manifests)
+        man0 = manifests[r0]
+        old_world = int(man0.get("world", len(states)))
+        layout = _layout_of(man0, states[r0], old_world)
+        new_states, new_layout = _layout.reshard_states(
+            states, layout, self._world)
+        out_meta = dict(man0.get("meta") or {})
+        out_meta["layout"] = new_layout.to_dict()
+        out_meta["resharded_from"] = {"world": old_world, "step": s}
+        out = dict(man0, rank=self._rank, world=self._world,
+                   meta=out_meta)
+        return new_states.get(self._rank), out
 
 
 def _load_snapshot(directory, step):
@@ -346,10 +393,115 @@ def _steps_in(directory):
     return out
 
 
+def _rank_dirs(root):
+    """{rank: path} of a checkpoint root's ``rank_<r>`` directories."""
+    out = {}
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return out
+    for name in names:
+        if name.startswith("rank_"):
+            try:
+                out[int(name[5:])] = os.path.join(root, name)
+            except ValueError:
+                continue
+    return out
+
+
+def _load_rank_states(root, step=None):
+    """Every rank's (state, manifest) at the newest step committed by
+    ALL ranks (at most ``step``) -> ``(states_by_rank,
+    manifests_by_rank, step)``, empty dicts when there is no such step.
+    A rank directory with no snapshot (a manager of a larger world that
+    was only constructed) holds no shard and does not veto the step."""
+    dirs = {r: d for r, d in _rank_dirs(root).items() if _steps_in(d)}
+    if not dirs:
+        return {}, {}, None
+    common = None
+    for d in dirs.values():
+        steps = set(_steps_in(d))
+        common = steps if common is None else (common & steps)
+    for s in sorted((s for s in (common or ())
+                     if step is None or s <= step), reverse=True):
+        states, manifests = {}, {}
+        for r, d in sorted(dirs.items()):
+            got = _load_snapshot(d, s)
+            if got is None:
+                break
+            states[r], manifests[r] = got
+        else:
+            return states, manifests, s
+    return {}, {}, None
+
+
+def _layout_of(manifest, state, world):
+    """The ``LayoutManifest`` a snapshot was written under, from its
+    meta; the inferred all-replicated layout when the record is missing,
+    corrupt, or claims another world than the rank directories hold."""
+    from .parallel import layout as _layout
+    rec = (manifest.get("meta") or {}).get("layout")
+    if rec is not None:
+        try:
+            man = _layout.LayoutManifest.from_dict(rec)
+            if man.world == int(world):
+                return man
+            _log.warning("checkpoint: layout manifest claims world %d "
+                         "but %d rank snapshots exist; re-inferring",
+                         man.world, world)
+        except (ValueError, TypeError, KeyError) as e:
+            _log.warning("checkpoint: corrupt layout manifest (%s); "
+                         "falling back to the replicated layout", e)
+    return _layout.infer_manifest(state, world)
+
+
 def reshard_checkpoint(src_root, new_world, dst_root=None, step=None):
     """Rewrite a multi-rank checkpoint root for another world size:
-    multi-process work (ROADMAP A6c)."""
-    raise _dist.multi_process_error("reshard_checkpoint")
+    every parameter gathered per the snapshots' layout, re-sliced for
+    ``new_world`` ranks and committed as ``rank_0 .. rank_{W-1}`` under
+    ``dst_root`` (default ``<src_root>-w<N>``, never in place: a shrink
+    would leave surplus old rank directories beside the new ones). The
+    optimizer state and the key chain travel replicated; the data cursor
+    is dropped (a cursor is fingerprinted by rank and world). Returns a
+    report dict (``python -m mxnet_tpu_torch.tools.reshard`` prints
+    it)."""
+    new_world = int(new_world)
+    if new_world < 1:
+        raise ValueError("reshard_checkpoint: new_world must be >= 1")
+    from .parallel import layout as _layout
+    states, manifests, s = _load_rank_states(src_root, step)
+    if not states:
+        raise ValueError("reshard_checkpoint: no common committed step "
+                         "across rank dirs in %r" % src_root)
+    r0 = min(manifests)
+    man0 = manifests[r0]
+    old_world = int(man0.get("world", len(states)))
+    layout = _layout_of(man0, states[r0], old_world)
+    new_states, new_layout = _layout.reshard_states(states, layout,
+                                                    new_world)
+    dst_root = (os.fspath(dst_root) if dst_root
+                else "%s-w%d" % (os.fspath(src_root).rstrip("/"),
+                                 new_world))
+    meta = dict(man0.get("meta") or {})
+    meta["layout"] = new_layout.to_dict()
+    meta["resharded_from"] = {"world": old_world, "step": s}
+    for r, st in sorted(new_states.items()):
+        cm = CheckpointManager(dst_root, rank=r, world=new_world,
+                               async_save=False)
+        cm.save(st, s, epoch=int(man0.get("epoch", 0)),
+                nbatch=int(man0.get("nbatch", 0)), meta=meta,
+                blocking=True)
+    return {
+        "kind": "checkpoint",
+        "src": os.fspath(src_root),
+        "dst": dst_root,
+        "step": s,
+        "old_world": old_world,
+        "new_world": new_world,
+        "params": len([k for k in new_states[0]
+                       if not k.startswith("__")]),
+        "layout_fingerprint": new_layout.fingerprint(),
+    }
 
 
 # ---------------------------------------------------------------------------

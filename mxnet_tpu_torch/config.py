@@ -172,6 +172,24 @@ register_flag("device_metrics", "MXNET_DEVICE_METRICS", _parse_bool, True,
               "accumulators, transferring to host only at display/epoch "
               "boundaries. Off: per-batch host update (reference "
               "semantics, one device->host sync per batch).")
+register_flag("ddp", "MXNET_DDP", _parse_bool, False,
+              "Route dist_sync gradient exchange through the bucketed "
+              "all-reduce (parallel/ddp.py): gradients are partitioned "
+              "into size-bounded dtype-homogeneous buckets and each bucket "
+              "is one flattened all-reduce over the process group after "
+              "the backward, the optimizer replicated on every rank. Off: "
+              "the kvstore push/pull path (one collective per tensor). "
+              "python -m mxnet_tpu_torch.tools.launch --ddp exports this "
+              "to every worker.")
+register_flag("ddp_axis", "MXNET_DDP_AXIS", str, "dp",
+              "Name of the data-parallel axis the DDP reducer reduces "
+              "over (the JAX package's mesh axis; the port's group has "
+              "this one axis).")
+register_flag("ddp_bucket_mb", "MXNET_DDP_BUCKET_MB", float, 0.0,
+              "Gradient bucket size in MiB for the DDP all-reduce path. "
+              "0 (default) = auto: sized from the group link's bandwidth "
+              "(perfmodel) so one bucket's transfer time amortizes a "
+              "collective's launch overhead (clamped to [1, 64] MiB).")
 register_flag("serve_buckets", "MXNET_SERVE_BUCKETS", str, "1,2,4,8,16,32",
               "Batch-size buckets the online serving runtime pads "
               "coalesced request batches to, comma separated ascending.")

@@ -6,7 +6,7 @@ whether the spill store, a dense table or a reference run makes it.
 :func:`local_gather` is the tier's row gather (B2, ``take_rows``, on a
 CUDA table; its plain version on a CPU one). The mesh-sharded lookup
 (``sharded_lookup``, ``ShardedEmbedding``: an all-to-all inside
-``shard_map``) is distributed training, not ported yet (ROADMAP A6);
+``shard_map``) is distributed training, not ported yet (ROADMAP A6d);
 both raise.
 """
 from __future__ import annotations
@@ -43,13 +43,13 @@ def local_gather(shard, idx):
 
 def sharded_lookup(*args, **kwargs):
     raise MXNetError("embed.sharded_lookup: the mesh-sharded lookup is "
-                     "distributed training, not ported yet (ROADMAP A6)")
+                     "distributed training, not ported yet (ROADMAP A6d)")
 
 
 class ShardedEmbedding:
-    """Not ported yet (ROADMAP A6): raises."""
+    """Not ported yet (ROADMAP A6d): raises."""
 
     def __init__(self, *args, **kwargs):
         raise MXNetError("embed.ShardedEmbedding: mesh-sharded tables are "
                          "distributed training, not ported yet "
-                         "(ROADMAP A6)")
+                         "(ROADMAP A6d)")

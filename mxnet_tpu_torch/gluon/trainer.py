@@ -32,7 +32,13 @@ gradient for the store's optimizer and pulling the weights back.
 Otherwise the step pushes each gradient to the store and pulls the
 reduced (with ``compression_params``, the 2-bit quantized) gradient
 back into the parameter's gradient before the update; ``device`` and
-``local`` stores do the same. ``checkpoint=`` (or
+``local`` stores do the same. Across processes ``dist_sync`` all-reduces
+each push and ``dist_async`` sends it to rank 0's server
+(``kvstore.py``); under ``MXNET_DDP`` a ``dist_sync`` store leaves the
+exchange to one bucketed all-reduce a dtype bucket over every gradient
+(``parallel.dist.allreduce_tree``) and the optimizer runs on every rank,
+as the JAX package's Trainer does. ``step`` fires the ``step`` fault
+point (``parallel/faultinject.py``) with the number of steps done. ``checkpoint=`` (or
 ``MXNET_CHECKPOINT_DIR``) snapshots the parameters, the optimizer state
 and the key chain every ``save_every`` steps, and with
 ``MXNET_RESUME_DIR`` the first step restores the newest snapshot;
@@ -102,6 +108,7 @@ class Trainer:
         self._kv_initialized = False
         self._kvstore = None
         self._update_on_kvstore = None
+        self._ddp = False
         if checkpoint is None:
             from ..checkpoint import CheckpointManager
             checkpoint = CheckpointManager.from_env()
@@ -125,6 +132,14 @@ class Trainer:
             if update_on_kvstore is None:
                 # dist_*: the optimizer runs in the store
                 update_on_kvstore = kv.type.startswith("dist")
+                # MXNET_DDP: dist_sync's exchange is one bucketed
+                # all-reduce a dtype bucket, the optimizer on every rank;
+                # dist_async keeps its server
+                if update_on_kvstore and not kv.type.endswith("async"):
+                    from ..parallel import ddp as _ddp
+                    if _ddp.enabled():
+                        update_on_kvstore = False
+                        self._ddp = True
             self._update_on_kvstore = bool(update_on_kvstore)
             for i, param in enumerate(self._params):
                 if param.grad_req == "null":
@@ -155,6 +170,8 @@ class Trainer:
             from ..checkpoint import CheckpointManager
             if CheckpointManager.should_resume():
                 self.restore_checkpoint()
+        from ..parallel import faultinject as _fi
+        _fi.fire("step", step=self._global_step)
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
@@ -200,6 +217,16 @@ class Trainer:
     def _allreduce_grads(self):
         if self._kvstore is None or self._update_on_kvstore:
             return  # on the kvstore, push and pull happen in _update
+        if self._ddp:
+            # one collective a dtype bucket over every gradient, not a
+            # push and a pull a parameter
+            from ..parallel import dist as _dist
+            grads = [p.grad()._data for p in self._params
+                     if p.grad_req != "null"]
+            with torch.no_grad():
+                for g, r in zip(grads, _dist.allreduce_tree(grads)):
+                    g.copy_(r)
+            return
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue

@@ -1,5 +1,5 @@
 """Key-value store for parameter synchronization (counterpart of
-``mxnet_tpu/kvstore.py``), one process.
+``mxnet_tpu/kvstore.py``).
 
 ``init``/``push``/``pull``/``row_sparse_pull``/``pushpull``/
 ``broadcast`` keep the JAX package's rules:
@@ -12,20 +12,42 @@
 * ``pull`` skips row_sparse values under ``ignore_sparse=True``;
 * ``set_gradient_compression({"type": "2bit", "threshold": t})``
   quantizes every dense push to {-t, 0, +t} with the error carried per
-  key (``_compress``), the same round trip the JAX package applies in one
-  process; ``_pack_2bit`` and ``_dequantize_2bit`` are its wire form.
+  key (``_compress``); ``_pack_2bit`` and ``_dequantize_2bit`` are its
+  wire form.
 
-Every name in ``_VALID`` creates a store. In one process ``dist_*``
-behaves as the JAX package's does there: the store applies the update on
-push and no cross-process reduce runs. Values stay on the device they
-came from: the store keeps torch tensors (row_sparse values as
-``RowSparseNDArray``), and a card tensor is summed, quantized and
-updated on the card. The 2-bit quantize is plain torch operations, as the
-JAX package's is plain ``jnp`` outside any Pallas kernel. A launcher
-environment naming more than one worker raises (ROADMAP A6c), as do the
-server commands and the dead-node count.
+Every name in ``_VALID`` creates a store. ``dist_*`` joins the
+launcher's process group (``parallel.dist``, ``python -m
+mxnet_tpu_torch.tools.launch``); in one process it behaves as the JAX
+package's does there: the store applies the update on push and no
+cross-process reduce runs. Across processes:
+
+* ``dist_sync``: ``init`` is a broadcast of rank 0's value (a
+  row_sparse value densified for it); ``push`` all-reduces the
+  aggregate over the group (a row_sparse one densified for the
+  collective and cast back), then applies the update on every rank, so
+  every rank holds the same weights. With 2-bit compression the packed
+  codes are what crosses the group: every rank all-gathers them and sums
+  their dequantized values in rank order (``_dist_reduce_2bit``). Every
+  rank must push the same keys in the same order.
+* ``dist_async``: rank 0 runs the apply-on-push server
+  (``parallel/async_server.py``) on its device, its port broadcast once;
+  every rank's push goes to it and is applied at once, with no barrier,
+  and a pull fetches the weights as they stand.
+
+Values stay on the device they came from: the store keeps torch tensors
+(row_sparse values as ``RowSparseNDArray``), and a card tensor is summed,
+quantized, reduced and updated on the card (the group's collectives take
+card tensors; ``parallel.dist``). The 2-bit quantize is plain torch
+operations, as the JAX package's is plain ``jnp`` outside any Pallas
+kernel. ``get_num_dead_node`` counts the ranks whose heartbeat went stale
+(``parallel/fault.py``); ``_send_command_to_servers`` reaches the
+``dist_async`` server and is refused elsewhere.
 """
 from __future__ import annotations
+
+import os
+import pickle
+import types
 
 import numpy as _np
 import torch
@@ -62,10 +84,42 @@ class KVStore:
         self._compression_params = None
         self._residuals = {}
         self._last_wire_bytes = None   # payload of the last push on a wire
-        # dist_* joins the launcher's group; one process has none to join
-        # (a world of more than one raises, ROADMAP A6c)
+        # dist_* joins the launcher's group; in one process there is none
+        # and the store is local
+        self._dist = False
+        self._async_server = None
+        self._async_client = None
         if kv_type.startswith("dist"):
-            _dist.init()
+            self._dist = _dist.init() and _dist.num_workers() > 1
+        if self._dist and kv_type == "dist_async":
+            self._start_async()
+
+    def _start_async(self):
+        """dist_async: rank 0 hosts the apply-on-push server thread on
+        its device, every rank connects a client; one broadcast shares
+        the port, and after it no rank waits for another."""
+        from .context import resolve_device
+        from .parallel import async_server as _async
+        coord = _dist.env_spec()[0]
+        host = _async._host_of(coord) if coord else None
+        if _dist.rank() == 0:
+            # with a job secret the server binds the coordinator's
+            # interface (remote workers, authenticated frames); without
+            # one it stays on loopback
+            bind = None
+            if os.environ.get("MXNET_KVSTORE_SECRET") and \
+                    not os.environ.get("MXNET_KVSTORE_BIND"):
+                bind = host
+            self._async_server = _async.Server(bind=bind,
+                                               device=resolve_device())
+            port = self._async_server.port
+        else:
+            port = 0
+        port = int(_dist.broadcast(torch.tensor([port], dtype=torch.int64),
+                                   root=0)[0])
+        self._async_client = _async.Client(
+            os.environ.get("MXNET_ASYNC_SERVER_HOST") or host
+            or "127.0.0.1", port)
 
     # ------------------------------------------------------------- metadata
     @property
@@ -81,16 +135,38 @@ class KVStore:
         return _dist.num_workers()
 
     def get_num_dead_node(self, node_id=0, timeout=60):
-        """Workers whose heartbeat went stale: the heartbeats belong to
-        the multi-process launcher, which is not ported."""
-        raise _dist.multi_process_error("get_num_dead_node")
+        """Number of workers whose heartbeat went stale (the reference's
+        ps-lite scheduler heartbeats). ``node_id`` selects a ps-lite node
+        group there; here only workers exist, so it is ignored. The beats
+        are the per-rank files under the launcher's heartbeat directory
+        (``parallel/fault.py``)."""
+        from .parallel import fault as _fault
+        return len(_fault.dead_nodes(self.num_workers, timeout=timeout))
 
     # ----------------------------------------------------------------- init
     def init(self, key, value):
         keys, values = _key_value(key, value)
         for k, v in zip(keys, values):
             v0 = v[0] if isinstance(v, list) else v
-            if _is_sparse(v0):
+            if self._async_client is not None:
+                dense = v0.todense()._data if _is_sparse(v0) \
+                    else _dense_tensor(v0)
+                self._async_client.call("init", k,
+                                        dense.detach().cpu().numpy())
+                # the template a pull fills: shape, dtype, device, stype
+                self._store[k] = _sp.cast_storage(
+                    v0.todense().copy(), v0.stype) if _is_sparse(v0) \
+                    else _dense_tensor(v0).detach().clone()
+                continue
+            if self._dist and _is_sparse(v0):
+                # rank 0's value everywhere; a sparse one crosses dense
+                dense = _dist.broadcast(v0.todense()._data, root=0)
+                self._store[k] = _sp.cast_storage(
+                    NDArray(dense, ctx=v0.context), v0.stype)
+            elif self._dist:
+                self._store[k] = _dist.broadcast(
+                    _dense_tensor(v0).detach(), root=0)
+            elif _is_sparse(v0):
                 self._store[k] = _sp.RowSparseNDArray(
                     v0._values.clone(), v0._indices.clone(), v0.shape,
                     ctx=v0.context) if v0.stype == "row_sparse" else \
@@ -105,10 +181,21 @@ class KVStore:
             if not isinstance(vs, list):
                 vs = [vs]
             agg = self._reduce(vs)
-            if self._compression_params and not _is_sparse(agg):
-                # the quantize -> dequantize round trip of the wire, so
-                # training converges as it would across processes
-                agg = self._compress(k, agg)
+            if self._async_client is not None:
+                self._push_async(k, agg)
+                continue
+            if self._compression_params and self._dist and \
+                    not _is_sparse(agg):
+                # the packed 2-bit codes cross the group, summed after
+                # unpacking; the residual stays on this rank
+                agg = self._dist_reduce_2bit(k, agg)
+            else:
+                if self._compression_params and not _is_sparse(agg):
+                    # in one process: the quantize -> dequantize round
+                    # trip of the wire, so training converges alike
+                    agg = self._compress(k, agg)
+                if self._dist:
+                    agg = self._dist_reduce(agg)
             if self._updater is not None:
                 if k not in self._store:
                     raise MXNetError("key %r not initialized" % k)
@@ -116,6 +203,54 @@ class KVStore:
             else:
                 # no updater: the merged push REPLACES the stored value
                 self._store[k] = agg
+
+    def _push_async(self, k, agg):
+        """dist_async: this rank's gradient to the server, which applies
+        it at once: no reduce across ranks, no barrier."""
+        g = agg.todense()._data if _is_sparse(agg) else agg
+        if self._compression_params:
+            packed, shape, thr = self._quantize_wire(k, g)
+            self._async_client.call("pushq", k, packed.cpu().numpy(),
+                                    shape, thr)
+        else:
+            g = g.detach().cpu().numpy()
+            self._last_wire_bytes = g.nbytes
+            self._async_client.call("push", k, g)
+
+    def _quantize_wire(self, key, grad):
+        """This rank's 2-bit quantize, packed four codes a byte where the
+        gradient lies; the residual stays here -> (packed uint8 tensor,
+        shape, threshold)."""
+        thr = self._compression_params["threshold"]
+        g = _dense_tensor(grad)
+        res = self._residuals.get(key)
+        if res is None:
+            res = torch.zeros_like(g)
+        packed, self._residuals[key] = _pack_2bit(g, res, thr)
+        self._last_wire_bytes = packed.numel()
+        return packed, tuple(g.shape), thr
+
+    def _dist_reduce_2bit(self, key, agg):
+        """dist_sync with compression: every rank's packed codes
+        gathered (the only bytes that cross the group), dequantized and
+        summed in rank order where the gradient lies."""
+        packed, shape, thr = self._quantize_wire(key, agg)
+        total = None
+        for row in _dist.allgather(packed):          # (world, nbytes)
+            d = _dequantize_2bit(row, shape, thr)
+            total = d if total is None else total + d
+        return total
+
+    def _dist_reduce(self, agg):
+        """The sum over the group (the reference's worker-to-server
+        aggregation as a symmetric all-reduce); a row_sparse aggregate
+        crosses dense and comes back row_sparse. ``agg`` is
+        :meth:`_reduce`'s own buffer, so it is summed in place."""
+        if _is_sparse(agg):
+            dense = _dist.allreduce_sum(agg.todense()._data, owned=True)
+            return _sp.cast_storage(NDArray(dense, ctx=agg.context),
+                                    agg.stype)
+        return _dist.allreduce_sum(agg, owned=True)
 
     def _reduce(self, vs):
         """Sum a list of values, left to right in the first one's dtype;
@@ -150,6 +285,15 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError("key %r not initialized" % k)
             src = self._store[k]
+            if self._async_client is not None:
+                # the server's weights as they stand now
+                cur = torch.from_numpy(self._async_client.call("pull", k))
+                if _is_sparse(src):
+                    src = _sp.cast_storage(
+                        NDArray(cur.to(src._values.device),
+                                ctx=src.context), src.stype)
+                else:
+                    src = cur.to(src.device)
             if isinstance(src, _sp.RowSparseNDArray) and ignore_sparse:
                 continue
             if not isinstance(os_, list):
@@ -195,6 +339,13 @@ class KVStore:
     # ------------------------------------------------------------ optimizer
     def set_optimizer(self, optimizer):
         self._optimizer = optimizer
+        if self._async_client is not None:
+            # the update runs on the server: the optimizer travels
+            # pickled, and the workers keep no updater
+            self._async_client.call("set_optimizer", _pickle_optimizer(
+                optimizer))
+            self._updater = None
+            return
         self._updater = _opt.get_updater(optimizer)
 
     def _set_updater(self, updater):
@@ -245,13 +396,34 @@ class KVStore:
         _dist.barrier()
 
     def _send_command_to_servers(self, head, body):
-        """Control message to the server group: only dist_async has one
-        (ROADMAP A6c); elsewhere a dropped message would fake success."""
+        """Control message to the server group (the reference's
+        kSetOptimizer and profiler commands): delivered to the dist_async
+        server; refused elsewhere, where no server exists and a dropped
+        message would fake success."""
+        if self._async_client is not None:
+            self._async_client.call("command", head, body)
+            return
         raise MXNetError(
             "kvstore type %r has no parameter server to command "
             "(server-side control messages exist only for dist_async; "
             "sync modes run their updates inside the compiled step)"
             % self._type)
+
+
+def _pickle_optimizer(optimizer):
+    """The optimizer as the dist_async server unpickles it: a Gluon
+    Trainer's ``param_dict`` of Parameters (tensors on this rank's card)
+    travels as their ``lr_mult``/``wd_mult`` only, which is all the
+    optimizer reads from it."""
+    keep = optimizer.param_dict
+    optimizer.param_dict = {
+        i: types.SimpleNamespace(lr_mult=getattr(p, "lr_mult", 1.0),
+                                 wd_mult=getattr(p, "wd_mult", 1.0))
+        for i, p in keep.items()}
+    try:
+        return pickle.dumps(optimizer)
+    finally:
+        optimizer.param_dict = keep
 
 
 def _copy_dense(src, o):

@@ -1,5 +1,5 @@
 """BaseModule: the training-loop surface (counterpart of
-``mxnet_tpu/module/base_module.py``, single device).
+``mxnet_tpu/module/base_module.py``).
 
 ``fit`` keeps the reference epoch loop: bind, init_params,
 init_optimizer, then per batch one step (``_fit_step``: the fused step
@@ -13,21 +13,24 @@ device-resident metric and the bounded in-flight queue are the JAX
 package's. ``fit`` keeps its input-side numbers in ``data_stats``: for
 each dispatch, the ms the loop waited for its batches and the bytes
 they brought from the host. Checkpoints and resume are the JAX
-package's, in one process: ``fit(checkpoint=CheckpointManager(...))``
-or ``MXNET_CHECKPOINT_DIR`` snapshots the whole training state every
+package's: ``fit(checkpoint=CheckpointManager(...))`` or
+``MXNET_CHECKPOINT_DIR`` snapshots the whole training state every
 ``save_every`` steps (at window ends under grouped dispatch, with the
 data cursor of an iterator that has one), and ``MXNET_RESUME_DIR``
-restores the newest snapshot and goes on from its step. A monitor
-(``fit(monitor=)``) runs the per-step eager path. ``predict``,
-``iter_predict`` and ``score`` run the inference forward. Fault
-injection (``MXNET_FAULT_INJECT``) belongs to the multi-process launcher
-(ROADMAP A6c) and raises. The session dtype policy
-(``MXNET_COMPUTE_DTYPE``) is obeyed by the Module's fused step.
+restores the newest snapshot and goes on from its step; across
+processes every rank restores the newest step that all ranks saved
+(``_common_resume_step``, one all-gather), so that no two ranks resume
+from different weights. Fault injection (``MXNET_FAULT_INJECT``,
+``parallel/faultinject.py``) fires its ``step`` point before each step,
+or each window under grouped dispatch, with the number of steps done.
+A monitor (``fit(monitor=)``) runs the per-step eager path. ``predict``,
+``iter_predict`` and ``score`` run the inference forward. The session
+dtype policy (``MXNET_COMPUTE_DTYPE``) is obeyed by the Module's fused
+step.
 """
 from __future__ import annotations
 
 import logging
-import os
 import time
 from typing import NamedTuple
 
@@ -201,9 +204,10 @@ class BaseModule:
         lr_scheduler, and the eval metric either absent or folded into
         the device step (``device_metric``), and a graph with no op that
         reads back to the host mid-step (``FusedStep.host_ops``: a
-        ``Custom`` op, ``Proposal``). Otherwise K = 1, reference per-step
-        semantics. An explicit K over such a graph runs its K steps
-        uncaptured (``FusedStep.dispatch``).
+        ``Custom`` op, ``Proposal``) and no DDP all-reduce in the step
+        (both make ``FusedStep.dispatch`` eager). Otherwise K = 1,
+        reference per-step semantics. An explicit K over such a step runs
+        its K steps uncaptured.
 
         Dispatches are not waited for one by one: a
         :class:`~mxnet_tpu_torch.engine.DepthController`
@@ -224,7 +228,7 @@ class BaseModule:
         from .. import initializer as _init
         from ..config import flags as _flags
         from ..engine import DepthController
-        from ..parallel import dist as _dist
+        from ..parallel import faultinject as _fi
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         # validate an EXPLICIT steps_per_dispatch BEFORE any side effect;
@@ -246,9 +250,6 @@ class BaseModule:
                         "monitor / sparse_row_id_fn")
         if sparse_row_id_fn is not None:
             raise MXNetError("fit: sparse_row_id_fn is not ported")
-        if os.environ.get("MXNET_FAULT_INJECT"):
-            raise _dist.multi_process_error(
-                "fit: MXNET_FAULT_INJECT is set, but fault injection")
         if initializer is None:
             initializer = _init.Uniform(0.01)
         self.bind(data_shapes=train_data.provide_data,
@@ -277,7 +278,14 @@ class BaseModule:
         resume_epoch, resume_nbatch, resume_cursor = begin_epoch, 0, None
         if ckpt is not None and _ckpt.CheckpointManager.should_resume():
             state, manifest = ckpt.restore_latest()
-            if state is not None:
+            mine = manifest["step"] if manifest is not None else -1
+            common = self._common_resume_step(mine)
+            if common >= 0 and common != mine:
+                # a rank died between its own save and a peer's: go back
+                # to the newest step every rank has, or the all-reduces
+                # after the resume would mix two weight histories
+                state, manifest = ckpt.restore(step=common)
+            if common >= 0 and state is not None:
                 resume_cursor = _ckpt.cursor_from_state(state)
                 _ckpt.restore_module(self, state)
                 global_step = manifest["step"]
@@ -289,8 +297,9 @@ class BaseModule:
                     ckpt.directory)
             else:
                 self.logger.warning(
-                    "MXNET_RESUME_DIR set but no valid checkpoint in %s; "
-                    "starting from scratch", ckpt.directory)
+                    "MXNET_RESUME_DIR set but no common valid checkpoint "
+                    "across ranks in %s; starting from scratch",
+                    ckpt.directory)
         meta = {"kvstore": kvstore if isinstance(kvstore, str)
                 else getattr(kvstore, "type", None)}
         has_cursor = hasattr(train_data, "get_cursor") \
@@ -323,7 +332,7 @@ class BaseModule:
                       and ckpt is None
                       and hasattr(self, "_fit_group")
                       and getattr(self, "_fused", None) is not None
-                      and not self._fused.host_ops
+                      and self._fused.dispatch == "graph"
                       and (eval_metric is None or
                            getattr(eval_metric, "_device_resident", False))
                       and getattr(getattr(self, "_optimizer", None),
@@ -422,6 +431,7 @@ class BaseModule:
                                 end_of_batch = True
                         if len(group) == steps_per_dispatch or \
                                 (end_of_batch and group):
+                            _fi.fire("step", step=global_step)
                             if len(group) == steps_per_dispatch:
                                 self._fit_group(group, eval_metric,
                                                 staged=staged)
@@ -462,6 +472,10 @@ class BaseModule:
                     data_batch = next_batch
                     if monitor is not None:
                         monitor.tic()
+                    # global_step steps are done (and, on the save grid,
+                    # snapshotted): "kill@step=N" dies here, and the
+                    # supervised restart resumes at step N
+                    _fi.fire("step", step=global_step)
                     self._fit_step(data_batch)
                     depth_ctl.admit(self._dispatch_handles())
                     if eval_metric is not None:
@@ -509,6 +523,23 @@ class BaseModule:
             train_data.reset()
         if ckpt is not None:
             ckpt.wait()  # join a save in flight; raise its error
+
+    @staticmethod
+    def _common_resume_step(mine):
+        """The newest checkpoint step EVERY rank can restore (the least
+        of an all-gather); -1 when a rank has none. In one process,
+        ``mine``."""
+        from ..parallel import dist as _dist
+        if not _dist.initialized() or _dist.num_workers() <= 1:
+            return mine
+        steps = _dist.allgather(torch.tensor([int(mine)], dtype=torch.int64))
+        return int(steps.min())
+
+    def ddp_stats(self):
+        """The bucketed all-reduce's plan and what it cost (``GradReducer.
+        stats`` with ``reduce_ms`` and ``collectives``), or None when the
+        DDP path is off."""
+        return None
 
     def _dispatch_handles(self):
         """Tensors standing for the most recent dispatch, for the

@@ -1,5 +1,5 @@
 """The fused train step of ``Module`` (counterpart of
-``mxnet_tpu/module/fused.py``, single device).
+``mxnet_tpu/module/fused.py``).
 
 The JAX package compiles forward, backward and the optimizer update into
 one XLA program and donates the weights and optimizer state to it. Here
@@ -67,7 +67,21 @@ state between this layout ({name: tuple of tensors}) and the eager
 ``Updater``'s, for ``save_optimizer_states``, checkpoints and a
 monitor's eager steps.
 
-Not ported: data-parallel buckets (ROADMAP A6c).
+Data parallelism across processes (``MXNET_DDP``, the JAX package's
+``ddp_mesh`` mode): with a ``reducer`` (``parallel.ddp.GradReducer``)
+the gradients of every step pass through it between the backward and
+the update, one flattened all-reduce a bucket over the process group,
+so every rank applies the same summed gradient to the same weights. The
+JAX package lets XLA overlap those collectives with the rest of the
+backward inside its program; here they run eagerly after it. A gloo
+collective synchronizes with the host and cannot sit inside a captured
+CUDA graph, so a DDP step's K-step windows run their K steps uncaptured
+(:attr:`FusedStep.dispatch` is ``"eager"``, as for host ops), and fit's
+automatic K is 1 for it: the cost is the host's launch time of every
+step, which a replayed graph would have saved. A device-resident metric
+cannot fold into a DDP step (each rank would count only its own
+batches): :meth:`attach_metric` refuses it, and the Module keeps the
+host metric.
 """
 from __future__ import annotations
 
@@ -108,7 +122,7 @@ class FusedStep:
     """
 
     def __init__(self, executor, optimizer, param_names, compute_dtype=None,
-                 data_names=(), keep_f32=()):
+                 data_names=(), keep_f32=(), reducer=None):
         fused = optimizer.fused_ops()
         if fused is None:
             raise ValueError("optimizer %s has no fused form"
@@ -130,7 +144,11 @@ class FusedStep:
         self.host_ops = tuple(sorted({
             n.op.name for n in executor._symbol._topo()
             if not n.is_variable and n.op.reads_back(n.params)}))
-        self.dispatch = "eager" if self.host_ops else "graph"
+        # the DDP all-reduce between backward and update (None: one
+        # process's gradients as they are)
+        self.reducer = reducer
+        self.dispatch = "eager" if self.host_ops or reducer is not None \
+            else "graph"
         # census of how steps ran: graphs captured, inner steps replayed
         # from a graph, steps run eagerly (per-step path, CPU windows,
         # windows of a graph with host ops and the warm-up before a
@@ -198,7 +216,11 @@ class FusedStep:
     def attach_metric(self, met_fn):
         """Fold a metric update into the step: ``met_fn(state, outs,
         feed)`` adds one step's outputs to the carry in place. A change
-        drops the captured graphs (they hold the old step)."""
+        drops the captured graphs (they hold the old step). Refused
+        under DDP: the carry would count only this rank's batches."""
+        if met_fn is not None and self.reducer is not None:
+            raise ValueError("device metrics cannot fold into a DDP step; "
+                             "keep the host metric path (MXNET_DDP)")
         if self._met_fn is not met_fn:
             self._met_fn = met_fn
             self._graphs.clear()
@@ -294,9 +316,15 @@ class FusedStep:
             self._update(ex.arg_dict[k], grads[k], opt_state[k], lr, wd,
                          rescale)
 
+    def _reduced(self, grads):
+        """The gradients summed over the group under DDP, else as they
+        are."""
+        return grads if self.reducer is None else self.reducer.reduce(grads)
+
     def apply(self, grads, opt_state):
         """Every parameter's update, in place; then the counts."""
-        self._apply(grads, opt_state, self._stage(self.hyper_rows(1)[0]))
+        self._apply(self._reduced(grads), opt_state,
+                    self._stage(self.hyper_rows(1)[0]))
         self.commit_counts()
 
     def _body(self, opt_state, hyp, feed=None, key=None, met_state=None,
@@ -308,7 +336,7 @@ class FusedStep:
         before it replays). The body of the per-step path, of run_k's
         loop and of its CUDA graph -> the outputs."""
         outs, auxu, leaves = self.forward(feed, key)
-        grads = self.backward(outs, leaves)
+        grads = self._reduced(self.backward(outs, leaves))
         del leaves
         self._apply(grads, opt_state, hyp)
         ex = self._exec

@@ -1,13 +1,19 @@
 """Module: a Symbol bound for training on one device (counterpart of
-``mxnet_tpu/module/module.py``, single device).
+``mxnet_tpu/module/module.py``).
 
 ``bind`` -> ``init_params`` -> ``init_optimizer`` -> ``fit`` (or the
 per-batch ``forward``/``backward``/``update``). ``init_optimizer`` takes
 a kvstore by name or as a ``KVStore`` object, with the JAX package's
 rule for ``update_on_kvstore``: a ``dist_*`` store applies the update on
-push (the step pushes each gradient and pulls the weights back; in one
-process no cross-process reduce runs), any other store leaves the
-update to the Module. With ``kvstore="tpu_sync"``, and on a card with
+push (the step pushes each gradient and pulls the weights back; across
+processes the push all-reduces it, in one process no reduce runs), any
+other store leaves the update to the Module. Under ``MXNET_DDP`` a
+``dist_sync`` store across processes hands the exchange to the bucketed
+all-reduce instead (the JAX package's ``module.py:233-251``): the fused
+step reduces its gradients through a ``parallel.ddp.GradReducer`` and
+every rank runs the optimizer; a batch the world does not divide keeps
+the kvstore path with a warning. ``ddp_stats()`` reports the buckets.
+With ``kvstore="tpu_sync"``, and on a card with
 ``local``/``device`` (or None), the Module drives every step through
 :class:`~.fused.FusedStep`; otherwise (and once a monitor is installed)
 it runs the eager path, the executor's forward and backward and then
@@ -24,7 +30,8 @@ The state surface is the JAX package's: ``get_states``/``set_states``,
 optimizer state), ``save_checkpoint``/``load``,
 ``save_optimizer_states``/``load_optimizer_states`` (the Updater's
 file, whichever path trained) and the hooks ``checkpoint.py`` uses.
-Several devices (data parallelism, ROADMAP A6c) raise.
+Several devices in one process raise: data parallelism runs one process
+a device (``python -m mxnet_tpu_torch.tools.launch``).
 """
 from __future__ import annotations
 
@@ -112,6 +119,7 @@ class Module(BaseModule):
         self._device_met_version = 0
         self._warned_group_fallback = False
         self._stage_stream = None   # the staged feed's stream on a card
+        self._ddp = False           # the bucketed all-reduce (MXNET_DDP)
 
     # ------------------------------------------------------------ properties
     @property
@@ -252,6 +260,24 @@ class Module(BaseModule):
             # a dist_* store applies the update on push (the reference's
             # server); tpu_sync, local and device leave it to the Module
             update_on_kvstore = kv.type.startswith("dist")
+        self._ddp = False
+        if update_on_kvstore and not kv.type.endswith("async"):
+            # MXNET_DDP: dist_sync's exchange becomes the bucketed
+            # all-reduce in the step, the optimizer on every rank
+            from ..parallel import ddp as _ddp
+            from ..parallel import dist as _dist
+            if _ddp.enabled():
+                world = _dist.num_workers()
+                batch = self._data_shapes[0][1][0] \
+                    if self._data_shapes else 0
+                if world > 1 and batch % world == 0:
+                    update_on_kvstore = False
+                    self._ddp = True
+                elif world > 1:
+                    self.logger.warning(
+                        "MXNET_DDP: batch %d not divisible by dp mesh "
+                        "size %d; falling back to the kvstore path",
+                        batch, world)
         self._kvstore = kv
         self._update_on_kvstore = update_on_kvstore
         ex = self._exec
@@ -280,7 +306,7 @@ class Module(BaseModule):
         ex, optimizer = self._exec, self._optimizer
         kv_type = kv.type if kv is not None else None
         on_card = self._device.type == "cuda"
-        if ((kv_type == "tpu_sync"
+        if ((kv_type == "tpu_sync" or self._ddp
              or (on_card and kv_type in (None, "local", "device")))
                 and not self._update_on_kvstore
                 and not self._monitor_installed
@@ -296,11 +322,22 @@ class Module(BaseModule):
             default = ("bfloat16" if getattr(optimizer, "multi_precision",
                                              False) else None)
             cdt = _config.compute_dtype(default=default)
+            reducer = None
+            if self._ddp:
+                # parameter order is the forward's, so the reducer's
+                # reversed walk is the backward's production order
+                from ..parallel import ddp as _ddp
+                from ..parallel import dist as _dist
+                reducer = _ddp.GradReducer(
+                    [(k, tuple(ex.arg_dict[k].shape), ex.arg_dict[k].dtype)
+                     for k in self._param_names
+                     if ex._grad_req.get(k, "null") == "write"],
+                    axis_size=_dist.num_workers())
             self._fused = FusedStep(
                 ex, optimizer, self._param_names,
                 compute_dtype=None if cdt is None else getattr(torch, cdt),
                 data_names=self._data_names,
-                keep_f32=self._norm_stat_params())
+                keep_f32=self._norm_stat_params(), reducer=reducer)
             self._fused_opt_state = self._fused.init_state()
 
     def _drop_fused(self):
@@ -387,6 +424,16 @@ class Module(BaseModule):
                 self._kvstore.pull(name, ex.arg_dict[name],
                                    ignore_sparse=False)
             return
+        if self._ddp:
+            # DDP without a fused step (an optimizer with no fused form):
+            # one bucketed all-reduce a dtype bucket over the gradients
+            from ..parallel import dist as _dist
+            names = [n for n in self._param_names
+                     if ex.grad_dict.get(n) is not None]
+            reduced = _dist.allreduce_tree([ex.grad_dict[n] for n in names])
+            with torch.no_grad():
+                for n, g in zip(names, reduced):
+                    ex.grad_dict[n].copy_(g)
         for i, name in enumerate(self._param_names):
             grad = ex.grad_dict.get(name)
             if grad is not None:
@@ -523,8 +570,10 @@ class Module(BaseModule):
         step is not engaged (the caller keeps the per-batch host
         path)."""
         from .. import device_metric as _dm
+        # under DDP each rank's carry would count only its own batches:
+        # the host metric path (a per-worker metric, as dist_sync's)
         if self._fused is None or not _config.flags.device_metrics \
-                or eval_metric is None \
+                or self._ddp or eval_metric is None \
                 or getattr(eval_metric, "_device_resident", False):
             self._detach_device_metric()
             return None
@@ -647,6 +696,17 @@ class Module(BaseModule):
             return
         with open(fname, "rb") as f:
             self._set_updater_states(self._updater, f.read())
+
+    def ddp_stats(self):
+        """The DDP reducer's plan (``GradReducer.stats``: buckets, their
+        bytes, the modelled overlap) with what its reduces cost here:
+        ``reduce_ms`` (host ms of each step's reduce) and
+        ``collectives``; None when the DDP path is off."""
+        if not self._ddp or self._fused is None:
+            return None
+        red = self._fused.reducer
+        return dict(red.stats(), reduce_ms=list(red.step_ms),
+                    collectives=red.collectives)
 
     def _mirror_fused_state(self):
         """The fused state into the Updater's layout (shared tensors)."""

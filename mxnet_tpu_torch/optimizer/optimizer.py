@@ -66,7 +66,7 @@ from ..ops.optimizer_ops import (adagrad_update_, adam_update_,
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "GroupAdaGrad",
            "AdaDelta", "RMSProp", "Ftrl", "Signum", "SignSGD", "FTML",
-           "Nadam", "DCASGD", "LBSGD", "create", "register", "Updater",
+           "Nadam", "DCASGD", "LBSGD", "Test", "create", "register", "Updater",
            "get_updater"]
 
 _OPT_REGISTRY = {}
@@ -791,6 +791,20 @@ class LBSGD(SGD):
         else:
             sgd_mom_update_(weight, grad, state, momentum=self.momentum,
                             **kw)
+
+
+@register
+class Test(Optimizer):
+    """The dist kvstore tests' optimizer: ``w += rescale_grad * g``, its
+    state a copy of the weight after the update."""
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        with torch.no_grad():
+            weight += grad * self.rescale_grad
+            state.copy_(weight)
 
 
 def _state_to(state, fn):

@@ -4,12 +4,14 @@ Counterpart of ``roofline_seconds``, ``speculation_depth`` and
 ``recommend_request_seconds`` in ``mxnet_tpu/perfmodel.py``, with the
 H100's published rates in place of the TPU capability tables. The
 decode engine's admission retry-after and drain budgets, the speculative
-depth an artifact is exported with, and the recommend queue's gather
-unit come from here.
+depth an artifact is exported with, the recommend queue's gather
+unit and the DDP gradient bucket size (``group_link_bytes_per_s``) come
+from here.
 """
 from __future__ import annotations
 
 __all__ = ["H100_HBM_BYTES_PER_S", "H100_F32_FLOPS_PER_S",
+           "H100_HOST_LINK_BYTES_PER_S", "group_link_bytes_per_s",
            "roofline_seconds", "speculation_depth",
            "recommend_request_seconds"]
 
@@ -17,6 +19,21 @@ __all__ = ["H100_HBM_BYTES_PER_S", "H100_F32_FLOPS_PER_S",
 # tensor cores (the port's matmuls run in full f32, TF32 off)
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS_PER_S = 67e12
+# NVIDIA H100 SXM datasheet: PCIe Gen5, 128 GB/s in both directions
+# together, so 64 GB/s one way. The port's process group is gloo, which
+# moves a card tensor through host memory: its bytes cross this link
+# (the JAX package sizes its buckets by the TPU's ICI instead). This is
+# the link's peak, not the rate a gloo all-reduce reaches: gloo's host
+# copies and its loopback transport make that far lower (PERF.md, the
+# multi-process rows, has the measured one).
+H100_HOST_LINK_BYTES_PER_S = 64e9
+
+
+def group_link_bytes_per_s():
+    """Peak bytes/s of the link the process group's collectives move a
+    card's bytes over: the host link (gloo stages through host memory).
+    A bound, not what a collective achieves."""
+    return H100_HOST_LINK_BYTES_PER_S
 
 
 def roofline_seconds(flops, bytes_moved):

@@ -14,9 +14,9 @@ same math summed in another order by another library).
 Every key of a snapshot crosses: ``arg:``/``aux:``/``param:i:name``
 arrays, ``__opt__`` (a pickle of the Updater's numpy states and the
 update counts), ``__rng__`` (a pickle of the key as a numpy uint32 pair
-and numpy's generator state) and ``__data_cursor__`` (JSON bytes). The
-port's snapshots carry no ``meta["layout"]`` record (resharding is
-ROADMAP A6c); the JAX package's restore does not read it.
+and numpy's generator state) and ``__data_cursor__`` (JSON bytes), and
+each manifest carries the ``meta["layout"]`` record both packages
+reshard by (``test_torch_port_layout.py``).
 """
 import json
 import os
@@ -183,10 +183,13 @@ def test_env_construction_and_the_multi_process_parts(tmp_path,
     monkeypatch.setenv("MXNET_RESUME_DIR", str(tmp_path / "b"))
     assert tck.CheckpointManager.should_resume()
     assert tck.CheckpointManager.from_env().root == str(tmp_path / "b")
-    with pytest.raises(mt.MXNetError, match="A6c"):
-        tck.reshard_checkpoint(str(tmp_path), 2)
-    with pytest.raises(mt.MXNetError, match="A6c"):
-        cm.restore_resharded()
+    # the multi-process parts on a root with no snapshot: nothing to
+    # reshard, nothing to restore, as in the JAX package
+    from mxnet_tpu import checkpoint as jck
+    for mod in (tck, jck):
+        with pytest.raises(ValueError, match="no common committed step"):
+            mod.reshard_checkpoint(str(tmp_path), 2)
+    assert cm.restore_resharded() == (None, None)
 
 
 # ------------------------------------------------- Module fit and resume

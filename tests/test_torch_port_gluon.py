@@ -480,15 +480,17 @@ def test_trainer_stale_gradients_lr_and_states(tmp_path):
     tr.load_states(path)
     for k, v in mom.items():
         torch.testing.assert_close(tr._updaters[0].states[k], v)
-    # a dist_* store across processes waits for ROADMAP A6c; in one
-    # process it is a store that updates on push. No checkpoint manager:
-    # save_checkpoint saves nothing.
+    # a dist_* store with no coordinator to join is a one-process store
+    # that updates on push (across processes: test_torch_port_dist.py).
+    # No checkpoint manager: save_checkpoint saves nothing.
     import os
     from unittest import mock
     with mock.patch.dict(os.environ, {"MXNET_NUM_WORKERS": "2"}):
-        with pytest.raises(mt.MXNetError, match="A6c"):
-            mt.gluon.Trainer(net.collect_params(), "sgd",
-                             kvstore="dist_sync").step(2)
+        tr2 = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               kvstore="dist_sync")
+        tr2._init_kvstore()
+        assert tr2._update_on_kvstore and not tr2._ddp
+        assert tr2._kvstore.num_workers == 1
     assert tr.save_checkpoint() is False
 
 

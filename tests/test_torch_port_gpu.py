@@ -15,7 +15,10 @@ Inception-v3's odd and small site shapes and on each of its index paths
 (rows odd, aligned and shorter than a vector, one channel, x and r at
 storage offsets, NaN and infinities, a CUDA graph's replay, more than
 2^31 elements), B2's launches under gluon.rnn's word language model, and
-the common op families and the 16 update ops against the CPU.
+the common op families and the 16 update ops against the CPU, and two
+ranks sharing ``cuda:0`` over gloo: ``all_reduce``, ``broadcast``,
+``all_gather`` and a DDP bucket plan's reduce on card tensors bitwise
+the CPU's.
 
 Every test takes the ``cuda`` fixture, which skips when
 ``torch.cuda.is_available()`` is false. On a machine with a card (which
@@ -1986,3 +1989,23 @@ def test_update_ops_on_the_card_match_the_cpu(cuda, name):
     cpu = cpu if isinstance(cpu, tuple) else (cpu,)
     for a, b in zip(card, cpu):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-4)
+
+
+def test_two_ranks_collectives_on_the_card_bitwise_the_cpu(cuda):
+    """Two processes through the port's launcher, both on cuda:0 (gloo
+    stages card tensors through the host): every collective and a
+    GradReducer's buckets give the CPU's bits."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+         "--max-restarts", "0", sys.executable,
+         os.path.join(root, "tests", "torch_dist_worker.py"),
+         "collectives", "cuda:0"],
+        capture_output=True, text=True, timeout=300, cwd=root)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    for rank in range(2):
+        assert "rank %d/2: collectives on cuda:0 bitwise the CPU's" % rank \
+            in r.stdout

@@ -1,10 +1,12 @@
 """Port hygiene: ``mxnet_tpu_torch`` stands alone.
 
 Importing it pulls in neither ``jax`` nor ``mxnet_tpu``, initializes no
-CUDA context and builds nothing, and reading records through it maps
-nothing of the JAX package's native library; no module of the package, nor
-``chip_smoke.py``, imports either; entry points default to ``cuda:0``
-and raise without a card unless the CPU was asked for.
+CUDA context, builds nothing and joins no process group (not even under a
+launcher's environment), and reading records through it maps nothing of
+the JAX package's native library; no module of the package, nor
+``chip_smoke.py``, nor the multi-process workers it and the tests launch,
+imports either; entry points default to ``cuda:0`` and raise without a
+card unless the CPU was asked for.
 """
 import ast
 import glob
@@ -26,7 +28,12 @@ def test_import_pulls_in_no_jax_and_does_no_device_work(tmp_path):
         "import os, sys\n"
         "import mxnet_tpu_torch\n"
         "from mxnet_tpu_torch.kernels import _build\n"
+        "import mxnet_tpu_torch.tools.launch, mxnet_tpu_torch.tools.reshard\n"
         "import torch\n"
+        # a launcher's environment: the join waits for the first use
+        "import torch.distributed as td\n"
+        "assert not td.is_initialized()\n"
+        "assert not mxnet_tpu_torch.parallel.fault.active()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'mxnet_tpu' or m.startswith('mxnet_tpu.')]\n"
         "assert not bad, bad\n"
@@ -48,7 +55,10 @@ def test_import_pulls_in_no_jax_and_does_no_device_work(tmp_path):
         "it.close()\n"
         "assert 'libmxtpu' not in open('/proc/self/maps').read()\n"
         "print('CLEAN', os.path.isdir(_build.BUILD_DIR))\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO,
+               MXNET_COORDINATOR_ADDRESS="127.0.0.1:1",
+               MXNET_NUM_WORKERS="2", MXNET_WORKER_RANK="1",
+               MXNET_HEARTBEAT_DIR=str(tmp_path))
     before = os.path.isdir(os.path.join(REPO, "build", "mxnet_tpu_torch"))
     r = subprocess.run([sys.executable, "-c", code, str(tmp_path / "r.rec")],
                        cwd=REPO, env=env, capture_output=True, text=True,
@@ -60,7 +70,9 @@ def test_import_pulls_in_no_jax_and_does_no_device_work(tmp_path):
 def _port_sources():
     files = sorted(glob.glob(os.path.join(REPO, "mxnet_tpu_torch", "**",
                                           "*.py"), recursive=True))
-    return files + [os.path.join(REPO, "chip_smoke.py")]
+    return files + [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(REPO, "tests", f) for f in (
+            "torch_dist_worker.py", "torch_dist_common.py")]
 
 
 def _imports(path):

@@ -233,8 +233,10 @@ def test_pack_2bit_and_dequantize_are_bitwise(n):
 
 def test_dist_sync_in_one_process_updates_on_push():
     """In one process ``dist_sync`` is a store that updates on push with
-    no cross-process reduce, as the JAX package's; a launcher naming two
-    workers raises (ROADMAP A6c)."""
+    no cross-process reduce, as the JAX package's. The join follows the
+    JAX package's rules: a world size without a coordinator joins
+    nothing; a coordinator and a world of two without a rank raise.
+    (Across processes: ``test_torch_port_dist.py``.)"""
     grads = _vals(3, seed=17)
     got = {}
     for pkg, mk in ((mx, _j), (mt, _t)):
@@ -248,11 +250,16 @@ def test_dist_sync_in_one_process_updates_on_push():
         kv.pull("w", out=out)
         got[pkg] = _np(out)
     np.testing.assert_allclose(got[mt], got[mx], rtol=1e-6, atol=1e-6)
+    from mxnet_tpu.parallel import dist as jdist
     with mock.patch.dict(os.environ, {"MXNET_NUM_WORKERS": "2"}):
-        with pytest.raises(mt.MXNetError, match="A6c"):
-            mt.kv.create("dist_sync")
-        with pytest.raises(mt.MXNetError, match="A6c"):
-            mt.parallel.dist.init()
+        assert mt.kv.create("dist_sync").num_workers == 1
+        assert mt.parallel.dist.init() is False and jdist.init() is False
+    with mock.patch.dict(os.environ, {
+            "MXNET_COORDINATOR_ADDRESS": "127.0.0.1:1",
+            "MXNET_NUM_WORKERS": "2"}):
+        for init in (mt.parallel.dist.init, jdist.init):
+            with pytest.raises(ValueError, match="missing the worker rank"):
+                init()
 
 
 def test_server_commands_and_dead_nodes_raise():
@@ -262,8 +269,11 @@ def test_server_commands_and_dead_nodes_raise():
             pkg.kv.create("local")._send_command_to_servers(0, "x")
         msgs.append(str(err.value))
     assert msgs[0] == msgs[1]
-    with pytest.raises(mt.MXNetError, match="A6c"):
-        mt.kv.create("dist_sync").get_num_dead_node(0)
+    # without a launcher's heartbeat directory nobody is dead, as in the
+    # JAX package (the dead count itself: test_torch_port_dist.py)
+    with mock.patch.dict(os.environ, {"MXNET_HEARTBEAT_DIR": ""}):
+        assert mt.kv.create("dist_sync").get_num_dead_node(0) == \
+            mx.kv.create("dist_sync").get_num_dead_node(0) == 0
 
 
 def test_dist_env_spec_and_one_process_answers():

@@ -355,15 +355,17 @@ def test_wd_mult_and_rescale_rules_match_the_jax_package():
     mod.init_optimizer(kvstore="tpu_sync", optimizer="sgd")
     assert mod._optimizer.rescale_grad == 1.0 / B
     assert mod._fused is not None
-    # dist_sync in one process updates on the kvstore (no fused step);
-    # across processes it waits for ROADMAP A6c
+    # dist_sync in one process updates on the kvstore (no fused step),
+    # with or without MXNET_DDP (a world of one has nothing to reduce)
     mod.init_optimizer(kvstore="dist_sync", force_init=True)
     assert mod._update_on_kvstore and mod._fused is None
     import os
     from unittest import mock
-    with mock.patch.dict(os.environ, {"MXNET_NUM_WORKERS": "2"}):
-        with pytest.raises(mt.MXNetError, match="A6c"):
-            mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    with mock.patch.dict(os.environ, {"MXNET_NUM_WORKERS": "2"}), \
+            mt.config.override(ddp=True):
+        mod.init_optimizer(kvstore="dist_sync", force_init=True)
+        assert mod._update_on_kvstore and not mod._ddp
+        assert mod.ddp_stats() is None
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adam"])
@@ -640,9 +642,10 @@ def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch,
                                               tmp_path):
     """fit obeys the checkpoint settings as the JAX package's does (a
     snapshot a step in the directory; under MXNET_RESUME_DIR a run over
-    an empty directory starts from scratch), and refuses the one it does
-    not obey: MXNET_FAULT_INJECT (the multi-process launcher's, ROADMAP
-    A6c) raises instead of training silently."""
+    an empty directory starts from scratch), and MXNET_FAULT_INJECT: a
+    ``raise`` at step 1 fires after exactly one step, its snapshot
+    committed (the launcher's kill and restart:
+    test_torch_port_dist.py)."""
     monkeypatch.setenv(env, str(tmp_path / value))
     X, Y = _batches()
     mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
@@ -650,10 +653,24 @@ def test_fit_refuses_settings_it_does_not_obey(env, value, monkeypatch,
             eval_metric=None)
     steps = mt.checkpoint.CheckpointManager(tmp_path / value).steps()
     assert steps[0] == len(X) // B and len(steps) >= 2
-    monkeypatch.setenv("MXNET_FAULT_INJECT", "kill@step=1")
+    monkeypatch.setenv("MXNET_FAULT_INJECT", "raise@step=1")
+    monkeypatch.setenv("MXNET_CHECKPOINT_DIR", str(tmp_path / "fault"))
+    monkeypatch.delenv("MXNET_RESUME_DIR", raising=False)
+    mt.parallel.faultinject.reset()
     mod = mt.mod.Module(_gpt(mt.sym), context=mt.cpu())
-    with pytest.raises(mt.base.MXNetError, match="A6c"):
-        mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1)
+    try:
+        with pytest.raises(mt.parallel.faultinject.InjectedFault):
+            mod.fit(mt.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                    eval_metric=None)
+    finally:
+        mt.parallel.faultinject.reset()
+    # the step-1 snapshot was saved on the background thread
+    import threading
+    for t in threading.enumerate():
+        if t.name == "mxnet-ckpt-save":
+            t.join()
+    assert mt.checkpoint.CheckpointManager(
+        tmp_path / "fault", async_save=False).steps() == [1]
 
 
 def test_fit_refuses_grouped_dispatch():
